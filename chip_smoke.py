@@ -55,8 +55,9 @@ TOL_O = {"float32": 1e-4, "bfloat16": 2e-2}
 TOL_M = 1e-4
 TOL_S_REL = 1e-4
 # card against CPU, whole model at temperature 0: an fp32 chain of ~50
-# layers whose sums run in another order on the card; mels are of order 1
-TOL_MEL_CARD_CPU = 1e-3
+# layers whose sums run in another order on the card; mels are of order 1,
+# as the JAX-against-port tolerance on the CPU (tests/test_torch_model.py)
+TOL_MEL_CARD_CPU = 1e-4
 T0 = time.perf_counter()
 
 

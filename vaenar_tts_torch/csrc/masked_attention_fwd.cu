@@ -30,12 +30,12 @@
 // fp32 reference to 1e-4, which TF32 tensor cores would not.
 //
 // Work skipped without changing the result:
-//   * a tile of rows that are all fully masked (q0 >= q_len or m_len == 0)
-//     writes mean(v), NEG and Tk without forming any logit (the same values,
-//     summed in another order);
-//   * when every row of the tile is unmasked, key tiles at or past m_len, and
-//     past the diagonal when causal, are skipped: each of their terms is
-//     exp(NEG - m) with m a real logit, which is exactly 0 in fp32.
+//   * rows at or past q_len (all rows when m_len == 0) are fully masked; the
+//     block writes mean(v), NEG and Tk for them from one pass over V,
+//     without forming any logit (the same values, summed in another order);
+//   * for the other rows the key loop stops at m_len and, when causal, at
+//     the tile's last valid row: each skipped term is exp(NEG - m) with m a
+//     real logit, which is exactly 0 in fp32.
 //
 // What bounds it on an H100 at the shipped shapes (B=4, H=4, D=64, text 160,
 // reduced mel 1680): operations. A causal 1680 x 1680 self-attention needs
@@ -92,13 +92,24 @@ masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const size_t k_base = (size_t)bh * Tk * HD;
   const size_t stat_base = (size_t)bh * Tq;
 
-  if (q0 >= qlen || mlen <= 0) {
-    // every row of the tile is fully masked: uniform attention over Tk keys
+  const bool has_valid_rows = mlen > 0 && q0 < qlen;
+  if (!has_valid_rows || q0 + q_rows > qlen) {
+    // Rows >= q_len (every row when m_len <= 0) are fully masked: uniform
+    // attention over the Tk keys, o = mean(v), m = NEG, s = Tk. Written here
+    // from a sum over V alone; the loop below serves only the other rows.
     constexpr int PARTS = THREADS / HD;
     const int d = tid % HD;
-    float acc = 0.f;
-    for (int j = tid / HD; j < Tk; j += PARTS) acc += to_float(v[k_base + (size_t)j * HD + d]);
-    smem[tid] = acc;
+    const T* vcol = v + k_base + d;
+    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;  // independent chains
+    int j = tid / HD;
+    for (; j + 3 * PARTS < Tk; j += 4 * PARTS) {
+      a0 += to_float(vcol[(size_t)j * HD]);
+      a1 += to_float(vcol[(size_t)(j + PARTS) * HD]);
+      a2 += to_float(vcol[(size_t)(j + 2 * PARTS) * HD]);
+      a3 += to_float(vcol[(size_t)(j + 3 * PARTS) * HD]);
+    }
+    for (; j < Tk; j += PARTS) a0 += to_float(vcol[(size_t)j * HD]);
+    smem[tid] = (a0 + a1) + (a2 + a3);
     __syncthreads();
     if (tid < HD) {
       float total = 0.f;
@@ -106,14 +117,16 @@ masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       smem[tid] = total / (float)Tk;
     }
     __syncthreads();
-    for (int idx = tid; idx < q_rows * HD; idx += THREADS) {
+    const int first = has_valid_rows ? qlen - q0 : 0;  // first masked row of the tile
+    for (int idx = first * HD + tid; idx < q_rows * HD; idx += THREADS) {
       store(&o[q_base + (size_t)(q0 + idx / HD) * HD + idx % HD], smem[idx % HD]);
     }
-    for (int r = tid; r < q_rows; r += THREADS) {
+    for (int r = first + tid; r < q_rows; r += THREADS) {
       m_out[stat_base + q0 + r] = NEG;
       s_out[stat_base + q0 + r] = (float)Tk;
     }
-    return;
+    if (!has_valid_rows) return;
+    __syncthreads();  // shared memory is reused below
   }
 
   for (int idx = tid; idx < BQ * HD; idx += THREADS) {
@@ -121,11 +134,11 @@ masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     sQ[r * PAD + d] = r < q_rows ? to_float(q[q_base + (size_t)(q0 + r) * HD + d]) : 0.f;
   }
 
-  int k_end = Tk;
-  if (q0 + q_rows <= qlen) {  // no fully masked row in this tile
-    k_end = min(Tk, mlen);
-    if (causal) k_end = min(k_end, q0 + q_rows);
-  }
+  // Valid rows see no key at or past m_len, nor past the diagonal when
+  // causal: those terms are exp(NEG - m) = 0 exactly, so the loop stops there.
+  const int rows_end = min(q0 + q_rows, qlen);
+  int k_end = min(Tk, mlen);
+  if (causal) k_end = min(k_end, rows_end);
 
   const int rg = tid / 16;     // rows 4*rg .. 4*rg+3
   const int cg = tid % 16;     // columns cg + 16*j
@@ -232,7 +245,7 @@ masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = rg * 4 + i;
-    if (r >= q_rows) continue;
+    if (q0 + r >= rows_end) continue;  // past Tq, or written above as masked
     const size_t row_off = q_base + (size_t)(q0 + r) * HD;
 #pragma unroll
     for (int j = 0; j < 4; ++j) store(&o[row_off + cg + 16 * j], acc[i][j] / row_sum[i]);

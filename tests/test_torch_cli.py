@@ -14,24 +14,13 @@ from vaenar_tts_tpu.training.steps import init_model
 from vaenar_tts_tpu.utils.export import save_npz
 from vaenar_tts_torch.cli import inference
 
-TINY = ["encoder.embd_dim=32", "encoder.pre_hidden=32", "encoder.n_conv=1",
-        "encoder.n_blk=1", "encoder.attention_dim=16",
-        "encoder.attention_heads=2", "encoder.ffn_hidden=32", "decoder.nblk=1",
-        "decoder.attention_dim=16", "decoder.attention_heads=2",
-        "decoder.ffn_hidden=32", "decoder.post_n_conv=1",
-        "decoder.post_conv_filters=16", "posterior.pre_hidden=16",
-        "posterior.nblk=1", "posterior.attention_dim=16",
-        "posterior.attention_heads=2", "posterior.ffn_hidden=32",
-        "prior.n_blk=1", "prior.n_transformer_blk=1", "prior.attention_dim=16",
-        "prior.attention_heads=2", "prior.ffn_hidden=32",
-        "common.latent_dim=8", "length_predictor.quantile=0.9",
-        "train.compute_dtype=float32"]
+from test_torch_model import TINY_OVERRIDES
 
 
 @pytest.fixture(scope="module")
 def model_dir(tmp_path_factory):
     out = str(tmp_path_factory.mktemp("tiny_ckpt"))
-    hp = apply_overrides(get_config("ljspeech"), TINY)
+    hp = apply_overrides(get_config("ljspeech"), TINY_OVERRIDES)
     params, stats = init_model(hp, JaxVAENAR(hp), 0, text_max=32, mel_max=120)
     save_hparams(hp, out)
     save_npz(os.path.join(out, "export.npz"),

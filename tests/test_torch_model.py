@@ -32,6 +32,8 @@ from vaenar_tts_torch.cli.inference import encode_lines, pad_to_multiple
 from vaenar_tts_torch.configs.serialize import hparams_from_dict
 from vaenar_tts_torch.models.vaenar import build_model
 
+from test_torch_modules import randomize
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHIPPED = os.path.join(REPO, "artifacts", "toyv2_q90", "ckpt")
 MEL_ATOL = 1e-4
@@ -58,28 +60,16 @@ LINES = ["The quick brown fox jumps over the lazy dog.",
          "Dr. Smith paid $3.50 on the 2nd of May, 1906."]
 
 
-def randomize(tree, rng):
-    """Random leaves of the same shapes: BatchNorm variances in [0.5, 1.5],
-    InvertibleLinear weights near the identity, the rest N(0, 0.3²); the
-    length heads predict ~3 frames a token so that lengths stay inside the
-    bucket and the masks matter."""
-    out = {}
-    for key, value in tree.items():
-        if hasattr(value, "items"):
-            out[key] = randomize(value, rng)
-            continue
-        shape = np.shape(value)
-        if key == "var":
-            leaf = rng.uniform(0.5, 1.5, shape)
-        elif key == "weight":
-            leaf = np.eye(shape[0]) + 0.1 * rng.standard_normal(shape)
-        else:
-            leaf = 0.3 * rng.standard_normal(shape)
-        out[key] = leaf.astype(np.float32)
+def randomize_model(tree, rng):
+    """``randomize`` of test_torch_modules, with length heads that predict
+    ~3 frames a token so that lengths stay inside the bucket and the masks
+    matter."""
+    out = randomize(tree, rng)
+    head_parent = out.get("length_predictor", {})
     for head in ("projection", "q_projection"):
-        if head in out and "kernel" in out[head]:
-            out[head]["kernel"] *= 0.1
-            out[head]["bias"][:] = 1.2
+        if head in head_parent:
+            head_parent[head]["kernel"] *= 0.1
+            head_parent[head]["bias"][:] = 1.2
     return out
 
 
@@ -89,7 +79,7 @@ def tiny():
     model = JaxVAENAR(hp)
     params, stats = init_model(hp, model, 0, text_max=32, mel_max=120)
     rng = np.random.default_rng(7)
-    params, stats = randomize(params, rng), randomize(stats, rng)
+    params, stats = randomize_model(params, rng), randomize(stats, rng)
     port = build_model(hparams_from_dict(hparams_to_dict(hp)), params, stats,
                        device="cpu")
     return hp, model, {"params": params, "batch_stats": stats}, port

@@ -1,10 +1,9 @@
 """Hyper-parameter trees, the port's own copy of ``vaenar_tts_tpu.configs``.
 
 Frozen dataclasses with the same field names and defaults as the JAX
-package, so a ``hparams.json`` written by JAX training loads unchanged. Fields
-that steer only the JAX package (the Pallas switch, remat, the device data
-cache, checkpoint retention) are kept so the file round-trips; the port
-ignores them.
+package, so a ``hparams.json`` written by JAX training loads unchanged. The
+training fields are kept for the training slice of the port; synthesis reads
+only the model, text, dataset-bucket and audio fields.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
-"""Read and write the ``hparams.json`` that sits beside a checkpoint, in the
-format of ``vaenar_tts_tpu.configs.serialize``."""
+"""Read the ``hparams.json`` that sits beside a checkpoint, in the format of
+``vaenar_tts_tpu.configs.serialize``."""
 
 from __future__ import annotations
 
@@ -8,10 +8,6 @@ import json
 import os
 
 from .hparams import HParams
-
-
-def hparams_to_dict(hp: HParams) -> dict:
-    return dataclasses.asdict(hp)
 
 
 def hparams_from_dict(d: dict) -> HParams:
@@ -34,14 +30,6 @@ def hparams_from_dict(d: dict) -> HParams:
         else:
             kwargs[f.name] = v
     return HParams(**kwargs)
-
-
-def save_hparams(hp: HParams, model_dir: str) -> str:
-    os.makedirs(model_dir, exist_ok=True)
-    path = os.path.join(model_dir, "hparams.json")
-    with open(path, "w") as f:
-        json.dump(hparams_to_dict(hp), f, indent=2)
-    return path
 
 
 def load_hparams(model_dir: str) -> HParams | None:

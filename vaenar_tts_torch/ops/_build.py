@@ -53,7 +53,7 @@ def _digest(srcs: list) -> str:
     return h.hexdigest()[:16]
 
 
-def build(verbose: bool = False) -> str:
+def build() -> str:
     """Compile every ``csrc/*.cu`` into one library; return its path. The
     compiler's report (``-Xptxas -v``: registers, shared memory, spills) is
     kept beside it as ``ptxas.log``. Raises if the build fails."""
@@ -71,8 +71,6 @@ def build(verbose: bool = False) -> str:
                            f"{proc.stdout}\n{proc.stderr}")
     with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
         f.write(proc.stdout + proc.stderr)
-    if verbose:
-        print(proc.stdout + proc.stderr)
     os.replace(tmp, lib)  # atomic: a concurrent builder never loads half a file
     return lib
 

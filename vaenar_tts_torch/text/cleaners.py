@@ -85,16 +85,6 @@ def expand_numbers(text: str) -> str:
     return normalize_numbers(text)
 
 
-def basic_cleaners(text: str) -> str:
-    """Lowercase + whitespace collapse (reference texts.py:53-57)."""
-    return collapse_whitespace(lowercase(text))
-
-
-def transliteration_cleaners(text: str) -> str:
-    """ASCII transliteration pipeline (reference texts.py:60-65)."""
-    return collapse_whitespace(lowercase(convert_to_ascii(text)))
-
-
 def english_cleaners(text: str) -> str:
     """Full English pipeline (reference texts.py:68-75): ascii -> lowercase
     -> numbers -> abbreviations -> whitespace."""

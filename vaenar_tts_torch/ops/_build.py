@@ -71,7 +71,7 @@ def build() -> str:
                            f"{proc.stdout}\n{proc.stderr}")
     with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
         f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, lib)  # atomic: a concurrent builder never loads half a file
+    os.replace(tmp, lib)  # atomic: a concurrent process never loads half a file
     return lib
 
 

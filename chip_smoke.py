@@ -223,10 +223,12 @@ def main():
     t = time.perf_counter()
     _build.build()
     build_s = time.perf_counter() - t
-    _build.load_library()
+    lib = _build.load_library()
     report = [line.strip() for line in (_build.ptxas_report() or "").splitlines()
               if "registers" in line or "bytes stack" in line or "Compiling entry" in line]
-    print(json.dumps({"build_seconds": build_s, "ptxas": report}), flush=True)
+    print(json.dumps({"build_seconds": build_s, "ptxas": report,
+                      "dynamic_shared_bytes_per_block": lib.masked_attention_fwd_shared_bytes()}),
+          flush=True)
 
     phase("kernel_checks")
     worst = check_kernels(torch, fa, device)

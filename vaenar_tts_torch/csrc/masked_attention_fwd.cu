@@ -298,3 +298,7 @@ extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
               : launch<float>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal, st);
   return (int)err;
 }
+
+// Dynamic shared memory each block of masked_attention_fwd asks for, in bytes
+// (ptxas -v reports static shared memory only).
+extern "C" int masked_attention_fwd_shared_bytes(void) { return (int)SMEM_BYTES; }

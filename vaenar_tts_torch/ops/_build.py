@@ -95,5 +95,7 @@ def load_library() -> ctypes.CDLL:
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        lib.masked_attention_fwd_shared_bytes.argtypes = []
+        lib.masked_attention_fwd_shared_bytes.restype = ctypes.c_int
         _loaded["lib"] = lib
     return _loaded["lib"]

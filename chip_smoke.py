@@ -48,10 +48,11 @@ LINES = [
 # tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
-# tolerances of kernel against plain version on the card: fp32 sums run in
-# another order (1e-4); bf16 outputs are rounded to bf16 (2e-2, ~3 ulp at
-# |o| ~ 1); m and s are fp32 in both dtypes
-TOL_O = {"float32": 1e-4, "bfloat16": 2e-2}
+# tolerances of kernel against plain version on the card, per element as
+# atol + rtol * |o_plain|: fp32 sums run in another order (atol 1e-4); in
+# bf16 both sum in fp32 and round o once to bf16, so they may differ by one
+# bf16 ulp, at most 2**-7 * |o| (rtol), plus the fp32 order (atol 1e-3)
+TOL_O = {"float32": (1e-4, 0.0), "bfloat16": (1e-3, 2.0 ** -7)}
 TOL_M = 1e-4
 TOL_S_REL = 1e-4
 # card against CPU, whole model at temperature 0: an fp32 chain of ~50
@@ -113,15 +114,20 @@ def check_kernels(torch, fa, device):
             o, m, s = fa.masked_flash_attention(q, k, v, ql, ml, 0.125, causal)
             o_ref, m_ref, s_ref = fa.masked_attention_reference(q, k, v, ql, ml, 0.125, causal)
             torch.cuda.synchronize()
-            err_o = (o.float() - o_ref.float()).abs().max().item()
+            atol, rtol = TOL_O[dtype_name]
+            diff_o = (o.float() - o_ref.float()).abs()
+            err_o = diff_o.max().item()
+            tol_share_o = (diff_o / (atol + rtol * o_ref.float().abs())).max().item()
             err_m = (m - m_ref).abs().max().item()
             err_s = ((s - s_ref).abs() / s_ref).max().item()
             masked_rows = 0 if ql is None else int((tq - ql.clamp(max=tq)).sum().item())
             print(json.dumps({"check": name, "dtype": dtype_name, "max_abs_err_o": err_o,
+                              "max_share_of_tol_o": tol_share_o,
                               "max_abs_err_m": err_m, "max_rel_err_s": err_s,
                               "fully_masked_rows_per_head": masked_rows}), flush=True)
             check(torch.isfinite(o.float()).all().item(), f"{name}/{dtype_name}: non-finite o")
-            check(err_o <= TOL_O[dtype_name], f"{name}/{dtype_name}: |o| error {err_o}")
+            check(tol_share_o <= 1.0, f"{name}/{dtype_name}: |o| error {err_o} "
+                  f"({tol_share_o} of atol {atol} + rtol {rtol} * |o|)")
             check(err_m <= TOL_M, f"{name}/{dtype_name}: |m| error {err_m}")
             check(err_s <= TOL_S_REL, f"{name}/{dtype_name}: s rel error {err_s}")
             if dtype_name == "float32":
@@ -130,26 +136,33 @@ def check_kernels(torch, fa, device):
 
 
 def attention_work(torch, tq, tk, causal, ql, ml, D, B, H):
-    """Operations these lengths need (2*D per q.k and per p.v term of each
-    unmasked (row, col); D adds per key for a (b, h) with fully masked rows)
-    and bytes (q, k, v read once, o, m, s written once), per dtype size."""
+    """Operations and bytes that these lengths need. Operations: 2*D per q.k
+    and per p.v term of each unmasked (row, col), and D adds per key for a
+    (b, h) with rows at or past q_len, whose o is mean(v) whatever q is.
+    Elements read, each once: the q rows below q_len, the k rows that such a
+    row can see (below m_len, and below q_len on a causal site), and the v
+    rows they see, or all of v where padding rows need its mean. Elements
+    written: o whole; m and s (fp32) whole; the lengths are int32."""
     ql = torch.full((B,), tq) if ql is None else ql.cpu().clamp(0, tq)
     ml = torch.full((B,), tk) if ml is None else ml.cpu().clamp(0, tk)
-    flops = 0
+    flops = elems_in = 0
     for b in range(B):
         qn, mn = int(ql[b]), int(ml[b])
         if mn == 0:
             qn = 0
         if causal:
             terms = sum(min(mn, r + 1) for r in range(qn))
+            kn = min(mn, qn)
         else:
             terms = qn * mn
+            kn = mn if qn else 0
+        vn = tk if qn < tq else kn
         flops += H * 4 * D * terms
         if qn < tq:
             flops += H * D * tk
-    elems_in = B * H * (tq + 2 * tk) * D
+        elems_in += H * D * (qn + kn + vn)
     elems_out = B * H * tq * D
-    return flops, elems_in, elems_out, B * H * tq * 2 * 4
+    return flops, elems_in, elems_out, B * H * tq * 2 * 4 + 2 * B * 4
 
 
 def time_ms(torch, fn, reps=20, warmup=3):
@@ -178,8 +191,8 @@ def time_kernels(torch, fa, device, sites):
         ms = time_ms(torch, lambda: fa.masked_flash_attention(q, k, v, ql, ml, 0.125, causal))
         plain_ms = time_ms(torch, lambda: fa.masked_attention_reference(q, k, v, ql, ml, 0.125, causal))
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=0.125))
-        flops, e_in, e_out, stat_bytes = attention_work(torch, tq, tk, causal, ql, ml, 64, len(ql), 4)
-        n_bytes = (e_in + e_out) * 4 + stat_bytes
+        flops, e_in, e_out, other_bytes = attention_work(torch, tq, tk, causal, ql, ml, 64, len(ql), 4)
+        n_bytes = (e_in + e_out) * 4 + other_bytes
         flop_ms = 1e3 * flops / PEAK_FLOPS["float32"]
         byte_ms = 1e3 * n_bytes / PEAK_BYTES
         row = {"site": name, "shape": [len(ql), 4, tq, tk, 64], "causal": causal,

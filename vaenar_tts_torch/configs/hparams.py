@@ -1,57 +1,19 @@
 """Hyper-parameter trees, the port's own copy of ``vaenar_tts_tpu.configs``.
 
-Frozen dataclasses with the same field names and defaults as the JAX
-package, so a ``hparams.json`` written by JAX training loads unchanged. The
-training fields are kept for the training slice of the port; synthesis reads
-only the model, text, dataset-bucket and audio fields.
+Frozen dataclasses with the field names and defaults of the JAX package,
+holding only the fields that synthesis reads: a ``hparams.json`` written by
+JAX training loads unchanged, and the rest of it (the ``train`` section,
+dropout rates, the audio front end) is ignored. The port computes in fp32
+whatever ``train.compute_dtype`` says.
 """
 
 from __future__ import annotations
 
-import dataclasses
 from dataclasses import dataclass, field
-from typing import Any, Tuple
-
-
-@dataclass(frozen=True)
-class TrainConfig:
-    random_seed: int = 123456
-    epochs: int = 2000
-    warm_epochs: int = 0
-    train_batch_size: int = 32
-    test_batch_size: int = 8
-    test_interval: int = 50
-    shuffle: bool = True
-    num_samples: int = 1
-    length_weight: float = 1.0
-    kl_weight: float = 1.0
-    kl_weight_init: float = 1e-5
-    kl_weight_increase_epoch: int = 1
-    kl_weight_end: float = 1e-5
-    learning_rate: float = 1.25e-4
-    adam_beta1: float = 0.9
-    adam_beta2: float = 0.999
-    adam_eps: float = 1e-7
-    reduction_factors: Tuple[int, ...] = (5, 4, 3, 2)
-    reduce_interval: Tuple[int, ...] = (0, 200, 400, 600)
-    use_pallas_attention: Any = "auto"
-    compute_dtype: str = "bfloat16"
-    remat: str = "off"
-    grad_accum: int = 1
-    ring_min_seq: int = 1024
-    pallas_min_score_elements: int = 0
-    device_data_cache_mb: int = 0
-    device_cache_epoch_scan: bool = False
-    checkpoint_max_to_keep: int = 20
-    checkpoint_keep_every_n_hours: float = 4.0
-    checkpoint_every_n_epochs: int = 1
 
 
 @dataclass(frozen=True)
 class DatasetConfig:
-    record_split: int = 8
-    dev_set_rate: float = 0.01
-    test_set_rate: float = 0.01
     mel_bucket: int = 120  # multiple of lcm(2,3,4,5)=60 so every r divides it
     text_bucket: int = 32
 
@@ -67,21 +29,6 @@ class TextConfig:
 @dataclass(frozen=True)
 class AudioConfig:
     num_mels: int = 80
-    num_freq: int = 1025
-    min_mel_freq: float = 0.0
-    max_mel_freq: float = 8000.0
-    sample_rate: int = 22050
-    frame_length_sample: int = 1024
-    frame_shift_sample: int = 256
-    n_mfcc: int = 13
-    preemphasize: float = 0.97
-    min_level_db: float = -100.0
-    ref_level_db: float = 20.0
-    max_abs_value: float = 1.0
-    symmetric_specs: bool = False
-    griffin_lim_iters: int = 60
-    power: float = 1.5
-    center: bool = True
 
 
 @dataclass(frozen=True)
@@ -101,8 +48,6 @@ class EncoderConfig:
     pre_hidden: int = 512
     conv_kernel: int = 5
     pre_activation: str = "relu"
-    pre_drop_rate: float = 0.1
-    pos_drop_rate: float = 0.1
     bn_before_act: bool = False
     n_blk: int = 4
     attention_dim: int = 256
@@ -121,14 +66,11 @@ class DecoderConfig:
     post_n_conv: int = 5
     post_conv_filters: int = 256
     post_conv_kernel: int = 5
-    post_drop_rate: float = 0.2
 
 
 @dataclass(frozen=True)
 class PosteriorConfig:
     pre_hidden: int = 256
-    pos_drop_rate: float = 0.2
-    pre_drop_rate: float = 0.5
     pre_activation: str = "relu"
     nblk: int = 2
     attention_dim: int = 256
@@ -145,8 +87,6 @@ class PriorConfig:
     attention_heads: int = 4
     temperature: float = 1.0
     ffn_hidden: int = 1024
-    inverse: bool = False
-    batched_lu: bool = False
 
 
 @dataclass(frozen=True)
@@ -158,8 +98,6 @@ class LengthPredictorConfig:
 
 @dataclass(frozen=True)
 class HParams:
-    name: str = "ljspeech"
-    train: TrainConfig = field(default_factory=TrainConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
     text: TextConfig = field(default_factory=TextConfig)
     audio: AudioConfig = field(default_factory=AudioConfig)
@@ -170,6 +108,3 @@ class HParams:
     prior: PriorConfig = field(default_factory=PriorConfig)
     length_predictor: LengthPredictorConfig = field(
         default_factory=LengthPredictorConfig)
-
-    def replace(self, **kwargs) -> "HParams":
-        return dataclasses.replace(self, **kwargs)

@@ -13,22 +13,13 @@ from .hparams import HParams
 def hparams_from_dict(d: dict) -> HParams:
     """Unknown keys are ignored and missing ones take their defaults, so
     files written before or after a field existed still load."""
-    defaults = HParams()
-    kwargs: dict = {}
+    kwargs = {}
     for f in dataclasses.fields(HParams):
-        if f.name not in d:
-            continue
-        v = d[f.name]
-        sub_default = getattr(defaults, f.name)
-        if dataclasses.is_dataclass(sub_default):
-            sub_kwargs = {}
-            for sf in dataclasses.fields(type(sub_default)):
-                if sf.name in v:
-                    sv = v[sf.name]
-                    sub_kwargs[sf.name] = tuple(sv) if isinstance(sv, list) else sv
-            kwargs[f.name] = type(sub_default)(**sub_kwargs)
-        else:
-            kwargs[f.name] = v
+        if f.name in d:
+            sub = f.default_factory
+            kwargs[f.name] = sub(**{sf.name: d[f.name][sf.name]
+                                    for sf in dataclasses.fields(sub)
+                                    if sf.name in d[f.name]})
     return HParams(**kwargs)
 
 

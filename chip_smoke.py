@@ -7,28 +7,49 @@ of a checkout:
 1. device: the card's name, count, and `nvidia-smi` name and power limit;
 2. build: every csrc/*.cu with nvcc for sm_90a, and ptxas's register and
    shared-memory report;
-3. kernels against their plain PyTorch versions on the card, at the main
-   path's shapes, on ragged shapes, fully masked rows and Tk > 4096;
-4. main path: the shipped LJSpeech model (artifacts/toyv2_q90/ckpt) at full
-   width synthesizes 4 fixed lines through the CLI's synthesize_batch, at
-   temperature 0 and at 0.667 with a seeded generator, with the kernels'
+3. kernels against their plain PyTorch versions on the card: the forward at
+   the synthesis path's shapes, on ragged shapes, fully masked rows and
+   Tk > 4096; the dQ and dK/dV backward kernels at the training path's
+   shapes (r = 2), with fully masked rows, an item with no key, a ragged
+   pair and a long causal site, in fp32 and bf16;
+4. synthesis path: the shipped LJSpeech model (artifacts/toyv2_q90/ckpt) at
+   full width synthesizes 4 fixed lines through the CLI's synthesize_batch,
+   at temperature 0 and at 0.667 with a seeded generator, with the kernels'
    launch counts reset before and read after; then the same lines at
    temperature 0 through the port on the CPU, which must predict the same
    lengths and agree on the mels;
-5. times on the card: each kernel at the main path's shapes beside its bound,
-   its plain version and one PyTorch library call, and synthesis wall time.
+5. training path: a record set made from a seed (64 train and 32 dev
+   utterances in the toy-v2 corpus's ranges) in a temporary directory, and
+   `vaenar_tts_torch.cli.train` with the shipped hparams.json at full width
+   on the card, 2 epochs of 2 steps, from cold start (data-dependent flow
+   init, priming step) through the dev loss and checkpoints, with the launch
+   counts reset before and read after; the checkpoint restores;
+6. card against CPU: one train step from the trained state (dropout off,
+   injected posterior noise, r = 2, a batch of 4, ReLU inputs that round
+   to the other side of 0 on the CPU put on the card's side): loss, every
+   gradient element and the BatchNorm statistics agree;
+7. export and synthesis: the trained directory exported to export.npz and
+   synthesized from;
+8. times on the card: each kernel at its path's shapes beside its bound, its
+   plain version and one PyTorch library call (device time); synthesis wall
+   time; train step wall time at r = 2 and r = 5 and launches per train
+   step; a torch.profiler pass over train steps for the device busy share
+   and the kernels that take the most device time.
 
 Each phase prints a JSON line {"phase": ..., "seconds": ...} first. A failed
 check raises; the script then exits non-zero without printing the final
 line. Without a CUDA device, or without the rest of the repository beside
-it, it exits non-zero at once. It writes only the kernel build directory
-(vaenar_tts_torch/_build/, ignored by git).
+it, it exits non-zero at once. It writes the kernel build directory
+(vaenar_tts_torch/_build/, ignored by git) and a temporary directory that it
+deletes.
 """
 
 import json
 import os
+import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -59,6 +80,42 @@ TOL_S_REL = 1e-4
 # layers whose sums run in another order on the card; mels are of order 1,
 # as the JAX-against-port tolerance on the CPU (tests/test_torch_model.py)
 TOL_MEL_CARD_CPU = 1e-4
+# backward kernels against the plain backward, per element atol + rtol *
+# |g_plain|: fp32 sums run in another order (dV sums up to 1680 rows); in
+# bf16 both sum in fp32 and round the gradient once, so they may differ by
+# one bf16 ulp, at most 2**-7 * |g|, plus the fp32 order (atol 1e-3)
+TOL_GRAD = {"float32": (1e-4, 1e-5), "bfloat16": (1e-3, 2.0 ** -7)}
+# card against CPU, one full-width train step (the parity test against JAX,
+# tests/test_torch_train_step.py, holds losses to 1e-5 relative, gradients
+# to 1e-4 + 1e-3 * max|g| of each leaf, BatchNorm statistics to 1e-5 + 1e-6):
+# * mel_l2, len_l2, the pinball term and the total to 1e-5 relative; the kl
+#   to 1e-4 relative: it is the difference of two log-prob sums of size ~7e3
+#   (about 40 at full width), and two fp32 ulps of those sums are 3e-5 of it;
+# * every gradient element within 1e-3 * max|g| of its leaf on the CPU: the
+#   parity test's relative term, without its fixed 1e-4, which would hide
+#   every leaf whose gradients are smaller than that (the prior couplings'
+#   attention and FFN, behind output heads that start at 0);
+# * but for the bias of a conv whose output goes straight into BatchNorm:
+#   its gradient is 0 in exact arithmetic (the batch mean takes it out), so
+#   both sides are held below 1e-4 of the largest gradient of that conv's
+#   weight instead;
+# * a ReLU input that comes out at the other side of 0 on the card and on
+#   the CPU takes the card's side on the CPU (hooks; the gradient passes as
+#   through the input), so that both differentiate the same branch; such an
+#   input must lie within 1e-4 of its tensor's RMS of 0, a tie of rounding;
+# * BatchNorm statistics to 1e-5 relative + 1e-6.
+TOL_LOSS_REL = 1e-5
+TOL_KL_REL = 1e-4
+TOL_GRAD_LEAF = 1e-3
+TOL_ZERO_GRAD = 1e-4
+TOL_RELU_TIE = 1e-4
+TOL_BN = (1e-5, 1e-6)
+NO_DROPOUT = ["encoder.pre_drop_rate=0", "encoder.pos_drop_rate=0",
+              "decoder.post_drop_rate=0", "posterior.pre_drop_rate=0",
+              "posterior.pos_drop_rate=0"]
+# the toy-v2 corpus's ranges (artifacts/toyv2_q90/corpus_stats.json): text
+# 12-32 ids, mel about 9 frames a token, at most 370 frames
+N_TRAIN, N_DEV = 64, 32
 T0 = time.perf_counter()
 
 
@@ -78,20 +135,26 @@ def random_qkv(torch, device, dtype, B, H, tq, tk, D, seed):
             for t in (tq, tk, tk)]
 
 
-def check_cases(torch, device):
-    """(name, Tq, Tk, causal, q_len, m_len): the main path's shapes (text
-    160, reduced mel 1680), a ragged pair and a Tk > 4096 case, with random
-    lengths that leave rows fully masked, and one case with full lengths."""
-    B = 4
-    rnd = torch.Generator(device="cpu").manual_seed(7)
+def length_sampler(torch, device, seed, B=4):
+    """``rand_len(t, low, fix=None)``: B random lengths in [low, t] on
+    ``device``, drawn in turn from one generator seeded with ``seed``;
+    ``fix`` = (item, length) pins one item's length."""
+    rnd = torch.Generator(device="cpu").manual_seed(seed)
 
     def rand_len(t, low, fix=None):
-        """Random lengths in [low, t]; ``fix`` = (item, length) pins one."""
         lens = torch.randint(low, t + 1, (B,), generator=rnd, dtype=torch.int32)
         if fix is not None:
             lens[fix[0]] = fix[1]
         return lens.to(device)
 
+    return rand_len
+
+
+def check_cases(torch, device):
+    """(name, Tq, Tk, causal, q_len, m_len): the main path's shapes (text
+    160, reduced mel 1680), a ragged pair and a Tk > 4096 case, with random
+    lengths that leave rows fully masked, and one case with full lengths."""
+    rand_len = length_sampler(torch, device, 7)
     return [
         ("self_160", 160, 160, False, rand_len(160, 20, (0, 160)), rand_len(160, 20, (0, 160))),
         ("causal_1680", 1680, 1680, True, rand_len(1680, 300, (1, 700)),
@@ -166,10 +229,15 @@ def attention_work(torch, tq, tk, causal, ql, ml, D, B, H):
 
 
 def time_ms(torch, fn, reps=20, warmup=3):
+    """Device milliseconds per call of ``fn``: CUDA events around ``reps``
+    calls, queued behind a ~50 ms sleep kernel so that the host has queued
+    them all before the first runs, and host time (Python, checks, launch)
+    does not count."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(100_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -206,7 +274,260 @@ def time_kernels(torch, fa, device, sites):
     return totals
 
 
+def backward_cases(torch, device):
+    """(name, Tq, Tk, causal, q_len, m_len) of the backward checks: the
+    training sites at r = 2 (text 32, reduced mel 240) with ragged lengths
+    that leave rows fully masked, an item with no key, a ragged pair, a
+    long causal site, and the sites at r = 5 (reduced mel 96), the shapes of
+    the training path's run through cli.train."""
+    rand_len = length_sampler(torch, device, 11)
+    return [
+        ("encoder_self_32", 32, 32, False, rand_len(32, 12, (0, 32)), rand_len(32, 12, (0, 32))),
+        ("causal_self_240", 240, 240, True, rand_len(240, 60, (1, 240)), rand_len(240, 60, (1, 240))),
+        ("cross_240x32", 240, 32, False, rand_len(240, 60), rand_len(32, 12)),
+        ("empty_memory_240x32", 240, 32, False, rand_len(240, 60), rand_len(32, 12, (2, 0))),
+        ("ragged_241x33", 241, 33, False, rand_len(241, 1, (0, 241)), rand_len(33, 1)),
+        ("causal_self_1680", 1680, 1680, True, rand_len(1680, 300, (3, 1680)),
+         rand_len(1680, 300)),
+        ("causal_self_96", 96, 96, True, rand_len(96, 24, (0, 96)), rand_len(96, 24, (0, 96))),
+        ("cross_96x32", 96, 32, False, rand_len(96, 24), rand_len(32, 12)),
+    ]
+
+
+def check_backward(torch, fa, device):
+    """dQ and dK/dV kernels against the plain backward; returns the largest
+    fp32 error of each kernel."""
+    worst = {"dq": 0.0, "dkv": 0.0}
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        atol, rtol = TOL_GRAD[dtype_name]
+        for i, (name, tq, tk, causal, ql, ml) in enumerate(backward_cases(torch, device)):
+            q, k, v = random_qkv(torch, device, dtype, 4, 4, tq, tk, 64, seed=200 + i)
+            do = random_qkv(torch, device, dtype, 4, 4, tq, tq, 64, seed=300 + i)[0]
+            o, m, s = fa.masked_flash_attention(q, k, v, ql, ml, 0.125, causal)
+            got = fa.masked_flash_attention_backward(q, k, v, ql, ml, o, m, s, do, 0.125, causal)
+            want = fa.masked_attention_backward_reference(q, k, v, ql, ml, o, m, s, do,
+                                                          0.125, causal)
+            torch.cuda.synchronize()
+            row = {"check": name, "dtype": dtype_name, "atol": atol, "rtol": rtol,
+                   "fully_masked_rows": int((tq - ql.clamp(max=tq)).sum().item())
+                   + tq * int((ml == 0).sum().item())}
+            for g_name, a, b in zip(("dq", "dk", "dv"), got, want):
+                diff = (a.float() - b.float()).abs()
+                share = (diff / (atol + rtol * b.float().abs())).max().item()
+                row[f"max_abs_err_{g_name}"] = diff.max().item()
+                row[f"max_share_of_tol_{g_name}"] = share
+                check(torch.isfinite(a.float()).all().item(), f"{name}/{dtype_name}: non-finite {g_name}")
+                check(share <= 1.0, f"{name}/{dtype_name}: {g_name} error {diff.max().item()} "
+                      f"({share} of atol {atol} + rtol {rtol} * |g|)")
+                if dtype_name == "float32":
+                    key = "dq" if g_name == "dq" else "dkv"
+                    worst[key] = max(worst[key], diff.max().item())
+            print(json.dumps(row), flush=True)
+    return worst
+
+
+def backward_work(torch, tq, tk, causal, ql, ml, D, B, H):
+    """{"dq": (flops, elements), "dkv": (flops, elements)} that these lengths
+    need. A row below q_len of an item with a key is valid; an unmasked
+    (row, key) pair of valid rows costs 2*D per product: dQ needs q.k,
+    dO.v and dS.k (6*D), dK/dV needs q.k, dO.v, P.dO and dS.q (8*D). The
+    other rows are uniform over the Tk keys: dK/dV sums their dO / s (D a
+    row) and adds the sum to every dV row (D a key). Elements read once:
+    q and dO of the valid rows, the k and v rows they see, their m, s and
+    delta, and for dK/dV the dO and s of the uniform rows; written: dq, or
+    dk and dv, whole."""
+    ql = torch.full((B,), tq) if ql is None else ql.cpu().clamp(0, tq)
+    ml = torch.full((B,), tk) if ml is None else ml.cpu().clamp(0, tk)
+    dq_flops = dkv_flops = dq_in = dkv_in = 0
+    for b in range(B):
+        mn = int(ml[b])
+        qn = int(ql[b]) if mn > 0 else 0
+        if causal:
+            pairs = sum(min(mn, r + 1) for r in range(qn))
+            kn = min(mn, qn)
+        else:
+            pairs, kn = qn * mn, (mn if qn else 0)
+        pad = tq - qn
+        dq_flops += H * 6 * D * pairs
+        dkv_flops += H * (8 * D * pairs + D * pad + (D * tk if pad else 0))
+        dq_in += H * (2 * qn * D + 2 * kn * D + 3 * qn)
+        dkv_in += H * (2 * qn * D + 2 * kn * D + 3 * qn + pad * (D + 1))
+    return {"dq": (dq_flops, dq_in + B * H * tq * D),
+            "dkv": (dkv_flops, dkv_in + 2 * B * H * tk * D)}
+
+
+def time_backward(torch, fa, device, sites):
+    """Per attention site of a train step: the forward kernel, the dQ and
+    the dK/dV kernel each alone, the whole plain backward and
+    scaled_dot_product_attention's backward with a boolean mask (times for
+    one call), and each kernel's bound; returns the sums over one train
+    step. ``sites``: (name, calls, Tq, Tk, causal, q_len, m_len)."""
+    import torch.nn.functional as F
+    totals = {k: 0.0 for k in ("fwd_ms", "dq_ms", "dkv_ms", "plain_ms", "library_ms",
+                               "dq_bound_ms", "dkv_bound_ms", "dq_flop_ms", "dq_byte_ms",
+                               "dkv_flop_ms", "dkv_byte_ms")}
+    for i, (name, calls, tq, tk, causal, ql, ml) in enumerate(sites):
+        B = len(ql)
+        q, k, v = random_qkv(torch, device, torch.float32, B, 4, tq, tk, 64, seed=400 + i)
+        do = random_qkv(torch, device, torch.float32, B, 4, tq, tq, 64, seed=500 + i)[0]
+        o, m, s = fa.masked_flash_attention(q, k, v, ql, ml, 0.125, causal)
+        delta = fa.attention_delta(o, do).contiguous()
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+
+        def launch(kernel, *outs):
+            fa.launch_backward_kernel(kernel, q, k, v, do, ql, ml, m, s, delta, outs,
+                                      0.125, causal)
+
+        row = {"site": name, "shape": [B, 4, tq, tk, 64], "causal": causal,
+               "calls_per_train_step": calls,
+               "fwd_ms": time_ms(torch, lambda: fa.masked_flash_attention(
+                   q, k, v, ql, ml, 0.125, causal)),
+               "dq_ms": time_ms(torch, lambda: launch("dq", dq)),
+               "dkv_ms": time_ms(torch, lambda: launch("dkv", dk, dv)),
+               "plain_ms": time_ms(torch, lambda: fa.masked_attention_backward_reference(
+                   q, k, v, ql, ml, o, m, s, do, 0.125, causal))}
+        got = fa.masked_flash_attention_backward(q, k, v, ql, ml, o, m, s, do, 0.125, causal)
+        want = fa.masked_attention_backward_reference(q, k, v, ql, ml, o, m, s, do, 0.125, causal)
+        for g_name, a, b in zip(("dq", "dk", "dv"), got, want):
+            diff = (a - b).abs()
+            share = (diff / (TOL_GRAD["float32"][0] + TOL_GRAD["float32"][1] * b.abs())).max().item()
+            check(share <= 1.0, f"{name}: {g_name} error at the timed shape, {share} of tolerance")
+        mask = fa.attention_mask(ql, ml, B, tq, tk, causal, device)
+        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=0.125)
+        row["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+            out, (qg, kg, vg), do, retain_graph=True))
+        for kern, (flops, elems) in backward_work(torch, tq, tk, causal, ql, ml, 64, B, 4).items():
+            flop_ms = 1e3 * flops / PEAK_FLOPS["float32"]
+            byte_ms = 1e3 * (elems * 4 + 2 * B * 4) / PEAK_BYTES
+            row.update({f"{kern}_flop_ms": flop_ms, f"{kern}_byte_ms": byte_ms,
+                        f"{kern}_bound_ms": max(flop_ms, byte_ms), f"{kern}_gflop": flops / 1e9,
+                        f"{kern}_tflops_achieved": flops / (row[f"{kern}_ms"] * 1e-3) / 1e12})
+        print(json.dumps(row), flush=True)
+        for key in totals:
+            totals[key] += calls * row[key]
+    return totals
+
+
+def relu_inputs(torch, model):
+    """(name, module) of each module whose output goes straight into a
+    ReLU: the first dense of every FFN, both denses of a ReLU PreNet, and
+    the conv (or the BatchNorm after it) of a ReLU Conv1D."""
+    from vaenar_tts_torch.models.layers import FFN, Conv1D, PreNet
+    for name, mod in model.named_modules():
+        if isinstance(mod, FFN):
+            yield f"{name}.dense1", mod.dense1
+        elif isinstance(mod, PreNet) and mod.act is torch.relu:
+            yield f"{name}.dense_1", mod.dense_1
+            yield f"{name}.dense_2", mod.dense_2
+        elif isinstance(mod, Conv1D) and mod.act is torch.relu:
+            yield ((f"{name}.batch_norm", mod.batch_norm) if mod.bn_before_act
+                   else (f"{name}.conv1d", mod.conv1d))
+
+
+def relu_sign_hooks(torch, model, signs, ties=None):
+    """Forward hooks on every ReLU input of ``model``; returns the handles.
+    With ``ties`` None, each call's sign pattern (input > 0) is recorded in
+    ``signs[name]``. Otherwise each call takes the pattern that ``signs``
+    recorded (another run's): an input on the other side of 0 is replaced
+    by its mirror image (gradient passing as through the input), and
+    (name, count, largest such |input| over the input's RMS) goes into
+    ``ties``."""
+    handles = []
+    for name, mod in relu_inputs(torch, model):
+        replay = None if ties is None else iter(signs[name])
+
+        def hook(module, args, out, name=name, replay=replay):
+            x = out.detach()
+            if replay is None:
+                signs.setdefault(name, []).append((x > 0).cpu())
+                return None
+            want = next(replay).to(x.device)
+            flip = (x > 0) != want
+            if not bool(flip.any()):
+                return None
+            ties.append((name, int(flip.sum()),
+                         (x[flip].abs().max() / x.pow(2).mean().sqrt()).item()))
+            mirror = torch.where(want, x.abs().clamp_min(torch.finfo(x.dtype).tiny), -x.abs())
+            return out + (torch.where(flip, mirror, x) - x)
+
+        handles.append(mod.register_forward_hook(hook))
+    return handles
+
+
+def bn_fed_conv_biases(torch, model):
+    """{bias name: weight name} of each conv whose output goes straight into
+    BatchNorm (BatchNorm before the activation, or no activation)."""
+    from vaenar_tts_torch.models.layers import Conv1D, get_activation
+    linear = (get_activation("identity"), get_activation(None))
+    return {f"{name}.conv1d.bias": f"{name}.conv1d.weight"
+            for name, mod in model.named_modules()
+            if isinstance(mod, Conv1D) and (mod.bn_before_act or mod.act in linear)}
+
+
+def write_records(data_dir, seed):
+    """64 train and 32 dev utterances from a seed, in the toy-v2 corpus's
+    ranges, as shards of the port's record format."""
+    import numpy as np
+    from vaenar_tts_torch.data.records import RecordShardWriter
+    rng = np.random.default_rng(seed)
+    for mode, n in (("train", N_TRAIN), ("dev", N_DEV)):
+        writer = RecordShardWriter(os.path.join(data_dir, f"{mode}-0.vrs"), 80)
+        for i in range(n):
+            text_len = int(rng.integers(12, 33))
+            mel_len = min(370, int(round(9.0 * text_len * rng.uniform(0.85, 1.15))))
+            writer.add(f"{mode}-{i:03d}", rng.integers(3, 43, text_len),
+                       rng.uniform(0.0, 1.0, (mel_len, 80)).astype(np.float32))
+        writer.close()
+
+
+def train_step_times(torch, fa, steps, model, hp, batch, r, reps=10, warmup=2):
+    """Host-clock wall times of ``reps`` train steps at reduction factor
+    ``r``, each ending in synchronize, and the kernel launches per step."""
+    optimizer = steps.make_optimizer(hp, model)
+    gen = torch.Generator(device=batch[0].device).manual_seed(5)
+    for _ in range(warmup):
+        steps.train_step(model, optimizer, hp, *batch, 1e-5, r, gen)
+    torch.cuda.synchronize()
+    fa.launch_counts.clear()
+    walls = []
+    for _ in range(reps):
+        t = time.perf_counter()
+        steps.train_step(model, optimizer, hp, *batch, 1e-5, r, gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    return walls, {k: v / reps for k, v in fa.launch_counts.items()}
+
+
+def profile_train_steps(torch, steps, model, hp, batch, r, reps=3):
+    """torch.profiler over ``reps`` train steps at reduction factor ``r``:
+    device time per step (the sum of the kernels' own device time; one
+    stream, so kernels do not overlap) and the kernels that take the most,
+    by name, per step. Host time under the profiler is inflated, so the
+    busy share is taken against the wall time measured without it."""
+    from torch.profiler import ProfilerActivity, profile
+    optimizer = steps.make_optimizer(hp, model)
+    gen = torch.Generator(device=batch[0].device).manual_seed(6)
+    steps.train_step(model, optimizer, hp, *batch, 1e-5, r, gen)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            steps.train_step(model, optimizer, hp, *batch, 1e-5, r, gen)
+        torch.cuda.synchronize()
+    # kernels only: a user annotation (such as the optimizer's step range)
+    # spans the kernels inside it on the device timeline
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+               and not e.is_user_annotation]
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    return (sum(e.self_device_time_total for e in kernels) / 1e3 / reps,
+            [[e.key[:90], e.self_device_time_total / 1e3 / reps, e.count / reps]
+             for e in kernels[:12]])
+
+
 def main():
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -216,11 +537,20 @@ def main():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from vaenar_tts_torch.cli import train as cli_train
     from vaenar_tts_torch.cli.inference import (encode_lines, resolve_length_source,
                                                 synthesize_batch)
-    from vaenar_tts_torch.models.vaenar import load_model
+    from vaenar_tts_torch.configs.overrides import apply_overrides
+    from vaenar_tts_torch.configs.serialize import load_hparams
+    from vaenar_tts_torch.data.loader import BucketedLoader
+    from vaenar_tts_torch.data.records import list_shards
+    from vaenar_tts_torch.models.vaenar import VAENAR, load_model
     from vaenar_tts_torch.ops import _build
     from vaenar_tts_torch.ops import flash_attention as fa
+    from vaenar_tts_torch.training import steps
+    from vaenar_tts_torch.training.loop import to_device
+    from vaenar_tts_torch.utils.checkpoint import CheckpointManager
+    from vaenar_tts_torch.utils.export import export_model_dir
 
     phase("device")
     device = torch.device(DEVICE)
@@ -240,11 +570,17 @@ def main():
     report = [line.strip() for line in (_build.ptxas_report() or "").splitlines()
               if "registers" in line or "bytes stack" in line or "Compiling entry" in line]
     print(json.dumps({"build_seconds": build_s, "ptxas": report,
-                      "dynamic_shared_bytes_per_block": lib.masked_attention_fwd_shared_bytes()}),
+                      "dynamic_shared_bytes_per_block": {
+                          "masked_attention_fwd": lib.masked_attention_fwd_shared_bytes(),
+                          "masked_attention_bwd_dq": lib.masked_attention_bwd_dq_shared_bytes(),
+                          "masked_attention_bwd_dkv": lib.masked_attention_bwd_dkv_shared_bytes()}}),
           flush=True)
 
     phase("kernel_checks")
     worst = check_kernels(torch, fa, device)
+
+    phase("backward_checks")
+    worst_bwd = check_backward(torch, fa, device)
 
     phase("load")
     hp, model, epoch = load_model(MODEL_DIR, device)
@@ -252,7 +588,7 @@ def main():
     check(all(100 <= len(line) <= 150 for line in LINES), "lines must be 100-150 characters")
     token_ids = encode_lines(hp, LINES)
 
-    phase("main_path")
+    phase("synthesis_path")
     fa.launch_counts.clear()
     mels0, lens0 = synthesize_batch(model, hp, token_ids, 0.0, use_q)
     torch.cuda.synchronize()
@@ -260,15 +596,17 @@ def main():
     gen = torch.Generator(device=device).manual_seed(1234)
     mels1, lens1 = synthesize_batch(model, hp, token_ids, 0.667, use_q, generator=gen)
     torch.cuda.synchronize()
-    launches = fa.launch_counts["masked_attention_fwd"]
+    synthesis_counts = dict(fa.launch_counts)
+    launches = synthesis_counts.get("masked_attention_fwd", 0)
     flow_attn = 2 * hp.prior.n_blk * hp.prior.n_transformer_blk
     n_attn = hp.encoder.n_blk + flow_attn + 2 * hp.decoder.nblk
     print(json.dumps({"epoch": epoch, "mel_shape": list(mels0.shape),
                       "lengths_t0": lens0.tolist(), "lengths_t0667": lens1.tolist(),
-                      "launches_first_call": per_call, "launches_main_path": launches}),
+                      "launches_first_call": per_call, "launches": synthesis_counts}),
           flush=True)
     check(per_call == n_attn == 32, f"{per_call} kernel launches in one synthesis, expected 32")
-    check(launches == 2 * n_attn, f"{launches} launches in two synthesis calls, expected 64")
+    check(synthesis_counts == {"masked_attention_fwd": 2 * n_attn},
+          f"launches in two synthesis calls {synthesis_counts}, expected 64 forward")
     max_mel = mels0.shape[1]
     for mels, lens in ((mels0, lens0), (mels1, lens1)):
         check(bool(torch.isfinite(mels).all()), "non-finite mel")
@@ -276,7 +614,7 @@ def main():
     check(torch.equal(lens0, lens1), "predicted lengths changed with the temperature")
     check(not torch.equal(mels0, mels1), "temperature 0.667 gave the temperature-0 mel")
 
-    phase("card_vs_cpu")
+    phase("synthesis_card_vs_cpu")
     _, cpu_model, _ = load_model(MODEL_DIR, "cpu")
     mels_cpu, lens_cpu = synthesize_batch(cpu_model, hp, token_ids, 0.0, use_q)
     diff = (mels0.cpu() - mels_cpu).abs()
@@ -284,42 +622,204 @@ def main():
                       "max_abs_mel": mels_cpu.abs().max().item()}), flush=True)
     check(torch.equal(lens_cpu, lens0.cpu()), f"card lengths {lens0} != CPU lengths {lens_cpu}")
     check(diff.max().item() <= TOL_MEL_CARD_CPU, f"card vs CPU mel error {diff.max().item()}")
+    del cpu_model
 
-    phase("times")
-    r = hp.common.final_reduction_factor
-    text_max, z_max = max(map(len, token_ids)), max_mel // r
-    text_max = -(-text_max // hp.dataset.text_bucket) * hp.dataset.text_bucket
-    text_lens = torch.tensor([len(t) for t in token_ids], dtype=torch.int32, device=device)
-    z_lens = ((lens0 + r - 1) // r).to(torch.int32)
-    flow_and_dec = flow_attn // 2 + hp.decoder.nblk
-    sites = [("encoder_self", hp.encoder.n_blk, text_max, text_max, False, text_lens, text_lens),
-             ("causal_self", flow_and_dec, z_max, z_max, True, z_lens, z_lens),
-             ("cross", flow_and_dec, z_max, text_max, False, z_lens, text_lens)]
-    totals = time_kernels(torch, fa, device, sites)
-    walls = []
-    for _ in range(3):
+    with tempfile.TemporaryDirectory(prefix="vaenar_smoke_") as tmp:
+        data_dir, model_dir = os.path.join(tmp, "records"), os.path.join(tmp, "ckpt")
+        os.makedirs(data_dir)
+        write_records(data_dir, seed=2026)
+
+        phase("training_path")
+        fa.launch_counts.clear()
+        history = cli_train.main([
+            "--dataset", "ljspeech", "--data_dir", data_dir, "--model_dir", model_dir,
+            "--log_dir", os.path.join(tmp, "logs"),
+            "--hparams", os.path.join(MODEL_DIR, "hparams.json"),
+            "--device", DEVICE, "--max_epochs", "2", "--steps_per_epoch", "2"])
         torch.cuda.synchronize()
-        t = time.perf_counter()
-        synthesize_batch(model, hp, token_ids, 0.0, use_q)
+        training_counts = dict(fa.launch_counts)
+        hp_train = load_hparams(model_dir)
+        # attention sites: encoder self-attention, and a causal self- and a
+        # cross-attention in every CrossAttentionBlock (posterior, decoder,
+        # prior couplings)
+        blocks = (hp_train.posterior.nblk + hp_train.decoder.nblk
+                  + hp_train.prior.n_blk * hp_train.prior.n_transformer_blk)
+        per_step = hp_train.encoder.n_blk + 2 * blocks
+        init_pass = hp_train.encoder.n_blk + 2 * hp_train.prior.n_blk * hp_train.prior.n_transformer_blk
+        n_steps = 1 + 2 * 2  # the priming step, then 2 epochs of 2 steps
+        n_dev = 2 * -(-N_DEV // hp_train.train.train_batch_size)
+        expected = {"masked_attention_fwd": init_pass + per_step * (n_steps + n_dev),
+                    "masked_attention_bwd_dq": per_step * n_steps,
+                    "masked_attention_bwd_dkv": per_step * n_steps}
+        losses = [history["initial"]] + [history[split][e] for split in ("train", "dev")
+                                         for e in (1, 2)]
+        print(json.dumps({"losses": losses, "launches": training_counts,
+                          "launches_expected": expected, "attention_sites_per_step": per_step}),
+              flush=True)
+        check(per_step == 36, f"{per_step} attention sites per train step, expected 36")
+        check(training_counts == expected, f"training launches {training_counts} != {expected}")
+        check(all(np.isfinite(v) for m in losses for v in m.values()), "non-finite loss")
+        trained = VAENAR(hp_train).to(device)
+        check(CheckpointManager(model_dir).restore(trained) == 2, "checkpoint 2 did not restore")
+        check(all(bool(torch.isfinite(p).all()) for p in trained.parameters()),
+              "non-finite parameter after training")
+
+        phase("train_step_card_vs_cpu")
+        hp0 = apply_overrides(hp_train, NO_DROPOUT)
+        small = next(iter(BucketedLoader(list_shards(data_dir, "train"), 4,
+                                         hp0.dataset.mel_bucket, hp0.dataset.text_bucket,
+                                         shuffle=False).epoch(0)))
+        eps = torch.from_numpy(np.random.default_rng(3).standard_normal(
+            (4, 1, small.mels.shape[1] // 2, hp0.common.latent_dim)).astype(np.float32))
+        result, signs, ties = [], {}, []
+        for dev in (device, torch.device("cpu")):
+            m0 = VAENAR(hp0).to(dev)
+            CheckpointManager(model_dir).restore(m0)
+            hooks = relu_sign_hooks(torch, m0, signs, None if dev.type == "cuda" else ties)
+            metrics = steps.train_step(m0, steps.make_optimizer(hp0, m0), hp0,
+                                       *to_device(small, dev), 1e-5, 2, epsilon=eps.to(dev))
+            for h in hooks:
+                h.remove()
+            result.append((steps.metric_floats(metrics),
+                           {n: p.grad.cpu() for n, p in m0.named_parameters()},
+                           {n: b.cpu() for n, b in m0.named_buffers()}))
+        (card_m, card_g, card_b), (cpu_m, cpu_g, cpu_b) = result
+        loss_share = {k: abs(card_m[k] - cpu_m[k])
+                      / ((TOL_KL_REL if k == "kl" else TOL_LOSS_REL) * abs(cpu_m[k]))
+                      for k in cpu_m}
+        zero_grad = bn_fed_conv_biases(torch, m0)
+        grad_share = {}
+        for n, g in cpu_g.items():
+            if n in zero_grad:
+                grad_share[n] = (max(card_g[n].abs().max().item(), g.abs().max().item())
+                                 / (TOL_ZERO_GRAD * cpu_g[zero_grad[n]].abs().max().item()))
+            else:
+                err, tol = (card_g[n] - g).abs().max().item(), TOL_GRAD_LEAF * g.abs().max().item()
+                grad_share[n] = err / tol if tol > 0 else (0.0 if err == 0 else float("inf"))
+        worst_grads = sorted(grad_share, key=grad_share.get)[-5:]
+        tie_share = max((t[2] for t in ties), default=0.0) / TOL_RELU_TIE
+        bn_share = max(((card_b[n].double() - b.double()).abs()
+                        / (TOL_BN[1] + TOL_BN[0] * b.double().abs())).max().item()
+                       for n, b in cpu_b.items())
+        print(json.dumps({"batch": list(small.mels.shape), "loss_card": card_m, "loss_cpu": cpu_m,
+                          "share_of_tol_loss": loss_share,
+                          "worst_grads_share_of_tol": {n: grad_share[n] for n in worst_grads},
+                          "zero_grad_biases_share_of_tol": {n: grad_share[n] for n in zero_grad},
+                          "relu_ties": ties, "relu_inputs_per_step": sum(len(v) for v in signs.values()),
+                          "max_share_of_tol_relu_tie": tie_share,
+                          "max_share_of_tol_batch_stats": bn_share}), flush=True)
+        check(max(loss_share.values()) <= 1.0, f"card vs CPU loss error {loss_share}")
+        check(max(grad_share.values()) <= 1.0, "card vs CPU gradient error")
+        check(tie_share <= 1.0, f"a ReLU input on another side of 0 by more than rounding: {ties}")
+        check(bn_share <= 1.0, f"card vs CPU BatchNorm statistics, {bn_share} of tolerance")
+
+        phase("export_synthesis")
+        export = export_model_dir(model_dir)
+        hp_exp, exported, exp_epoch = load_model(model_dir, device)
+        mels_e, lens_e = synthesize_batch(exported, hp_exp, encode_lines(hp_exp, LINES), 0.0,
+                                          resolve_length_source("auto", hp_exp))
         torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
-    print(json.dumps({"synthesis_wall_s": walls, "batch": len(LINES),
-                      "attention_ms_per_synthesis": totals["ms"],
-                      "bound_ms_per_synthesis": totals["bound_ms"]}), flush=True)
+        print(json.dumps({"export_bytes": os.path.getsize(export), "epoch": exp_epoch,
+                          "mel_shape": list(mels_e.shape), "lengths": lens_e.tolist()}), flush=True)
+        check(exp_epoch == 2, f"exported epoch {exp_epoch}, expected 2")
+        check(bool(torch.isfinite(mels_e).all()), "non-finite mel from the exported model")
+
+        phase("times")
+        r = hp.common.final_reduction_factor
+        text_max, z_max = max(map(len, token_ids)), max_mel // r
+        text_max = -(-text_max // hp.dataset.text_bucket) * hp.dataset.text_bucket
+        text_lens = torch.tensor([len(t) for t in token_ids], dtype=torch.int32, device=device)
+        z_lens = ((lens0 + r - 1) // r).to(torch.int32)
+        flow_and_dec = flow_attn // 2 + hp.decoder.nblk
+        sites = [("encoder_self", hp.encoder.n_blk, text_max, text_max, False, text_lens, text_lens),
+                 ("causal_self", flow_and_dec, z_max, z_max, True, z_lens, z_lens),
+                 ("cross", flow_and_dec, z_max, text_max, False, z_lens, text_lens)]
+        totals = time_kernels(torch, fa, device, sites)
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            synthesize_batch(model, hp, token_ids, 0.0, use_q)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        print(json.dumps({"synthesis_wall_s": walls, "batch": len(LINES),
+                          "attention_ms_per_synthesis": totals["ms"],
+                          "bound_ms_per_synthesis": totals["bound_ms"]}), flush=True)
+        # Tk > 4096, where the TPU ran its blocked kernel: no site of either
+        # path, so timed at the check's shape
+        long_case = [c for c in check_cases(torch, device) if c[0] == "long_1024x4104"]
+        blocked = time_kernels(torch, fa, device, [(*long_case[0][:1], 1, *long_case[0][1:])])
+
+        # training at the shipped batch of 32, from the trained state
+        big = next(iter(BucketedLoader(list_shards(data_dir, "train"),
+                                       hp_train.train.train_batch_size,
+                                       hp_train.dataset.mel_bucket,
+                                       hp_train.dataset.text_bucket, shuffle=False).epoch(0)))
+        batch = to_device(big, device)
+        r_tl = batch[2].to(torch.int32)
+        r_zl = ((batch[3] + 1) // 2).to(torch.int32)
+        tmax, zmax = big.texts.shape[1], big.mels.shape[1] // 2
+        train_sites = [("encoder_self", hp_train.encoder.n_blk, tmax, tmax, False, r_tl, r_tl),
+                       ("causal_self", blocks, zmax, zmax, True, r_zl, r_zl),
+                       ("cross", blocks, zmax, tmax, False, r_zl, r_tl)]
+        bwd = time_backward(torch, fa, device, train_sites)
+        step_times = {}
+        for rf in (2, hp_train.common.max_reduction_factor):
+            walls_t, per_step_counts = train_step_times(torch, fa, steps, trained, hp_train,
+                                                        batch, rf)
+            step_times[rf] = {"wall_s": walls_t, "median_s": statistics.median(walls_t),
+                              "launches_per_step": per_step_counts}
+            check(per_step_counts == {k: float(per_step) for k in expected},
+                  f"launches per train step at r={rf}: {per_step_counts}")
+        print(json.dumps({"train_batch": list(big.mels.shape), "train_step": step_times,
+                          "attention_per_train_step_r2": bwd}), flush=True)
+
+        phase("train_step_profile")
+        for rf in step_times:
+            device_ms, top = profile_train_steps(torch, steps, trained, hp_train, batch, rf)
+            wall_ms = 1e3 * step_times[rf]["median_s"]
+            print(json.dumps({"reduction_factor": rf, "device_ms_per_step": device_ms,
+                              "wall_ms_per_step_unprofiled": wall_ms,
+                              "device_busy_share": device_ms / wall_ms if device_ms else None,
+                              "top_kernels_ms_per_step": top}), flush=True)
 
     phase("done")
     print(smi)
+    bwd_per = (f"ms: one train step at r = 2 (the curriculum's last stage), batch "
+               f"{big.mels.shape[0]}: its {per_step} launches at that step's shapes and "
+               f"lengths; plain_ms and library_ms are the whole backward (dq, dk and dv). "
+               f"launches: the cli.train run, all at r = 5 (its 2 epochs come before the "
+               f"first reduction), whose shapes the backward checks also hold")
     print(json.dumps({"kernels": [{
         "name": "masked_attention_fwd", "route": "cuda",
         "source": "vaenar_tts_torch/csrc/masked_attention_fwd.cu",
         "replaces": "vaenar_tts_tpu/ops/flash_attention.py:104",
         "also_replaces": "vaenar_tts_tpu/ops/flash_attention.py:142",
-        "launches": launches, "max_abs_err": worst,
+        "launches": launches + training_counts["masked_attention_fwd"],
+        "launches_by_path": {"synthesis": launches,
+                             "training": training_counts["masked_attention_fwd"]},
+        "max_abs_err": worst,
         "ms": totals["ms"], "plain_ms": totals["plain_ms"],
         "bound_ms": totals["bound_ms"],
         "bound_by": "operations" if totals["flop_ms"] >= totals["byte_ms"] else "bytes",
         "library_ms": totals["library_ms"],
-        "per": "one synthesis call: its 32 launches at the main path's shapes and lengths"}]}))
+        "ms_per_train_step_r2": bwd["fwd_ms"],
+        "tk_4104": {"ms": blocked["ms"], "plain_ms": blocked["plain_ms"],
+                    "library_ms": blocked["library_ms"], "bound_ms": blocked["bound_ms"],
+                    "bound_by": ("operations" if blocked["flop_ms"] >= blocked["byte_ms"]
+                                 else "bytes")},
+        "per": "one synthesis call: its 32 launches at the synthesis path's shapes and lengths"},
+        *[{"name": f"masked_attention_bwd_{kern}", "route": "cuda",
+           "source": "vaenar_tts_torch/csrc/masked_attention_bwd.cu",
+           "replaces": f"vaenar_tts_tpu/ops/flash_attention.py:{line}",
+           "launches": training_counts[f"masked_attention_bwd_{kern}"],
+           "max_abs_err": worst_bwd[kern],
+           "ms": bwd[f"{kern}_ms"], "plain_ms": bwd["plain_ms"],
+           "bound_ms": bwd[f"{kern}_bound_ms"],
+           "bound_by": ("operations" if bwd[f"{kern}_flop_ms"] >= bwd[f"{kern}_byte_ms"]
+                        else "bytes"),
+           "library_ms": bwd["library_ms"], "per": bwd_per}
+          for kern, line in (("dq", 320), ("dkv", 370))]]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
     return 0
 

@@ -1,0 +1,86 @@
+"""The port's training CLI on the CPU at tiny size: a cold start (random
+init, data-dependent flow init, epoch-0 checkpoint, priming step) and one
+epoch of 2 steps, then a resume for one more epoch, then the export, which
+the port's synthesis and the JAX package's ``load_npz`` both load."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from vaenar_tts_tpu.configs import get_config
+from vaenar_tts_tpu.utils.export import load_npz as jax_load_npz
+from vaenar_tts_torch.cli import train as cli_train
+from vaenar_tts_torch.configs.hparams import HParams
+from vaenar_tts_torch.data.records import RecordShardWriter
+from vaenar_tts_torch.models.vaenar import load_model
+from vaenar_tts_torch.utils.export import export_model_dir
+
+from test_torch_data import utterances
+from test_torch_model import SHIPPED, TINY_OVERRIDES
+
+TRAIN_OVERRIDES = [o for o in TINY_OVERRIDES if not o.startswith("train.")] + [
+    "train.train_batch_size=4"]
+
+
+@pytest.fixture(scope="module")
+def data_dir(tmp_path_factory):
+    out = tmp_path_factory.mktemp("records")
+    for mode, n in (("train", 8), ("dev", 3)):
+        w = RecordShardWriter(str(out / f"{mode}-0.vrs"), 80)
+        for fid, text, mel in utterances(n, seed=len(mode)):
+            w.add(fid, text, mel)
+        w.close()
+    return str(out)
+
+
+def test_train_resume_export(data_dir, tmp_path):
+    ckpt, logs = str(tmp_path / "ckpt"), str(tmp_path / "logs")
+    base = ["--dataset", "ljspeech", "--data_dir", data_dir, "--model_dir", ckpt,
+            "--log_dir", logs, "--device", "cpu", "--steps_per_epoch", "2"]
+    first = cli_train.main(base + ["--max_epochs", "1", "--hparams",
+                                   os.path.join(SHIPPED, "hparams.json")]
+                           + [a for o in TRAIN_OVERRIDES for a in ("--override", o)])
+    assert first["initial"] is not None and first["epoch"] == 1
+    for split in ("train", "dev"):
+        losses = first[split][1]
+        assert set(losses) == {"total", "mel_l2", "kl", "len_l2", "len_pinball"}
+        assert all(np.isfinite(v) for v in losses.values())
+    assert sorted(os.listdir(ckpt)) == ["0", "1", "hparams.json"]
+    with open(os.path.join(ckpt, "hparams.json")) as f:
+        saved = json.load(f)
+    # the shipped config under the overrides, as the JAX package reads it
+    assert saved["common"]["mel_text_len_ratio"] == 9.0
+    assert saved["encoder"]["pre_hidden"] == 32 and saved["train"]["train_batch_size"] == 4
+
+    second = cli_train.main(base + ["--max_epochs", "2"])
+    assert second["initial"] is None and list(second["train"]) == [2]
+    assert sorted(os.listdir(ckpt)) == ["0", "1", "2", "hparams.json"]
+
+    path = export_model_dir(ckpt)
+    state = jax_load_npz(path)
+    assert state["epoch"] == 2 and set(state["params"]) >= {"text_encoder", "prior"}
+    hp, model, epoch = load_model(ckpt, device="cpu")
+    assert epoch == 2
+    with torch.no_grad():
+        mel, lens = model.infer_with_length_prediction(
+            torch.randint(3, 43, (2, 16)), torch.tensor([16, 9]), max_mel_length=120)
+    assert mel.shape == (2, 120, 80) and torch.isfinite(mel).all()
+
+
+def test_schedules_match_jax():
+    port, ref = HParams().train, get_config("ljspeech").train
+    for epoch in (0, 1, 2, 199, 200, 401, 600, 1999):
+        assert port.kl_weight_at(epoch) == ref.kl_weight_at(epoch)
+        assert port.reduction_factor_at(epoch) == ref.reduction_factor_at(epoch)
+
+
+def test_cuda_without_a_card_raises(data_dir, tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli_train.main(["--dataset", "ljspeech", "--data_dir", data_dir,
+                        "--model_dir", str(tmp_path / "c"), "--log_dir",
+                        str(tmp_path / "l")])

@@ -1,15 +1,56 @@
 """Hyper-parameter trees, the port's own copy of ``vaenar_tts_tpu.configs``.
 
 Frozen dataclasses with the field names and defaults of the JAX package,
-holding only the fields that synthesis reads: a ``hparams.json`` written by
-JAX training loads unchanged, and the rest of it (the ``train`` section,
-dropout rates, the audio front end) is ignored. The port computes in fp32
-whatever ``train.compute_dtype`` says.
+holding only the fields that the port's synthesis and training read: a
+``hparams.json`` written by JAX training loads unchanged, and the rest of it
+(the audio front end, the TPU knobs, test-interval and probe settings) is
+ignored. The port computes in fp32 whatever ``train.compute_dtype`` says.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Tuple
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    random_seed: int = 123456
+    epochs: int = 2000
+    train_batch_size: int = 32
+    shuffle: bool = True
+    num_samples: int = 1
+    length_weight: float = 1.0
+    kl_weight_init: float = 1e-5
+    kl_weight_increase_epoch: int = 1
+    kl_weight_end: float = 1e-5
+    learning_rate: float = 1.25e-4
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_eps: float = 1e-7
+    reduction_factors: Tuple[int, ...] = (5, 4, 3, 2)
+    reduce_interval: Tuple[int, ...] = (0, 200, 400, 600)
+    # micro-batches per step: gradients averaged, one Adam update
+    grad_accum: int = 1
+    checkpoint_max_to_keep: int = 20
+    checkpoint_keep_every_n_hours: float = 4.0
+    checkpoint_every_n_epochs: int = 1
+
+    def kl_weight_at(self, epoch: int) -> float:
+        """KL-anneal schedule (``vaenar_tts_tpu/configs/hparams.py:119``)."""
+        step = (self.kl_weight_end - self.kl_weight_init) / self.kl_weight_increase_epoch
+        if epoch <= self.kl_weight_increase_epoch:
+            return self.kl_weight_init + step * epoch
+        return self.kl_weight_end
+
+    def reduction_factor_at(self, epoch: int) -> int:
+        """Reduction-factor curriculum: the factor of the last interval that
+        has started by ``epoch``."""
+        i = 0
+        while i < len(self.reduce_interval) and self.reduce_interval[i] <= epoch:
+            i += 1
+        i = i - 1 if i > 0 else 0
+        return self.reduction_factors[i]
 
 
 @dataclass(frozen=True)
@@ -48,6 +89,8 @@ class EncoderConfig:
     pre_hidden: int = 512
     conv_kernel: int = 5
     pre_activation: str = "relu"
+    pre_drop_rate: float = 0.1
+    pos_drop_rate: float = 0.1
     bn_before_act: bool = False
     n_blk: int = 4
     attention_dim: int = 256
@@ -66,11 +109,14 @@ class DecoderConfig:
     post_n_conv: int = 5
     post_conv_filters: int = 256
     post_conv_kernel: int = 5
+    post_drop_rate: float = 0.2
 
 
 @dataclass(frozen=True)
 class PosteriorConfig:
     pre_hidden: int = 256
+    pos_drop_rate: float = 0.2
+    pre_drop_rate: float = 0.5
     pre_activation: str = "relu"
     nblk: int = 2
     attention_dim: int = 256
@@ -98,6 +144,7 @@ class LengthPredictorConfig:
 
 @dataclass(frozen=True)
 class HParams:
+    train: TrainConfig = field(default_factory=TrainConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
     text: TextConfig = field(default_factory=TextConfig)
     audio: AudioConfig = field(default_factory=AudioConfig)

@@ -1,5 +1,5 @@
 """Map the JAX package's flax trees (``params``, ``batch_stats``, as nested
-dicts of arrays) onto the port's state dict.
+dicts of arrays) onto the port's state dict, and back.
 
 The port's modules carry the flax names, so a leaf at ``a/b/kernel`` lands
 at ``a.b.weight``. By leaf:
@@ -15,12 +15,15 @@ at ``a.b.weight``. By leaf:
 
 The mapping is strict: an unknown leaf raises, and ``load_jax_weights``
 raises on any key the model does not have and on any model key left unset.
+``torch_to_jax`` is the inverse of ``jax_to_torch``: it turns the port's
+state dict (or a dict of its gradients) into the flax trees, so that
+weights the port trained load in the JAX package.
 """
 
 from __future__ import annotations
 
 from collections.abc import Mapping
-from typing import Dict
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -74,6 +77,45 @@ def jax_to_torch(params: Mapping, batch_stats: Mapping) -> Dict[str, torch.Tenso
         put(module, stats_names[name], np.asarray(leaf, dtype=np.float32))
         put(module, "num_batches_tracked", np.zeros((), np.int64))
     return sd
+
+
+def torch_to_jax(model: nn.Module,
+                 values: Optional[Mapping[str, torch.Tensor]] = None
+                 ) -> Tuple[dict, dict]:
+    """(params, batch_stats) flax trees of numpy fp32 arrays for ``model``,
+    the inverse of ``jax_to_torch``: a Linear weight [out, in] becomes a
+    kernel [in, out], a Conv1d weight [out, in, k] a kernel [k, in, out], an
+    Embedding weight ``embedding``, a LayerNorm or BatchNorm weight
+    ``scale``, the running statistics ``mean`` and ``var`` of batch_stats;
+    ``num_batches_tracked`` has no flax counterpart. ``values`` maps
+    state-dict keys to tensors to convert in place of the model's own (for
+    example the parameters' gradients); keys it lacks are left out."""
+    state = model.state_dict() if values is None else values
+    params: dict = {}
+    batch_stats: dict = {}
+    for module_name, module in model.named_modules():
+        for name, _ in list(module.named_parameters(recurse=False)) + list(
+                module.named_buffers(recurse=False)):
+            key = f"{module_name}.{name}" if module_name else name
+            if key not in state or name == "num_batches_tracked":
+                continue
+            arr = state[key].detach().cpu().float().numpy()
+            tree, leaf = params, name
+            if name in ("running_mean", "running_var"):
+                tree, leaf = batch_stats, name[len("running_"):]
+            elif name == "weight" and isinstance(module, nn.Linear):
+                leaf, arr = "kernel", arr.T
+            elif name == "weight" and isinstance(module, nn.Conv1d):
+                leaf, arr = "kernel", arr.transpose(2, 1, 0)
+            elif name == "weight" and isinstance(module, nn.Embedding):
+                leaf = "embedding"
+            elif name == "weight" and isinstance(module, (nn.LayerNorm, nn.BatchNorm1d)):
+                leaf = "scale"
+            node = tree
+            for part in module_name.split(".") if module_name else []:
+                node = node.setdefault(part, {})
+            node[leaf] = np.array(arr, order="C")  # keeps 0-d leaves 0-d
+    return params, batch_stats
 
 
 def load_jax_weights(model: nn.Module, params: Mapping,

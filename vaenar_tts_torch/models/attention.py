@@ -1,8 +1,9 @@
 """Masked multi-head attention and the transformer blocks (counterpart of
 ``vaenar_tts_tpu/models/attention.py``).
 
-Every attention goes through ``ops.flash_attention.masked_flash_attention``:
-the hand-written kernel on CUDA tensors, its plain version on CPU tensors.
+Every attention goes through ``ops.flash_attention.MaskedFlashAttention``:
+the hand-written forward kernel and, for the gradient, the two backward
+kernels on CUDA tensors; their plain versions on CPU tensors.
 The blocks keep the reference's concat(input, context) -> Dense -> residual
 -> LayerNorm topology. Alignments are never materialized on this path.
 """
@@ -15,7 +16,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.flash_attention import attention_mask, masked_flash_attention
+from ..ops.flash_attention import MaskedFlashAttention, attention_mask
 from .layers import FFN, LN_EPS
 
 __all__ = ["attention_mask", "MultiHeadAttention", "SelfAttentionBlock",
@@ -51,8 +52,8 @@ class MultiHeadAttention(nn.Module):
         q = self._split(self.query_layer(inputs))
         k = self._split(self.key_layer(memory))
         v = self._split(self.value_layer(memory))
-        o, _, _ = masked_flash_attention(q, k, v, query_lengths, memory_lengths,
-                                         scale=self.scale, causal=causal)
+        o = MaskedFlashAttention.apply(q, k, v, query_lengths, memory_lengths,
+                                       self.scale, causal)
         b, _, tq, _ = o.shape
         return o.transpose(1, 2).reshape(b, tq, self.num_heads * self.head_dim)
 

@@ -6,7 +6,7 @@ latent step -> PostNet residual."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 from torch import nn
@@ -20,7 +20,7 @@ class TransformerDecoder(nn.Module):
                  attention_dim: int, attention_heads: int, temperature: float,
                  ffn_hidden: int, post_n_conv: int, post_conv_filters: int,
                  post_conv_kernel: int, out_dim: int,
-                 max_reduction_factor: int):
+                 max_reduction_factor: int, post_drop_rate: float = 0.0):
         super().__init__()
         self.out_dim = out_dim
         self.pre_projection = nn.Linear(latent_dim, attention_dim)
@@ -32,11 +32,13 @@ class TransformerDecoder(nn.Module):
         self.linear_outputs = nn.Linear(attention_dim,
                                         out_dim * max_reduction_factor)
         self.postnet = PostNet(out_dim, post_n_conv, post_conv_filters,
-                               post_conv_kernel)
+                               post_conv_kernel, post_drop_rate)
         self.residual_outputs = nn.Linear(post_conv_filters, out_dim)
 
     def forward(self, inputs, text_embd, z_lengths=None, text_lengths=None,
-                reduction_factor: int = 2) -> Tuple[torch.Tensor, torch.Tensor]:
+                reduction_factor: int = 2, train: bool = False,
+                generator: Optional[torch.Generator] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         """latents [B, T, latent] -> (initial, refined), each
         [B, T * r, out_dim]."""
         batch, max_len = inputs.shape[0], inputs.shape[1]
@@ -46,5 +48,6 @@ class TransformerDecoder(nn.Module):
         full = self.linear_outputs(x)
         initial = full[:, :, : reduction_factor * self.out_dim].reshape(
             batch, max_len * reduction_factor, self.out_dim)
-        outputs = self.residual_outputs(self.postnet(initial)) + initial
+        outputs = (self.residual_outputs(self.postnet(initial, train, generator))
+                   + initial)
         return initial, outputs

@@ -1,15 +1,17 @@
 """Transformer text encoder (counterpart of
 ``vaenar_tts_tpu/models/encoder.py``): Embedding -> ConvPreNet -> positional
-encoding scaled by a trained ``pos_weight`` at a fractional step -> N
-SelfAttentionBlocks."""
+encoding scaled by a trained ``pos_weight`` at a fractional step -> dropout
+-> N SelfAttentionBlocks."""
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 from torch import nn
 
 from .attention import SelfAttentionBlock
-from .layers import ConvPreNet, positional_encoding
+from .layers import ConvPreNet, dropout, positional_encoding
 
 
 class TransformerEncoder(nn.Module):
@@ -17,12 +19,14 @@ class TransformerEncoder(nn.Module):
                  pre_hidden: int, pre_conv_kernel: int, pre_activation: str,
                  bn_before_act: bool, nblk: int, attention_dim: int,
                  attention_heads: int, attention_temperature: float,
-                 ffn_hidden: int):
+                 ffn_hidden: int, prenet_drop_rate: float = 0.0,
+                 pos_drop_rate: float = 0.0):
         super().__init__()
+        self.pos_drop_rate = pos_drop_rate
         self.text_init_encoding = nn.Embedding(vocab_size, embd_dim)
         self.EncoderPrenet = ConvPreNet(embd_dim, pre_nconv, pre_hidden,
                                         pre_conv_kernel, pre_activation,
-                                        bn_before_act)
+                                        bn_before_act, prenet_drop_rate)
         self.pos_weight = nn.Parameter(torch.ones(()))
         self.names = [f"self_attention{i}" for i in range(nblk)]
         for name in self.names:
@@ -31,12 +35,14 @@ class TransformerEncoder(nn.Module):
                 attention_temperature, ffn_hidden))
 
     def forward(self, inputs: torch.Tensor, input_lengths=None,
-                pos_step: float = 1.0) -> torch.Tensor:
+                pos_step: float = 1.0, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[B, T] int token ids -> [B, T, pre_hidden]."""
-        x = self.EncoderPrenet(self.text_init_encoding(inputs))
+        x = self.EncoderPrenet(self.text_init_encoding(inputs), train, generator)
         pos = positional_encoding(x.shape[1], x.shape[2], step=pos_step,
                                   device=x.device)
-        x = x + self.pos_weight * pos[None]
+        x = dropout(x + self.pos_weight * pos[None], self.pos_drop_rate, train,
+                    generator)
         for name in self.names:
             x = getattr(self, name)(x, x, input_lengths, input_lengths)
         return x

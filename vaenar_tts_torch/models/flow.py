@@ -1,10 +1,14 @@
-"""Normalizing-flow layers of the Glow prior, forward direction only
-(counterpart of ``vaenar_tts_tpu/models/flow.py``): ActNorm (apply),
-InvertibleLinear, TransformerTransform and TransformerCoupling.
+"""Normalizing-flow layers of the Glow prior (counterpart of
+``vaenar_tts_tpu/models/flow.py``): ActNorm, InvertibleLinear,
+TransformerTransform and TransformerCoupling. Each layer runs in both
+directions: forward (sampling, ``reverse=False``) and reverse (the
+log-probability of a latent, ``reverse=True``), and returns its output with
+the per-example logdet of that direction. ActNorm also has the
+data-dependent init of a cold start.
 
 Flow math is fp32. On CUDA the model turns TF32 off for matmuls and cuDNN
-(``models.vaenar.resolve_device``), which this channel mix needs to stay
-invertible.
+(``models.vaenar.resolve_device``), which this channel mix, its inverse and
+its slogdet need to stay invertible.
 """
 
 from __future__ import annotations
@@ -27,30 +31,57 @@ def _length_logdet(logdet_scalar: torch.Tensor, lengths: Optional[torch.Tensor],
     return lengths.float() * logdet_scalar
 
 
+def actnorm_init_stats(x: torch.Tensor, init_scale: float = 1.0,
+                       epsilon: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Data-dependent ActNorm init: (log_scale, bias) that bring ``x`` to zero
+    mean and ``init_scale`` std per channel, with the statistics taken over
+    ALL positions, padding included, and the biased std (correction 0), as
+    the JAX package's ``ActNorm(data_init=True)``."""
+    flat = x.float().reshape(-1, x.shape[-1])
+    mean = flat.mean(dim=0)
+    std = flat.std(dim=0, correction=0)
+    return torch.log(init_scale / (std + epsilon)), -mean / (std + epsilon)
+
+
 class ActNorm(nn.Module):
-    """y = x * exp(log_scale) + bias, per channel."""
+    """y = x * exp(log_scale) + bias, per channel; the reverse is
+    (y - bias) / (exp(log_scale) + 1e-8)."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.log_scale = nn.Parameter(torch.zeros(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x, lengths=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        out = x.float() * torch.exp(self.log_scale) + self.bias
-        return out, _length_logdet(self.log_scale.sum(), lengths,
-                                   x.shape[0], x.shape[1])
+    def forward(self, x, lengths=None, reverse: bool = False,
+                stats: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                epsilon: float = 1e-8) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``stats``: (log_scale, bias) to apply in place of the parameters
+        (the init pass applies the statistics it has just computed)."""
+        log_scale, bias = stats if stats is not None else (self.log_scale, self.bias)
+        x = x.float()
+        if reverse:
+            out = (x - bias) / (torch.exp(log_scale) + epsilon)
+            logdet = -log_scale.sum()
+        else:
+            out = x * torch.exp(log_scale) + bias
+            logdet = log_scale.sum()
+        return out, _length_logdet(logdet, lengths, x.shape[0], x.shape[1])
 
 
 class InvertibleLinear(nn.Module):
-    """Channel mix y = x @ W with logdet = frames * log|det W|."""
+    """Channel mix y = x @ W with logdet = frames * log|det W|; the reverse
+    multiplies by inv(W) and takes logdet = -frames * log|det W|."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.weight = nn.Parameter(torch.eye(channels))
 
-    def forward(self, x, lengths=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x, lengths=None, reverse: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
         w = self.weight.float()
         _, logabsdet = torch.linalg.slogdet(w)
+        if reverse:
+            w, logabsdet = torch.linalg.inv(w), -logabsdet
         out = torch.matmul(x.float(), w)
         return out, _length_logdet(logabsdet, lengths, x.shape[0], x.shape[1])
 
@@ -88,7 +119,9 @@ class TransformerTransform(nn.Module):
 class TransformerCoupling(nn.Module):
     """Affine coupling: one half of the channels conditions the scale and
     shift of the other; 'upper' transforms the second half, 'lower' the
-    first. scale = sigmoid(log_scale + 2)."""
+    first. scale = sigmoid(log_scale + 2); forward zp -> scale * zp + shift,
+    reverse zp -> (zp - shift) / (scale + 1e-12), with the masked logdet of
+    that direction."""
 
     def __init__(self, channels: int, memory_dim: int, nblk: int,
                  attention_dim: int, attention_heads: int, temperature: float,
@@ -102,7 +135,8 @@ class TransformerCoupling(nn.Module):
             temperature, ffn_hidden, channels // 2)
 
     def forward(self, inputs, condition_inputs, inputs_lengths=None,
-                condition_lengths=None) -> Tuple[torch.Tensor, torch.Tensor]:
+                condition_lengths=None, reverse: bool = False,
+                epsilon: float = 1e-12) -> Tuple[torch.Tensor, torch.Tensor]:
         inputs = inputs.float()
         half = inputs.shape[-1] // 2
         lower, upper = inputs[..., :half], inputs[..., half:]
@@ -111,13 +145,18 @@ class TransformerCoupling(nn.Module):
                                     condition_lengths=condition_lengths,
                                     target_lengths=inputs_lengths)
         scale = torch.sigmoid(log_scale.float() + 2.0)
-        zp = scale * zp + shift.float()
+        if reverse:
+            zp = (zp - shift.float()) / (scale + epsilon)
+        else:
+            zp = scale * zp + shift.float()
         if inputs_lengths is not None:
             mask = sequence_mask(inputs_lengths, inputs.shape[1],
                                  torch.float32)[..., None]
         else:
             mask = torch.ones_like(scale)
         logdet = torch.sum(torch.log(scale) * mask, dim=(1, 2))
+        if reverse:
+            logdet = -logdet
         out = (torch.cat([z, zp], dim=-1) if self.order == "upper"
                else torch.cat([zp, z], dim=-1))
         return out, logdet

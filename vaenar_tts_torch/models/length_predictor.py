@@ -2,7 +2,8 @@
 ``vaenar_tts_tpu/models/length_predictor.py``): a per-token Dense(1) on the
 text embeddings; the predicted frame count is the masked sum over tokens of
 exp(projection), in fp32. An optional second head reads the trained
-quantile of the frame count instead of its mean."""
+quantile of the frame count instead of its mean; training holds it to that
+quantile with ``pinball_log_loss``."""
 
 from __future__ import annotations
 
@@ -23,6 +24,17 @@ def masked_exp_sum(proj: torch.Tensor,
     else:
         mask = torch.ones_like(proj)
     return torch.sum(torch.exp(proj) * mask, dim=(1, 2))
+
+
+def pinball_log_loss(predicted_lengths: torch.Tensor,
+                     target_lengths: torch.Tensor, tau: float,
+                     reduce: bool = False) -> torch.Tensor:
+    """Quantile (pinball) loss in log-length space: with residual =
+    log(target) - log(predicted), max(tau * residual, (tau - 1) * residual),
+    [B] or its mean."""
+    residual = torch.log(target_lengths.float()) - torch.log(predicted_lengths)
+    loss = torch.maximum(tau * residual, (tau - 1.0) * residual)
+    return loss.mean() if reduce else loss
 
 
 class DenseLengthPredictor(nn.Module):

@@ -1,17 +1,26 @@
-"""Glow-style flow prior p(z | text), sampling direction (counterpart of
-``vaenar_tts_tpu/models/prior.py:72-123``): base noise -> n_blk x (ActNorm
--> InvertibleLinear -> TransformerCoupling), with alternating coupling
-order. All fp32."""
+"""Glow-style flow prior p(z | text) (counterpart of
+``vaenar_tts_tpu/models/prior.py``): n_blk x (ActNorm -> InvertibleLinear ->
+TransformerCoupling), with alternating coupling order. All fp32. Three
+entry points:
+
+* ``sample``: base noise -> forward through the stack; the log-prob
+  accumulates -logdet of each layer;
+* ``log_probability``: the stack in reverse, from z back to the base noise;
+  log p(z | text) = N(eps) + the sum of the reverse logdets;
+* ``init_pass``: the forward stack with ActNorm's data-dependent init; each
+  ActNorm applies the statistics of its own input, and the pass returns them
+  (``flow_init``) for the caller to copy into the parameters.
+"""
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
-from .flow import ActNorm, InvertibleLinear, TransformerCoupling
+from .flow import ActNorm, InvertibleLinear, TransformerCoupling, actnorm_init_stats
 from .layers import sequence_mask
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -51,9 +60,17 @@ class TransformerPrior(nn.Module):
         return epsilon, torch.sum(mask * logprobs, dim=(1, 2))
 
     def _forward_stack(self, z, logprobs, condition_inputs, targets_lengths,
-                       condition_lengths) -> Tuple[torch.Tensor, torch.Tensor]:
+                       condition_lengths,
+                       flow_init: Optional[Dict[str, Tuple[torch.Tensor, torch.Tensor]]] = None
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``flow_init``: a dict to fill with each ActNorm's data-dependent
+        (log_scale, bias), which that ActNorm then applies."""
         for i in range(self.n_blk):
-            z, logdet = getattr(self, f"actnorm_{i}")(z, targets_lengths)
+            stats = None
+            if flow_init is not None:
+                stats = flow_init[f"actnorm_{i}"] = actnorm_init_stats(z)
+            z, logdet = getattr(self, f"actnorm_{i}")(z, targets_lengths,
+                                                      stats=stats)
             logprobs = logprobs - logdet
             z, logdet = getattr(self, f"invertible_linear_{i}")(z, targets_lengths)
             logprobs = logprobs - logdet
@@ -75,3 +92,42 @@ class TransformerPrior(nn.Module):
                                              temperature, generator, epsilon)
         return self._forward_stack(eps, logprobs, condition_inputs,
                                    targets_lengths, condition_lengths)
+
+    def log_probability(self, z, condition_inputs, z_lengths=None,
+                        condition_lengths=None) -> torch.Tensor:
+        """log p(z | text) [B]: the stack in reverse down to the base
+        noise."""
+        epsilon = z.float()
+        accum_logdet = torch.zeros((z.shape[0],), dtype=torch.float32,
+                                   device=z.device)
+        for i in reversed(range(self.n_blk)):
+            epsilon, logdet = getattr(self, f"transformerCoupling{i}")(
+                epsilon, condition_inputs, inputs_lengths=z_lengths,
+                condition_lengths=condition_lengths, reverse=True)
+            accum_logdet = accum_logdet + logdet
+            epsilon, logdet = getattr(self, f"invertible_linear_{i}")(
+                epsilon, z_lengths, reverse=True)
+            accum_logdet = accum_logdet + logdet
+            epsilon, logdet = getattr(self, f"actnorm_{i}")(
+                epsilon, z_lengths, reverse=True)
+            accum_logdet = accum_logdet + logdet
+        logprobs = -0.5 * (LOG_2PI + epsilon ** 2)
+        mask = sequence_mask(z_lengths, z.shape[1], torch.float32)[..., None]
+        return torch.sum(mask * logprobs, dim=(1, 2)) + accum_logdet
+
+    def init_pass(self, conditions, targets_lengths, condition_lengths=None,
+                  max_length: Optional[int] = None,
+                  generator: Optional[torch.Generator] = None,
+                  epsilon: Optional[torch.Tensor] = None
+                  ) -> Tuple[torch.Tensor, Dict[str, Tuple[torch.Tensor, torch.Tensor]]]:
+        """The forward stack from base noise with ActNorm's data-dependent
+        init; returns (z, flow_init) with flow_init[f"actnorm_{i}"] =
+        (log_scale, bias). The parameters are left as they are."""
+        if max_length is None:
+            raise ValueError("max_length must be provided")
+        eps, logprobs = self._initial_sample(targets_lengths, max_length,
+                                             1.0, generator, epsilon)
+        flow_init: Dict[str, Tuple[torch.Tensor, torch.Tensor]] = {}
+        z, _ = self._forward_stack(eps, logprobs, conditions, targets_lengths,
+                                   condition_lengths, flow_init=flow_init)
+        return z, flow_init

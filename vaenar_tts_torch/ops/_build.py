@@ -95,7 +95,18 @@ def load_library() -> ctypes.CDLL:
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
                           ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.masked_attention_fwd_shared_bytes.argtypes = []
-        lib.masked_attention_fwd_shared_bytes.restype = ctypes.c_int
+        for name in ("masked_attention_bwd_dq", "masked_attention_bwd_dkv"):
+            fn = getattr(lib, name)
+            n_out = 1 if name.endswith("_dq") else 2
+            fn.argtypes = ([ctypes.c_void_p] * (9 + n_out)
+                           + [ctypes.c_int] * 5
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        for name in ("masked_attention_fwd_shared_bytes",
+                     "masked_attention_bwd_dq_shared_bytes",
+                     "masked_attention_bwd_dkv_shared_bytes"):
+            getattr(lib, name).argtypes = []
+            getattr(lib, name).restype = ctypes.c_int
         _loaded["lib"] = lib
     return _loaded["lib"]

@@ -1,7 +1,10 @@
-"""Masked attention forward: the CUDA kernel's wrapper and its plain version.
+"""Masked attention: the CUDA kernels' wrappers, their plain versions, and
+the autograd Function that joins them.
 
-Counterpart of the forward half of ``vaenar_tts_tpu/ops/flash_attention.py``
-(``_fwd_kernel`` and ``_fwd_kernel_blocked``). One contract for both:
+Counterpart of ``vaenar_tts_tpu/ops/flash_attention.py``: the forward
+(``_fwd_kernel`` and ``_fwd_kernel_blocked``), the backward (``_dq_kernel``
+and ``_dkv_kernel``) and the ``masked_flash_attention`` custom VJP. One
+contract for all:
 
 * logits = q·kᵀ·scale over q, k, v of shape [B, H, T, D];
 * the mask is ``row < q_len[b] and col < m_len[b]`` (and ``col <= row`` when
@@ -11,9 +14,16 @@ Counterpart of the forward half of ``vaenar_tts_tpu/ops/flash_attention.py``
 * the softmax is fp32 and the row statistics (max m, sum of exp s) are
   returned as fp32 [B, H, Tq] beside o, which has q's dtype.
 
-``masked_flash_attention`` launches ``csrc/masked_attention_fwd.cu`` on a
-CUDA tensor, and raises if it cannot. On a CPU tensor, and only there, it
-calls ``masked_attention_reference``, which has the same signature.
+* the backward recomputes P = exp(where(mask, logits, NEG) - m) / s from
+  those statistics; dV = Pᵀ·dO counts every row, fully masked ones too, and
+  dS = P∘(dO·Vᵀ - δ) is zeroed at masked positions, δ = rowsum(dO∘O).
+
+``masked_flash_attention`` launches ``csrc/masked_attention_fwd.cu`` and
+``masked_flash_attention_backward`` the two kernels of
+``csrc/masked_attention_bwd.cu`` on CUDA tensors, and raise if they cannot.
+On CPU tensors, and only there, they call ``masked_attention_reference`` and
+``masked_attention_backward_reference``, which have the same signatures.
+``MaskedFlashAttention`` is the differentiable op the model calls.
 """
 
 from __future__ import annotations
@@ -47,6 +57,11 @@ def attention_mask(q_lengths: Optional[torch.Tensor],
     return mask
 
 
+def _acc_dtype(dtype: torch.dtype) -> torch.dtype:
+    """fp32 for the kernels' dtypes; float64 stays float64 (gradcheck)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def masked_attention_reference(q: torch.Tensor, k: torch.Tensor,
                                v: torch.Tensor,
                                q_lengths: Optional[torch.Tensor],
@@ -54,17 +69,50 @@ def masked_attention_reference(q: torch.Tensor, k: torch.Tensor,
                                scale: float, causal: bool = False
                                ) -> Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor]:
-    """The plain PyTorch version of the kernel: (o, m, s)."""
+    """The plain PyTorch version of the forward kernel: (o, m, s)."""
     B, _, Tq, _ = q.shape
     Tk = k.shape[2]
-    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    acc = _acc_dtype(q.dtype)
+    logits = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
     mask = attention_mask(q_lengths, m_lengths, B, Tq, Tk, causal, q.device)
     logits = logits.masked_fill(~mask, NEG)
     m = logits.amax(dim=-1, keepdim=True)
     p = torch.exp(logits - m)
     s = p.sum(dim=-1, keepdim=True)
-    o = torch.matmul(p / s, v.float())
+    o = torch.matmul(p / s, v.to(acc))
     return o.to(q.dtype), m[..., 0], s[..., 0]
+
+
+def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """δ = rowsum(dO∘O), fp32 [B, H, Tq], as the JAX package computes it
+    outside its kernels (``_pallas_backward``)."""
+    acc = _acc_dtype(o.dtype)
+    return (do.to(acc) * o.to(acc)).sum(dim=-1)
+
+
+def masked_attention_backward_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        q_lengths: Optional[torch.Tensor], m_lengths: Optional[torch.Tensor],
+        o: torch.Tensor, m: torch.Tensor, s: torch.Tensor, do: torch.Tensor,
+        scale: float, causal: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the backward kernels: (dq, dk, dv) from
+    the forward's (o, m, s) and the gradient ``do`` of o."""
+    B, _, Tq, _ = q.shape
+    Tk = k.shape[2]
+    acc = _acc_dtype(q.dtype)
+    qf, kf, vf, dof = q.to(acc), k.to(acc), v.to(acc), do.to(acc)
+    mask = attention_mask(q_lengths, m_lengths, B, Tq, Tk, causal, q.device)
+    logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    logits = logits.masked_fill(~mask, NEG)
+    p = torch.exp(logits - m[..., None]) / s[..., None]
+    dv = torch.matmul(p.transpose(-1, -2), dof)
+    dp = torch.matmul(dof, vf.transpose(-1, -2))
+    delta = attention_delta(o, do)[..., None]
+    ds = torch.where(mask, p * (dp - delta), torch.zeros((), dtype=acc, device=q.device))
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _check_lengths(lengths: Optional[torch.Tensor], batch: int,
@@ -77,6 +125,45 @@ def _check_lengths(lengths: Optional[torch.Tensor], batch: int,
     return lengths.to(torch.int32).contiguous()
 
 
+def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *more: torch.Tensor) -> None:
+    """Raise on anything the kernels do not take: q (and ``more``, shaped
+    like q) [B, H, Tq, D], k and v [B, H, Tk, D], one CUDA device, one dtype
+    of KERNEL_DTYPES, D in KERNEL_HEAD_DIMS, contiguous, not empty."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("q, k, v must be [B, H, T, D]")
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    if (k.shape != (B, H, Tk, D) or v.shape != k.shape
+            or any(t.shape != q.shape for t in more)):
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}, "
+                         f"{[tuple(t.shape) for t in more]}")
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the kernel takes head widths {KERNEL_HEAD_DIMS}; "
+                         f"got {D}")
+    tensors = (q, k, v, *more)
+    if q.dtype not in KERNEL_DTYPES or any(t.dtype != q.dtype for t in tensors):
+        raise ValueError(f"the kernel takes one dtype of {KERNEL_DTYPES}; got "
+                         f"{[t.dtype for t in tensors]}")
+    if any(t.device != q.device for t in tensors):
+        raise ValueError("the kernel's tensors must lie on one device")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("the kernel's tensors must be contiguous")
+    if B == 0 or H == 0 or Tq == 0 or Tk == 0:
+        raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
+
+
+def _check_device(q: torch.Tensor, name: str) -> bool:
+    """True for a CPU tensor (the plain version), False for CUDA (the
+    kernel); raise on any other device."""
+    if q.device.type == "cpu":
+        return True
+    if q.device.type != "cuda":
+        raise ValueError(f"{name} runs on cuda or cpu, not {q.device}")
+    return False
+
+
 def masked_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            q_lengths: Optional[torch.Tensor] = None,
                            m_lengths: Optional[torch.Tensor] = None,
@@ -86,31 +173,12 @@ def masked_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Masked attention; returns (o [B,H,Tq,D] in q's dtype, m and s fp32
     [B,H,Tq]). CPU tensors take the plain version; CUDA tensors launch the
     kernel on the current stream or raise."""
-    if q.device.type == "cpu":
+    if _check_device(q, "masked_flash_attention"):
         return masked_attention_reference(q, k, v, q_lengths, m_lengths,
                                           scale, causal)
-    if q.device.type != "cuda":
-        raise ValueError(f"masked_flash_attention runs on cuda or cpu, "
-                         f"not {q.device}")
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("q, k, v must be [B, H, T, D]")
+    _check_kernel_inputs(q, k, v)
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
-    if k.shape != (B, H, Tk, D) or v.shape != k.shape:
-        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the kernel takes head widths {KERNEL_HEAD_DIMS}; "
-                         f"got {D}")
-    if q.dtype not in KERNEL_DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"the kernel takes one dtype of {KERNEL_DTYPES} for "
-                         f"q, k, v; got {q.dtype}, {k.dtype}, {v.dtype}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("q, k, v must lie on one device")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("q, k, v must be contiguous")
-    if B == 0 or H == 0 or Tq == 0 or Tk == 0:
-        raise ValueError(f"empty attention: q {tuple(q.shape)}, k {tuple(k.shape)}")
     ql = _check_lengths(q_lengths, B, q.device, "q_lengths")
     ml = _check_lengths(m_lengths, B, q.device, "m_lengths")
 
@@ -132,3 +200,89 @@ def masked_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"masked_attention_fwd launch failed: CUDA error {err}")
     launch_counts["masked_attention_fwd"] += 1
     return o, m, s
+
+
+def masked_flash_attention_backward(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+        q_lengths: Optional[torch.Tensor], m_lengths: Optional[torch.Tensor],
+        o: torch.Tensor, m: torch.Tensor, s: torch.Tensor, do: torch.Tensor,
+        scale: float = 1.0, causal: bool = False
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) in the dtypes of q, k, v. CPU tensors take the plain
+    version; CUDA tensors launch the dQ kernel and the dK/dV kernel on the
+    current stream, or raise."""
+    if _check_device(q, "masked_flash_attention_backward"):
+        return masked_attention_backward_reference(
+            q, k, v, q_lengths, m_lengths, o, m, s, do, scale, causal)
+    _check_kernel_inputs(q, k, v, o, do)
+    B, H, Tq, _ = q.shape
+    for name, stat in (("m", m), ("s", s)):
+        if (stat.shape != (B, H, Tq) or stat.dtype != torch.float32
+                or stat.device != q.device or not stat.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous fp32 [{B}, {H}, {Tq}] "
+                             f"on {q.device}")
+    ql = _check_lengths(q_lengths, B, q.device, "q_lengths")
+    ml = _check_lengths(m_lengths, B, q.device, "m_lengths")
+
+    delta = attention_delta(o, do).contiguous()
+    dq = torch.empty_like(q)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        launch_backward_kernel("dq", q, k, v, do, ql, ml, m, s, delta, (dq,),
+                               scale, causal)
+        launch_backward_kernel("dkv", q, k, v, do, ql, ml, m, s, delta, (dk, dv),
+                               scale, causal)
+    return dq, dk, dv
+
+
+def launch_backward_kernel(kernel: str, q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, do: torch.Tensor,
+                           q_lengths: Optional[torch.Tensor],
+                           m_lengths: Optional[torch.Tensor], m: torch.Tensor,
+                           s: torch.Tensor, delta: torch.Tensor,
+                           outs: Tuple[torch.Tensor, ...], scale: float,
+                           causal: bool) -> None:
+    """Launch one backward kernel, ``"dq"`` (writes ``outs = (dq,)``) or
+    ``"dkv"`` (``outs = (dk, dv)``), on the current stream, and count it.
+    The tensors are taken as ``masked_flash_attention_backward`` checks
+    them: CUDA, contiguous, lengths int32 or None, ``delta`` fp32
+    [B, H, Tq]; raise if the launch fails."""
+    from . import _build
+    lib = _build.load_library()
+    B, H, Tq, D = q.shape
+    name = f"masked_attention_bwd_{kernel}"
+    err = getattr(lib, name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+        q_lengths.data_ptr() if q_lengths is not None else None,
+        m_lengths.data_ptr() if m_lengths is not None else None,
+        m.data_ptr(), s.data_ptr(), delta.data_ptr(),
+        *(t.data_ptr() for t in outs),
+        B, H, Tq, k.shape[2], D, float(scale), int(bool(causal)),
+        int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launch_counts[name] += 1
+
+
+class MaskedFlashAttention(torch.autograd.Function):
+    """Differentiable masked attention, the counterpart of the JAX
+    package's ``masked_flash_attention`` custom VJP: the forward saves
+    (q, k, v, lengths, o, m, s) and the backward recomputes P from (m, s).
+    ``apply(q, k, v, q_lengths, m_lengths, scale, causal)`` returns o."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_lengths, m_lengths, scale, causal):
+        o, m, s = masked_flash_attention(q, k, v, q_lengths, m_lengths,
+                                         scale, causal)
+        ctx.save_for_backward(q, k, v, q_lengths, m_lengths, o, m, s)
+        ctx.scale, ctx.causal = scale, causal
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, q_lengths, m_lengths, o, m, s = ctx.saved_tensors
+        dq, dk, dv = masked_flash_attention_backward(
+            q, k, v, q_lengths, m_lengths, o, m, s, do.contiguous(),
+            ctx.scale, ctx.causal)
+        return dq, dk, dv, None, None, None, None

@@ -1,0 +1,179 @@
+"""Train, dev and init steps (counterpart of
+``vaenar_tts_tpu/training/steps.py``).
+
+The state is the model itself (parameters and BatchNorm buffers) and a
+``torch.optim.Adam`` with the JAX package's b1, b2 and eps. The total loss
+is mel_l2 + kl_weight * max(kl, 0) + length_weight * len_l2, where len_l2
+includes the quantile head's pinball term; the dev loss uses the unclamped
+kl. Metrics report ``len_l2`` without the pinball term and the pinball term
+as ``len_pinball``, as the JAX steps do.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, Optional
+
+import torch
+from torch import nn
+
+from ..configs.hparams import HParams
+from ..models.flow import ActNorm, InvertibleLinear, TransformerTransform
+from ..models.layers import BatchNorm
+from ..models.posterior import TransformerPosterior
+from ..models.vaenar import VAENAR, resolve_device
+
+# flax's truncated normal: N(0, 1) cut at +-2, rescaled to unit variance
+_TRUNC_STD = 0.87962566103423978
+
+
+def _lecun_normal_(weight: torch.Tensor, fan_in: int, generator: torch.Generator) -> None:
+    std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+    nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+@torch.no_grad()
+def init_parameters(model: VAENAR, seed: int) -> VAENAR:
+    """Fresh parameters in flax's initializer families, drawn on the CPU from
+    a generator seeded with ``seed``: Dense and Conv kernels lecun_normal
+    (truncated normal, variance 1 / fan_in) with zero biases; the embedding
+    N(0, 1 / width); LayerNorm and BatchNorm scale 1, bias 0, running mean 0
+    and var 1; ActNorm log_scale N(0, 0.05²) and bias 0; InvertibleLinear
+    orthogonal; every pos_weight 1; and the zero-initialised heads: each
+    coupling's log-scale and shift projections (so every coupling starts as
+    the identity) and the posterior's mu and logvar."""
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    for module in model.modules():
+        if isinstance(module, nn.Linear):
+            _lecun_normal_(module.weight, module.in_features, g)
+            if module.bias is not None:
+                module.bias.zero_()
+        elif isinstance(module, nn.Conv1d):
+            _lecun_normal_(module.weight, module.in_channels * module.kernel_size[0], g)
+            module.bias.zero_()
+        elif isinstance(module, nn.Embedding):
+            module.weight.normal_(0.0, 1.0 / math.sqrt(module.embedding_dim), generator=g)
+        elif isinstance(module, (nn.LayerNorm, BatchNorm)):
+            module.reset_parameters()
+        elif isinstance(module, ActNorm):
+            module.log_scale.normal_(0.0, 0.05, generator=g)
+            module.bias.zero_()
+        elif isinstance(module, InvertibleLinear):
+            nn.init.orthogonal_(module.weight, generator=g)
+    for name, param in model.named_parameters():
+        if name.endswith("pos_weight"):
+            param.fill_(1.0)
+    for module in model.modules():
+        heads = ()
+        if isinstance(module, TransformerTransform):
+            heads = (module.log_scale_projection, module.shift_projection)
+        elif isinstance(module, TransformerPosterior):
+            heads = (module.mu_projection, module.logvar_projection)
+        for head in heads:
+            head.weight.zero_()
+            head.bias.zero_()
+    return model
+
+
+def init_model(hp: HParams, seed: int, device="cuda") -> VAENAR:
+    """A freshly initialised VAENAR on ``device`` (see ``init_parameters``)."""
+    dev = resolve_device(device)
+    return init_parameters(VAENAR(hp), seed).to(dev)
+
+
+def make_optimizer(hp: HParams, model: nn.Module) -> torch.optim.Adam:
+    """Adam(learning_rate, b1, b2, eps) as the JAX package's optax.adam:
+    both apply lr * m̂ / (sqrt(v̂) + eps)."""
+    return torch.optim.Adam(model.parameters(), lr=hp.train.learning_rate,
+                            betas=(hp.train.adam_beta1, hp.train.adam_beta2),
+                            eps=hp.train.adam_eps)
+
+
+def _metrics(mel_l2, kl, length_loss, pinball, total) -> Dict[str, torch.Tensor]:
+    m = {"total": total, "mel_l2": mel_l2, "kl": kl}
+    if pinball is None:
+        m["len_l2"] = length_loss
+    else:
+        m["len_l2"] = length_loss - pinball
+        m["len_pinball"] = pinball
+    return {k: v.detach() for k, v in m.items()}
+
+
+def train_step(model: VAENAR, optimizer: torch.optim.Optimizer, hp: HParams,
+               texts: torch.Tensor, mels: torch.Tensor, t_lens: torch.Tensor,
+               m_lens: torch.Tensor, kl_weight: float, reduction_factor: int,
+               generator: Optional[torch.Generator] = None,
+               epsilon: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """One Adam update on the batch. With ``hp.train.grad_accum = A > 1``
+    the batch is split into A equal micro-batches whose gradients are
+    averaged before the one update; BatchNorm's running statistics carry
+    from one micro-batch to the next. Returns the metrics (device scalars,
+    averaged over the micro-batches). ``epsilon``: the posterior noise of
+    the whole batch, [B, n, T_reduced, latent], in place of draws from
+    ``generator``."""
+    accum = max(1, int(hp.train.grad_accum))
+    batch = texts.shape[0]
+    if batch % accum:
+        raise ValueError(f"grad_accum={accum} must divide batch size {batch}")
+    size = batch // accum
+    optimizer.zero_grad(set_to_none=True)
+    sums: Dict[str, torch.Tensor] = {}
+    for i in range(accum):
+        part = slice(i * size, (i + 1) * size)
+        _, mel_l2, kl, length_loss, pinball = model(
+            texts[part], mels[part], m_lens[part], t_lens[part],
+            reduction_factor=reduction_factor, train=True, reduce_loss=True,
+            generator=generator,
+            epsilon=None if epsilon is None else epsilon[part])
+        loss = (mel_l2 + kl_weight * torch.clamp(kl, min=0.0)
+                + hp.train.length_weight * length_loss)
+        (loss / accum).backward()
+        for k, v in _metrics(mel_l2, kl, length_loss, pinball, loss).items():
+            sums[k] = sums[k] + v if k in sums else v
+    optimizer.step()
+    return {k: v / accum for k, v in sums.items()}
+
+
+@torch.no_grad()
+def dev_step(model: VAENAR, hp: HParams, texts: torch.Tensor, mels: torch.Tensor,
+             t_lens: torch.Tensor, m_lens: torch.Tensor, kl_weight: float,
+             valid_mask: torch.Tensor, reduction_factor: int,
+             generator: Optional[torch.Generator] = None,
+             epsilon: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+    """Eval losses (dropout off, BatchNorm on running statistics): the
+    per-example losses averaged over the rows where ``valid_mask`` is 1 (a
+    repeat-padded tail batch counts only its real rows), kl unclamped."""
+    _, mel_l2, kl, length_loss, pinball = model(
+        texts, mels, m_lens, t_lens, reduction_factor=reduction_factor,
+        train=False, reduce_loss=False, generator=generator, epsilon=epsilon)
+    n_valid = valid_mask.sum()
+
+    def vmean(x):
+        return (x * valid_mask).sum() / n_valid
+
+    mel_l2, kl, length_loss = vmean(mel_l2), vmean(kl), vmean(length_loss)
+    total = mel_l2 + kl_weight * kl + hp.train.length_weight * length_loss
+    return _metrics(mel_l2, kl, length_loss,
+                    None if pinball is None else vmean(pinball), total)
+
+
+@torch.no_grad()
+def run_data_dependent_init(model: VAENAR, texts: torch.Tensor,
+                            t_lens: torch.Tensor, m_lens: torch.Tensor,
+                            max_mel_length: int,
+                            generator: Optional[torch.Generator] = None,
+                            epsilon: Optional[torch.Tensor] = None) -> None:
+    """The cold start's init step: one ``init_pass`` on the batch, whose
+    ActNorm statistics become the flow's initial parameters. The BatchNorm
+    running statistics that the pass moves are put back, as the JAX package
+    keeps only the pass's ``flow_init``."""
+    buffers = {name: b.clone() for name, b in model.named_buffers()}
+    flow_init = model.init_pass(texts, m_lens, t_lens, max_mel_length,
+                                generator=generator, epsilon=epsilon)
+    for name, b in model.named_buffers():
+        b.copy_(buffers[name])
+    model.merge_flow_init(flow_init)
+
+
+def metric_floats(metrics: Dict[str, torch.Tensor]) -> Dict[str, float]:
+    return {k: float(v) for k, v in metrics.items()}

@@ -1,0 +1,78 @@
+"""Training checkpoints: ``model_dir/<epoch>/state.pt`` (``torch.save``) of
+{model: parameters and BatchNorm buffers, optimizer: Adam's state, epoch}.
+
+The counterpart of ``vaenar_tts_tpu/utils/checkpoint.py`` (Orbax) with its
+retention contract: the newest ``max_to_keep`` checkpoints stay, and of the
+older ones a checkpoint also stays when it was saved at least
+``keep_every_n_hours`` after the last older one that stayed. Directories are
+named by the epoch alone, as the training CLI's resume check expects; a save
+goes to ``<epoch>.tmp`` first and is renamed into place.
+"""
+
+from __future__ import annotations
+
+import os
+import shutil
+from typing import List, Optional
+
+import torch
+
+STATE_NAME = "state.pt"
+
+
+class CheckpointManager:
+    def __init__(self, model_dir: str, max_to_keep: int = 20,
+                 keep_every_n_hours: float = 4.0):
+        self.model_dir = os.path.abspath(model_dir)
+        self.max_to_keep = max_to_keep
+        self.keep_seconds = keep_every_n_hours * 3600.0
+        os.makedirs(self.model_dir, exist_ok=True)
+
+    def epochs(self) -> List[int]:
+        return sorted(int(e) for e in os.listdir(self.model_dir)
+                      if e.isdigit() and os.path.isfile(
+                          os.path.join(self.model_dir, e, STATE_NAME)))
+
+    def latest_epoch(self) -> Optional[int]:
+        epochs = self.epochs()
+        return epochs[-1] if epochs else None
+
+    def save(self, epoch: int, model: torch.nn.Module,
+             optimizer: Optional[torch.optim.Optimizer] = None) -> str:
+        final = os.path.join(self.model_dir, str(epoch))
+        tmp = final + ".tmp"
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        torch.save({"model": model.state_dict(),
+                    "optimizer": optimizer.state_dict() if optimizer else None,
+                    "epoch": int(epoch)}, os.path.join(tmp, STATE_NAME))
+        shutil.rmtree(final, ignore_errors=True)
+        os.replace(tmp, final)
+        self._prune()
+        return final
+
+    def _prune(self) -> None:
+        epochs = self.epochs()
+        kept_time = None
+        for e in epochs[:max(0, len(epochs) - self.max_to_keep)]:
+            path = os.path.join(self.model_dir, str(e))
+            saved = os.path.getmtime(os.path.join(path, STATE_NAME))
+            if kept_time is None or saved - kept_time >= self.keep_seconds:
+                kept_time = saved
+                continue
+            shutil.rmtree(path)
+
+    def restore(self, model: torch.nn.Module,
+                optimizer: Optional[torch.optim.Optimizer] = None) -> Optional[int]:
+        """Load the latest checkpoint into ``model`` (and ``optimizer``), on
+        the model's device; return its epoch, or None when there is none."""
+        epoch = self.latest_epoch()
+        if epoch is None:
+            return None
+        state = torch.load(os.path.join(self.model_dir, str(epoch), STATE_NAME),
+                           map_location=next(model.parameters()).device,
+                           weights_only=True)
+        model.load_state_dict(state["model"], strict=True)
+        if optimizer is not None and state["optimizer"] is not None:
+            optimizer.load_state_dict(state["optimizer"])
+        return int(state["epoch"])

@@ -175,7 +175,7 @@ def test_prior_forward_stack_with_injected_noise(tiny):
 @pytest.mark.slow
 def test_shipped_export_matches_jax():
     """The shipped LJSpeech model at full width, in fp32 on both sides (the
-    export's hparams say bfloat16, which the JAX package uses on the TPU)."""
+    export's hparams say bfloat16; both packages take the override)."""
     import dataclasses
     from vaenar_tts_tpu.configs.serialize import load_hparams
     from vaenar_tts_torch.models.vaenar import load_model
@@ -184,7 +184,7 @@ def test_shipped_export_matches_jax():
     hp = hp.replace(train=dataclasses.replace(hp.train, compute_dtype="float32"))
     state = jax_load_npz(os.path.join(SHIPPED, "export.npz"))
     variables = {"params": state["params"], "batch_stats": state["batch_stats"]}
-    _, port, _ = load_model(SHIPPED, device="cpu")
+    _, port, _ = load_model(SHIPPED, device="cpu", compute_dtype="float32")
     batch, text_lens = _batch(hp, ["Printing, in the only sense with which we "
                                    "are at present concerned."])
     max_mel = pad_to_multiple(int(batch.shape[1] * hp.common.mel_text_len_ratio * 2)

@@ -8,8 +8,11 @@ One mel per non-empty line is written to ``OUT/test-<epoch>-<line>.npy``,
 trimmed to its predicted length. Runs on ``cuda`` unless ``--device cpu``.
 Text and mel lengths are bucketed as the JAX CLI does them: the text to a
 multiple of ``text_bucket``, the mel to ``text_max * ratio * 2 + 160``
-rounded up to ``mel_bucket``. One take per line; multi-take selection,
-alignment plots and wavs are not part of this port yet.
+rounded up to ``mel_bucket``. The model runs in the compute dtype of the
+model directory's ``hparams.json`` (``train.compute_dtype``) unless
+``--compute_dtype`` says otherwise; the mels are written as fp32. One take
+per line; multi-take selection, alignment plots and wavs are not part of
+this port yet.
 """
 
 from __future__ import annotations
@@ -80,7 +83,7 @@ def synthesize_batch(model: VAENAR, hp: HParams, token_ids: Sequence[Sequence[in
 
 def synthesize_from_text(args) -> List[str]:
     device = resolve_device(args.device)
-    hp, model, epoch = load_model(args.model_dir, device)
+    hp, model, epoch = load_model(args.model_dir, device, args.compute_dtype)
     use_q = resolve_length_source(args.length_source, hp)
     with open(args.text) as f:
         lines = [line.strip() for line in f if line.strip()]
@@ -95,7 +98,7 @@ def synthesize_from_text(args) -> List[str]:
         mels, lens = synthesize_batch(
             model, hp, token_ids[lo:lo + args.batch_size], args.temperature,
             use_q, args.length_headroom, generator)
-        mels, lens = mels.float().cpu().numpy(), lens.cpu().numpy()
+        mels, lens = mels.cpu().numpy(), lens.cpu().numpy()
         for i in range(len(lens)):
             path = os.path.join(args.test_dir, f"test-{epoch}-{lo + i}.npy")
             np.save(path, mels[i, :int(lens[i])])
@@ -124,6 +127,10 @@ def main(argv=None) -> None:
     parser.add_argument("--length_headroom", type=int, default=0)
     parser.add_argument("--length_source", type=str, default="auto",
                         choices=["auto", "mean", "quantile"])
+    parser.add_argument("--compute_dtype", type=str, default=None,
+                        choices=["float32", "bfloat16"],
+                        help="override the transformer compute dtype of the "
+                             "model's hparams.json (parameters are fp32)")
     parser.add_argument("--sample_seed", type=int, default=0,
                         help="seed of the torch.Generator that draws the "
                              "prior noise")

@@ -4,7 +4,9 @@ Frozen dataclasses with the field names and defaults of the JAX package,
 holding only the fields that the port's synthesis and training read: a
 ``hparams.json`` written by JAX training loads unchanged, and the rest of it
 (the audio front end, the TPU knobs, test-interval and probe settings) is
-ignored. The port computes in fp32 whatever ``train.compute_dtype`` says.
+ignored. ``train.compute_dtype`` ("bfloat16", the default, or "float32") is
+the transformer stacks' dtype, as in the JAX package; the flow stays fp32
+(``models/vaenar.py``).
 """
 
 from __future__ import annotations
@@ -30,11 +32,18 @@ class TrainConfig:
     adam_eps: float = 1e-7
     reduction_factors: Tuple[int, ...] = (5, 4, 3, 2)
     reduce_interval: Tuple[int, ...] = (0, 200, 400, 600)
+    # transformer-stack dtype on fp32 parameters; the flow stays fp32
+    compute_dtype: str = "bfloat16"
     # micro-batches per step: gradients averaged, one Adam update
     grad_accum: int = 1
     checkpoint_max_to_keep: int = 20
     checkpoint_keep_every_n_hours: float = 4.0
     checkpoint_every_n_epochs: int = 1
+
+    def __post_init__(self):
+        if self.compute_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"train.compute_dtype must be 'float32' or 'bfloat16'; "
+                             f"got {self.compute_dtype!r}")
 
     def kl_weight_at(self, epoch: int) -> float:
         """KL-anneal schedule (``vaenar_tts_tpu/configs/hparams.py:119``)."""

@@ -3,9 +3,14 @@
 
 Every attention goes through ``ops.flash_attention.MaskedFlashAttention``:
 the hand-written forward kernel and, for the gradient, the two backward
-kernels on CUDA tensors; their plain versions on CPU tensors.
+kernels on CUDA tensors; their plain versions on CPU tensors. q, k and v
+reach it in the compute dtype (the projections' output), and o comes back
+in it.
 The blocks keep the reference's concat(input, context) -> Dense -> residual
--> LayerNorm topology. Alignments are never materialized on this path.
+-> LayerNorm topology, with the JAX package's promotions: a block whose
+input is fp32 (the first block after a positional encoding) concatenates
+and adds in fp32, and its LayerNorm returns the compute dtype. Alignments
+are never materialized on this path.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import torch
 from torch import nn
 
 from ..ops.flash_attention import MaskedFlashAttention, attention_mask
-from .layers import FFN, LN_EPS
+from .layers import FFN, Dense, LayerNorm
 
 __all__ = ["attention_mask", "MultiHeadAttention", "SelfAttentionBlock",
            "CrossAttentionBlock"]
@@ -29,7 +34,8 @@ class MultiHeadAttention(nn.Module):
     causal band; returns [B, Tq, attention_dim]."""
 
     def __init__(self, query_dim: int, memory_dim: int, attention_dim: int,
-                 num_heads: int, temperature: float = 1.0):
+                 num_heads: int, temperature: float = 1.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if attention_dim % num_heads:
             raise ValueError(f"attention_dim {attention_dim} is not a "
@@ -37,9 +43,9 @@ class MultiHeadAttention(nn.Module):
         self.num_heads = num_heads
         self.head_dim = attention_dim // num_heads
         self.scale = 1.0 / (math.sqrt(float(self.head_dim)) * temperature)
-        self.query_layer = nn.Linear(query_dim, attention_dim, bias=False)
-        self.key_layer = nn.Linear(memory_dim, attention_dim, bias=False)
-        self.value_layer = nn.Linear(memory_dim, attention_dim, bias=False)
+        self.query_layer = Dense(query_dim, attention_dim, bias=False, dtype=dtype)
+        self.key_layer = Dense(memory_dim, attention_dim, bias=False, dtype=dtype)
+        self.value_layer = Dense(memory_dim, attention_dim, bias=False, dtype=dtype)
 
     def _split(self, x: torch.Tensor) -> torch.Tensor:
         b, t, _ = x.shape
@@ -62,13 +68,15 @@ class SelfAttentionBlock(nn.Module):
     """MHA -> concat(input, ctx) -> Dense(input_dim) -> residual + LN -> FFN."""
 
     def __init__(self, input_dim: int, attention_dim: int, attention_heads: int,
-                 attention_temperature: float = 1.0, ffn_hidden: int = 1024):
+                 attention_temperature: float = 1.0, ffn_hidden: int = 1024,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.attention = MultiHeadAttention(input_dim, input_dim, attention_dim,
-                                            attention_heads, attention_temperature)
-        self.att_proj = nn.Linear(input_dim + attention_dim, input_dim)
-        self.layer_norm = nn.LayerNorm(input_dim, eps=LN_EPS)
-        self.ffn = FFN(input_dim, ffn_hidden)
+                                            attention_heads, attention_temperature,
+                                            dtype)
+        self.att_proj = Dense(input_dim + attention_dim, input_dim, dtype=dtype)
+        self.layer_norm = LayerNorm(input_dim, dtype)
+        self.ffn = FFN(input_dim, ffn_hidden, dtype)
 
     def forward(self, inputs, memory, query_lengths=None, memory_lengths=None,
                 causal: bool = False) -> torch.Tensor:
@@ -85,19 +93,19 @@ class CrossAttentionBlock(nn.Module):
 
     def __init__(self, input_dim: int, memory_dim: int, attention_dim: int,
                  attention_heads: int, attention_temperature: float = 1.0,
-                 ffn_hidden: int = 1024):
+                 ffn_hidden: int = 1024, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.self_attention = MultiHeadAttention(
             input_dim, input_dim, attention_dim, attention_heads,
-            attention_temperature)
-        self.att_proj1 = nn.Linear(input_dim + attention_dim, input_dim)
-        self.layer_norm1 = nn.LayerNorm(input_dim, eps=LN_EPS)
+            attention_temperature, dtype)
+        self.att_proj1 = Dense(input_dim + attention_dim, input_dim, dtype=dtype)
+        self.layer_norm1 = LayerNorm(input_dim, dtype)
         self.cross_attention = MultiHeadAttention(
             input_dim, memory_dim, attention_dim, attention_heads,
-            attention_temperature)
-        self.att_proj2 = nn.Linear(input_dim + attention_dim, attention_dim)
-        self.layer_norm2 = nn.LayerNorm(attention_dim, eps=LN_EPS)
-        self.ffn = FFN(attention_dim, ffn_hidden)
+            attention_temperature, dtype)
+        self.att_proj2 = Dense(input_dim + attention_dim, attention_dim, dtype=dtype)
+        self.layer_norm2 = LayerNorm(attention_dim, dtype)
+        self.ffn = FFN(attention_dim, ffn_hidden, dtype)
 
     def forward(self, inputs, memory, query_lengths=None,
                 memory_lengths=None) -> torch.Tensor:

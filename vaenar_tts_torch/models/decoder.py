@@ -2,7 +2,9 @@
 ``vaenar_tts_tpu/models/decoder.py``): pre-projection -> N
 CrossAttentionBlocks over the text -> linear head of out_dim *
 max_reduction_factor, sliced to r * out_dim and reshaped to r frames per
-latent step -> PostNet residual."""
+latent step -> PostNet residual. All in the compute dtype: at bfloat16 the
+mels come out bf16, and the losses and the synthesis entry points cast them
+to fp32."""
 
 from __future__ import annotations
 
@@ -12,7 +14,7 @@ import torch
 from torch import nn
 
 from .attention import CrossAttentionBlock
-from .layers import PostNet
+from .layers import Dense, PostNet
 
 
 class TransformerDecoder(nn.Module):
@@ -20,20 +22,21 @@ class TransformerDecoder(nn.Module):
                  attention_dim: int, attention_heads: int, temperature: float,
                  ffn_hidden: int, post_n_conv: int, post_conv_filters: int,
                  post_conv_kernel: int, out_dim: int,
-                 max_reduction_factor: int, post_drop_rate: float = 0.0):
+                 max_reduction_factor: int, post_drop_rate: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.out_dim = out_dim
-        self.pre_projection = nn.Linear(latent_dim, attention_dim)
+        self.pre_projection = Dense(latent_dim, attention_dim, dtype=dtype)
         self.names = [f"decoder_attention_{i}" for i in range(nblk)]
         for name in self.names:
             self.add_module(name, CrossAttentionBlock(
                 attention_dim, memory_dim, attention_dim, attention_heads,
-                temperature, ffn_hidden))
-        self.linear_outputs = nn.Linear(attention_dim,
-                                        out_dim * max_reduction_factor)
+                temperature, ffn_hidden, dtype))
+        self.linear_outputs = Dense(attention_dim, out_dim * max_reduction_factor,
+                                    dtype=dtype)
         self.postnet = PostNet(out_dim, post_n_conv, post_conv_filters,
-                               post_conv_kernel, post_drop_rate)
-        self.residual_outputs = nn.Linear(post_conv_filters, out_dim)
+                               post_conv_kernel, post_drop_rate, dtype)
+        self.residual_outputs = Dense(post_conv_filters, out_dim, dtype=dtype)
 
     def forward(self, inputs, text_embd, z_lengths=None, text_lengths=None,
                 reduction_factor: int = 2, train: bool = False,

@@ -1,7 +1,8 @@
 """Transformer text encoder (counterpart of
 ``vaenar_tts_tpu/models/encoder.py``): Embedding -> ConvPreNet -> positional
 encoding scaled by a trained ``pos_weight`` at a fractional step -> dropout
--> N SelfAttentionBlocks."""
+-> N SelfAttentionBlocks. In the compute dtype, with the positional sum in
+fp32 as the JAX package's promotion makes it."""
 
 from __future__ import annotations
 
@@ -11,7 +12,7 @@ import torch
 from torch import nn
 
 from .attention import SelfAttentionBlock
-from .layers import ConvPreNet, dropout, positional_encoding
+from .layers import ConvPreNet, Embedding, add_positions, dropout
 
 
 class TransformerEncoder(nn.Module):
@@ -20,29 +21,28 @@ class TransformerEncoder(nn.Module):
                  bn_before_act: bool, nblk: int, attention_dim: int,
                  attention_heads: int, attention_temperature: float,
                  ffn_hidden: int, prenet_drop_rate: float = 0.0,
-                 pos_drop_rate: float = 0.0):
+                 pos_drop_rate: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pos_drop_rate = pos_drop_rate
-        self.text_init_encoding = nn.Embedding(vocab_size, embd_dim)
+        self.compute_dtype = dtype
+        self.text_init_encoding = Embedding(vocab_size, embd_dim, dtype)
         self.EncoderPrenet = ConvPreNet(embd_dim, pre_nconv, pre_hidden,
                                         pre_conv_kernel, pre_activation,
-                                        bn_before_act, prenet_drop_rate)
+                                        bn_before_act, prenet_drop_rate, dtype)
         self.pos_weight = nn.Parameter(torch.ones(()))
         self.names = [f"self_attention{i}" for i in range(nblk)]
         for name in self.names:
             self.add_module(name, SelfAttentionBlock(
                 pre_hidden, attention_dim, attention_heads,
-                attention_temperature, ffn_hidden))
+                attention_temperature, ffn_hidden, dtype))
 
     def forward(self, inputs: torch.Tensor, input_lengths=None,
                 pos_step: float = 1.0, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """[B, T] int token ids -> [B, T, pre_hidden]."""
         x = self.EncoderPrenet(self.text_init_encoding(inputs), train, generator)
-        pos = positional_encoding(x.shape[1], x.shape[2], step=pos_step,
-                                  device=x.device)
-        x = dropout(x + self.pos_weight * pos[None], self.pos_drop_rate, train,
-                    generator)
+        x = dropout(add_positions(x, self.pos_weight, self.compute_dtype, pos_step),
+                    self.pos_drop_rate, train, generator)
         for name in self.names:
             x = getattr(self, name)(x, x, input_lengths, input_lengths)
         return x

@@ -6,9 +6,13 @@ log-probability of a latent, ``reverse=True``), and returns its output with
 the per-example logdet of that direction. ActNorm also has the
 data-dependent init of a cold start.
 
-Flow math is fp32. On CUDA the model turns TF32 off for matmuls and cuDNN
-(``models.vaenar.resolve_device``), which this channel mix, its inverse and
-its slogdet need to stay invertible.
+Flow math is fp32 whatever the compute dtype: ActNorm, the channel mix, its
+inverse and slogdet, the affine coupling and every logdet. Only the
+coupling's conditioning net (``TransformerTransform``) runs in the compute
+dtype, and the coupling casts its scale and shift back to fp32. On CUDA the
+model turns TF32 off for matmuls and cuDNN (``models.vaenar.resolve_device``),
+which this channel mix, its inverse and its slogdet need to stay
+invertible.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 from torch import nn
 
 from .attention import CrossAttentionBlock
-from .layers import positional_encoding, sequence_mask
+from .layers import Dense, add_positions, sequence_mask
 
 
 def _length_logdet(logdet_scalar: torch.Tensor, lengths: Optional[torch.Tensor],
@@ -93,23 +97,23 @@ class TransformerTransform(nn.Module):
 
     def __init__(self, in_dim: int, memory_dim: int, nblk: int,
                  attention_dim: int, attention_heads: int, temperature: float,
-                 ffn_hidden: int, out_dim: int):
+                 ffn_hidden: int, out_dim: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.pre_projection = nn.Linear(in_dim, attention_dim)
+        self.compute_dtype = dtype
+        self.pre_projection = Dense(in_dim, attention_dim, dtype=dtype)
         self.pos_weight = nn.Parameter(torch.ones(()))
         self.names = [f"attention_{i}" for i in range(nblk)]
         for name in self.names:
             self.add_module(name, CrossAttentionBlock(
                 attention_dim, memory_dim, attention_dim, attention_heads,
-                temperature, ffn_hidden))
-        self.log_scale_projection = nn.Linear(attention_dim, out_dim)
-        self.shift_projection = nn.Linear(attention_dim, out_dim)
+                temperature, ffn_hidden, dtype))
+        self.log_scale_projection = Dense(attention_dim, out_dim, dtype=dtype)
+        self.shift_projection = Dense(attention_dim, out_dim, dtype=dtype)
 
     def forward(self, inputs, condition_inputs, condition_lengths=None,
                 target_lengths=None) -> Tuple[torch.Tensor, torch.Tensor]:
-        x = self.pre_projection(inputs)
-        pos = positional_encoding(x.shape[1], x.shape[2], device=x.device)
-        x = x + self.pos_weight * pos[None]
+        x = add_positions(self.pre_projection(inputs), self.pos_weight,
+                          self.compute_dtype)
         for name in self.names:
             x = getattr(self, name)(x, condition_inputs, target_lengths,
                                     condition_lengths)
@@ -125,14 +129,15 @@ class TransformerCoupling(nn.Module):
 
     def __init__(self, channels: int, memory_dim: int, nblk: int,
                  attention_dim: int, attention_heads: int, temperature: float,
-                 ffn_hidden: int, order: str = "upper"):
+                 ffn_hidden: int, order: str = "upper",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         if order not in ("upper", "lower"):
             raise ValueError(f"order must be 'upper' or 'lower', got {order!r}")
         self.order = order
         self.net = TransformerTransform(
             channels // 2, memory_dim, nblk, attention_dim, attention_heads,
-            temperature, ffn_hidden, channels // 2)
+            temperature, ffn_hidden, channels // 2, dtype)
 
     def forward(self, inputs, condition_inputs, inputs_lengths=None,
                 condition_lengths=None, reverse: bool = False,

@@ -12,6 +12,17 @@ JAX package, not through ``nn.Module.train()``: with ``train=True`` dropout
 draws its mask from the caller's ``torch.Generator`` and BatchNorm
 normalises with the batch's statistics and updates its running ones the way
 flax does (``BatchNorm`` below).
+
+Compute dtype. Every module takes a ``dtype`` (``train.compute_dtype``:
+fp32 or bf16), the counterpart of flax's ``dtype=`` field, and rounds where
+flax does, by explicit casts (``torch.autocast`` rounds elsewhere: it keeps
+LayerNorm's output fp32, for one). Parameters and BatchNorm statistics stay
+fp32. ``Dense``, ``Conv`` and ``Embedding`` cast their input, weight and
+bias to the dtype and return it: the product is rounded to it, then the bias
+is added in it, as ``flax.linen.Dense`` does. ``LayerNorm`` and
+``BatchNorm`` take their statistics and normalise in fp32 and return the
+dtype. Elementwise operations follow the promotion of their operands, which
+for tensors with dimensions is JAX's (bf16 with fp32 gives fp32).
 """
 
 from __future__ import annotations
@@ -24,6 +35,8 @@ from torch import nn
 
 LN_EPS = 1e-3
 BN_EPS = 1e-3
+# ``train.compute_dtype`` -> the torch dtype the transformer stacks run in
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 _ACTIVATIONS = {
     "relu": torch.relu,
@@ -49,6 +62,65 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
+class Dense(nn.Linear):
+    """flax ``nn.Dense(dtype=dtype)``. In fp32 one ``F.linear``; in bf16 the
+    input, weight and bias are cast, the product rounded to bf16 and the
+    bias added in bf16."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return F.linear(x.float(), self.weight, self.bias)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+class Conv(nn.Conv1d):
+    """flax ``nn.Conv(dtype=dtype)`` on [batch, channels, time] that the
+    caller has padded: in bf16 the input and weight are cast, the product
+    rounded to bf16 and the bias added in bf16."""
+
+    def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(in_channels, out_channels, kernel_size)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x.float())
+        return F.conv1d(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)[None, :, None]
+
+
+class Embedding(nn.Embedding):
+    """flax ``nn.Embed(dtype=dtype)``: rows of the fp32 table, in dtype."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__(num_embeddings, embedding_dim)
+        self.compute_dtype = dtype
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        return super().forward(ids).to(self.compute_dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm(epsilon=1e-3, dtype=dtype)``: statistics and
+    normalisation in fp32, the result in dtype."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
+        super().__init__(dim, eps=LN_EPS)
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.float()).to(self.compute_dtype)
+
+
 class BatchNorm(nn.BatchNorm1d):
     """BatchNorm over [batch, channels, time] with flax's semantics.
 
@@ -59,15 +131,19 @@ class BatchNorm(nn.BatchNorm1d):
     biased variance. ``nn.BatchNorm1d`` in training mode would update
     ``running_var`` with the unbiased variance instead, and drift from the
     JAX package from the first step. Torch momentum 0.01 is flax momentum
-    0.99; the parameter and buffer names are ``nn.BatchNorm1d``'s."""
+    0.99; the parameter and buffer names are ``nn.BatchNorm1d``'s. Both
+    modes compute in fp32 and return ``dtype``, as flax's ``dtype=``."""
 
-    def __init__(self, channels: int):
+    def __init__(self, channels: int, dtype: torch.dtype = torch.float32):
         super().__init__(channels, eps=BN_EPS, momentum=0.01)
+        self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        x = x.float()
         if not train:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, False, 0.0, self.eps)
+            y = F.batch_norm(x, self.running_mean, self.running_var,
+                             self.weight, self.bias, False, 0.0, self.eps)
+            return y.to(self.compute_dtype)
         mean = x.mean(dim=(0, 2))
         var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
         with torch.no_grad():
@@ -75,7 +151,8 @@ class BatchNorm(nn.BatchNorm1d):
             self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)
             self.num_batches_tracked.add_(1)
         mul = torch.rsqrt(var + self.eps) * self.weight
-        return (x - mean[None, :, None]) * mul[None, :, None] + self.bias[None, :, None]
+        y = (x - mean[None, :, None]) * mul[None, :, None] + self.bias[None, :, None]
+        return y.to(self.compute_dtype)
 
 
 def sequence_mask(lengths: torch.Tensor, maxlen: int,
@@ -101,15 +178,26 @@ def positional_encoding(length: int, dim: int, step: float = 1.0,
                        torch.cos(angle_odd))
 
 
+def add_positions(x: torch.Tensor, pos_weight: torch.Tensor, dtype: torch.dtype,
+                  step: float = 1.0) -> torch.Tensor:
+    """x + pos_weight * PE as the JAX package computes it: the encoding is
+    made in ``dtype`` (rounded to it), and the fp32 ``pos_weight`` parameter
+    promotes the product, and so the sum, to fp32 (JAX promotes with a 0-d
+    array; torch would not, hence the explicit ``float()``)."""
+    pos = positional_encoding(x.shape[1], x.shape[2], step=step, device=x.device)
+    return x + pos_weight * pos.to(dtype).float()[None]
+
+
 class Conv1D(nn.Module):
     """SAME-padded conv -> BatchNorm around the activation -> dropout."""
 
     def __init__(self, in_channels: int, filters: int, kernel_size: int,
                  activation: Optional[str] = "relu",
-                 bn_before_act: bool = False, drop_rate: float = 0.0):
+                 bn_before_act: bool = False, drop_rate: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.conv1d = nn.Conv1d(in_channels, filters, kernel_size)
-        self.batch_norm = BatchNorm(filters)
+        self.conv1d = Conv(in_channels, filters, kernel_size, dtype)
+        self.batch_norm = BatchNorm(filters, dtype)
         self.act = get_activation(activation)
         self.bn_before_act = bn_before_act
         self.drop_rate = drop_rate
@@ -131,14 +219,15 @@ class ConvPreNet(nn.Module):
 
     def __init__(self, in_channels: int, nconv: int, hidden: int,
                  conv_kernel: int, activation: str = "relu",
-                 bn_before_act: bool = True, drop_rate: float = 0.0):
+                 bn_before_act: bool = True, drop_rate: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.names = [f"PreNetConv{i}" for i in range(nconv)]
         for i, name in enumerate(self.names):
             self.add_module(name, Conv1D(in_channels if i == 0 else hidden,
                                          hidden, conv_kernel, activation,
-                                         bn_before_act, drop_rate))
-        self.projection = nn.Linear(hidden, hidden)
+                                         bn_before_act, drop_rate, dtype))
+        self.projection = Dense(hidden, hidden, dtype=dtype)
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -151,10 +240,10 @@ class PreNet(nn.Module):
     """2 x (Dense -> activation -> dropout)."""
 
     def __init__(self, in_dim: int, units: int, activation: str = "relu",
-                 drop_rate: float = 0.0):
+                 drop_rate: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dense_1 = nn.Linear(in_dim, units)
-        self.dense_2 = nn.Linear(units, units)
+        self.dense_1 = Dense(in_dim, units, dtype=dtype)
+        self.dense_2 = Dense(units, units, dtype=dtype)
         self.act = get_activation(activation)
         self.drop_rate = drop_rate
 
@@ -167,11 +256,11 @@ class PreNet(nn.Module):
 class FFN(nn.Module):
     """LN(x + W2 relu(W1 x))."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dense1 = nn.Linear(dim, hidden)
-        self.dense2 = nn.Linear(hidden, dim)
-        self.layer_norm = nn.LayerNorm(dim, eps=LN_EPS)
+        self.dense1 = Dense(dim, hidden, dtype=dtype)
+        self.dense2 = Dense(hidden, dim, dtype=dtype)
+        self.layer_norm = LayerNorm(dim, dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.layer_norm(self.dense2(torch.relu(self.dense1(x))) + x)
@@ -182,14 +271,15 @@ class PostNet(nn.Module):
     with BatchNorm and dropout."""
 
     def __init__(self, in_channels: int, n_conv: int, conv_filters: int,
-                 conv_kernel: int, drop_rate: float = 0.0):
+                 conv_kernel: int, drop_rate: float = 0.0,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.names = [f"conv_{i}" for i in range(n_conv)]
         for i, name in enumerate(self.names):
             self.add_module(name, Conv1D(
                 in_channels if i == 0 else conv_filters, conv_filters,
                 conv_kernel, "tanh" if i < n_conv - 1 else "identity",
-                bn_before_act=False, drop_rate=drop_rate))
+                bn_before_act=False, drop_rate=drop_rate, dtype=dtype))
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:

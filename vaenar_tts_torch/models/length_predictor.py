@@ -1,7 +1,8 @@
 """Utterance length predictor (counterpart of
 ``vaenar_tts_tpu/models/length_predictor.py``): a per-token Dense(1) on the
-text embeddings; the predicted frame count is the masked sum over tokens of
-exp(projection), in fp32. An optional second head reads the trained
+text embeddings, in the compute dtype (a bf16 logit at bfloat16); the
+predicted frame count is the masked sum over tokens of exp(projection), in
+fp32. An optional second head reads the trained
 quantile of the frame count instead of its mean; training holds it to that
 quantile with ``pinball_log_loss``."""
 
@@ -12,7 +13,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .layers import get_activation, sequence_mask
+from .layers import Dense, get_activation, sequence_mask
 
 
 def masked_exp_sum(proj: torch.Tensor,
@@ -39,14 +40,14 @@ def pinball_log_loss(predicted_lengths: torch.Tensor,
 
 class DenseLengthPredictor(nn.Module):
     def __init__(self, in_dim: int, activation: str = "identity",
-                 quantile: float = 0.0):
+                 quantile: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         if not 0.0 <= quantile < 1.0:
             raise ValueError(f"quantile must be in [0, 1), got {quantile}")
         self.act = get_activation(activation)
         self.quantile = quantile
-        self.projection = nn.Linear(in_dim, 1)
-        self.q_projection = nn.Linear(in_dim, 1) if quantile else None
+        self.projection = Dense(in_dim, 1, dtype=dtype)
+        self.q_projection = Dense(in_dim, 1, dtype=dtype) if quantile else None
 
     def forward(self, inputs, input_lengths=None) -> torch.Tensor:
         """Mean-head frame counts [B] (float)."""

@@ -2,7 +2,9 @@
 ``vaenar_tts_tpu/models/posterior.py``): PreNet -> positional encoding ->
 dropout -> N CrossAttentionBlocks over the text -> mu and logvar heads, and
 the reparameterised sample and its masked diagonal-Gaussian log-prob.
-Training runs it; synthesis does not."""
+Training runs it; synthesis does not. The net runs in the compute dtype;
+the mu and logvar heads, which the JAX package builds without a dtype, run
+in fp32 on the promoted input, and the log-prob is fp32."""
 
 from __future__ import annotations
 
@@ -13,7 +15,7 @@ import torch
 from torch import nn
 
 from .attention import CrossAttentionBlock
-from .layers import PreNet, dropout, positional_encoding, sequence_mask
+from .layers import Dense, PreNet, add_positions, dropout, sequence_mask
 
 LOG_2PI = math.log(2.0 * math.pi)
 
@@ -61,28 +63,28 @@ class TransformerPosterior(nn.Module):
                  pre_activation: str, nblk: int, attention_dim: int,
                  attention_heads: int, temperature: float, ffn_hidden: int,
                  latent_dim: int, pre_drop_rate: float = 0.0,
-                 pos_drop_rate: float = 0.0):
+                 pos_drop_rate: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.pos_drop_rate = pos_drop_rate
+        self.compute_dtype = dtype
         self.decoder_prenet = PreNet(in_dim, pre_hidden, pre_activation,
-                                     pre_drop_rate)
+                                     pre_drop_rate, dtype)
         self.pos_weight = nn.Parameter(torch.ones(()))
         self.names = [f"attention_{i}" for i in range(nblk)]
         for name in self.names:
             self.add_module(name, CrossAttentionBlock(
                 pre_hidden, memory_dim, attention_dim, attention_heads,
-                temperature, ffn_hidden))
-        self.mu_projection = nn.Linear(attention_dim, latent_dim)
-        self.logvar_projection = nn.Linear(attention_dim, latent_dim)
+                temperature, ffn_hidden, dtype))
+        self.mu_projection = Dense(attention_dim, latent_dim)
+        self.logvar_projection = Dense(attention_dim, latent_dim)
 
     def forward(self, inputs, src_enc, src_lengths=None, target_lengths=None,
                 train: bool = False, generator: Optional[torch.Generator] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """reduced mels [B, T, num_mels] -> (mu, logvar), [B, T, latent]."""
         x = self.decoder_prenet(inputs, train, generator)
-        pos = positional_encoding(x.shape[1], x.shape[2], device=x.device)
-        x = dropout(x + self.pos_weight * pos[None], self.pos_drop_rate, train,
-                    generator)
+        x = dropout(add_positions(x, self.pos_weight, self.compute_dtype),
+                    self.pos_drop_rate, train, generator)
         for name in self.names:
             x = getattr(self, name)(x, src_enc, target_lengths, src_lengths)
-        return self.mu_projection(x).float(), self.logvar_projection(x).float()
+        return self.mu_projection(x), self.logvar_projection(x)

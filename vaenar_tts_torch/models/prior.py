@@ -1,7 +1,7 @@
 """Glow-style flow prior p(z | text) (counterpart of
 ``vaenar_tts_tpu/models/prior.py``): n_blk x (ActNorm -> InvertibleLinear ->
-TransformerCoupling), with alternating coupling order. All fp32. Three
-entry points:
+TransformerCoupling), with alternating coupling order. The flow math is fp32; the couplings'
+conditioning nets run in the compute dtype. Three entry points:
 
 * ``sample``: base noise -> forward through the stack; the log-prob
   accumulates -logdet of each layer;
@@ -29,7 +29,8 @@ LOG_2PI = math.log(2.0 * math.pi)
 class TransformerPrior(nn.Module):
     def __init__(self, n_blk: int, channels: int, memory_dim: int,
                  n_transformer_blk: int, attention_dim: int,
-                 attention_heads: int, temperature: float, ffn_hidden: int):
+                 attention_heads: int, temperature: float, ffn_hidden: int,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.channels = channels
         self.n_blk = n_blk
@@ -39,7 +40,7 @@ class TransformerPrior(nn.Module):
             self.add_module(f"transformerCoupling{i}", TransformerCoupling(
                 channels, memory_dim, n_transformer_blk, attention_dim,
                 attention_heads, temperature, ffn_hidden,
-                order=("upper", "lower")[i % 2]))
+                order=("upper", "lower")[i % 2], dtype=dtype))
 
     def _initial_sample(self, targets_lengths: torch.Tensor, max_length: int,
                         temperature: float = 1.0,

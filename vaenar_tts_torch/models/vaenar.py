@@ -14,10 +14,18 @@ length head -> flow-prior sample -> decoder + PostNet -> mel.
 cold start. ``load_model`` builds the model from a model directory holding
 ``hparams.json`` and ``export.npz``, on ``cuda`` unless the caller asks for
 the CPU.
+
+Precision follows ``train.compute_dtype`` as in the JAX package: at
+bfloat16 the transformer stacks (encoder, length heads' logits, posterior
+net, couplings' conditioning nets, decoder and PostNet) run in bf16 on fp32
+parameters, while the flow, the length heads' exp-sum, the Gaussian
+log-probs, the posterior's mu and logvar heads and every loss are fp32; the
+synthesized mels are returned as fp32.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 from typing import Dict, Optional, Tuple
 
@@ -29,7 +37,7 @@ from ..configs.serialize import load_hparams
 from ..utils.export import EXPORT_NAME, load_npz
 from .decoder import TransformerDecoder
 from .encoder import TransformerEncoder
-from .layers import sequence_mask
+from .layers import COMPUTE_DTYPES, sequence_mask
 from .length_predictor import DenseLengthPredictor, pinball_log_loss
 from .posterior import (TransformerPosterior, gaussian_log_probability,
                         reparameterize)
@@ -39,7 +47,9 @@ from .prior import TransformerPrior
 def resolve_device(device="cuda") -> torch.device:
     """The device to run on. ``cuda`` without a card raises; there is no
     silent fall back to the CPU. On CUDA, TF32 is turned off for matmuls and
-    cuDNN convolutions: the model's numerics are fp32 throughout."""
+    cuDNN convolutions, so that fp32 products stay fp32: the flow's always,
+    and the transformer stacks' at ``compute_dtype`` float32 (at bfloat16
+    they are bf16 products on the tensor cores, which TF32 does not touch)."""
     dev = torch.device(device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
@@ -65,29 +75,30 @@ class VAENAR(nn.Module):
         self.max_reduction_factor = hp.common.max_reduction_factor
         self.n_sample = hp.train.num_samples
         self.length_quantile = float(hp.length_predictor.quantile)
+        dtype = COMPUTE_DTYPES[hp.train.compute_dtype]
         self.text_encoder = TransformerEncoder(
             enc.vocab_size, enc.embd_dim, enc.n_conv, enc.pre_hidden,
             enc.conv_kernel, enc.pre_activation, enc.bn_before_act, enc.n_blk,
             enc.attention_dim, enc.attention_heads, enc.attention_temperature,
-            enc.ffn_hidden, enc.pre_drop_rate, enc.pos_drop_rate)
+            enc.ffn_hidden, enc.pre_drop_rate, enc.pos_drop_rate, dtype)
         self.decoder = TransformerDecoder(
             hp.common.latent_dim, text_dim, dec.nblk, dec.attention_dim,
             dec.attention_heads, dec.attention_temperature, dec.ffn_hidden,
             dec.post_n_conv, dec.post_conv_filters, dec.post_conv_kernel,
             hp.common.output_dim, hp.common.max_reduction_factor,
-            dec.post_drop_rate)
+            dec.post_drop_rate, dtype)
         self.length_predictor = DenseLengthPredictor(
-            text_dim, hp.length_predictor.activation, self.length_quantile)
+            text_dim, hp.length_predictor.activation, self.length_quantile, dtype)
         post = hp.posterior
         self.posterior = TransformerPosterior(
             hp.audio.num_mels, text_dim, post.pre_hidden, post.pre_activation,
             post.nblk, post.attention_dim, post.attention_heads,
             post.temperature, post.ffn_hidden, hp.common.latent_dim,
-            post.pre_drop_rate, post.pos_drop_rate)
+            post.pre_drop_rate, post.pos_drop_rate, dtype)
         self.prior = TransformerPrior(
             pri.n_blk, hp.common.latent_dim, text_dim, pri.n_transformer_blk,
             pri.attention_dim, pri.attention_heads, pri.temperature,
-            pri.ffn_hidden)
+            pri.ffn_hidden, dtype)
 
     def _encode(self, inputs, text_lengths, reduction_factor: int,
                 train: bool = False, generator: Optional[torch.Generator] = None):
@@ -217,7 +228,7 @@ class VAENAR(nn.Module):
                                  temperature=temperature, generator=generator,
                                  epsilon=epsilon)
         _, mel = self.decoder(z, text_embd, reduced_lens, text_lengths, r)
-        return mel
+        return mel.float()
 
     @torch.no_grad()
     def predict_lengths(self, inputs, text_lengths, reduction_factor: int = 2
@@ -254,7 +265,7 @@ class VAENAR(nn.Module):
                                  temperature=temperature, generator=generator,
                                  epsilon=epsilon)
         _, mel = self.decoder(z, text_embd, reduced_lens, text_lengths, r)
-        return mel, mel_lens
+        return mel.float(), mel_lens
 
 
 def build_model(hp: HParams, params: dict, batch_stats: dict,
@@ -267,12 +278,18 @@ def build_model(hp: HParams, params: dict, batch_stats: dict,
     return model.eval().to(dev)
 
 
-def load_model(model_dir: str, device="cuda") -> Tuple[HParams, VAENAR, int]:
+def load_model(model_dir: str, device="cuda", compute_dtype: Optional[str] = None
+               ) -> Tuple[HParams, VAENAR, int]:
     """(hparams, model, epoch) from ``model_dir``'s hparams.json and
-    export.npz."""
+    export.npz. ``compute_dtype`` ("float32" or "bfloat16") overrides the
+    file's ``train.compute_dtype``, as the JAX package's
+    ``load_model_state`` does: the parameters are fp32 either way."""
     hp = load_hparams(model_dir)
     if hp is None:
         raise FileNotFoundError(f"no hparams.json in {model_dir}")
+    if compute_dtype:
+        hp = dataclasses.replace(hp, train=dataclasses.replace(
+            hp.train, compute_dtype=compute_dtype))
     path = os.path.join(model_dir, EXPORT_NAME)
     if not os.path.isfile(path):
         raise FileNotFoundError(f"no {EXPORT_NAME} in {model_dir}")

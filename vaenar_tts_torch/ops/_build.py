@@ -2,9 +2,11 @@
 with a plain C interface, and load it with ``ctypes``.
 
 The library goes to ``vaenar_tts_torch/_build/<hash>/``, keyed by a hash of
-the sources and flags, at first use; later calls in the process reuse the
-loaded handle. Nothing here runs at import time, and nothing includes
-PyTorch's headers, so a build takes seconds.
+the sources, headers and flags, at first use; later calls in the process
+reuse the loaded handle. Each ``.cu`` compiles in its own ``nvcc`` process,
+all started together, and one more links the objects. Nothing here runs at
+import time, and nothing includes PyTorch's headers, so a build takes
+seconds.
 """
 
 from __future__ import annotations
@@ -22,7 +24,15 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_ROOT = os.path.join(PACKAGE_DIR, "_build")
 LIB_NAME = "libvaenar_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# (C function, pointer arguments, 1 if it takes an is_bf16 flag): the fp32
+# and bf16 SIMT kernels, and the bf16 tensor-core kernels
+KERNELS = (("masked_attention_fwd", 8, 1),
+           ("masked_attention_bwd_dq", 10, 1),
+           ("masked_attention_bwd_dkv", 11, 1),
+           ("masked_attention_fwd_tc", 8, 0),
+           ("masked_attention_bwd_dkv_tc", 11, 0))
 
 _loaded: dict = {}
 
@@ -46,7 +56,7 @@ def sources() -> list:
 
 def _digest(srcs: list) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in srcs:
+    for path in srcs + sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh"))):
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as f:
             h.update(f.read())
@@ -63,14 +73,26 @@ def build() -> str:
     if os.path.isfile(lib):
         return lib
     os.makedirs(out_dir, exist_ok=True)
-    tmp = f"{lib}.{os.getpid()}.tmp"
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}\n{proc.stderr}")
+    nvcc, tag = find_nvcc(), f"{os.getpid()}.tmp"
+    objs = [os.path.join(out_dir, f"{os.path.basename(src)}.{tag}.o") for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src] for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for cmd in cmds]
+    outputs = [proc.communicate()[0] for proc in procs]
+    tmp = f"{lib}.{tag}"
+    cmds.append([nvcc, "-shared", "-o", tmp, *objs])
+    if all(proc.returncode == 0 for proc in procs):
+        link = subprocess.run(cmds[-1], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+        procs.append(link)
+        outputs.append(link.stdout)
+    for cmd, proc, out in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{out}")
     with open(os.path.join(out_dir, "ptxas.log"), "w") as f:
-        f.write(proc.stdout + proc.stderr)
+        f.write("".join(outputs))
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, lib)  # atomic: a concurrent process never loads half a file
     return lib
 
@@ -89,24 +111,15 @@ def load_library() -> ctypes.CDLL:
     """Build if needed, then load once per process."""
     if "lib" not in _loaded:
         lib = ctypes.CDLL(build())
-        fn = lib.masked_attention_fwd
-        fn.argtypes = ([ctypes.c_void_p] * 8
-                       + [ctypes.c_int] * 5
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                          ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-        for name in ("masked_attention_bwd_dq", "masked_attention_bwd_dkv"):
+        # pointers, then B, H, Tq, Tk, D, scale, causal, [is_bf16,] stream
+        for name, n_ptr, flag in KERNELS:
             fn = getattr(lib, name)
-            n_out = 1 if name.endswith("_dq") else 2
-            fn.argtypes = ([ctypes.c_void_p] * (9 + n_out)
-                           + [ctypes.c_int] * 5
-                           + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_void_p])
+            fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
+                           + [ctypes.c_float, ctypes.c_int]
+                           + [ctypes.c_int] * flag + [ctypes.c_void_p])
             fn.restype = ctypes.c_int
-        for name in ("masked_attention_fwd_shared_bytes",
-                     "masked_attention_bwd_dq_shared_bytes",
-                     "masked_attention_bwd_dkv_shared_bytes"):
-            getattr(lib, name).argtypes = []
-            getattr(lib, name).restype = ctypes.c_int
+            shared = getattr(lib, f"{name}_shared_bytes")
+            shared.argtypes = []
+            shared.restype = ctypes.c_int
         _loaded["lib"] = lib
     return _loaded["lib"]

@@ -18,10 +18,22 @@ contract for all:
   those statistics; dV = Pᵀ·dO counts every row, fully masked ones too, and
   dS = P∘(dO·Vᵀ - δ) is zeroed at masked positions, δ = rowsum(dO∘O).
 
-``masked_flash_attention`` launches ``csrc/masked_attention_fwd.cu`` and
-``masked_flash_attention_backward`` the two kernels of
-``csrc/masked_attention_bwd.cu`` on CUDA tensors, and raise if they cannot.
-On CPU tensors, and only there, they call ``masked_attention_reference`` and
+Which kernel serves which dtype, on CUDA tensors (``launch_counts`` key):
+
+* bf16 (the shipped ``compute_dtype``): the forward
+  ``csrc/masked_attention_fwd_tc.cu`` (``masked_attention_fwd_tc``) and the
+  dK/dV kernel ``csrc/masked_attention_bwd_dkv_tc.cu``
+  (``masked_attention_bwd_dkv_tc``), on the tensor cores; dQ
+  ``csrc/masked_attention_bwd.cu`` (``masked_attention_bwd_dq``);
+* fp32: the forward ``csrc/masked_attention_fwd.cu``
+  (``masked_attention_fwd``) and both backward kernels of
+  ``csrc/masked_attention_bwd.cu`` (``masked_attention_bwd_dq``,
+  ``masked_attention_bwd_dkv``), fp32 FMAs, which the fp32 reference's
+  tolerance needs (TF32 tensor cores would not meet it).
+
+``masked_flash_attention`` and ``masked_flash_attention_backward`` launch
+them and raise if they cannot; there is no fall back. On CPU tensors, and
+only there, they call ``masked_attention_reference`` and
 ``masked_attention_backward_reference``, which have the same signatures.
 ``MaskedFlashAttention`` is the differentiable op the model calls.
 """
@@ -182,23 +194,12 @@ def masked_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ql = _check_lengths(q_lengths, B, q.device, "q_lengths")
     ml = _check_lengths(m_lengths, B, q.device, "m_lengths")
 
-    from . import _build
-    lib = _build.load_library()
     o = torch.empty_like(q)
     m = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     s = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = lib.masked_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            ql.data_ptr() if ql is not None else None,
-            ml.data_ptr() if ml is not None else None,
-            o.data_ptr(), m.data_ptr(), s.data_ptr(),
-            B, H, Tq, Tk, D, float(scale), int(bool(causal)),
-            int(q.dtype == torch.bfloat16), stream)
-    if err != 0:
-        raise RuntimeError(f"masked_attention_fwd launch failed: CUDA error {err}")
-    launch_counts["masked_attention_fwd"] += 1
+        _launch(kernel_name("fwd", q.dtype), (q, k, v, ql, ml, o, m, s),
+                B, H, Tq, Tk, D, scale, causal)
     return o, m, s
 
 
@@ -236,6 +237,31 @@ def masked_flash_attention_backward(
     return dq, dk, dv
 
 
+def kernel_name(kind: str, dtype: torch.dtype) -> str:
+    """The kernel (its C function and ``launch_counts`` key) that serves
+    ``kind`` ("fwd", "dq" or "dkv") for ``dtype``: bf16 forward and dK/dV
+    take the tensor-core kernels, the rest the fp32-FMA ones."""
+    base = "masked_attention_fwd" if kind == "fwd" else f"masked_attention_bwd_{kind}"
+    return f"{base}_tc" if dtype == torch.bfloat16 and kind != "dq" else base
+
+
+def _launch(name: str, tensors, B: int, H: int, Tq: int, Tk: int, D: int,
+            scale: float, causal: bool) -> None:
+    """Call the C function ``name`` on the current stream with the tensors'
+    pointers (None for a missing length) and the shape, and the dtype flag
+    of the kernels that serve both dtypes (q's, the first tensor); raise if
+    the launch fails, else count it."""
+    from . import _build
+    fn = getattr(_build.load_library(), name)
+    flag = () if name.endswith("_tc") else (int(tensors[0].dtype == torch.bfloat16),)
+    err = fn(*(None if t is None else t.data_ptr() for t in tensors),
+             B, H, Tq, Tk, D, float(scale), int(bool(causal)), *flag,
+             torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    launch_counts[name] += 1
+
+
 def launch_backward_kernel(kernel: str, q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, do: torch.Tensor,
                            q_lengths: Optional[torch.Tensor],
@@ -244,25 +270,15 @@ def launch_backward_kernel(kernel: str, q: torch.Tensor, k: torch.Tensor,
                            outs: Tuple[torch.Tensor, ...], scale: float,
                            causal: bool) -> None:
     """Launch one backward kernel, ``"dq"`` (writes ``outs = (dq,)``) or
-    ``"dkv"`` (``outs = (dk, dv)``), on the current stream, and count it.
-    The tensors are taken as ``masked_flash_attention_backward`` checks
-    them: CUDA, contiguous, lengths int32 or None, ``delta`` fp32
-    [B, H, Tq]; raise if the launch fails."""
-    from . import _build
-    lib = _build.load_library()
+    ``"dkv"`` (``outs = (dk, dv)``), the one ``kernel_name`` picks for q's
+    dtype, on the current stream, and count it. The tensors are taken as
+    ``masked_flash_attention_backward`` checks them: CUDA, contiguous,
+    lengths int32 or None, ``delta`` fp32 [B, H, Tq]; raise if the launch
+    fails."""
     B, H, Tq, D = q.shape
-    name = f"masked_attention_bwd_{kernel}"
-    err = getattr(lib, name)(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-        q_lengths.data_ptr() if q_lengths is not None else None,
-        m_lengths.data_ptr() if m_lengths is not None else None,
-        m.data_ptr(), s.data_ptr(), delta.data_ptr(),
-        *(t.data_ptr() for t in outs),
-        B, H, Tq, k.shape[2], D, float(scale), int(bool(causal)),
-        int(q.dtype == torch.bfloat16), torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    launch_counts[name] += 1
+    _launch(kernel_name(kernel, q.dtype),
+            (q, k, v, do, q_lengths, m_lengths, m, s, delta, *outs),
+            B, H, Tq, k.shape[2], D, scale, causal)
 
 
 class MaskedFlashAttention(torch.autograd.Function):

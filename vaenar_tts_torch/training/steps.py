@@ -7,6 +7,10 @@ is mel_l2 + kl_weight * max(kl, 0) + length_weight * len_l2, where len_l2
 includes the quantile head's pinball term; the dev loss uses the unclamped
 kl. Metrics report ``len_l2`` without the pinball term and the pinball term
 as ``len_pinball``, as the JAX steps do.
+
+At ``train.compute_dtype`` bfloat16 the model computes in bf16 where the
+JAX package does (``models/vaenar.py``); the parameters, their gradients,
+Adam's moments and the losses stay fp32.
 """
 
 from __future__ import annotations

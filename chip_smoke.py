@@ -5,11 +5,12 @@ of a checkout:
     python3 chip_smoke.py
 
 The main path is the shipped configuration, whose compute dtype is
-bfloat16: bf16 attention goes through the tensor-core forward and dK/dV
-kernels (masked_attention_fwd_tc, masked_attention_bwd_dkv_tc) and the dQ
-kernel. The strict card-against-CPU gates run the same model at compute
-dtype float32, through the fp32 kernels (masked_attention_fwd,
-masked_attention_bwd_dq, masked_attention_bwd_dkv).
+bfloat16: bf16 attention goes through the tensor-core forward, dQ and dK/dV
+kernels (masked_attention_fwd_tc, masked_attention_bwd_dq_tc, which also
+forms delta = rowsum(dO * O), and masked_attention_bwd_dkv_tc). The strict
+card-against-CPU gates run the same model at compute dtype float32, through
+the fp32 kernels (masked_attention_fwd, masked_attention_bwd_dq,
+masked_attention_bwd_dkv).
 
 1. device: the card's name, count, and `nvidia-smi` name and power limit;
 2. build: every csrc/*.cu with nvcc for sm_90a (one nvcc for each source,
@@ -19,7 +20,7 @@ masked_attention_bwd_dq, masked_attention_bwd_dkv).
    synthesis path's shapes, on ragged shapes, fully masked rows and
    Tk > 4096; the dQ and dK/dV backward kernels at the training path's
    shapes (r = 2 and r = 5), with fully masked rows, an item with no key, a
-   ragged pair and a long causal site;
+   ragged pair and a long causal site, and the bf16 dQ kernel's delta;
 4. synthesis path (bf16): the shipped LJSpeech model (artifacts/toyv2_q90/
    ckpt) at full width synthesizes 4 fixed lines through the CLI's
    synthesize_batch, at temperature 0 and at 0.667 with a seeded generator,
@@ -100,6 +101,10 @@ TOL_MEL_CARD_CPU = 1e-4
 # bf16 both sum in fp32 and round the gradient once, so they may differ by
 # one bf16 ulp, at most 2**-7 * |g|, plus the fp32 order (atol 1e-3)
 TOL_GRAD = {"float32": (1e-4, 1e-5), "bfloat16": (1e-3, 2.0 ** -7)}
+# the bf16 dQ kernel's delta = rowsum(dO * O) against the plain one, per
+# element atol + rtol * |delta_plain|: the bf16 products are exact in fp32,
+# so only the order of the 64-term fp32 sum differs
+TOL_DELTA = (1e-5, 1e-5)
 # card against CPU, one full-width train step (the parity test against JAX,
 # tests/test_torch_train_step.py, holds losses to 1e-5 relative, gradients
 # to 1e-4 + 1e-3 * max|g| of each leaf, BatchNorm statistics to 1e-5 + 1e-6):
@@ -341,10 +346,11 @@ def backward_cases(torch, device):
 def check_backward(torch, fa, device):
     """dQ and dK/dV kernels against the plain backward, fp32
     (masked_attention_bwd_dq, masked_attention_bwd_dkv) and bf16
-    (masked_attention_bwd_dq, masked_attention_bwd_dkv_tc); returns
-    {kernel: {dtype: largest error}} and the bf16 dK/dV kernel's worst share
-    of its tolerance."""
-    worst, worst_share = {}, 0.0
+    (masked_attention_bwd_dq_tc, masked_attention_bwd_dkv_tc), and the bf16
+    dQ kernel's delta against masked_attention_dq_reference's; returns
+    {kernel: {dtype: largest error}} and the bf16 kernels' worst shares of
+    their tolerances {"dq": ..., "dkv": ..., "delta": ...}."""
+    worst, worst_share = {}, {"dq": 0.0, "dkv": 0.0, "delta": 0.0}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         atol, rtol = TOL_GRAD[dtype_name]
@@ -372,25 +378,51 @@ def check_backward(torch, fa, device):
                 check(torch.isfinite(a.float()).all().item(), f"{name}/{dtype_name}: non-finite {g_name}")
                 check(share <= 1.0, f"{name}/{dtype_name}: {g_name} error {diff.max().item()} "
                       f"({share} of atol {atol} + rtol {rtol} * |g|)")
-                by_dtype = worst.setdefault(kernels["dq" if g_name == "dq" else "dkv"], {})
+                kern = "dq" if g_name == "dq" else "dkv"
+                by_dtype = worst.setdefault(kernels[kern], {})
                 by_dtype[dtype_name] = max(by_dtype.get(dtype_name, 0.0), diff.max().item())
-                if dtype_name == "bfloat16" and g_name != "dq":
-                    worst_share = max(worst_share, share)
+                if dtype_name == "bfloat16":
+                    worst_share[kern] = max(worst_share[kern], share)
+            if dtype_name == "bfloat16":
+                # the dQ kernel alone, into a delta of NaNs: every element
+                # must be written, zeros on the rows without a key
+                delta = torch.full_like(m, float("nan"))
+                dq = torch.empty_like(q)
+                fa.launch_backward_kernel("dq", q, k, v, do, o, ql, ml, m, s, delta, (dq,),
+                                          0.125, causal)
+                dq_want, delta_want = fa.masked_attention_dq_reference(
+                    q, k, v, do, o, ql, ml, m, s, 0.125, causal)
+                torch.cuda.synchronize()
+                diff = (dq.float() - dq_want.float()).abs()
+                share = (diff / (atol + rtol * dq_want.float().abs())).max().item()
+                row["max_share_of_tol_dq_alone"] = share
+                check(share <= 1.0, f"{name}: dq alone, {share} of the tolerance")
+                worst_share["dq"] = max(worst_share["dq"], share)
+                diff = (delta - delta_want).abs()
+                share = (diff / (TOL_DELTA[0] + TOL_DELTA[1] * delta_want.abs())).max().item()
+                row.update({"max_abs_err_delta": diff.max().item(),
+                            "max_share_of_tol_delta": share,
+                            "delta_tol": list(TOL_DELTA)})
+                check(share <= 1.0, f"{name}: delta error {diff.max().item()} "
+                      f"({share} of atol {TOL_DELTA[0]} + rtol {TOL_DELTA[1]} * |delta|)")
+                worst_share["delta"] = max(worst_share["delta"], share)
             print(json.dumps(row), flush=True)
     return worst, worst_share
 
 
-def backward_work(torch, tq, tk, causal, ql, ml, D, B, H):
+def backward_work(torch, tq, tk, causal, ql, ml, D, B, H, dq_forms_delta):
     """{"dq": (flops, elements, fp32 elements), "dkv": (...)} that these
-    lengths need; elements are of q, k, v, dO and the gradients (the
-    dtype's size), fp32 elements of m, s and delta. A row below q_len of an item with a key is valid; an unmasked
-    (row, key) pair of valid rows costs 2*D per product: dQ needs q.k,
-    dO.v and dS.k (6*D), dK/dV needs q.k, dO.v, P.dO and dS.q (8*D). The
-    other rows are uniform over the Tk keys: dK/dV sums their dO / s (D a
-    row) and adds the sum to every dV row (D a key). Elements read once:
-    q and dO of the valid rows, the k and v rows they see, their m, s and
-    delta, and for dK/dV the dO and s of the uniform rows; written: dq, or
-    dk and dv, whole."""
+    lengths need; elements are of q, k, v, dO, O and the gradients (the
+    dtype's size), fp32 elements of m, s and delta. A row below q_len of an
+    item with a key is valid; an unmasked (row, key) pair of valid rows
+    costs 2*D per product: dQ needs q.k, dO.v and dS.k (6*D), dK/dV needs
+    q.k, dO.v, P.dO and dS.q (8*D). The other rows are uniform over the Tk
+    keys: dK/dV sums their dO / s (D a row) and adds the sum to every dV row
+    (D a key). Elements read once: q and dO of the valid rows, the k and v
+    rows they see, their m, s and delta, and for dK/dV the dO and s of the
+    uniform rows; written: dq, or dk and dv, whole. Where the dQ kernel
+    forms delta (``dq_forms_delta``, bf16), it reads O of the valid rows in
+    place of their delta (2*D operations a row) and writes delta whole."""
     ql = torch.full((B,), tq) if ql is None else ql.cpu().clamp(0, tq)
     ml = torch.full((B,), tk) if ml is None else ml.cpu().clamp(0, tk)
     dq_flops = dkv_flops = dq_in = dkv_in = dq_stats = dkv_stats = 0
@@ -407,8 +439,11 @@ def backward_work(torch, tq, tk, causal, ql, ml, D, B, H):
         dkv_flops += H * (8 * D * pairs + D * pad + (D * tk if pad else 0))
         dq_in += H * (2 * qn * D + 2 * kn * D)
         dkv_in += H * (2 * qn * D + 2 * kn * D + pad * D)
-        dq_stats += H * 3 * qn
+        dq_stats += H * (2 * qn + tq if dq_forms_delta else 3 * qn)
         dkv_stats += H * (3 * qn + pad)
+        if dq_forms_delta:
+            dq_flops += H * 2 * D * qn
+            dq_in += H * qn * D
     return {"dq": (dq_flops, dq_in + B * H * tq * D, dq_stats),
             "dkv": (dkv_flops, dkv_in + 2 * B * H * tk * D, dkv_stats)}
 
@@ -417,11 +452,13 @@ def time_backward(torch, fa, device, sites, dtype_name):
     """Per attention site of a train step, in ``dtype_name``: the forward
     kernel, the dQ and the dK/dV kernel each alone, the whole plain backward
     and scaled_dot_product_attention's backward with a boolean mask (times
-    for one call), and each kernel's bound; returns the sums over one train
+    for one call), each kernel's bound, and the separate delta pass
+    (``attention_delta``: the fp32 path runs it before its dQ kernel, the
+    bf16 dQ kernel forms delta itself); returns the sums over one train
     step. ``sites``: (name, calls, Tq, Tk, causal, q_len, m_len)."""
     import torch.nn.functional as F
-    totals = {k: 0.0 for k in ("fwd_ms", "dq_ms", "dkv_ms", "plain_ms", "library_ms",
-                               "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms",
+    totals = {k: 0.0 for k in ("fwd_ms", "dq_ms", "dkv_ms", "delta_pass_ms", "plain_ms",
+                               "library_ms", "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms",
                                "fwd_flop_ms", "fwd_byte_ms",
                                "dq_bound_ms", "dkv_bound_ms", "dq_flop_ms", "dq_byte_ms",
                                "dkv_flop_ms", "dkv_byte_ms")}
@@ -432,11 +469,13 @@ def time_backward(torch, fa, device, sites, dtype_name):
         q, k, v = random_qkv(torch, device, dtype, B, 4, tq, tk, 64, seed=400 + i)
         do = random_qkv(torch, device, dtype, B, 4, tq, tq, 64, seed=500 + i)[0]
         o, m, s = fa.masked_flash_attention(q, k, v, ql, ml, 0.125, causal)
+        # the bf16 dQ kernel overwrites this delta with its own (the same
+        # values on the rows the dK/dV kernel reads)
         delta = fa.attention_delta(o, do).contiguous()
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
         def launch(kernel, *outs):
-            fa.launch_backward_kernel(kernel, q, k, v, do, ql, ml, m, s, delta, outs,
+            fa.launch_backward_kernel(kernel, q, k, v, do, o, ql, ml, m, s, delta, outs,
                                       0.125, causal)
 
         mask = fa.attention_mask(ql, ml, B, tq, tk, causal, device)
@@ -455,6 +494,7 @@ def time_backward(torch, fa, device, sites, dtype_name):
                "fwd_bound_ms": max(fwd_flop_ms, fwd_byte_ms),
                "dq_ms": time_ms(torch, lambda: launch("dq", dq)),
                "dkv_ms": time_ms(torch, lambda: launch("dkv", dk, dv)),
+               "delta_pass_ms": time_ms(torch, lambda: fa.attention_delta(o, do)),
                "plain_ms": time_ms(torch, lambda: fa.masked_attention_backward_reference(
                    q, k, v, ql, ml, o, m, s, do, 0.125, causal))}
         got = fa.masked_flash_attention_backward(q, k, v, ql, ml, o, m, s, do, 0.125, causal)
@@ -468,7 +508,7 @@ def time_backward(torch, fa, device, sites, dtype_name):
         out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=0.125)
         row["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
             out, (qg, kg, vg), do, retain_graph=True))
-        work = backward_work(torch, tq, tk, causal, ql, ml, 64, B, 4)
+        work = backward_work(torch, tq, tk, causal, ql, ml, 64, B, 4, fa.dq_forms_delta(dtype))
         for kern, (flops, elems, stats) in work.items():
             flop_ms = 1e3 * flops / PEAK_FLOPS[dtype_name]
             n_bytes = elems * ELEMENT_BYTES[dtype_name] + stats * 4 + 2 * B * 4
@@ -575,9 +615,10 @@ def train_step_times(torch, fa, steps, model, hp, batch, r, reps=10, warmup=2):
 def profile_train_steps(torch, steps, model, hp, batch, r, reps=3):
     """torch.profiler over ``reps`` train steps at reduction factor ``r``:
     device time per step (the sum of the kernels' own device time; one
-    stream, so kernels do not overlap) and the kernels that take the most,
-    by name, per step. Host time under the profiler is inflated, so the
-    busy share is taken against the wall time measured without it."""
+    stream, so kernels do not overlap), kernel launches per step, and the
+    kernels that take the most, by name, per step. Host time under the
+    profiler is inflated, so the busy share is taken against the wall time
+    measured without it."""
     from torch.profiler import ProfilerActivity, profile
     optimizer = steps.make_optimizer(hp, model)
     gen = torch.Generator(device=batch[0].device).manual_seed(6)
@@ -594,6 +635,7 @@ def profile_train_steps(torch, steps, model, hp, batch, r, reps=3):
                and not e.is_user_annotation]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     return (sum(e.self_device_time_total for e in kernels) / 1e3 / reps,
+            sum(e.count for e in kernels) / reps,
             [[e.key[:90], e.self_device_time_total / 1e3 / reps, e.count / reps]
              for e in kernels[:12]])
 
@@ -658,7 +700,7 @@ def main():
     worst_fwd, share_fwd_tc = check_kernels(torch, fa, device)
 
     phase("backward_checks")
-    worst_bwd, share_dkv_tc = check_backward(torch, fa, device)
+    worst_bwd, share_bwd_tc = check_backward(torch, fa, device)
     worst = {**worst_fwd, **worst_bwd}
 
     phase("load")
@@ -755,7 +797,7 @@ def main():
         n_steps = 1 + 2 * 2  # the priming step, then 2 epochs of 2 steps
         n_dev = 2 * -(-N_DEV // hp_train.train.train_batch_size)
         expected = {"masked_attention_fwd_tc": init_pass + per_step * (n_steps + n_dev),
-                    "masked_attention_bwd_dq": per_step * n_steps,
+                    "masked_attention_bwd_dq_tc": per_step * n_steps,
                     "masked_attention_bwd_dkv_tc": per_step * n_steps}
         losses = [history["initial"]] + [history[split][e] for split in ("train", "dev")
                                          for e in (1, 2)]
@@ -926,10 +968,12 @@ def main():
 
         phase("train_step_profile")
         for rf in (2, hp_train.common.max_reduction_factor):
-            device_ms, top = profile_train_steps(torch, steps, trained, hp_train, batch, rf)
+            device_ms, launches, top = profile_train_steps(torch, steps, trained, hp_train,
+                                                           batch, rf)
             wall_ms = 1e3 * step_times[f"bfloat16_r{rf}"]["median_s"]
             print(json.dumps({"compute_dtype": "bfloat16", "reduction_factor": rf,
                               "device_ms_per_step": device_ms,
+                              "kernel_launches_per_step": launches,
                               "wall_ms_per_step_unprofiled": wall_ms,
                               "device_busy_share": device_ms / wall_ms if device_ms else None,
                               "top_kernels_ms_per_step": top}), flush=True)
@@ -978,8 +1022,8 @@ def main():
 
     BWD_SOURCES = {"masked_attention_bwd_dq": "masked_attention_bwd.cu",
                    "masked_attention_bwd_dkv": "masked_attention_bwd.cu",
+                   "masked_attention_bwd_dq_tc": "masked_attention_bwd_dq_tc.cu",
                    "masked_attention_bwd_dkv_tc": "masked_attention_bwd_dkv_tc.cu"}
-    dq_fp32 = bwd["float32"]
     kernels = [
         fwd_entry("masked_attention_fwd_tc", "bfloat16",
                   synthesis_counts["masked_attention_fwd_tc"]
@@ -992,18 +1036,18 @@ def main():
                   + fp32_step_counts["masked_attention_fwd"],
                   {"fp32_synthesis": fp32_synthesis_counts["masked_attention_fwd"],
                    "fp32_train_step": fp32_step_counts["masked_attention_fwd"]}, {}),
-        bwd_entry("masked_attention_bwd_dq", "dq", "bfloat16",
-                  training_counts["masked_attention_bwd_dq"],
-                  {"training": training_counts["masked_attention_bwd_dq"],
-                   "fp32_train_step": fp32_step_counts["masked_attention_bwd_dq"]},
-                  {"max_abs_err_fp32": worst["masked_attention_bwd_dq"]["float32"],
-                   "fp32": {"ms": dq_fp32["dq_ms"], "plain_ms": dq_fp32["plain_ms"],
-                            "bound_ms": dq_fp32["dq_bound_ms"],
-                            "library_ms": dq_fp32["library_ms"]}}),
+        bwd_entry("masked_attention_bwd_dq_tc", "dq", "bfloat16",
+                  training_counts["masked_attention_bwd_dq_tc"],
+                  {"training": training_counts["masked_attention_bwd_dq_tc"]},
+                  {"max_share_of_tol": share_bwd_tc["dq"],
+                   "max_share_of_tol_delta": share_bwd_tc["delta"]}),
+        bwd_entry("masked_attention_bwd_dq", "dq", "float32",
+                  fp32_step_counts["masked_attention_bwd_dq"],
+                  {"fp32_train_step": fp32_step_counts["masked_attention_bwd_dq"]}, {}),
         bwd_entry("masked_attention_bwd_dkv_tc", "dkv", "bfloat16",
                   training_counts["masked_attention_bwd_dkv_tc"],
                   {"training": training_counts["masked_attention_bwd_dkv_tc"]},
-                  {"max_share_of_tol": share_dkv_tc}),
+                  {"max_share_of_tol": share_bwd_tc["dkv"]}),
         bwd_entry("masked_attention_bwd_dkv", "dkv", "float32",
                   fp32_step_counts["masked_attention_bwd_dkv"],
                   {"fp32_train_step": fp32_step_counts["masked_attention_bwd_dkv"]}, {}),

@@ -7,7 +7,8 @@ the same (o, m, s, dO), and against ``jax.grad`` of ``masked_flash_attention``
 for the causal, cross, fully-masked-row, empty-memory and ragged cases of
 tests/test_flash_attention.py, at atol 5e-4 as there. ``gradcheck`` holds
 the autograd Function against finite differences in float64. The kernels
-themselves run only on a CUDA card: ``test_backward_kernels_match_plain_on_card``.
+themselves run only on a CUDA card: ``test_backward_kernels_match_plain_on_card``,
+which also asserts which kernels launched.
 """
 
 import jax
@@ -126,11 +127,14 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype,atol,rtol", [(torch.float32, 1e-4, 1e-5),
-                                             (torch.bfloat16, 1e-3, 2.0 ** -7)])
-def test_backward_kernels_match_plain_on_card(cuda_device, dtype, atol, rtol):
+@pytest.mark.parametrize("dtype,atol,rtol,kernels", [
+    (torch.float32, 1e-4, 1e-5, ("masked_attention_bwd_dq", "masked_attention_bwd_dkv")),
+    (torch.bfloat16, 1e-3, 2.0 ** -7,
+     ("masked_attention_bwd_dq_tc", "masked_attention_bwd_dkv_tc"))])
+def test_backward_kernels_match_plain_on_card(cuda_device, dtype, atol, rtol, kernels):
     """Per element atol + rtol * |g_plain|: fp32 sums in another order; in
-    bf16 both sum in fp32 and round once, one bf16 ulp apart at most."""
+    bf16 both sum in fp32 and round once, one bf16 ulp apart at most. Each
+    backward launches the dtype's dQ and dK/dV kernel once."""
     rng = np.random.default_rng(0)
     for tq, tk, causal in [(240, 240, True), (240, 32, False), (241, 33, False)]:
         q, do = (torch.from_numpy(rng.standard_normal((2, 4, tq, 64)).astype(np.float32))
@@ -140,7 +144,9 @@ def test_backward_kernels_match_plain_on_card(cuda_device, dtype, atol, rtol):
         ql = torch.tensor([tq // 2, tq], dtype=torch.int32, device=cuda_device)
         ml = torch.tensor([tk, 0], dtype=torch.int32, device=cuda_device)
         o, m, s = fa.masked_attention_reference(q, k, v, ql, ml, 0.125, causal)
+        fa.launch_counts.clear()
         got = fa.masked_flash_attention_backward(q, k, v, ql, ml, o, m, s, do, 0.125, causal)
+        assert dict(fa.launch_counts) == {name: 1 for name in kernels}
         want = fa.masked_attention_backward_reference(q, k, v, ql, ml, o, m, s, do,
                                                       0.125, causal)
         torch.cuda.synchronize()

@@ -1,6 +1,10 @@
 // Masked multi-head attention, backward, for sm_90a: a dQ kernel and a dK/dV
 // kernel. Plain C interface, bound from Python with ctypes
 // (vaenar_tts_torch/ops/flash_attention.py, masked_flash_attention_backward).
+// The package sends these kernels fp32 inputs only: bf16 takes the
+// tensor-core kernels, dQ masked_attention_bwd_dq_tc.cu (which also forms
+// delta) and dK/dV masked_attention_bwd_dkv_tc.cu. Their bf16 instantiations
+// (is_bf16 = 1) are reached by no path of the package.
 //
 // Replaces the two backward Pallas kernels of
 // vaenar_tts_tpu/ops/flash_attention.py, launched by _pallas_backward:
@@ -53,8 +57,7 @@
 // gradients written whole (zero rows included) and the rows read outweigh
 // those pairs' fp32 FMAs about threefold. The kernels are far from either
 // floor: a block runs its tiles one after another with no overlap of loads
-// and products, and does not use tensor cores (mma.sync or wgmma is later
-// work).
+// and products, on the SIMT units (the fp32 tolerance rules out TF32).
 
 #include <math.h>
 

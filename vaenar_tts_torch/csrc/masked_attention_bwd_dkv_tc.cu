@@ -2,8 +2,9 @@
 // tensor cores, for sm_90a. Plain C interface, bound from Python with
 // ctypes (vaenar_tts_torch/ops/flash_attention.py,
 // masked_flash_attention_backward); bf16 inputs take this kernel, fp32 ones
-// masked_attention_bwd.cu's dK/dV kernel. dQ stays on masked_attention_bwd.cu
-// in both dtypes.
+// masked_attention_bwd.cu's dK/dV kernel. At bf16 the dQ kernel,
+// masked_attention_bwd_dq_tc.cu, launched before this one on the same
+// stream, forms delta = rowsum(dO * O) and writes it; this kernel reads it.
 //
 // Replaces _dkv_kernel of vaenar_tts_tpu/ops/flash_attention.py (l.370,
 // pallas_call l.467) for bf16 inputs.

@@ -21,10 +21,12 @@ contract for all:
 Which kernel serves which dtype, on CUDA tensors (``launch_counts`` key):
 
 * bf16 (the shipped ``compute_dtype``): the forward
-  ``csrc/masked_attention_fwd_tc.cu`` (``masked_attention_fwd_tc``) and the
-  dK/dV kernel ``csrc/masked_attention_bwd_dkv_tc.cu``
-  (``masked_attention_bwd_dkv_tc``), on the tensor cores; dQ
-  ``csrc/masked_attention_bwd.cu`` (``masked_attention_bwd_dq``);
+  ``csrc/masked_attention_fwd_tc.cu`` (``masked_attention_fwd_tc``), the dQ
+  kernel ``csrc/masked_attention_bwd_dq_tc.cu``
+  (``masked_attention_bwd_dq_tc``), which also forms δ, and the dK/dV
+  kernel ``csrc/masked_attention_bwd_dkv_tc.cu``
+  (``masked_attention_bwd_dkv_tc``), which reads that δ, all on the tensor
+  cores;
 * fp32: the forward ``csrc/masked_attention_fwd.cu``
   (``masked_attention_fwd``) and both backward kernels of
   ``csrc/masked_attention_bwd.cu`` (``masked_attention_bwd_dq``,
@@ -34,7 +36,9 @@ Which kernel serves which dtype, on CUDA tensors (``launch_counts`` key):
 ``masked_flash_attention`` and ``masked_flash_attention_backward`` launch
 them and raise if they cannot; there is no fall back. On CPU tensors, and
 only there, they call ``masked_attention_reference`` and
-``masked_attention_backward_reference``, which have the same signatures.
+``masked_attention_backward_reference``, which have the same signatures;
+``masked_attention_dq_reference`` is the plain version of the bf16 dQ kernel
+alone (dq and δ), which the checks on the card hold it against.
 ``MaskedFlashAttention`` is the differentiable op the model calls.
 """
 
@@ -102,6 +106,24 @@ def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     return (do.to(acc) * o.to(acc)).sum(dim=-1)
 
 
+def _backward_terms(q, k, v, q_lengths, m_lengths, o, m, s, do, scale,
+                    causal):
+    """(P, dS, δ) of the plain backward in the accumulation dtype; δ is 0 on
+    the rows with no unmasked key, whose dS is 0."""
+    B, _, Tq, _ = q.shape
+    Tk = k.shape[2]
+    acc = _acc_dtype(q.dtype)
+    mask = attention_mask(q_lengths, m_lengths, B, Tq, Tk, causal, q.device)
+    logits = torch.matmul(q.to(acc), k.to(acc).transpose(-1, -2)) * scale
+    logits = logits.masked_fill(~mask, NEG)
+    p = torch.exp(logits - m[..., None]) / s[..., None]
+    dp = torch.matmul(do.to(acc), v.to(acc).transpose(-1, -2))
+    zero = torch.zeros((), dtype=acc, device=q.device)
+    delta = torch.where(mask.any(dim=-1), attention_delta(o, do), zero)
+    ds = torch.where(mask, p * (dp - delta[..., None]), zero)
+    return p, ds, delta
+
+
 def masked_attention_backward_reference(
         q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         q_lengths: Optional[torch.Tensor], m_lengths: Optional[torch.Tensor],
@@ -110,21 +132,26 @@ def masked_attention_backward_reference(
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The plain PyTorch version of the backward kernels: (dq, dk, dv) from
     the forward's (o, m, s) and the gradient ``do`` of o."""
-    B, _, Tq, _ = q.shape
-    Tk = k.shape[2]
-    acc = _acc_dtype(q.dtype)
-    qf, kf, vf, dof = q.to(acc), k.to(acc), v.to(acc), do.to(acc)
-    mask = attention_mask(q_lengths, m_lengths, B, Tq, Tk, causal, q.device)
-    logits = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    logits = logits.masked_fill(~mask, NEG)
-    p = torch.exp(logits - m[..., None]) / s[..., None]
-    dv = torch.matmul(p.transpose(-1, -2), dof)
-    dp = torch.matmul(dof, vf.transpose(-1, -2))
-    delta = attention_delta(o, do)[..., None]
-    ds = torch.where(mask, p * (dp - delta), torch.zeros((), dtype=acc, device=q.device))
-    dq = torch.matmul(ds, kf) * scale
-    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    p, ds, _ = _backward_terms(q, k, v, q_lengths, m_lengths, o, m, s, do,
+                               scale, causal)
+    acc = p.dtype
+    dv = torch.matmul(p.transpose(-1, -2), do.to(acc))
+    dq = torch.matmul(ds, k.to(acc)) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), q.to(acc)) * scale
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def masked_attention_dq_reference(
+        q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, do: torch.Tensor,
+        o: torch.Tensor, q_lengths: Optional[torch.Tensor],
+        m_lengths: Optional[torch.Tensor], m: torch.Tensor, s: torch.Tensor,
+        scale: float, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain PyTorch version of the bf16 dQ kernel: (dq in q's dtype,
+    δ fp32 [B, H, Tq]), δ = rowsum(dO∘O) on the rows that have an unmasked
+    key and 0 on the others."""
+    _, ds, delta = _backward_terms(q, k, v, q_lengths, m_lengths, o, m, s, do,
+                                   scale, causal)
+    return (torch.matmul(ds, k.to(ds.dtype)) * scale).to(q.dtype), delta
 
 
 def _check_lengths(lengths: Optional[torch.Tensor], batch: int,
@@ -225,24 +252,32 @@ def masked_flash_attention_backward(
     ql = _check_lengths(q_lengths, B, q.device, "q_lengths")
     ml = _check_lengths(m_lengths, B, q.device, "m_lengths")
 
-    delta = attention_delta(o, do).contiguous()
+    # bf16: the dQ kernel forms δ and writes it for the dK/dV kernel
+    delta = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+             if dq_forms_delta(q.dtype) else attention_delta(o, do).contiguous())
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
-        launch_backward_kernel("dq", q, k, v, do, ql, ml, m, s, delta, (dq,),
+        launch_backward_kernel("dq", q, k, v, do, o, ql, ml, m, s, delta, (dq,),
                                scale, causal)
-        launch_backward_kernel("dkv", q, k, v, do, ql, ml, m, s, delta, (dk, dv),
-                               scale, causal)
+        launch_backward_kernel("dkv", q, k, v, do, o, ql, ml, m, s, delta,
+                               (dk, dv), scale, causal)
     return dq, dk, dv
 
 
 def kernel_name(kind: str, dtype: torch.dtype) -> str:
     """The kernel (its C function and ``launch_counts`` key) that serves
-    ``kind`` ("fwd", "dq" or "dkv") for ``dtype``: bf16 forward and dK/dV
-    take the tensor-core kernels, the rest the fp32-FMA ones."""
+    ``kind`` ("fwd", "dq" or "dkv") for ``dtype``: bf16 takes the
+    tensor-core kernels, fp32 the fp32-FMA ones."""
     base = "masked_attention_fwd" if kind == "fwd" else f"masked_attention_bwd_{kind}"
-    return f"{base}_tc" if dtype == torch.bfloat16 and kind != "dq" else base
+    return f"{base}_tc" if dtype == torch.bfloat16 else base
+
+
+def dq_forms_delta(dtype: torch.dtype) -> bool:
+    """True where the dQ kernel for ``dtype`` reads O and writes δ (bf16),
+    False where it reads a δ formed before it (fp32)."""
+    return kernel_name("dq", dtype) == "masked_attention_bwd_dq_tc"
 
 
 def _launch(name: str, tensors, B: int, H: int, Tq: int, Tk: int, D: int,
@@ -263,7 +298,7 @@ def _launch(name: str, tensors, B: int, H: int, Tq: int, Tk: int, D: int,
 
 
 def launch_backward_kernel(kernel: str, q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, do: torch.Tensor,
+                           v: torch.Tensor, do: torch.Tensor, o: torch.Tensor,
                            q_lengths: Optional[torch.Tensor],
                            m_lengths: Optional[torch.Tensor], m: torch.Tensor,
                            s: torch.Tensor, delta: torch.Tensor,
@@ -273,11 +308,13 @@ def launch_backward_kernel(kernel: str, q: torch.Tensor, k: torch.Tensor,
     ``"dkv"`` (``outs = (dk, dv)``), the one ``kernel_name`` picks for q's
     dtype, on the current stream, and count it. The tensors are taken as
     ``masked_flash_attention_backward`` checks them: CUDA, contiguous,
-    lengths int32 or None, ``delta`` fp32 [B, H, Tq]; raise if the launch
-    fails."""
+    lengths int32 or None, ``delta`` fp32 [B, H, Tq]. The bf16 dQ kernel
+    reads ``o`` and writes ``delta`` (``dq_forms_delta``); every other
+    kernel reads ``delta`` and not ``o``. Raise if the launch fails."""
     B, H, Tq, D = q.shape
-    _launch(kernel_name(kernel, q.dtype),
-            (q, k, v, do, q_lengths, m_lengths, m, s, delta, *outs),
+    name = kernel_name(kernel, q.dtype)
+    reads_o = (o,) if kernel == "dq" and dq_forms_delta(q.dtype) else ()
+    _launch(name, (q, k, v, do, *reads_o, q_lengths, m_lengths, m, s, delta, *outs),
             B, H, Tq, k.shape[2], D, scale, causal)
 
 

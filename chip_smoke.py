@@ -388,8 +388,8 @@ def check_backward(torch, fa, device):
                 # must be written, zeros on the rows without a key
                 delta = torch.full_like(m, float("nan"))
                 dq = torch.empty_like(q)
-                fa.launch_backward_kernel("dq", q, k, v, do, o, ql, ml, m, s, delta, (dq,),
-                                          0.125, causal)
+                fa.launch_backward_kernel("dq", q, k, v, do, ql, ml, m, s, delta, (dq,),
+                                          0.125, causal, o=o)
                 dq_want, delta_want = fa.masked_attention_dq_reference(
                     q, k, v, do, o, ql, ml, m, s, 0.125, causal)
                 torch.cuda.synchronize()
@@ -421,8 +421,9 @@ def backward_work(torch, tq, tk, causal, ql, ml, D, B, H, dq_forms_delta):
     (D a key). Elements read once: q and dO of the valid rows, the k and v
     rows they see, their m, s and delta, and for dK/dV the dO and s of the
     uniform rows; written: dq, or dk and dv, whole. Where the dQ kernel
-    forms delta (``dq_forms_delta``, bf16), it reads O of the valid rows in
-    place of their delta (2*D operations a row) and writes delta whole."""
+    forms delta (``dq_forms_delta``: it is one of the port's
+    ``DELTA_FORMING_KERNELS``), it reads O of the valid rows in place of
+    their delta (2*D operations a row) and writes delta whole."""
     ql = torch.full((B,), tq) if ql is None else ql.cpu().clamp(0, tq)
     ml = torch.full((B,), tk) if ml is None else ml.cpu().clamp(0, tk)
     dq_flops = dkv_flops = dq_in = dkv_in = dq_stats = dkv_stats = 0
@@ -475,8 +476,9 @@ def time_backward(torch, fa, device, sites, dtype_name):
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
         def launch(kernel, *outs):
-            fa.launch_backward_kernel(kernel, q, k, v, do, o, ql, ml, m, s, delta, outs,
-                                      0.125, causal)
+            reads_o = fa.kernel_name(kernel, dtype) in fa.DELTA_FORMING_KERNELS
+            fa.launch_backward_kernel(kernel, q, k, v, do, ql, ml, m, s, delta, outs,
+                                      0.125, causal, o=o if reads_o else None)
 
         mask = fa.attention_mask(ql, ml, B, tq, tk, causal, device)
         fwd_flop_ms, fwd_byte_ms, _, _ = forward_bound(torch, tq, tk, causal, ql, ml, B,
@@ -508,7 +510,8 @@ def time_backward(torch, fa, device, sites, dtype_name):
         out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=0.125)
         row["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
             out, (qg, kg, vg), do, retain_graph=True))
-        work = backward_work(torch, tq, tk, causal, ql, ml, 64, B, 4, fa.dq_forms_delta(dtype))
+        work = backward_work(torch, tq, tk, causal, ql, ml, 64, B, 4,
+                             fa.kernel_name("dq", dtype) in fa.DELTA_FORMING_KERNELS)
         for kern, (flops, elems, stats) in work.items():
             flop_ms = 1e3 * flops / PEAK_FLOPS[dtype_name]
             n_bytes = elems * ELEMENT_BYTES[dtype_name] + stats * 4 + 2 * B * 4
@@ -694,7 +697,7 @@ def main():
     print(json.dumps({"build_seconds": build_s, "ptxas": report,
                       "dynamic_shared_bytes_per_block": {
                           name: getattr(lib, f"{name}_shared_bytes")()
-                          for name, _, _ in _build.KERNELS}}), flush=True)
+                          for name, _ in _build.KERNELS}}), flush=True)
 
     phase("kernel_checks")
     worst_fwd, share_fwd_tc = check_kernels(torch, fa, device)

@@ -14,6 +14,10 @@ and at r = 2 and r = 5 on a batch of 32 prints one JSON line: the median
 host-clock wall of 10 train steps and chip_smoke.py's torch.profiler pass
 (kernel device time, kernel launches and the hand-written kernels' launches
 per step). The last line is the card's name and power limit.
+
+It loads chip_smoke.py by file path and calls its helpers `MODEL_DIR`,
+`write_records`, `train_step_times` and `profile_train_steps`: a change to
+their signatures or return values there must be made here too.
 """
 
 import importlib.util

@@ -2,8 +2,8 @@
 
 Every ``extern "C" int <name>(...)`` in ``vaenar_tts_torch/csrc/*.cu`` is
 parsed, and each kernel function must stand in ``_build.KERNELS`` with the
-argument types that ``load_library`` gives ctypes (its pointer count and
-is_bf16 flag), and the reverse; each must also export
+argument types that ``load_library`` gives ctypes (its pointer count), and
+the reverse; each must also export
 ``<name>_shared_bytes(void)``. A wrong row passes pointers into the wrong
 slots on the card, so this is checked here, where there is no nvcc.
 """
@@ -45,12 +45,12 @@ def test_sources_declare_kernels():
     assert len(_declarations()) == 2 * len(_build.KERNELS)
 
 
-@pytest.mark.parametrize("name,n_ptr,flag", _build.KERNELS,
+@pytest.mark.parametrize("name,n_ptr", _build.KERNELS,
                          ids=[row[0] for row in _build.KERNELS])
-def test_kernels_row_matches_its_c_signature(name, n_ptr, flag):
+def test_kernels_row_matches_its_c_signature(name, n_ptr):
     decls = _declarations()
     assert name in decls, f"{name} is in KERNELS but no source declares it"
-    assert decls[name] == _build.argtypes(n_ptr, flag), name
+    assert decls[name] == _build.argtypes(n_ptr), name
     assert decls.get(f"{name}_shared_bytes") == [], f"{name}_shared_bytes(void) is missing"
 
 

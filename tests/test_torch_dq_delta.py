@@ -92,8 +92,23 @@ def test_kernel_routing(kind, dtype):
     base = "masked_attention_fwd" if kind == "fwd" else f"masked_attention_bwd_{kind}"
     want = f"{base}_tc" if dtype == torch.bfloat16 else base
     assert fa.kernel_name(kind, dtype) == want
-    if kind == "dq":
-        assert fa.dq_forms_delta(dtype) == (dtype == torch.bfloat16)
+    forms_delta = fa.kernel_name(kind, dtype) in fa.DELTA_FORMING_KERNELS
+    assert forms_delta == (kind == "dq" and dtype == torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind,dtype,give_o", [("dq", torch.bfloat16, False),
+                                                ("dq", torch.float32, True),
+                                                ("dkv", torch.bfloat16, True)])
+def test_launch_refuses_a_wrong_o(kind, dtype, give_o):
+    """Only a kernel of DELTA_FORMING_KERNELS is given o: a launch that
+    would pass the kernel one pointer too many or too few raises before it
+    reaches the library."""
+    q = torch.zeros((1, 1, 8, 64), dtype=dtype)
+    stat = torch.zeros((1, 1, 8))
+    outs = (torch.empty_like(q),) if kind == "dq" else (torch.empty_like(q),) * 2
+    with pytest.raises(ValueError, match="o$"):
+        fa.launch_backward_kernel(kind, q, q, q, q, None, None, stat, stat, stat, outs,
+                                  0.125, False, o=q if give_o else None)
 
 
 def test_bf16_cpu_gradients_are_the_plain_backward():
@@ -138,8 +153,8 @@ def test_dq_kernel_matches_plain_on_card(cuda_device):
         o, m, s = fa.masked_attention_reference(q, k, v, ql, ml, 0.125, causal)
         dq, delta = torch.empty_like(q), torch.full_like(m, float("nan"))
         fa.launch_counts.clear()
-        fa.launch_backward_kernel("dq", q, k, v, do, o, ql, ml, m, s, delta, (dq,), 0.125,
-                                  causal)
+        fa.launch_backward_kernel("dq", q, k, v, do, ql, ml, m, s, delta, (dq,), 0.125,
+                                  causal, o=o)
         assert dict(fa.launch_counts) == {"masked_attention_bwd_dq_tc": 1}
         dq_want, delta_want = fa.masked_attention_dq_reference(q, k, v, do, o, ql, ml, m, s,
                                                                0.125, causal)

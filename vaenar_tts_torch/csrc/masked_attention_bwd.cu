@@ -1,10 +1,9 @@
 // Masked multi-head attention, backward, for sm_90a: a dQ kernel and a dK/dV
 // kernel. Plain C interface, bound from Python with ctypes
 // (vaenar_tts_torch/ops/flash_attention.py, masked_flash_attention_backward).
-// The package sends these kernels fp32 inputs only: bf16 takes the
-// tensor-core kernels, dQ masked_attention_bwd_dq_tc.cu (which also forms
-// delta) and dK/dV masked_attention_bwd_dkv_tc.cu. Their bf16 instantiations
-// (is_bf16 = 1) are reached by no path of the package.
+// fp32 only: bf16 takes the tensor-core kernels, dQ
+// masked_attention_bwd_dq_tc.cu (which also forms delta) and dK/dV
+// masked_attention_bwd_dkv_tc.cu.
 //
 // Replaces the two backward Pallas kernels of
 // vaenar_tts_tpu/ops/flash_attention.py, launched by _pallas_backward:
@@ -23,9 +22,9 @@
 //   dV = P^T . dO                       (unmasked: every row of P counts)
 //   dS = where(mask, P * (dO.V^T - delta), 0)
 //   dQ = dS . K * scale,   dK = dS^T . Q * scale
-// fp32 arithmetic and accumulators in both dtypes; dQ is written in q's
-// dtype, dK and dV in k's. Null length pointers mean full lengths. Rows past
-// Tq and keys past Tk do not exist in the math and contribute nothing.
+// fp32 inputs, arithmetic, accumulators and outputs. Null length pointers
+// mean full lengths. Rows past Tq and keys past Tk do not exist in the math
+// and contribute nothing.
 //
 // The masked rows, and why the kernels can skip most of the work exactly:
 //   * a row with nothing unmasked (row >= q_len, or every row when
@@ -41,8 +40,8 @@
 //     the dK/dV loop skips key blocks at or past m_len and, when causal, the
 //     q-tiles before the key block.
 //
-// Design. 256 threads a block, 64 x 64 tiles in shared memory, converted to
-// fp32 on load, rows padded to 65 floats against bank conflicts. Each
+// Design. 256 threads a block, 64 x 64 tiles in shared memory, rows padded
+// to 65 floats against bank conflicts. Each
 // thread owns a 4 x 4 piece of the 64 x 64 score tile (rows 4*(tid/16)+i,
 // columns tid%16 + 16*j) and the same piece of its 64 x 64 output
 // accumulators (columns are head-width indices there). P and dS go through
@@ -61,7 +60,6 @@
 
 #include <math.h>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -77,32 +75,25 @@ constexpr size_t DQ_SMEM_BYTES = sizeof(float) * (5 * 64 * PAD);
 // dK/dV: K, V, Q, dO, P^T, dS^T tiles and m, s, delta of the q-tile
 constexpr size_t DKV_SMEM_BYTES = sizeof(float) * (6 * 64 * PAD + 3 * BQ);
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-// rows [row0, row0 + 64) of a [T, HD] matrix into a padded fp32 tile; rows at
+// rows [row0, row0 + 64) of a [T, HD] matrix into a padded tile; rows at
 // or past `rows_end` are zero
-template <typename T>
-__device__ __forceinline__ void load_tile(float* dst, const T* __restrict__ src,
+__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
                                           int row0, int rows_end) {
   for (int idx = threadIdx.x; idx < 64 * HD; idx += THREADS) {
     const int r = idx / HD, d = idx % HD;
-    dst[r * PAD + d] = row0 + r < rows_end ? to_float(src[(size_t)(row0 + r) * HD + d]) : 0.f;
+    dst[r * PAD + d] = row0 + r < rows_end ? src[(size_t)(row0 + r) * HD + d] : 0.f;
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-masked_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                               const T* __restrict__ v, const T* __restrict__ dout,
+masked_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ dout,
                                const int* __restrict__ q_len,
                                const int* __restrict__ m_len,
                                const float* __restrict__ m_in,
                                const float* __restrict__ s_in,
                                const float* __restrict__ delta_in,
-                               T* __restrict__ dq, int H, int Tq, int Tk,
+                               float* __restrict__ dq, int H, int Tq, int Tk,
                                float scale, int causal) {
   extern __shared__ float smem[];
   float* sQ = smem;             // [BQ][PAD]
@@ -219,20 +210,19 @@ masked_attention_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r >= q_rows) continue;
     const size_t off = q_base + (size_t)(q0 + r) * HD;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) store(&dq[off + cg + 16 * j], acc[i][j] * scale);
+    for (int j = 0; j < 4; ++j) dq[off + cg + 16 * j] = acc[i][j] * scale;
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-masked_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                                const T* __restrict__ v, const T* __restrict__ dout,
+masked_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ dout,
                                 const int* __restrict__ q_len,
                                 const int* __restrict__ m_len,
                                 const float* __restrict__ m_in,
                                 const float* __restrict__ s_in,
                                 const float* __restrict__ delta_in,
-                                T* __restrict__ dk, T* __restrict__ dv, int H,
+                                float* __restrict__ dk, float* __restrict__ dv, int H,
                                 int Tq, int Tk, float scale, int causal) {
   extern __shared__ float smem[];
   float* sK = smem;              // [BK][PAD], this block's keys
@@ -266,16 +256,16 @@ masked_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k
   {
     constexpr int PARTS = THREADS / HD;
     const int d = tid % HD;
-    const T* col = dout + q_base + d;
+    const float* col = dout + q_base + d;
     float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
     int r = valid_end + tid / HD;
     for (; r + 3 * PARTS < Tq; r += 4 * PARTS) {
-      a0 += to_float(col[(size_t)r * HD]) / s_in[stat_base + r];
-      a1 += to_float(col[(size_t)(r + PARTS) * HD]) / s_in[stat_base + r + PARTS];
-      a2 += to_float(col[(size_t)(r + 2 * PARTS) * HD]) / s_in[stat_base + r + 2 * PARTS];
-      a3 += to_float(col[(size_t)(r + 3 * PARTS) * HD]) / s_in[stat_base + r + 3 * PARTS];
+      a0 += col[(size_t)r * HD] / s_in[stat_base + r];
+      a1 += col[(size_t)(r + PARTS) * HD] / s_in[stat_base + r + PARTS];
+      a2 += col[(size_t)(r + 2 * PARTS) * HD] / s_in[stat_base + r + 2 * PARTS];
+      a3 += col[(size_t)(r + 3 * PARTS) * HD] / s_in[stat_base + r + 3 * PARTS];
     }
-    for (; r < Tq; r += PARTS) a0 += to_float(col[(size_t)r * HD]) / s_in[stat_base + r];
+    for (; r < Tq; r += PARTS) a0 += col[(size_t)r * HD] / s_in[stat_base + r];
     sP[tid] = (a0 + a1) + (a2 + a3);
     __syncthreads();
     if (tid < HD) {
@@ -393,8 +383,8 @@ masked_attention_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k
     const size_t off = k_base + (size_t)(k0 + r) * HD;
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
-      store(&dk[off + cg + 16 * j], acc_dk[i][j] * scale);
-      store(&dv[off + cg + 16 * j], acc_dv[i][j]);
+      dk[off + cg + 16 * j] = acc_dk[i][j] * scale;
+      dv[off + cg + 16 * j] = acc_dv[i][j];
     }
   }
 }
@@ -409,40 +399,38 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {
   return err;
 }
 
-template <typename T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* q_len, const void* m_len, const void* m,
                       const void* s, const void* delta, void* dq, int B, int H,
                       int Tq, int Tk, float scale, int causal, cudaStream_t stream) {
   static bool smem_set = false;
-  cudaError_t err = allow_smem(masked_attention_bwd_dq_kernel<T>, DQ_SMEM_BYTES, &smem_set);
+  cudaError_t err = allow_smem(masked_attention_bwd_dq_kernel, DQ_SMEM_BYTES, &smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  masked_attention_bwd_dq_kernel<T><<<grid, THREADS, DQ_SMEM_BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const int*>(q_len),
+  masked_attention_bwd_dq_kernel<<<grid, THREADS, DQ_SMEM_BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const int*>(q_len),
       static_cast<const int*>(m_len), static_cast<const float*>(m),
       static_cast<const float*>(s), static_cast<const float*>(delta),
-      static_cast<T*>(dq), H, Tq, Tk, scale, causal);
+      static_cast<float*>(dq), H, Tq, Tk, scale, causal);
   return cudaGetLastError();
 }
 
-template <typename T>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* q_len, const void* m_len, const void* m,
                        const void* s, const void* delta, void* dk, void* dv, int B,
                        int H, int Tq, int Tk, float scale, int causal,
                        cudaStream_t stream) {
   static bool smem_set = false;
-  cudaError_t err = allow_smem(masked_attention_bwd_dkv_kernel<T>, DKV_SMEM_BYTES, &smem_set);
+  cudaError_t err = allow_smem(masked_attention_bwd_dkv_kernel, DKV_SMEM_BYTES, &smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid(B * H, (Tk + BK - 1) / BK);
-  masked_attention_bwd_dkv_kernel<T><<<grid, THREADS, DKV_SMEM_BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const int*>(q_len),
+  masked_attention_bwd_dkv_kernel<<<grid, THREADS, DKV_SMEM_BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const int*>(q_len),
       static_cast<const int*>(m_len), static_cast<const float*>(m),
       static_cast<const float*>(s), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Tq, Tk, scale, causal);
+      static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, Tk, scale, causal);
   return cudaGetLastError();
 }
 
@@ -453,21 +441,19 @@ bool bad_shape(int B, int H, int Tq, int Tk, int D) {
 
 }  // namespace
 
-// q, dout: contiguous [B, H, Tq, 64]; k, v: [B, H, Tk, 64]; all float
-// (is_bf16 = 0) or bfloat16 (is_bf16 = 1). q_len, m_len: int32 [B] or null.
-// m, s, delta: fp32 [B, H, Tq] (the forward's row max and row sum, and
-// rowsum(dO * O)). dq like q. Returns the CUDA error code of the launch.
+// q, dout: contiguous fp32 [B, H, Tq, 64]; k, v: fp32 [B, H, Tk, 64].
+// q_len, m_len: int32 [B] or null. m, s, delta: fp32 [B, H, Tq] (the
+// forward's row max and row sum, and rowsum(dO * O)). dq like q. Returns the
+// CUDA error code of the launch.
 extern "C" int masked_attention_bwd_dq(const void* q, const void* k, const void* v,
                                        const void* dout, const void* q_len,
                                        const void* m_len, const void* m, const void* s,
                                        const void* delta, void* dq, int B, int H,
                                        int Tq, int Tk, int D, float scale, int causal,
-                                       int is_bf16, void* stream) {
+                                       void* stream) {
   if (bad_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16
-      ? launch_dq<__nv_bfloat16>(q, k, v, dout, q_len, m_len, m, s, delta, dq, B, H, Tq, Tk, scale, causal, st)
-      : launch_dq<float>(q, k, v, dout, q_len, m_len, m, s, delta, dq, B, H, Tq, Tk, scale, causal, st));
+  return (int)launch_dq(q, k, v, dout, q_len, m_len, m, s, delta, dq, B, H, Tq, Tk, scale,
+                        causal, static_cast<cudaStream_t>(stream));
 }
 
 // The same arguments; dk and dv like k. Returns the CUDA error code.
@@ -476,12 +462,10 @@ extern "C" int masked_attention_bwd_dkv(const void* q, const void* k, const void
                                         const void* m_len, const void* m, const void* s,
                                         const void* delta, void* dk, void* dv, int B,
                                         int H, int Tq, int Tk, int D, float scale,
-                                        int causal, int is_bf16, void* stream) {
+                                        int causal, void* stream) {
   if (bad_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(is_bf16
-      ? launch_dkv<__nv_bfloat16>(q, k, v, dout, q_len, m_len, m, s, delta, dk, dv, B, H, Tq, Tk, scale, causal, st)
-      : launch_dkv<float>(q, k, v, dout, q_len, m_len, m, s, delta, dk, dv, B, H, Tq, Tk, scale, causal, st));
+  return (int)launch_dkv(q, k, v, dout, q_len, m_len, m, s, delta, dk, dv, B, H, Tq, Tk,
+                         scale, causal, static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory each block of the two kernels asks for, in bytes.

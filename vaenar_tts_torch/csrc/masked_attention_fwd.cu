@@ -1,5 +1,7 @@
-// Masked multi-head attention, forward, for sm_90a. Plain C interface, bound
-// from Python with ctypes (vaenar_tts_torch/ops/flash_attention.py).
+// Masked multi-head attention, forward, for sm_90a, fp32 only. Plain C
+// interface, bound from Python with ctypes
+// (vaenar_tts_torch/ops/flash_attention.py). bf16 takes the tensor-core
+// forward, masked_attention_fwd_tc.cu.
 //
 // Replaces the two forward Pallas kernels of
 // vaenar_tts_tpu/ops/flash_attention.py:
@@ -14,20 +16,20 @@
 // row < q_len[b] && col < m_len[b] (&& col <= row when causal); masked logits
 // become NEG = -2^32+1, not -inf, and the running max starts at NEG, so a row
 // with nothing unmasked comes out uniform over the Tk keys (o = mean(v),
-// m = NEG, s = Tk). fp32 softmax and accumulators; o is written in q's dtype
-// and the row stats m (max) and s (sum of exp) as fp32 [B, H, Tq].
+// m = NEG, s = Tk). fp32 inputs, softmax and accumulators; o is fp32 and the
+// row stats m (max) and s (sum of exp) fp32 [B, H, Tq].
 // Null length pointers mean full lengths. Columns past Tk do not exist and
 // contribute nothing; rows past Tq are not written.
 //
 // Design. One block of 256 threads takes one (b, h) and 64 query rows. It
-// walks the keys in tiles of 64 held in shared memory, converted to fp32 on
-// load. Each thread owns a 4 x 4 piece of the 64 x 64 score tile (rows
-// 4*(tid/16)+i, columns tid%16 + 16*j) and the same piece of the 64 x 64
-// output accumulator (columns are head-width indices there). Row max and row
+// walks the keys in tiles of 64 held in shared memory. Each thread owns a
+// 4 x 4 piece of the 64 x 64 score tile (rows 4*(tid/16)+i, columns
+// tid%16 + 16*j) and the same piece of the 64 x 64 output accumulator
+// (columns are head-width indices there). Row max and row
 // sum are reduced over the 16 lanes that share a row with warp shuffles; the
 // probabilities go through shared memory (reusing the K tile) for P.V. The
-// products are plain fp32 FMAs in both dtypes: the fp32 path must match the
-// fp32 reference to 1e-4, which TF32 tensor cores would not.
+// products are plain fp32 FMAs: the fp32 path must match the fp32 reference
+// to 1e-4, which TF32 tensor cores would not.
 //
 // Work skipped without changing the result:
 //   * rows at or past q_len (all rows when m_len == 0) are fully masked; the
@@ -42,14 +44,11 @@
 // about 4*D*Tq*Tk/2*B*H = 5.8 GFLOP against 28 MB of q, k, v and o: 86 us at
 // the 67 TFLOP/s fp32 (non-tensor) peak against 8 us of bytes at 3.35 TB/s;
 // the 1680 x 160 cross-attention needs 1.1 GFLOP (16 us) against 15 MB
-// (5 us). In bf16 the tensor-core peak of 989 TFLOP/s would make both
-// byte-bound; this kernel does not use tensor cores (mma.sync or wgmma is a
-// later step), so its own ceiling is the fp32 FMA rate in both dtypes, and
-// the inner product is limited by shared-memory loads (8 per 16 FMAs).
+// (5 us). The kernel's own ceiling is the fp32 FMA rate, and its inner
+// product is limited by shared-memory loads (8 per 16 FMAs).
 
 #include <math.h>
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -62,18 +61,12 @@ constexpr int PAD = HD + 1;    // row stride (floats) of the Q and K/P tiles
 constexpr float NEG = -4294967295.0f;  // -2^32+1, rounds to -2^32 as in fp32 JAX
 constexpr size_t SMEM_BYTES = sizeof(float) * (BQ * PAD + BK * PAD + BK * HD);
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                            const T* __restrict__ v,
+masked_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v,
                             const int* __restrict__ q_len,
                             const int* __restrict__ m_len,
-                            T* __restrict__ o, float* __restrict__ m_out,
+                            float* __restrict__ o, float* __restrict__ m_out,
                             float* __restrict__ s_out, int H, int Tq, int Tk,
                             float scale, int causal) {
   extern __shared__ float smem[];
@@ -99,16 +92,16 @@ masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     // from a sum over V alone; the loop below serves only the other rows.
     constexpr int PARTS = THREADS / HD;
     const int d = tid % HD;
-    const T* vcol = v + k_base + d;
+    const float* vcol = v + k_base + d;
     float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;  // independent chains
     int j = tid / HD;
     for (; j + 3 * PARTS < Tk; j += 4 * PARTS) {
-      a0 += to_float(vcol[(size_t)j * HD]);
-      a1 += to_float(vcol[(size_t)(j + PARTS) * HD]);
-      a2 += to_float(vcol[(size_t)(j + 2 * PARTS) * HD]);
-      a3 += to_float(vcol[(size_t)(j + 3 * PARTS) * HD]);
+      a0 += vcol[(size_t)j * HD];
+      a1 += vcol[(size_t)(j + PARTS) * HD];
+      a2 += vcol[(size_t)(j + 2 * PARTS) * HD];
+      a3 += vcol[(size_t)(j + 3 * PARTS) * HD];
     }
-    for (; j < Tk; j += PARTS) a0 += to_float(vcol[(size_t)j * HD]);
+    for (; j < Tk; j += PARTS) a0 += vcol[(size_t)j * HD];
     smem[tid] = (a0 + a1) + (a2 + a3);
     __syncthreads();
     if (tid < HD) {
@@ -119,7 +112,7 @@ masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     __syncthreads();
     const int first = has_valid_rows ? qlen - q0 : 0;  // first masked row of the tile
     for (int idx = first * HD + tid; idx < q_rows * HD; idx += THREADS) {
-      store(&o[q_base + (size_t)(q0 + idx / HD) * HD + idx % HD], smem[idx % HD]);
+      o[q_base + (size_t)(q0 + idx / HD) * HD + idx % HD] = smem[idx % HD];
     }
     for (int r = first + tid; r < q_rows; r += THREADS) {
       m_out[stat_base + q0 + r] = NEG;
@@ -131,7 +124,7 @@ masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int idx = tid; idx < BQ * HD; idx += THREADS) {
     const int r = idx / HD, d = idx % HD;
-    sQ[r * PAD + d] = r < q_rows ? to_float(q[q_base + (size_t)(q0 + r) * HD + d]) : 0.f;
+    sQ[r * PAD + d] = r < q_rows ? q[q_base + (size_t)(q0 + r) * HD + d] : 0.f;
   }
 
   // Valid rows see no key at or past m_len, nor past the diagonal when
@@ -158,8 +151,8 @@ masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = idx / HD, d = idx % HD;
       const int key = kt + r;
       const bool in = key < Tk;
-      sK[r * PAD + d] = in ? to_float(k[k_base + (size_t)key * HD + d]) : 0.f;
-      sV[r * HD + d] = in ? to_float(v[k_base + (size_t)key * HD + d]) : 0.f;
+      sK[r * PAD + d] = in ? k[k_base + (size_t)key * HD + d] : 0.f;
+      sV[r * HD + d] = in ? v[k_base + (size_t)key * HD + d] : 0.f;
     }
     __syncthreads();
 
@@ -248,7 +241,7 @@ masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (q0 + r >= rows_end) continue;  // past Tq, or written above as masked
     const size_t row_off = q_base + (size_t)(q0 + r) * HD;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) store(&o[row_off + cg + 16 * j], acc[i][j] / row_sum[i]);
+    for (int j = 0; j < 4; ++j) o[row_off + cg + 16 * j] = acc[i][j] / row_sum[i];
     if (cg == 0) {
       m_out[stat_base + q0 + r] = row_max[i];
       s_out[stat_base + q0 + r] = row_sum[i];
@@ -256,7 +249,6 @@ masked_attention_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* q_len, const void* m_len, void* o, void* m,
                    void* s, int B, int H, int Tq, int Tk, float scale,
@@ -264,39 +256,36 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   static bool smem_set = false;  // above 48 KB needs an explicit opt-in
   if (!smem_set) {
     cudaError_t err = cudaFuncSetAttribute(
-        masked_attention_fwd_kernel<T>,
+        masked_attention_fwd_kernel,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
   const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  masked_attention_fwd_kernel<T><<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(q_len),
-      static_cast<const int*>(m_len), static_cast<T*>(o),
+  masked_attention_fwd_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<const int*>(q_len),
+      static_cast<const int*>(m_len), static_cast<float*>(o),
       static_cast<float*>(m), static_cast<float*>(s), H, Tq, Tk, scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, k, v: contiguous [B, H, T, 64] of float (is_bf16 = 0) or bfloat16
-// (is_bf16 = 1); q_len, m_len: int32 [B] or null; o like q; m, s: fp32
-// [B, H, Tq]. Returns the CUDA error code of the launch (0 on success).
+// q, k, v: contiguous fp32 [B, H, T, 64]; q_len, m_len: int32 [B] or null;
+// o like q; m, s: fp32 [B, H, Tq]. Returns the CUDA error code of the launch
+// (0 on success).
 extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* q_len, const void* m_len,
                                     void* o, void* m, void* s, int B, int H,
                                     int Tq, int Tk, int D, float scale,
-                                    int causal, int is_bf16, void* stream) {
+                                    int causal, void* stream) {
   if (D != HD || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
       (Tq + BQ - 1) / BQ > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      is_bf16 ? launch<__nv_bfloat16>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal, st)
-              : launch<float>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal, st);
-  return (int)err;
+  return (int)launch(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal,
+                     static_cast<cudaStream_t>(stream));
 }
 
 // Dynamic shared memory each block of masked_attention_fwd asks for, in bytes

@@ -26,15 +26,14 @@ LIB_NAME = "libvaenar_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# (C function, pointer arguments, 1 if it takes an is_bf16 flag): the SIMT
-# kernels, which every path calls with fp32 inputs, and the bf16 tensor-core
-# kernels
-KERNELS = (("masked_attention_fwd", 8, 1),
-           ("masked_attention_bwd_dq", 10, 1),
-           ("masked_attention_bwd_dkv", 11, 1),
-           ("masked_attention_fwd_tc", 8, 0),
-           ("masked_attention_bwd_dq_tc", 11, 0),
-           ("masked_attention_bwd_dkv_tc", 11, 0))
+# (C function, pointer arguments): the fp32 SIMT kernels and the bf16
+# tensor-core kernels
+KERNELS = (("masked_attention_fwd", 8),
+           ("masked_attention_bwd_dq", 10),
+           ("masked_attention_bwd_dkv", 11),
+           ("masked_attention_fwd_tc", 8),
+           ("masked_attention_bwd_dq_tc", 11),
+           ("masked_attention_bwd_dkv_tc", 11))
 
 _loaded: dict = {}
 
@@ -109,20 +108,20 @@ def ptxas_report() -> Optional[str]:
         return f.read()
 
 
-def argtypes(n_ptr: int, flag: int) -> list:
+def argtypes(n_ptr: int) -> list:
     """The ctypes argument types of a kernel's C function: ``n_ptr``
-    pointers, then B, H, Tq, Tk, D, scale, causal, [is_bf16,] stream."""
-    return ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int]
-            + [ctypes.c_int] * flag + [ctypes.c_void_p])
+    pointers, then B, H, Tq, Tk, D, scale, causal, stream."""
+    return ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
+            + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def load_library() -> ctypes.CDLL:
     """Build if needed, then load once per process."""
     if "lib" not in _loaded:
         lib = ctypes.CDLL(build())
-        for name, n_ptr, flag in KERNELS:
+        for name, n_ptr in KERNELS:
             fn = getattr(lib, name)
-            fn.argtypes = argtypes(n_ptr, flag)
+            fn.argtypes = argtypes(n_ptr)
             fn.restype = ctypes.c_int
             shared = getattr(lib, f"{name}_shared_bytes")
             shared.argtypes = []

@@ -56,6 +56,10 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # launches of each hand-written kernel in this process; callers reset it
 launch_counts: Counter = Counter()
 
+# the backward kernels that read O and write δ themselves; every other one
+# reads a δ formed before it (``attention_delta``)
+DELTA_FORMING_KERNELS = frozenset({"masked_attention_bwd_dq_tc"})
+
 
 def attention_mask(q_lengths: Optional[torch.Tensor],
                    m_lengths: Optional[torch.Tensor], batch: int, tq: int,
@@ -252,16 +256,19 @@ def masked_flash_attention_backward(
     ql = _check_lengths(q_lengths, B, q.device, "q_lengths")
     ml = _check_lengths(m_lengths, B, q.device, "m_lengths")
 
-    # bf16: the dQ kernel forms δ and writes it for the dK/dV kernel
-    delta = (torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-             if dq_forms_delta(q.dtype) else attention_delta(o, do).contiguous())
+    if kernel_name("dq", q.dtype) in DELTA_FORMING_KERNELS:
+        # the dQ kernel reads O and writes δ for the dK/dV kernel
+        delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
+        dq_reads_o = o
+    else:
+        delta, dq_reads_o = attention_delta(o, do).contiguous(), None
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
-        launch_backward_kernel("dq", q, k, v, do, o, ql, ml, m, s, delta, (dq,),
-                               scale, causal)
-        launch_backward_kernel("dkv", q, k, v, do, o, ql, ml, m, s, delta,
+        launch_backward_kernel("dq", q, k, v, do, ql, ml, m, s, delta, (dq,),
+                               scale, causal, o=dq_reads_o)
+        launch_backward_kernel("dkv", q, k, v, do, ql, ml, m, s, delta,
                                (dk, dv), scale, causal)
     return dq, dk, dv
 
@@ -274,23 +281,15 @@ def kernel_name(kind: str, dtype: torch.dtype) -> str:
     return f"{base}_tc" if dtype == torch.bfloat16 else base
 
 
-def dq_forms_delta(dtype: torch.dtype) -> bool:
-    """True where the dQ kernel for ``dtype`` reads O and writes δ (bf16),
-    False where it reads a δ formed before it (fp32)."""
-    return kernel_name("dq", dtype) == "masked_attention_bwd_dq_tc"
-
-
 def _launch(name: str, tensors, B: int, H: int, Tq: int, Tk: int, D: int,
             scale: float, causal: bool) -> None:
     """Call the C function ``name`` on the current stream with the tensors'
-    pointers (None for a missing length) and the shape, and the dtype flag
-    of the kernels that serve both dtypes (q's, the first tensor); raise if
-    the launch fails, else count it."""
+    pointers (None for a missing length) and the shape; raise if the launch
+    fails, else count it."""
     from . import _build
     fn = getattr(_build.load_library(), name)
-    flag = () if name.endswith("_tc") else (int(tensors[0].dtype == torch.bfloat16),)
     err = fn(*(None if t is None else t.data_ptr() for t in tensors),
-             B, H, Tq, Tk, D, float(scale), int(bool(causal)), *flag,
+             B, H, Tq, Tk, D, float(scale), int(bool(causal)),
              torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
@@ -298,22 +297,25 @@ def _launch(name: str, tensors, B: int, H: int, Tq: int, Tk: int, D: int,
 
 
 def launch_backward_kernel(kernel: str, q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, do: torch.Tensor, o: torch.Tensor,
+                           v: torch.Tensor, do: torch.Tensor,
                            q_lengths: Optional[torch.Tensor],
                            m_lengths: Optional[torch.Tensor], m: torch.Tensor,
                            s: torch.Tensor, delta: torch.Tensor,
                            outs: Tuple[torch.Tensor, ...], scale: float,
-                           causal: bool) -> None:
+                           causal: bool, o: Optional[torch.Tensor] = None) -> None:
     """Launch one backward kernel, ``"dq"`` (writes ``outs = (dq,)``) or
     ``"dkv"`` (``outs = (dk, dv)``), the one ``kernel_name`` picks for q's
     dtype, on the current stream, and count it. The tensors are taken as
     ``masked_flash_attention_backward`` checks them: CUDA, contiguous,
-    lengths int32 or None, ``delta`` fp32 [B, H, Tq]. The bf16 dQ kernel
-    reads ``o`` and writes ``delta`` (``dq_forms_delta``); every other
-    kernel reads ``delta`` and not ``o``. Raise if the launch fails."""
+    lengths int32 or None, ``delta`` fp32 [B, H, Tq]. A kernel of
+    ``DELTA_FORMING_KERNELS`` reads ``o`` and writes ``delta``; every other
+    one reads ``delta`` and is given no ``o``. Raise on a wrong ``o`` or if
+    the launch fails."""
     B, H, Tq, D = q.shape
     name = kernel_name(kernel, q.dtype)
-    reads_o = (o,) if kernel == "dq" and dq_forms_delta(q.dtype) else ()
+    if (o is not None) != (name in DELTA_FORMING_KERNELS):
+        raise ValueError(f"{name} reads o" if o is None else f"{name} takes no o")
+    reads_o = () if o is None else (o,)
     _launch(name, (q, k, v, do, *reads_o, q_lengths, m_lengths, m, s, delta, *outs),
             B, H, Tq, k.shape[2], D, scale, causal)
 

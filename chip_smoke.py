@@ -20,7 +20,9 @@ masked_attention_bwd_dkv).
    synthesis path's shapes, on ragged shapes, fully masked rows and
    Tk > 4096; the dQ and dK/dV backward kernels at the training path's
    shapes (r = 2 and r = 5), with fully masked rows, an item with no key, a
-   ragged pair and a long causal site, and the bf16 dQ kernel's delta;
+   ragged pair and a long causal site, and the bf16 dQ kernel's delta; both
+   at the edges of the kernels' tiles (padding rows over many q-blocks with
+   two warp groups, 32 and 33 keys or rows in a tile);
 4. synthesis path (bf16): the shipped LJSpeech model (artifacts/toyv2_q90/
    ckpt) at full width synthesizes 4 fixed lines through the CLI's
    synthesize_batch, at temperature 0 and at 0.667 with a seeded generator,
@@ -46,8 +48,9 @@ masked_attention_bwd_dkv).
 10. times on the card, in bf16 and in fp32: each kernel at its path's shapes
    beside its bound, its plain version and one PyTorch library call (device
    time); synthesis wall time; train step wall time at r = 2 and r = 5 and
-   launches per train step; a torch.profiler pass over bf16 train steps for
-   the device busy share and the kernels that take the most device time.
+   launches per train step; a torch.profiler pass over train steps in both
+   dtypes for the device busy share and the kernels that take the most
+   device time.
 
 Each phase prints a JSON line {"phase": ..., "seconds": ...} first. A failed
 check raises; the script then exits non-zero without printing the final
@@ -57,6 +60,7 @@ it, it exits non-zero at once. It writes the kernel build directory
 deletes.
 """
 
+import itertools
 import json
 import os
 import statistics
@@ -180,6 +184,11 @@ def length_sampler(torch, device, seed, B=4):
     return rand_len
 
 
+def fixed_len(torch, device, *lens):
+    """Lengths ``lens`` as int32 on ``device``."""
+    return torch.tensor(lens, dtype=torch.int32, device=device)
+
+
 def check_cases(torch, device):
     """(name, Tq, Tk, causal, q_len, m_len): the main path's shapes (text
     160, reduced mel 1680), a ragged pair and a Tk > 4096 case, with random
@@ -194,14 +203,23 @@ def check_cases(torch, device):
         ("ragged_1681x157", 1681, 157, False, rand_len(1681, 1, (0, 400)), rand_len(157, 1)),
         # Tk > 4096 (the TPU's blocked kernel); item 1 has no key at all
         ("long_1024x4104", 1024, 4104, False, rand_len(1024, 1), rand_len(4104, 4097, (1, 0))),
+        # edges of the kernels' tiles: padding rows of item 0 spanning ten
+        # q-blocks of 64 with Tk > 512 (the fp32 kernel's two warp groups
+        # merge); an item with no key where one warp group serves; key and
+        # row counts of 32 and 33 in a tile
+        ("padding_blocks_700x1100", 700, 1100, False, rand_len(700, 1, (0, 60)),
+         rand_len(1100, 513)),
+        ("empty_memory_300x200", 300, 200, False, rand_len(300, 1), rand_len(200, 1, (2, 0))),
+        ("tile_edges_97", 97, 97, True, fixed_len(torch, device, 32, 33, 97, 65),
+         fixed_len(torch, device, 33, 32, 97, 64)),
     ]
 
 
 def check_kernels(torch, fa, device):
     """Forward kernel against plain version, fp32 (masked_attention_fwd) and
     bf16 (masked_attention_fwd_tc); returns {kernel: {dtype: largest |o|
-    error}} and the worst share of the bf16 tolerance."""
-    worst, worst_share = {}, 0.0
+    error}} and {dtype: the worst share of that dtype's o tolerance}."""
+    worst, worst_share = {}, {"float32": 0.0, "bfloat16": 0.0}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         kernel = fa.kernel_name("fwd", dtype)
@@ -232,8 +250,7 @@ def check_kernels(torch, fa, device):
             check(err_s <= TOL_S_REL, f"{name}/{dtype_name}: s rel error {err_s}")
             by_dtype = worst.setdefault(kernel, {})
             by_dtype[dtype_name] = max(by_dtype.get(dtype_name, 0.0), err_o)
-            if dtype_name == "bfloat16":
-                worst_share = max(worst_share, tol_share_o)
+            worst_share[dtype_name] = max(worst_share[dtype_name], tol_share_o)
     return worst, worst_share
 
 
@@ -323,6 +340,36 @@ def time_kernels(torch, fa, device, sites, dtype_name):
     return totals
 
 
+def synthesis_sites(torch, hp, token_ids, mel_lengths, max_mel, device):
+    """(name, calls per synthesis call, Tq, Tk, causal, q_len, m_len) of the
+    synthesis path's attention sites: the encoder's self-attention, and the
+    causal self- and the cross-attention of the flow's couplings and of the
+    decoder, at the reduced lengths of ``mel_lengths`` (predicted mel
+    frames) in a mel bucket of ``max_mel`` frames."""
+    r = hp.common.final_reduction_factor
+    text_max = -(-max(map(len, token_ids)) // hp.dataset.text_bucket) * hp.dataset.text_bucket
+    text_lens = torch.tensor([len(t) for t in token_ids], dtype=torch.int32, device=device)
+    z_lens = ((mel_lengths + r - 1) // r).to(device=device, dtype=torch.int32)
+    z_max = max_mel // r
+    calls = hp.prior.n_blk * hp.prior.n_transformer_blk + hp.decoder.nblk
+    return [("encoder_self", hp.encoder.n_blk, text_max, text_max, False, text_lens, text_lens),
+            ("causal_self", calls, z_max, z_max, True, z_lens, z_lens),
+            ("cross", calls, z_max, text_max, False, z_lens, text_lens)]
+
+
+def train_sites(torch, hp, big, device):
+    """The same for a train step at r = 2 on the loader batch ``big``: the
+    encoder's self-attention and the causal self- and cross-attention of
+    every CrossAttentionBlock (posterior, decoder, prior couplings)."""
+    text_lens = torch.from_numpy(big.text_lengths).to(device=device, dtype=torch.int32)
+    z_lens = ((torch.from_numpy(big.mel_lengths).to(device) + 1) // 2).to(torch.int32)
+    tmax, zmax = big.texts.shape[1], big.mels.shape[1] // 2
+    blocks = hp.posterior.nblk + hp.decoder.nblk + hp.prior.n_blk * hp.prior.n_transformer_blk
+    return [("encoder_self", hp.encoder.n_blk, tmax, tmax, False, text_lens, text_lens),
+            ("causal_self", blocks, zmax, zmax, True, z_lens, z_lens),
+            ("cross", blocks, zmax, tmax, False, z_lens, text_lens)]
+
+
 def backward_cases(torch, device):
     """(name, Tq, Tk, causal, q_len, m_len) of the backward checks: the
     training sites at r = 2 (text 32, reduced mel 240) with ragged lengths
@@ -340,6 +387,15 @@ def backward_cases(torch, device):
          rand_len(1680, 300)),
         ("causal_self_96", 96, 96, True, rand_len(96, 24, (0, 96)), rand_len(96, 24, (0, 96))),
         ("cross_96x32", 96, 32, False, rand_len(96, 24), rand_len(32, 12)),
+        # edges of the dK/dV kernels' tiles: blocks with 31, 32 and 33 keys
+        # below m_len and q-tiles with 1, 32, 33 and 64 valid rows, at Tk = 32
+        # and 33, and an item with no key
+        ("tile_edges_100x32", 100, 32, False, fixed_len(torch, device, 32, 33, 100, 1),
+         fixed_len(torch, device, 32, 31, 1, 32)),
+        ("tile_edges_100x33", 100, 33, False, fixed_len(torch, device, 32, 33, 100, 70),
+         fixed_len(torch, device, 33, 32, 1, 0)),
+        ("tile_edges_causal_97", 97, 97, True, fixed_len(torch, device, 32, 33, 97, 65),
+         fixed_len(torch, device, 33, 32, 97, 64)),
     ]
 
 
@@ -348,9 +404,11 @@ def check_backward(torch, fa, device):
     (masked_attention_bwd_dq, masked_attention_bwd_dkv) and bf16
     (masked_attention_bwd_dq_tc, masked_attention_bwd_dkv_tc), and the bf16
     dQ kernel's delta against masked_attention_dq_reference's; returns
-    {kernel: {dtype: largest error}} and the bf16 kernels' worst shares of
-    their tolerances {"dq": ..., "dkv": ..., "delta": ...}."""
-    worst, worst_share = {}, {"dq": 0.0, "dkv": 0.0, "delta": 0.0}
+    {kernel: {dtype: largest error}} and the kernels' worst shares of their
+    tolerances {dtype: {"dq": ..., "dkv": ...}}, with "delta" for bf16."""
+    worst = {}
+    worst_share = {"float32": {"dq": 0.0, "dkv": 0.0},
+                   "bfloat16": {"dq": 0.0, "dkv": 0.0, "delta": 0.0}}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         atol, rtol = TOL_GRAD[dtype_name]
@@ -381,8 +439,7 @@ def check_backward(torch, fa, device):
                 kern = "dq" if g_name == "dq" else "dkv"
                 by_dtype = worst.setdefault(kernels[kern], {})
                 by_dtype[dtype_name] = max(by_dtype.get(dtype_name, 0.0), diff.max().item())
-                if dtype_name == "bfloat16":
-                    worst_share[kern] = max(worst_share[kern], share)
+                worst_share[dtype_name][kern] = max(worst_share[dtype_name][kern], share)
             if dtype_name == "bfloat16":
                 # the dQ kernel alone, into a delta of NaNs: every element
                 # must be written, zeros on the rows without a key
@@ -397,7 +454,7 @@ def check_backward(torch, fa, device):
                 share = (diff / (atol + rtol * dq_want.float().abs())).max().item()
                 row["max_share_of_tol_dq_alone"] = share
                 check(share <= 1.0, f"{name}: dq alone, {share} of the tolerance")
-                worst_share["dq"] = max(worst_share["dq"], share)
+                worst_share[dtype_name]["dq"] = max(worst_share[dtype_name]["dq"], share)
                 diff = (delta - delta_want).abs()
                 share = (diff / (TOL_DELTA[0] + TOL_DELTA[1] * delta_want.abs())).max().item()
                 row.update({"max_abs_err_delta": diff.max().item(),
@@ -405,7 +462,7 @@ def check_backward(torch, fa, device):
                             "delta_tol": list(TOL_DELTA)})
                 check(share <= 1.0, f"{name}: delta error {diff.max().item()} "
                       f"({share} of atol {TOL_DELTA[0]} + rtol {TOL_DELTA[1]} * |delta|)")
-                worst_share["delta"] = max(worst_share["delta"], share)
+                worst_share[dtype_name]["delta"] = max(worst_share[dtype_name]["delta"], share)
             print(json.dumps(row), flush=True)
     return worst, worst_share
 
@@ -700,10 +757,10 @@ def main():
                           for name, _ in _build.KERNELS}}), flush=True)
 
     phase("kernel_checks")
-    worst_fwd, share_fwd_tc = check_kernels(torch, fa, device)
+    worst_fwd, share_fwd = check_kernels(torch, fa, device)
 
     phase("backward_checks")
-    worst_bwd, share_bwd_tc = check_backward(torch, fa, device)
+    worst_bwd, share_bwd = check_backward(torch, fa, device)
     worst = {**worst_fwd, **worst_bwd}
 
     phase("load")
@@ -911,15 +968,7 @@ def main():
         check(bool(torch.isfinite(mels_e).all()), "non-finite mel from the exported model")
 
         phase("times")
-        r = hp.common.final_reduction_factor
-        text_max, z_max = max(map(len, token_ids)), max_mel // r
-        text_max = -(-text_max // hp.dataset.text_bucket) * hp.dataset.text_bucket
-        text_lens = torch.tensor([len(t) for t in token_ids], dtype=torch.int32, device=device)
-        z_lens = ((lens0 + r - 1) // r).to(torch.int32)
-        flow_and_dec = flow_attn // 2 + hp.decoder.nblk
-        sites = [("encoder_self", hp.encoder.n_blk, text_max, text_max, False, text_lens, text_lens),
-                 ("causal_self", flow_and_dec, z_max, z_max, True, z_lens, z_lens),
-                 ("cross", flow_and_dec, z_max, text_max, False, z_lens, text_lens)]
+        sites = synthesis_sites(torch, hp, token_ids, lens0, max_mel, device)
         # Tk > 4096, where the TPU ran its blocked kernel: no site of either
         # path, so timed at the check's shape
         long_case = [c for c in check_cases(torch, device) if c[0] == "long_1024x4104"][0]
@@ -947,16 +996,11 @@ def main():
                                        hp_train.dataset.mel_bucket,
                                        hp_train.dataset.text_bucket, shuffle=False).epoch(0)))
         batch = to_device(big, device)
-        r_tl = batch[2].to(torch.int32)
-        r_zl = ((batch[3] + 1) // 2).to(torch.int32)
-        tmax, zmax = big.texts.shape[1], big.mels.shape[1] // 2
-        train_sites = [("encoder_self", hp_train.encoder.n_blk, tmax, tmax, False, r_tl, r_tl),
-                       ("causal_self", blocks, zmax, zmax, True, r_zl, r_zl),
-                       ("cross", blocks, zmax, tmax, False, r_zl, r_tl)]
+        step_sites = train_sites(torch, hp_train, big, device)
         bwd, step_times = {}, {}
         for dtype_name, m_, h_ in (("bfloat16", trained, hp_train),
                                    ("float32", trained32, hp32_train)):
-            bwd[dtype_name] = time_backward(torch, fa, device, train_sites, dtype_name)
+            bwd[dtype_name] = time_backward(torch, fa, device, step_sites, dtype_name)
             dt = getattr(torch, dtype_name)
             want = {fa.kernel_name(kind, dt): float(per_step) for kind in ("fwd", "dq", "dkv")}
             for rf in (2, hp_train.common.max_reduction_factor):
@@ -970,11 +1014,12 @@ def main():
                           "attention_per_train_step_r2": bwd}), flush=True)
 
         phase("train_step_profile")
-        for rf in (2, hp_train.common.max_reduction_factor):
-            device_ms, launches, top = profile_train_steps(torch, steps, trained, hp_train,
-                                                           batch, rf)
-            wall_ms = 1e3 * step_times[f"bfloat16_r{rf}"]["median_s"]
-            print(json.dumps({"compute_dtype": "bfloat16", "reduction_factor": rf,
+        for (dtype_name, m_, h_), rf in itertools.product(
+                (("bfloat16", trained, hp_train), ("float32", trained32, hp32_train)),
+                (2, hp_train.common.max_reduction_factor)):
+            device_ms, launches, top = profile_train_steps(torch, steps, m_, h_, batch, rf)
+            wall_ms = 1e3 * step_times[f"{dtype_name}_r{rf}"]["median_s"]
+            print(json.dumps({"compute_dtype": dtype_name, "reduction_factor": rf,
                               "device_ms_per_step": device_ms,
                               "kernel_launches_per_step": launches,
                               "wall_ms_per_step_unprofiled": wall_ms,
@@ -1024,7 +1069,7 @@ def main():
                 "library_ms": t["library_ms"], "per": train_per, **extra}
 
     BWD_SOURCES = {"masked_attention_bwd_dq": "masked_attention_bwd.cu",
-                   "masked_attention_bwd_dkv": "masked_attention_bwd.cu",
+                   "masked_attention_bwd_dkv": "masked_attention_bwd_dkv.cu",
                    "masked_attention_bwd_dq_tc": "masked_attention_bwd_dq_tc.cu",
                    "masked_attention_bwd_dkv_tc": "masked_attention_bwd_dkv_tc.cu"}
     kernels = [
@@ -1033,27 +1078,30 @@ def main():
                   + training_counts["masked_attention_fwd_tc"],
                   {"synthesis": synthesis_counts["masked_attention_fwd_tc"],
                    "training": training_counts["masked_attention_fwd_tc"]},
-                  {"max_share_of_tol": share_fwd_tc}),
+                  {"max_share_of_tol": share_fwd["bfloat16"]}),
         fwd_entry("masked_attention_fwd", "float32",
                   fp32_synthesis_counts["masked_attention_fwd"]
                   + fp32_step_counts["masked_attention_fwd"],
                   {"fp32_synthesis": fp32_synthesis_counts["masked_attention_fwd"],
-                   "fp32_train_step": fp32_step_counts["masked_attention_fwd"]}, {}),
+                   "fp32_train_step": fp32_step_counts["masked_attention_fwd"]},
+                  {"max_share_of_tol": share_fwd["float32"]}),
         bwd_entry("masked_attention_bwd_dq_tc", "dq", "bfloat16",
                   training_counts["masked_attention_bwd_dq_tc"],
                   {"training": training_counts["masked_attention_bwd_dq_tc"]},
-                  {"max_share_of_tol": share_bwd_tc["dq"],
-                   "max_share_of_tol_delta": share_bwd_tc["delta"]}),
+                  {"max_share_of_tol": share_bwd["bfloat16"]["dq"],
+                   "max_share_of_tol_delta": share_bwd["bfloat16"]["delta"]}),
         bwd_entry("masked_attention_bwd_dq", "dq", "float32",
                   fp32_step_counts["masked_attention_bwd_dq"],
-                  {"fp32_train_step": fp32_step_counts["masked_attention_bwd_dq"]}, {}),
+                  {"fp32_train_step": fp32_step_counts["masked_attention_bwd_dq"]},
+                  {"max_share_of_tol": share_bwd["float32"]["dq"]}),
         bwd_entry("masked_attention_bwd_dkv_tc", "dkv", "bfloat16",
                   training_counts["masked_attention_bwd_dkv_tc"],
                   {"training": training_counts["masked_attention_bwd_dkv_tc"]},
-                  {"max_share_of_tol": share_bwd_tc["dkv"]}),
+                  {"max_share_of_tol": share_bwd["bfloat16"]["dkv"]}),
         bwd_entry("masked_attention_bwd_dkv", "dkv", "float32",
                   fp32_step_counts["masked_attention_bwd_dkv"],
-                  {"fp32_train_step": fp32_step_counts["masked_attention_bwd_dkv"]}, {}),
+                  {"fp32_train_step": fp32_step_counts["masked_attention_bwd_dkv"]},
+                  {"max_share_of_tol": share_bwd["float32"]["dkv"]}),
     ]
     for entry in kernels:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on its path")

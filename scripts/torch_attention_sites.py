@@ -1,0 +1,119 @@
+#!/usr/bin/env python3
+"""Time the attention kernels of one or more checkouts of the PyTorch port
+(vaenar_tts_torch) at the main path's sites, on one CUDA card, without the
+model:
+
+    python3 scripts/torch_attention_sites.py ROOT [ROOT ...] [--checks] [--dtype float32]
+
+Each ROOT is a directory that holds a `vaenar_tts_torch/` package (this
+checkout, or another tree unpacked with `git archive`); each runs in its own
+process, in the order given, which imports the package and builds its
+kernels from its root. A run prints its ptxas report, with `--checks`
+chip_smoke.py's kernel checks, and then, in each dtype (both unless
+`--dtype` names one), chip_smoke.py's rows for the forward at the synthesis
+sites and at 1024 x 4104 and for the forward, dQ and dK/dV at the train-step
+sites: device time, bound, plain and library times. The site lengths are the
+ones chip_smoke.py's times phase uses: the shipped model's bf16 synthesis
+lengths of its four lines (1093, 1000, 1166 and 919 mel frames) and the
+seeded training batch at r = 2. The last line is the card's name and power
+limit.
+
+It loads chip_smoke.py by file path and calls its helpers `MODEL_DIR`,
+`LINES`, `check_cases`, `check_kernels`, `check_backward`, `write_records`,
+`synthesis_sites`, `train_sites`, `time_kernels` and `time_backward`: a
+change to their signatures or return values there must be made here too.
+"""
+
+import importlib.util
+import json
+import os
+import subprocess
+import sys
+import tempfile
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# mel frames the shipped model predicts for chip_smoke.py's LINES at bf16
+SYNTHESIS_MEL_LENGTHS = (1093, 1000, 1166, 919)
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_one(root, checks, dtypes):
+    """One run from ``root``; prints JSON lines."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    from vaenar_tts_torch.cli.inference import encode_lines
+    from vaenar_tts_torch.configs.serialize import load_hparams
+    from vaenar_tts_torch.data.loader import BucketedLoader, pad_to_multiple
+    from vaenar_tts_torch.data.records import list_shards
+    from vaenar_tts_torch.ops import _build
+    from vaenar_tts_torch.ops import flash_attention as fa
+    cs = _chip_smoke()
+    device = torch.device("cuda")
+    _build.build()
+    lib = _build.load_library()
+    print(json.dumps({"root": root, "ptxas": [
+        line.strip() for line in (_build.ptxas_report() or "").splitlines()
+        if "registers" in line or "bytes stack" in line or "Compiling entry" in line],
+        "dynamic_shared_bytes_per_block": {
+            name: getattr(lib, f"{name}_shared_bytes")() for name, _ in _build.KERNELS}}),
+        flush=True)
+    if checks:
+        print(json.dumps({"root": root, "forward_checks": cs.check_kernels(torch, fa, device)}),
+              flush=True)
+        print(json.dumps({"root": root, "backward_checks": cs.check_backward(torch, fa, device)}),
+              flush=True)
+
+    hp = load_hparams(cs.MODEL_DIR)
+    ids = encode_lines(hp, cs.LINES)
+    # the mel bucket of cli.inference.synthesize_batch
+    text_max = pad_to_multiple(max(map(len, ids)), hp.dataset.text_bucket)
+    max_mel = pad_to_multiple(int(text_max * hp.common.mel_text_len_ratio * 2) + 160,
+                              hp.dataset.mel_bucket)
+    sites = cs.synthesis_sites(torch, hp, ids, torch.tensor(SYNTHESIS_MEL_LENGTHS), max_mel,
+                               device)
+    long_case = [c for c in cs.check_cases(torch, device) if c[0] == "long_1024x4104"][0]
+    with tempfile.TemporaryDirectory(prefix="vaenar_sites_") as tmp:
+        cs.write_records(tmp, seed=2026)
+        big = next(iter(BucketedLoader(list_shards(tmp, "train"), hp.train.train_batch_size,
+                                       hp.dataset.mel_bucket, hp.dataset.text_bucket,
+                                       shuffle=False).epoch(0)))
+    step_sites = cs.train_sites(torch, hp, big, device)
+    for dtype_name in dtypes:
+        print(json.dumps({"root": root, "dtype": dtype_name,
+                          "forward_per_synthesis": cs.time_kernels(torch, fa, device, sites,
+                                                                   dtype_name),
+                          "tk_4104": cs.time_kernels(torch, fa, device,
+                                                     [(long_case[0], 1, *long_case[1:])],
+                                                     dtype_name),
+                          "per_train_step_r2": cs.time_backward(torch, fa, device, step_sites,
+                                                                dtype_name)}), flush=True)
+
+
+def main(argv):
+    if len(argv) >= 2 and argv[0] == "--one":
+        run_one(argv[1], "--checks" in argv, argv[argv.index("--dtype") + 1:][:1]
+                if "--dtype" in argv else ["float32", "bfloat16"])
+        return 0
+    flags = [a for a in argv if a == "--checks"]
+    if "--dtype" in argv:
+        flags += argv[argv.index("--dtype"):][:2]
+    roots = [a for a in argv if a not in flags]
+    if not roots:
+        print(__doc__, file=sys.stderr)
+        return 2
+    for root in roots:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root, *flags],
+                       check=True)
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

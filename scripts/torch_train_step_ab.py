@@ -1,14 +1,15 @@
 #!/usr/bin/env python3
-"""Time and profile bf16 train steps of the PyTorch port (vaenar_tts_torch)
-from two checkouts in turns, on one CUDA card:
+"""Time and profile train steps of the PyTorch port (vaenar_tts_torch) from
+two checkouts in turns, on one CUDA card:
 
-    python3 scripts/torch_train_step_ab.py ROOT_A ROOT_B
+    python3 scripts/torch_train_step_ab.py ROOT_A ROOT_B [--compute_dtype float32]
 
 ROOT_A and ROOT_B are directories that hold a `vaenar_tts_torch/` package
 (a parent commit unpacked with `git archive`, and this checkout). The runs go
 A, B, B, A, each in its own process that imports the package and builds its
 kernels from its root. Each run loads the shipped model
-(artifacts/toyv2_q90/ckpt of this checkout, compute dtype bfloat16), makes
+(artifacts/toyv2_q90/ckpt of this checkout, at its compute dtype, bfloat16,
+or at the one `--compute_dtype` names), makes
 the training path's data from a seed with chip_smoke.py's `write_records`,
 and at r = 2 and r = 5 on a batch of 32 prints one JSON line: the median
 host-clock wall of 10 train steps and chip_smoke.py's torch.profiler pass
@@ -38,8 +39,9 @@ def _chip_smoke():
     return mod
 
 
-def run_one(root):
-    """One run from ``root``; prints a JSON line for each reduction factor."""
+def run_one(root, compute_dtype=None):
+    """One run from ``root`` at ``compute_dtype`` (None: the shipped
+    config's); prints a JSON line for each reduction factor."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from vaenar_tts_torch.data.loader import BucketedLoader
@@ -49,7 +51,7 @@ def run_one(root):
     from vaenar_tts_torch.training import steps
     from vaenar_tts_torch.training.loop import to_device
     cs = _chip_smoke()
-    hp, model, _ = load_model(cs.MODEL_DIR, "cuda")
+    hp, model, _ = load_model(cs.MODEL_DIR, "cuda", compute_dtype)
     with tempfile.TemporaryDirectory(prefix="vaenar_ab_") as tmp:
         cs.write_records(tmp, seed=2026)
         big = next(iter(BucketedLoader(list_shards(tmp, "train"), hp.train.train_batch_size,
@@ -68,14 +70,18 @@ def run_one(root):
 
 
 def main(argv):
+    dtype = []
+    if len(argv) >= 2 and argv[-2] == "--compute_dtype":
+        dtype, argv = argv[-2:], argv[:-2]
     if len(argv) == 2 and argv[0] == "--one":
-        run_one(argv[1])
+        run_one(argv[1], dtype[1] if dtype else None)
         return 0
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
         return 2
     for root in (argv[0], argv[1], argv[1], argv[0]):
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root], check=True)
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root, *dtype],
+                       check=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     return 0

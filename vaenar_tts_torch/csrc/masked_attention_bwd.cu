@@ -1,23 +1,21 @@
-// Masked multi-head attention, backward, for sm_90a: a dQ kernel and a dK/dV
-// kernel. Plain C interface, bound from Python with ctypes
+// Masked multi-head attention, backward, the dQ kernel, fp32 FMAs, for
+// sm_90a. Plain C interface, bound from Python with ctypes
 // (vaenar_tts_torch/ops/flash_attention.py, masked_flash_attention_backward).
-// fp32 only: bf16 takes the tensor-core kernels, dQ
-// masked_attention_bwd_dq_tc.cu (which also forms delta) and dK/dV
-// masked_attention_bwd_dkv_tc.cu.
+// fp32 only: bf16 takes the tensor-core dQ kernel,
+// masked_attention_bwd_dq_tc.cu (which also forms delta). The fp32 dK/dV
+// kernel is masked_attention_bwd_dkv.cu, launched after this one.
 //
-// Replaces the two backward Pallas kernels of
-// vaenar_tts_tpu/ops/flash_attention.py, launched by _pallas_backward:
-//   _dq_kernel   grid (batch, head, q-block, k-block), dQ accumulated over
-//                the k-blocks
-//   _dkv_kernel  grid (batch, head, k-block, q-block), dK and dV accumulated
-//                over the q-blocks on the transposed score block
-// Here each block owns its output tile and loops over the other axis inside
-// the block, so nothing is carried between blocks and nothing is atomic.
+// Replaces _dq_kernel of vaenar_tts_tpu/ops/flash_attention.py (l.320,
+// pallas_call l.442; grid batch, head, q-block, k-block, dQ accumulated over
+// the k-blocks) for fp32 inputs. Here each block owns its 64 rows of dQ and
+// loops over the key tiles inside the block, so nothing is carried between
+// blocks and nothing is atomic.
 //
-// Contract (the forward's, masked_attention_fwd.cu): logits = q.k^T * scale;
-// mask = row < q_len[b] && col < m_len[b] (&& col <= row when causal); masked
-// logits are NEG = -2^32+1. From the forward's row stats (max m, sum s) and
-// delta = rowsum(dO * O) (computed by the wrapper):
+// Contract of the backward kernels (the forward's, masked_attention_fwd.cu):
+// logits = q.k^T * scale; mask = row < q_len[b] && col < m_len[b]
+// (&& col <= row when causal); masked logits are NEG = -2^32+1. From the
+// forward's row stats (max m, sum s) and delta = rowsum(dO * O) (computed by
+// the wrapper):
 //   P  = exp(where(mask, logits, NEG) - m) / s
 //   dV = P^T . dO                       (unmasked: every row of P counts)
 //   dS = where(mask, P * (dO.V^T - delta), 0)
@@ -30,33 +28,29 @@
 //   * a row with nothing unmasked (row >= q_len, or every row when
 //     m_len == 0) has m = NEG and s = Tk, so P = 1/s on all of its Tk keys,
 //     keys past m_len included. Its dS is 0, so it adds nothing to dQ or dK,
-//     but it adds dO_row / s_row to EVERY row of dV. The dK/dV kernel sums
-//     those rows' dO / s once per block (one pass over dO, like the
-//     forward's mean(v) pass) and starts its dV accumulator there;
+//     but it adds dO_row / s_row to EVERY row of dV (the dK/dV kernel sums
+//     those rows' dO / s once per block);
 //   * a row with an unmasked key has m = a real logit, so its masked terms
 //     are exp(NEG - m) = 0 exactly in fp32: keys at or past m_len, and keys
 //     past the row when causal, contribute nothing to any gradient. The dQ
-//     loop stops at m_len (and at the tile's last valid row when causal);
-//     the dK/dV loop skips key blocks at or past m_len and, when causal, the
-//     q-tiles before the key block.
+//     loop stops at m_len (and at the tile's last valid row when causal).
 //
 // Design. 256 threads a block, 64 x 64 tiles in shared memory, rows padded
 // to 65 floats against bank conflicts. Each
 // thread owns a 4 x 4 piece of the 64 x 64 score tile (rows 4*(tid/16)+i,
 // columns tid%16 + 16*j) and the same piece of its 64 x 64 output
-// accumulators (columns are head-width indices there). P and dS go through
-// shared memory for the second product. The products are fp32 FMAs, as in
-// the forward: the fp32 path must match the fp32 reference, which TF32
-// tensor cores would not.
+// accumulator (columns are head-width indices there). dS goes through
+// shared memory for the second product. The products are fp32 FMAs: the
+// fp32 path must match the fp32 reference, which TF32 tensor cores would
+// not.
 //
 // What bounds it on an H100 at the training shapes (batch 32, H=4, D=64,
-// text 32, reduced mel 240 at r = 2, of which 54-144 rows are valid): bytes,
+// text 32, reduced mel 240 at r = 2, of which 55-98 rows are valid): bytes,
 // by the count in chip_smoke.py. An unmasked (row, key) pair costs 6*D
-// operations in dQ and 8*D in dK/dV, but with most rows padding, the
-// gradients written whole (zero rows included) and the rows read outweigh
-// those pairs' fp32 FMAs about threefold. The kernels are far from either
-// floor: a block runs its tiles one after another with no overlap of loads
-// and products, on the SIMT units (the fp32 tolerance rules out TF32).
+// operations, but with most rows padding, dQ written whole (zero rows
+// included) and the rows read outweigh those pairs' fp32 FMAs about
+// threefold. The kernel is far from either floor: a block runs its tiles one
+// after another with no overlap of loads and products, on the SIMT units.
 
 #include <math.h>
 
@@ -72,8 +66,6 @@ constexpr int PAD = HD + 1;    // row stride (floats) of every shared tile
 constexpr float NEG = -4294967295.0f;  // -2^32+1, rounds to -2^32 as in fp32 JAX
 // dQ: Q, dO, K, V, dS tiles
 constexpr size_t DQ_SMEM_BYTES = sizeof(float) * (5 * 64 * PAD);
-// dK/dV: K, V, Q, dO, P^T, dS^T tiles and m, s, delta of the q-tile
-constexpr size_t DKV_SMEM_BYTES = sizeof(float) * (6 * 64 * PAD + 3 * BQ);
 
 // rows [row0, row0 + 64) of a [T, HD] matrix into a padded tile; rows at
 // or past `rows_end` are zero
@@ -214,181 +206,6 @@ masked_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restr
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-masked_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                const float* __restrict__ v, const float* __restrict__ dout,
-                                const int* __restrict__ q_len,
-                                const int* __restrict__ m_len,
-                                const float* __restrict__ m_in,
-                                const float* __restrict__ s_in,
-                                const float* __restrict__ delta_in,
-                                float* __restrict__ dk, float* __restrict__ dv, int H,
-                                int Tq, int Tk, float scale, int causal) {
-  extern __shared__ float smem[];
-  float* sK = smem;              // [BK][PAD], this block's keys
-  float* sV = sK + BK * PAD;     // [BK][PAD]
-  float* sQ = sV + BK * PAD;     // [BQ][PAD], the current q-tile
-  float* sDO = sQ + BQ * PAD;    // [BQ][PAD]
-  float* sP = sDO + BQ * PAD;    // [BK][PAD], P^T: [key][row]
-  float* sDS = sP + BK * PAD;    // [BK][PAD], dS^T
-  float* sM = sDS + BK * PAD;    // [BQ]
-  float* sS = sM + BQ;           // [BQ]
-  float* sDelta = sS + BQ;       // [BQ]
-
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x;
-  const int b = bh / H;
-  const int k0 = blockIdx.y * BK;
-  const int k_rows = min(BK, Tk - k0);
-  const int mlen = max(0, min(m_len ? m_len[b] : Tk, Tk));
-  const int valid_end = mlen > 0 ? max(0, min(q_len ? q_len[b] : Tq, Tq)) : 0;
-  const size_t q_base = (size_t)bh * Tq * HD;
-  const size_t k_base = (size_t)bh * Tk * HD;
-  const size_t stat_base = (size_t)bh * Tq;
-
-  const int rg = tid / 16;     // keys 4*rg .. 4*rg+3
-  const int cg = tid % 16;     // rows (scores) or head-width columns cg + 16*j
-  float acc_dk[4][4], acc_dv[4][4];
-
-  // Rows in [valid_end, Tq) are uniform over the Tk keys: each adds
-  // dO_row / s_row to every dV row. Sum them once, over four independent
-  // chains, and start every dV row of the block from that sum.
-  {
-    constexpr int PARTS = THREADS / HD;
-    const int d = tid % HD;
-    const float* col = dout + q_base + d;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;
-    int r = valid_end + tid / HD;
-    for (; r + 3 * PARTS < Tq; r += 4 * PARTS) {
-      a0 += col[(size_t)r * HD] / s_in[stat_base + r];
-      a1 += col[(size_t)(r + PARTS) * HD] / s_in[stat_base + r + PARTS];
-      a2 += col[(size_t)(r + 2 * PARTS) * HD] / s_in[stat_base + r + 2 * PARTS];
-      a3 += col[(size_t)(r + 3 * PARTS) * HD] / s_in[stat_base + r + 3 * PARTS];
-    }
-    for (; r < Tq; r += PARTS) a0 += col[(size_t)r * HD] / s_in[stat_base + r];
-    sP[tid] = (a0 + a1) + (a2 + a3);
-    __syncthreads();
-    if (tid < HD) {
-      float total = 0.f;
-      for (int p = 0; p < PARTS; ++p) total += sP[p * HD + tid];
-      sDS[tid] = total;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        acc_dk[i][j] = 0.f;
-        acc_dv[i][j] = sDS[cg + 16 * j];
-      }
-  }
-
-  // Rows below valid_end see no key of this block when the block starts at
-  // or past m_len; when causal, rows before the block's first key see none.
-  const int r_begin = causal ? k0 - k0 % BQ : 0;
-  const int r_end = k0 < mlen ? valid_end : 0;
-  if (r_begin < r_end) {
-    __syncthreads();  // sDS is reused below
-    load_tile(sK, k + k_base, k0, Tk);
-    load_tile(sV, v + k_base, k0, Tk);
-  }
-
-  for (int qt = r_begin; qt < r_end; qt += BQ) {
-    __syncthreads();  // the previous q-tile's Q, dO, P and dS are no longer read
-    load_tile(sQ, q + q_base, qt, r_end);
-    load_tile(sDO, dout + q_base, qt, r_end);
-    if (tid < BQ) {
-      const int row = qt + tid;
-      const bool in = row < r_end;
-      sM[tid] = in ? m_in[stat_base + row] : 0.f;
-      sS[tid] = in ? s_in[stat_base + row] : 1.f;
-      sDelta[tid] = in ? delta_in[stat_base + row] : 0.f;
-    }
-    __syncthreads();
-
-    float sc[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float kv[4], vv[4], qv[4], ov[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        kv[i] = sK[(rg * 4 + i) * PAD + d];
-        vv[i] = sV[(rg * 4 + i) * PAD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        qv[j] = sQ[(cg + 16 * j) * PAD + d];
-        ov[j] = sDO[(cg + 16 * j) * PAD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sc[i][j] = fmaf(kv[i], qv[j], sc[i][j]);
-          dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int key = k0 + rg * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int rl = cg + 16 * j;
-        const int row = qt + rl;
-        float p = 0.f, ds = 0.f;
-        if (row < r_end && key < Tk) {
-          const bool unmasked = key < mlen && (!causal || key <= row);
-          const float x = unmasked ? sc[i][j] * scale : NEG;
-          p = expf(x - sM[rl]) / sS[rl];
-          if (unmasked) ds = p * (dp[i][j] - sDelta[rl]);
-        }
-        sP[(rg * 4 + i) * PAD + rl] = p;
-        sDS[(rg * 4 + i) * PAD + rl] = ds;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int r = 0; r < BQ; ++r) {
-      float pv[4], dsv[4], ov[4], qv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = sP[(rg * 4 + i) * PAD + r];
-        dsv[i] = sDS[(rg * 4 + i) * PAD + r];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        ov[j] = sDO[r * PAD + cg + 16 * j];
-        qv[j] = sQ[r * PAD + cg + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          acc_dv[i][j] = fmaf(pv[i], ov[j], acc_dv[i][j]);
-          acc_dk[i][j] = fmaf(dsv[i], qv[j], acc_dk[i][j]);
-        }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = rg * 4 + i;
-    if (r >= k_rows) continue;
-    const size_t off = k_base + (size_t)(k0 + r) * HD;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      dk[off + cg + 16 * j] = acc_dk[i][j] * scale;
-      dv[off + cg + 16 * j] = acc_dv[i][j];
-    }
-  }
-}
-
 // above 48 KB of dynamic shared memory a kernel needs an explicit opt-in
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {
@@ -416,24 +233,6 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
-cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                       const void* q_len, const void* m_len, const void* m,
-                       const void* s, const void* delta, void* dk, void* dv, int B,
-                       int H, int Tq, int Tk, float scale, int causal,
-                       cudaStream_t stream) {
-  static bool smem_set = false;
-  cudaError_t err = allow_smem(masked_attention_bwd_dkv_kernel, DKV_SMEM_BYTES, &smem_set);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Tk + BK - 1) / BK);
-  masked_attention_bwd_dkv_kernel<<<grid, THREADS, DKV_SMEM_BYTES, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const int*>(q_len),
-      static_cast<const int*>(m_len), static_cast<const float*>(m),
-      static_cast<const float*>(s), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), H, Tq, Tk, scale, causal);
-  return cudaGetLastError();
-}
-
 bool bad_shape(int B, int H, int Tq, int Tk, int D) {
   return D != HD || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
          (Tq + BQ - 1) / BQ > 65535 || (Tk + BK - 1) / BK > 65535;
@@ -456,18 +255,5 @@ extern "C" int masked_attention_bwd_dq(const void* q, const void* k, const void*
                         causal, static_cast<cudaStream_t>(stream));
 }
 
-// The same arguments; dk and dv like k. Returns the CUDA error code.
-extern "C" int masked_attention_bwd_dkv(const void* q, const void* k, const void* v,
-                                        const void* dout, const void* q_len,
-                                        const void* m_len, const void* m, const void* s,
-                                        const void* delta, void* dk, void* dv, int B,
-                                        int H, int Tq, int Tk, int D, float scale,
-                                        int causal, void* stream) {
-  if (bad_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
-  return (int)launch_dkv(q, k, v, dout, q_len, m_len, m, s, delta, dk, dv, B, H, Tq, Tk,
-                         scale, causal, static_cast<cudaStream_t>(stream));
-}
-
-// Dynamic shared memory each block of the two kernels asks for, in bytes.
+// Dynamic shared memory each block asks for, in bytes.
 extern "C" int masked_attention_bwd_dq_shared_bytes(void) { return (int)DQ_SMEM_BYTES; }
-extern "C" int masked_attention_bwd_dkv_shared_bytes(void) { return (int)DKV_SMEM_BYTES; }

@@ -1,0 +1,316 @@
+// Masked multi-head attention, backward, the dK/dV kernel, fp32 FMAs, for
+// sm_90a. Plain C interface, bound from Python with ctypes
+// (vaenar_tts_torch/ops/flash_attention.py, masked_flash_attention_backward);
+// fp32 inputs take this kernel, bf16 ones masked_attention_bwd_dkv_tc.cu.
+// At fp32, delta = rowsum(dO * O) comes from a separate pass of the wrapper
+// (attention_delta), before the dQ kernel (masked_attention_bwd.cu).
+//
+// Replaces _dkv_kernel of vaenar_tts_tpu/ops/flash_attention.py (l.370,
+// pallas_call l.467) for fp32 inputs. The TPU kernel accumulates over a
+// sequential grid axis of q-blocks; here a block owns 64 keys and loops
+// over the q-tiles itself, so nothing is carried between blocks and nothing
+// is atomic.
+//
+// Contract (masked_attention_bwd.cu's): from the forward's row stats (max m,
+// sum s) and delta = rowsum(dO * O),
+//   P  = exp(where(mask, q.k^T * scale, NEG) - m) / s
+//   dV = P^T . dO                       (every row of P counts)
+//   dS = where(mask, P * (dO.V^T - delta), 0)
+//   dK = dS^T . Q * scale
+// fp32 inputs, arithmetic, accumulators and outputs; keys past Tk and rows
+// past Tq do not exist.
+//
+// What bounds it on an H100 at the training path's shapes (batch 32, H=4,
+// D=64, text 32, reduced mel 240 at r = 2, of which 55-98 rows are valid):
+// bytes, by the count in chip_smoke.py (an unmasked (row, key) pair costs
+// 8*D operations, but the rows read and the gradients written whole
+// outweigh them about threefold). What held the first version back,
+// and what this design does about it:
+//   * one chain of q-tiles a block, 8 warps on each 64 x 64 product, one
+//     block an SM at the 128-block sites: here the block's two warp groups
+//     (4 warps each) split its q-tiles (even and odd), each with its own
+//     ring, named barrier and exchange tile, so a block's chain is half as
+//     long, and sum their dK/dV partials through shared memory at the end
+//     (group 0 stores dK, group 1 dV);
+//   * products on absent keys (Tk = 32 sites ran 64-key loops): a thread's
+//     keys are rg + 8 i, so a block with at most 32 keys below m_len takes
+//     i < 4 only, and a q-tile with at most 32 valid rows computes only
+//     those;
+//   * Q and dO loaded synchronously, a barrier after each: here they stream
+//     through a two-stage cp.async ring of 16-byte copies, the next q-tile
+//     loading while this one multiplies; the q-tile's m * log2(e), 1/s and
+//     delta sit in shared memory, fetched one q-tile ahead, so that P costs
+//     one exp2 and one multiply, no division;
+//   * the padding rows' dO / s pass divided per element with 4-byte loads:
+//     here 16-byte loads, 8 in flight a thread, one reciprocal a row, issued
+//     after the first copies;
+//   * 8 scalar shared loads per 32 FMAs: here a thread owns 8 x 4 of S^T,
+//     dP^T, dK and dV, read with 16-byte loads (tile_f32.cuh), 12 loads per
+//     128 FMAs; their count still holds the products to about half of the
+//     fp32 FMA rate (PERF.md §6).
+// Per q-tile and group: S^T = K.Q^T -> P^T (to the exchange tile),
+// dV += P^T.dO, dP^T = V.dO^T -> dS^T = P^T * (dP^T - delta) (over P^T in
+// the exchange tile), dK += dS^T.Q. P^T and dS^T are exchanged within a
+// half-warp (the 16 threads of a key group), so __syncwarp orders them.
+//
+// Work skipped without changing the result (as the first version):
+//   * a row with nothing unmasked (row >= q_len, or every row when
+//     m_len == 0) has m = NEG and s = Tk, so P = 1/s on all Tk keys and
+//     dS = 0: it adds dO_row / s_row to every dV row and nothing to dK. The
+//     block sums those rows' dO / s once and adds the sum to every dV row;
+//   * the q-tile loop covers only the rows with an unmasked key, stops at
+//     q_len, skips key blocks at or past m_len and, when causal, starts at
+//     the key block's first row: every skipped term is exp(NEG - m) = 0.
+//
+// Shared memory: K and V, and for each group a two-stage Q/dO ring, the
+// exchange tile and two stages of statistics: 12 tiles of 64 x 68 fp32 and
+// 3,328 bytes more, 212,224 bytes a block (one block an SM).
+
+#include "tile_f32.cuh"
+
+namespace {
+
+using f32::GROUP_THREADS;
+using f32::HD;
+using f32::LDP;
+using f32::NEG;
+using f32::TILE;
+
+constexpr int BQ = 64;  // query rows per tile
+constexpr int BK = 64;  // keys per block
+constexpr int GROUPS = 2;
+constexpr int THREADS = GROUPS * GROUP_THREADS;
+constexpr int STAGES = 2;  // Q/dO tiles in a group's ring: one loads while one multiplies
+// a group's Q and dO rings, exchange tile (P^T, then dS^T) and statistics
+constexpr int GROUP_FLOATS = (2 * STAGES + 1) * TILE + STAGES * 3 * BQ;
+constexpr size_t SMEM_BYTES = sizeof(float) * (2 * TILE + HD + GROUPS * GROUP_FLOATS);
+
+// One q-tile of one group: NI = 8 keys a thread (4 when the block has at
+// most 32 keys below m_len), NJ = 4 rows a thread in S^T and dP^T (2 when
+// the tile has at most 32 valid rows).
+template <int NI, int NJ>
+__device__ __forceinline__ void dkv_tile(float (&acc_dk)[8][4], float (&acc_dv)[8][4],
+                                         const float* sK, const float* sV, const float* tQ,
+                                         const float* tDO, float* sX, const float* stat, int rg,
+                                         int cg, int k0, int qt, int n_rows, int r_end, int mlen,
+                                         int causal, float scale2) {
+  float x[8][4];
+  // S^T = K.Q^T, then P^T: rows past r_end and masked pairs take 0 (the
+  // latter exactly exp(NEG - m) of a real m)
+  f32::dots<NI, NJ>(x, sK, tQ, rg, cg);
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    const int key = k0 + rg + 8 * i;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int rl = cg + 16 * j, row = qt + rl;
+      const bool unmasked = row < r_end && key < mlen && (!causal || key <= row);
+      sX[(rg + 8 * i) * LDP + rl] =
+          unmasked ? exp2f(fmaf(x[i][j], scale2, -stat[rl])) * stat[BQ + rl] : 0.f;
+    }
+  }
+  __syncwarp();
+  f32::accumulate<NI>(acc_dv, sX, tDO, rg, cg, n_rows);  // dV += P^T.dO
+  f32::dots<NI, NJ>(x, sV, tDO, rg, cg);                 // dP^T = V.dO^T
+  __syncwarp();  // the half-warp is done reading P^T
+#pragma unroll
+  for (int i = 0; i < NI; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      float* p = sX + (rg + 8 * i) * LDP + cg + 16 * j;
+      *p *= x[i][j] - stat[2 * BQ + cg + 16 * j];  // dS^T = P^T * (dP^T - delta)
+    }
+  __syncwarp();
+  f32::accumulate<NI>(acc_dk, sX, tQ, rg, cg, n_rows);  // dK += dS^T.Q
+}
+
+__global__ void __launch_bounds__(THREADS, 1)
+masked_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ dout,
+                                const int* __restrict__ q_len, const int* __restrict__ m_len,
+                                const float* __restrict__ m_in, const float* __restrict__ s_in,
+                                const float* __restrict__ delta_in, float* __restrict__ dk,
+                                float* __restrict__ dv, int H, int Tq, int Tk, float scale,
+                                int causal) {
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;          // [64][LDP], this block's keys
+  float* sV = sK + TILE;     // [64][LDP]
+  float* usum = sV + TILE;   // [HD]: sum of the uniform rows' dO / s
+  const int tid = threadIdx.x, group = tid / GROUP_THREADS, gtid = tid % GROUP_THREADS;
+  float* sQ = usum + HD + group * GROUP_FLOATS;  // [STAGES][64][LDP], this group's ring
+  float* sDO = sQ + STAGES * TILE;               // [STAGES][64][LDP]
+  float* sX = sDO + STAGES * TILE;               // [64][LDP]: P^T, then dS^T
+  float* sStat = sX + TILE;  // [STAGES][3][BQ]: m * log2(e), 1/s, delta
+
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int k0 = blockIdx.y * BK;
+  const int k_rows = min(BK, Tk - k0);
+  const int mlen = max(0, min(m_len ? m_len[b] : Tk, Tk));
+  // rows below valid_end have an unmasked key; the others are uniform
+  const int valid_end = mlen > 0 ? max(0, min(q_len ? q_len[b] : Tq, Tq)) : 0;
+  const size_t q_base = (size_t)bh * Tq * HD;
+  const size_t k_base = (size_t)bh * Tk * HD;
+  const size_t stat_base = (size_t)bh * Tq;
+
+  // Rows below valid_end see no key of this block when the block starts at
+  // or past m_len; when causal, rows before the block's first key see none.
+  const int r_begin = causal ? k0 : 0;
+  const int r_end = k0 < mlen ? valid_end : 0;
+  const int n_tiles = r_begin < r_end ? (r_end - r_begin + BQ - 1) / BQ : 0;
+
+  // K and V (keys at or past m_len load as zeros: every pair with them is
+  // masked) and each group's first q-tile, one commit group
+  if (n_tiles > 0) {
+    f32::load_tile_async<THREADS>(sK, k + k_base, k0, mlen, tid);
+    f32::load_tile_async<THREADS>(sV, v + k_base, k0, mlen, tid);
+    if (group < n_tiles) {
+      f32::load_tile_async<GROUP_THREADS>(sQ, q + q_base, r_begin + group * BQ, r_end, gtid);
+      f32::load_tile_async<GROUP_THREADS>(sDO, dout + q_base, r_begin + group * BQ, r_end, gtid);
+    }
+  }
+  cpa::cp_async_commit();
+
+  // A q-tile's statistics, a row a thread (gtid < BQ), are fetched one tile
+  // ahead into registers, so that their latency hides behind the products;
+  // rows at or past r_end take m = 0, s = 1, delta = 0 (unused).
+  float next_stat[3];
+  auto fetch_stats = [&](int t) {
+    const int row = r_begin + t * BQ + gtid;
+    const bool in = gtid < BQ && row < r_end;
+    next_stat[0] = in ? m_in[stat_base + row] : 0.f;
+    next_stat[1] = in ? s_in[stat_base + row] : 1.f;
+    next_stat[2] = in ? delta_in[stat_base + row] : 0.f;
+  };
+  auto store_stats = [&](int stage) {
+    if (gtid < BQ) {
+      float* st = sStat + stage * 3 * BQ;
+      st[gtid] = next_stat[0] * f32::LOG2E;
+      st[BQ + gtid] = 1.f / next_stat[1];
+      st[2 * BQ + gtid] = next_stat[2];
+    }
+  };
+  if (group < n_tiles) fetch_stats(group);
+
+  // Rows in [valid_end, Tq) are uniform over the Tk keys: each adds
+  // dO_row / s_row to every dV row. Summed once, while the copies land;
+  // scratch is group 0's exchange tile.
+  f32::column_sums<THREADS, 8>(usum, smem + 2 * TILE + HD + 2 * STAGES * TILE, dout + q_base,
+                               valid_end, Tq, s_in + stat_base);
+  if (group < n_tiles) store_stats(0);
+  if (group + GROUPS < n_tiles) fetch_stats(group + GROUPS);
+  cpa::cp_async_wait<0>();
+  __syncthreads();  // K, V, the first q-tiles and their statistics are in
+
+  const int rg = gtid >> 4, cg = gtid & 15;  // keys rg + 8 i; rows cg + 16 j; columns 4 cg + c
+  const float scale2 = scale * f32::LOG2E;
+  const bool eight_keys = mlen - k0 > 32;
+  float acc_dk[8][4], acc_dv[8][4];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc_dk[i][c] = acc_dv[i][c] = 0.f;
+
+  // this group's q-tiles: group, group + GROUPS, ...
+  for (int it = 0, t = group; t < n_tiles; ++it, t += GROUPS) {
+    const int buf = it % STAGES;
+    if (it > 0) {
+      store_stats(buf);  // its stage was last read two tiles ago
+      if (t + GROUPS < n_tiles) fetch_stats(t + GROUPS);
+      cpa::cp_async_wait<0>();  // q-tile t has landed
+      cpa::group_sync(1 + group, GROUP_THREADS);  // ... for the group, which is done with it - 1
+    }
+    const int ahead = t + GROUPS;
+    if (ahead < n_tiles) {  // into the stage of tile it - 1
+      const int row0 = r_begin + ahead * BQ;
+      f32::load_tile_async<GROUP_THREADS>(sQ + (1 - buf) * TILE, q + q_base, row0, r_end, gtid);
+      f32::load_tile_async<GROUP_THREADS>(sDO + (1 - buf) * TILE, dout + q_base, row0, r_end, gtid);
+    }
+    cpa::cp_async_commit();
+    const int qt = r_begin + t * BQ;
+    const int n_rows = min(BQ, r_end - qt);
+    const float* tQ = sQ + buf * TILE;
+    const float* tDO = sDO + buf * TILE;
+    const float* stat = sStat + buf * 3 * BQ;
+    if (eight_keys) {
+      if (n_rows > 32) {
+        dkv_tile<8, 4>(acc_dk, acc_dv, sK, sV, tQ, tDO, sX, stat, rg, cg, k0, qt, n_rows, r_end,
+                       mlen, causal, scale2);
+      } else {
+        dkv_tile<8, 2>(acc_dk, acc_dv, sK, sV, tQ, tDO, sX, stat, rg, cg, k0, qt, n_rows, r_end,
+                       mlen, causal, scale2);
+      }
+    } else if (n_rows > 32) {
+      dkv_tile<4, 4>(acc_dk, acc_dv, sK, sV, tQ, tDO, sX, stat, rg, cg, k0, qt, n_rows, r_end,
+                     mlen, causal, scale2);
+    } else {
+      dkv_tile<4, 2>(acc_dk, acc_dv, sK, sV, tQ, tDO, sX, stat, rg, cg, k0, qt, n_rows, r_end,
+                     mlen, causal, scale2);
+    }
+  }
+  cpa::cp_async_wait<0>();
+  __syncthreads();  // both groups are done with their rings
+
+  // Group 0 hands its dV partial to group 1 and group 1 its dK partial to
+  // group 0, each through its own ring, element-major so that lanes hit
+  // distinct banks; then group 0 stores dK * scale and group 1 dV plus the
+  // uniform rows' sum, 16 bytes a row and thread.
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      sQ[(4 * i + c) * GROUP_THREADS + gtid] = group == 0 ? acc_dv[i][c] : acc_dk[i][c];
+  __syncthreads();
+  const float* other = usum + HD + (1 - group) * GROUP_FLOATS;
+  float* out = group == 0 ? dk : dv;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int key = rg + 8 * i;
+    if (key >= k_rows) continue;
+    float g[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const float part = other[(4 * i + c) * GROUP_THREADS + gtid];
+      g[c] = group == 0 ? (acc_dk[i][c] + part) * scale : acc_dv[i][c] + part + usum[4 * cg + c];
+    }
+    *reinterpret_cast<float4*>(out + k_base + (size_t)(k0 + key) * HD + 4 * cg) =
+        make_float4(g[0], g[1], g[2], g[3]);
+  }
+}
+
+}  // namespace
+
+// q, dout: contiguous fp32 [B, H, Tq, 64]; k, v: fp32 [B, H, Tk, 64]; q_len,
+// m_len: int32 [B] or null; m, s, delta: fp32 [B, H, Tq] (the forward's row
+// max and row sum, and rowsum(dO * O)); dk, dv like k. Returns the CUDA
+// error code of the launch.
+extern "C" int masked_attention_bwd_dkv(const void* q, const void* k, const void* v,
+                                        const void* dout, const void* q_len,
+                                        const void* m_len, const void* m, const void* s,
+                                        const void* delta, void* dk, void* dv, int B,
+                                        int H, int Tq, int Tk, int D, float scale,
+                                        int causal, void* stream) {
+  if (D != HD || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || (Tk + BK - 1) / BK > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  static bool smem_set = false;  // above 48 KB needs an explicit opt-in
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        masked_attention_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const dim3 grid(B * H, (Tk + BK - 1) / BK);
+  masked_attention_bwd_dkv_kernel<<<grid, THREADS, SMEM_BYTES,
+                                    static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const int*>(q_len),
+      static_cast<const int*>(m_len), static_cast<const float*>(m),
+      static_cast<const float*>(s), static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), H, Tq, Tk, scale, causal);
+  return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory each block asks for, in bytes.
+extern "C" int masked_attention_bwd_dkv_shared_bytes(void) { return (int)SMEM_BYTES; }

@@ -1,271 +1,312 @@
-// Masked multi-head attention, forward, for sm_90a, fp32 only. Plain C
+// Masked multi-head attention, forward, fp32 FMAs, for sm_90a. Plain C
 // interface, bound from Python with ctypes
-// (vaenar_tts_torch/ops/flash_attention.py). bf16 takes the tensor-core
-// forward, masked_attention_fwd_tc.cu.
+// (vaenar_tts_torch/ops/flash_attention.py); fp32 q, k, v take this kernel,
+// bf16 ones masked_attention_fwd_tc.cu.
 //
 // Replaces the two forward Pallas kernels of
-// vaenar_tts_tpu/ops/flash_attention.py:
-//   _fwd_kernel          (single pass with K and V resident, launched by
-//                         _pallas_forward)
-//   _fwd_kernel_blocked  (online softmax over k-blocks, launched by
-//                         _pallas_forward_blocked when Tk > 4096)
-// One online-softmax kernel serves both: the 4096 split was a TPU VMEM budget
-// and has no counterpart here.
+// vaenar_tts_tpu/ops/flash_attention.py for fp32 inputs:
+//   _fwd_kernel          (l.104, pallas_call l.299)
+//   _fwd_kernel_blocked  (l.142, pallas_call l.224; Tk > 4096)
+// One online-softmax loop over 64-key tiles serves both: the 4096 split was
+// a TPU VMEM budget and has no counterpart here.
 //
-// Contract (same as the Pallas kernels): logits = q.k^T * scale; the mask is
-// row < q_len[b] && col < m_len[b] (&& col <= row when causal); masked logits
-// become NEG = -2^32+1, not -inf, and the running max starts at NEG, so a row
-// with nothing unmasked comes out uniform over the Tk keys (o = mean(v),
-// m = NEG, s = Tk). fp32 inputs, softmax and accumulators; o is fp32 and the
-// row stats m (max) and s (sum of exp) fp32 [B, H, Tq].
-// Null length pointers mean full lengths. Columns past Tk do not exist and
-// contribute nothing; rows past Tq are not written.
+// Contract (the Pallas kernels'): logits = q.k^T * scale; the mask is
+// row < q_len[b] && col < m_len[b] (&& col <= row when causal); masked
+// logits become NEG = -2^32+1, not -inf, and the running max starts at NEG,
+// so a row with nothing unmasked comes out uniform over the Tk keys
+// (o = mean(v), m = NEG, s = Tk). fp32 inputs, softmax, accumulators and
+// outputs; m (row max) and s (row sum of exp) are fp32 [B, H, Tq]. Null
+// length pointers mean full lengths. Columns past Tk do not exist; rows past
+// Tq are not written.
 //
-// Design. One block of 256 threads takes one (b, h) and 64 query rows. It
-// walks the keys in tiles of 64 held in shared memory. Each thread owns a
-// 4 x 4 piece of the 64 x 64 score tile (rows 4*(tid/16)+i, columns
-// tid%16 + 16*j) and the same piece of the 64 x 64 output accumulator
-// (columns are head-width indices there). Row max and row
-// sum are reduced over the 16 lanes that share a row with warp shuffles; the
-// probabilities go through shared memory (reusing the K tile) for P.V. The
-// products are plain fp32 FMAs: the fp32 path must match the fp32 reference
-// to 1e-4, which TF32 tensor cores would not.
+// What bounds it on an H100 at the synthesis path's shapes (B=4, H=4, D=64,
+// text 160, reduced mel 1680 of which 460-583 rows are valid): operations,
+// 4*D fp32 FMA-operations per unmasked (row, key) at the 67 TFLOP/s of the
+// SIMT units (a causal 1680 site: 0.57 GFLOP, 8.5 us, against 5.5 us of
+// bytes). What held the first version back, and what this design
+// does about it:
+//   * every q-block of padding rows re-read all of V for mean(v), 4 bytes a
+//     load: here one block of the (b, h) writes mean(v), NEG and Tk for all
+//     of its padding rows, from one pass over V with 16-byte loads, 8 in
+//     flight a thread (f32::column_sums), and the blocks are scheduled
+//     last q-block first, so that writer and the longest causal chains
+//     start first;
+//   * each block ran its key tiles as a serial chain of synchronous loads
+//     and four barriers a tile: here K and V tiles stream through a
+//     two-stage cp.async ring (16-byte copies), the next tile loading while
+//     this one multiplies, one barrier a tile; P is exchanged within a warp
+//     (__syncwarp). When Tk > 512 a block takes two warp groups that split
+//     the key tiles (even and odd), each with its own ring and named
+//     barrier, and group 1 hands its (row max, row sum, o accumulator) to
+//     group 0 through shared memory at the end, merged as the online softmax
+//     merges two tiles: no second pass, no atomics;
+//   * the products issued 8 scalar shared loads per 16 FMAs: here a thread
+//     owns 8 x 4 of S and of O, read with 16-byte loads (f32::dots,
+//     f32::accumulate; 12 loads per 128 FMAs, see tile_f32.cuh), and a tile
+//     with at most 32 keys left computes only those. The count of those
+//     loads still holds the products to about half of the fp32 FMA rate: a
+//     tile takes ~4.7 us of an SM at 1024 x 4104 against 2.3 us at its full
+//     FMA rate (PERF.md §6), and the causal sites' chains of up to 10 tiles
+//     a block set their time.
+// Softmax in base 2: log2(e) is folded into the scale, the running max is
+// kept in log2 units and m is written back in natural units; a masked
+// logit is NEG, and exp2(NEG - m) with m a real logit is exactly 0 in fp32.
 //
 // Work skipped without changing the result:
-//   * rows at or past q_len (all rows when m_len == 0) are fully masked; the
-//     block writes mean(v), NEG and Tk for them from one pass over V,
-//     without forming any logit (the same values, summed in another order);
+//   * rows at or past q_len (all rows when m_len == 0) are fully masked and
+//     written by the one writer block from V alone;
 //   * for the other rows the key loop stops at m_len and, when causal, at
-//     the tile's last valid row: each skipped term is exp(NEG - m) with m a
-//     real logit, which is exactly 0 in fp32.
+//     the block's last valid row: each skipped term is exp(NEG - m) = 0.
+//     Every valid row sees key 0, so its max is a real logit.
 //
-// What bounds it on an H100 at the shipped shapes (B=4, H=4, D=64, text 160,
-// reduced mel 1680): operations. A causal 1680 x 1680 self-attention needs
-// about 4*D*Tq*Tk/2*B*H = 5.8 GFLOP against 28 MB of q, k, v and o: 86 us at
-// the 67 TFLOP/s fp32 (non-tensor) peak against 8 us of bytes at 3.35 TB/s;
-// the 1680 x 160 cross-attention needs 1.1 GFLOP (16 us) against 15 MB
-// (5 us). The kernel's own ceiling is the fp32 FMA rate, and its inner
-// product is limited by shared-memory loads (8 per 16 FMAs).
+// Resources (ptxas -v; chip_smoke.py prints them): see PERF.md §6. Shared
+// memory: Q and, for each group, a two-stage K/V ring and a P tile: 6 or 11
+// tiles of 64 x 68 fp32, 104,448 or 191,488 bytes a block.
 
-#include <math.h>
-
-#include <cuda_runtime.h>
+#include "tile_f32.cuh"
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per block
-constexpr int BK = 64;         // keys per shared-memory tile
-constexpr int HD = 64;         // head width
-constexpr int THREADS = 256;
-constexpr int PAD = HD + 1;    // row stride (floats) of the Q and K/P tiles
-constexpr float NEG = -4294967295.0f;  // -2^32+1, rounds to -2^32 as in fp32 JAX
-constexpr size_t SMEM_BYTES = sizeof(float) * (BQ * PAD + BK * PAD + BK * HD);
+using f32::GROUP_THREADS;
+using f32::HD;
+using f32::LDP;
+using f32::NEG;
+using f32::TILE;
 
-__global__ void __launch_bounds__(THREADS)
+constexpr int BQ = 64;  // query rows per block
+constexpr int BK = 64;  // keys per tile
+constexpr int STAGES = 2;  // K/V tiles in a group's ring: one loads while one multiplies
+// Keys above which a block takes two warp groups (as the bf16 kernel; a
+// second group splits a long chain of key tiles and mostly idles on a short
+// one)
+constexpr int TWO_GROUPS_MIN_TK = 512;
+constexpr int GROUP_FLOATS = (2 * STAGES + 1) * TILE;  // a group's K/V ring and P tile
+
+template <int GROUPS>
+constexpr size_t smem_bytes() {
+  return sizeof(float) * (TILE + GROUPS * GROUP_FLOATS);
+}
+
+// Rows [pad0, Tq) of one (b, h): o = mean(v) over its Tk keys, m = NEG,
+// s = Tk. `scratch` is shared memory for HD + 4 * THREADS floats.
+template <int THREADS>
+__device__ __forceinline__ void write_padding_rows(float* scratch, const float* __restrict__ v,
+                                                   float* __restrict__ o,
+                                                   float* __restrict__ m_out,
+                                                   float* __restrict__ s_out, int pad0, int Tq,
+                                                   int Tk) {
+  float* sum = scratch;  // [HD]
+  f32::column_sums<THREADS, 8>(sum, scratch + HD, v, 0, Tk, nullptr);
+  const int c4 = (threadIdx.x & 15) * 4;
+  const float n = (float)Tk;
+  const float4 mean = make_float4(sum[c4] / n, sum[c4 + 1] / n, sum[c4 + 2] / n, sum[c4 + 3] / n);
+  for (int r = pad0 + (threadIdx.x >> 4); r < Tq; r += THREADS / 16)
+    *reinterpret_cast<float4*>(o + (size_t)r * HD + c4) = mean;
+  for (int r = pad0 + threadIdx.x; r < Tq; r += THREADS) {
+    m_out[r] = NEG;
+    s_out[r] = n;
+  }
+}
+
+template <int GROUPS>
+__global__ void __launch_bounds__(GROUPS * GROUP_THREADS)
 masked_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                            const float* __restrict__ v,
-                            const int* __restrict__ q_len,
-                            const int* __restrict__ m_len,
-                            float* __restrict__ o, float* __restrict__ m_out,
-                            float* __restrict__ s_out, int H, int Tq, int Tk,
-                            float scale, int causal) {
-  extern __shared__ float smem[];
-  float* sQ = smem;             // [BQ][PAD]
-  float* sK = sQ + BQ * PAD;    // [BK][PAD]; holds P during P.V
-  float* sV = sK + BK * PAD;    // [BK][HD]
+                            const float* __restrict__ v, const int* __restrict__ q_len,
+                            const int* __restrict__ m_len, float* __restrict__ o,
+                            float* __restrict__ m_out, float* __restrict__ s_out, int H, int Tq,
+                            int Tk, float scale, int causal) {
+  constexpr int THREADS = GROUPS * GROUP_THREADS;
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;  // [64][LDP]
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.x;    // b * H + h
+  const int bh = blockIdx.x;  // b * H + h
   const int b = bh / H;
-  const int q0 = blockIdx.y * BQ;
+  // the last q-block first: when causal its chain of key tiles is the longest
+  const int qb = (int)gridDim.y - 1 - (int)blockIdx.y;
+  const int q0 = qb * BQ;
   const int q_rows = min(BQ, Tq - q0);
   const int qlen = q_len ? q_len[b] : Tq;
-  const int mlen = m_len ? m_len[b] : Tk;
+  const int klim = max(0, min(Tk, m_len ? m_len[b] : Tk));  // keys a valid row may see
   const size_t q_base = (size_t)bh * Tq * HD;
   const size_t k_base = (size_t)bh * Tk * HD;
   const size_t stat_base = (size_t)bh * Tq;
 
-  const bool has_valid_rows = mlen > 0 && q0 < qlen;
-  if (!has_valid_rows || q0 + q_rows > qlen) {
-    // Rows >= q_len (every row when m_len <= 0) are fully masked: uniform
-    // attention over the Tk keys, o = mean(v), m = NEG, s = Tk. Written here
-    // from a sum over V alone; the loop below serves only the other rows.
-    constexpr int PARTS = THREADS / HD;
-    const int d = tid % HD;
-    const float* vcol = v + k_base + d;
-    float a0 = 0.f, a1 = 0.f, a2 = 0.f, a3 = 0.f;  // independent chains
-    int j = tid / HD;
-    for (; j + 3 * PARTS < Tk; j += 4 * PARTS) {
-      a0 += vcol[(size_t)j * HD];
-      a1 += vcol[(size_t)(j + PARTS) * HD];
-      a2 += vcol[(size_t)(j + 2 * PARTS) * HD];
-      a3 += vcol[(size_t)(j + 3 * PARTS) * HD];
+  // Rows below pad0 have an unmasked key (key 0); the others are uniform.
+  const int pad0 = klim > 0 ? max(0, min(qlen, Tq)) : 0;
+  const int rows_end = min(q0 + q_rows, pad0);  // valid rows of this block: [q0, rows_end)
+  // Valid rows see no key at or past m_len, nor past the block's last valid
+  // row when causal: those terms are exp(NEG - m) = 0 exactly.
+  const int k_end = causal ? min(klim, rows_end) : klim;
+  const int n_tiles = q0 < pad0 ? (k_end + BK - 1) / BK : 0;
+
+  const int group = tid / GROUP_THREADS, gtid = tid % GROUP_THREADS;
+  float* sK = sQ + TILE + group * GROUP_FLOATS;  // [STAGES][64][LDP]
+  float* sV = sK + STAGES * TILE;                // [STAGES][64][LDP]
+  float* sP = sV + STAGES * TILE;                // [64][LDP]
+  // Q and each group's first tile, one commit group
+  if (n_tiles > 0) {
+    f32::load_tile_async<THREADS>(sQ, q + q_base, q0, rows_end, tid);
+    if (group < n_tiles) {
+      f32::load_tile_async<GROUP_THREADS>(sK, k + k_base, group * BK, k_end, gtid);
+      f32::load_tile_async<GROUP_THREADS>(sV, v + k_base, group * BK, k_end, gtid);
     }
-    for (; j < Tk; j += PARTS) a0 += vcol[(size_t)j * HD];
-    smem[tid] = (a0 + a1) + (a2 + a3);
-    __syncthreads();
-    if (tid < HD) {
-      float total = 0.f;
-      for (int p = 0; p < PARTS; ++p) total += smem[p * HD + tid];
-      smem[tid] = total / (float)Tk;
-    }
-    __syncthreads();
-    const int first = has_valid_rows ? qlen - q0 : 0;  // first masked row of the tile
-    for (int idx = first * HD + tid; idx < q_rows * HD; idx += THREADS) {
-      o[q_base + (size_t)(q0 + idx / HD) * HD + idx % HD] = smem[idx % HD];
-    }
-    for (int r = first + tid; r < q_rows; r += THREADS) {
-      m_out[stat_base + q0 + r] = NEG;
-      s_out[stat_base + q0 + r] = (float)Tk;
-    }
-    if (!has_valid_rows) return;
-    __syncthreads();  // shared memory is reused below
+    cpa::cp_async_commit();
   }
 
-  for (int idx = tid; idx < BQ * HD; idx += THREADS) {
-    const int r = idx / HD, d = idx % HD;
-    sQ[r * PAD + d] = r < q_rows ? q[q_base + (size_t)(q0 + r) * HD + d] : 0.f;
+  // One block of the (b, h) writes all rows at or past pad0, while the
+  // copies above land: the first block whose rows start at or past pad0,
+  // else the last block. Its scratch is group 0's P tile.
+  const int writer = min((pad0 + BQ - 1) / BQ, (int)gridDim.y - 1);
+  if (pad0 < Tq && qb == writer) {
+    write_padding_rows<THREADS>(sQ + TILE + 2 * STAGES * TILE, v + k_base, o + q_base,
+                                m_out + stat_base, s_out + stat_base, pad0, Tq, Tk);
   }
+  if (n_tiles == 0) return;
+  cpa::cp_async_wait<0>();
+  __syncthreads();  // Q and every group's first tile have landed
 
-  // Valid rows see no key at or past m_len, nor past the diagonal when
-  // causal: those terms are exp(NEG - m) = 0 exactly, so the loop stops there.
-  const int rows_end = min(q0 + q_rows, qlen);
-  int k_end = min(Tk, mlen);
-  if (causal) k_end = min(k_end, rows_end);
-
-  const int rg = tid / 16;     // rows 4*rg .. 4*rg+3
-  const int cg = tid % 16;     // columns cg + 16*j
-  float acc[4][4];
-  float row_max[4], row_sum[4];
+  const int rg = gtid >> 4, cg = gtid & 15;  // rows rg + 8 i; keys cg + 16 j; columns 4 cg + c
+  const float scale2 = scale * f32::LOG2E;
+  float acc[8][4], row_max[8], row_sum[8];  // row_sum: this thread's keys only, until the end
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
+  for (int i = 0; i < 8; ++i) {
     row_max[i] = NEG;
     row_sum[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
   }
 
-  for (int kt = 0; kt < k_end; kt += BK) {
-    __syncthreads();  // the previous tile's P and V are no longer read
-    for (int idx = tid; idx < BK * HD; idx += THREADS) {
-      const int r = idx / HD, d = idx % HD;
-      const int key = kt + r;
-      const bool in = key < Tk;
-      sK[r * PAD + d] = in ? k[k_base + (size_t)key * HD + d] : 0.f;
-      sV[r * HD + d] = in ? v[k_base + (size_t)key * HD + d] : 0.f;
+  // this group's key tiles: group, group + GROUPS, ...
+  for (int it = 0, t = group; t < n_tiles; ++it, t += GROUPS) {
+    const int buf = it % STAGES;
+    if (it > 0) {
+      cpa::cp_async_wait<0>();  // tile t has landed
+      cpa::group_sync(1 + group, GROUP_THREADS);  // ... for the group, which is done with it - 1
     }
-    __syncthreads();
+    const int ahead = t + GROUPS;
+    if (ahead < n_tiles) {  // into the stage of tile it - 1
+      f32::load_tile_async<GROUP_THREADS>(sK + (1 - buf) * TILE, k + k_base, ahead * BK, k_end, gtid);
+      f32::load_tile_async<GROUP_THREADS>(sV + (1 - buf) * TILE, v + k_base, ahead * BK, k_end, gtid);
+    }
+    cpa::cp_async_commit();
+    const float* tK = sK + buf * TILE;
+    const float* tV = sV + buf * TILE;
+    const int kt = t * BK;
+    const int n_keys = min(BK, k_end - kt);
 
-    float sc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) qv[i] = sQ[(rg * 4 + i) * PAD + d];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[(cg + 16 * j) * PAD + d];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
+    // S = Q.K^T; a tile with at most 32 keys left computes only those (the
+    // others are masked), and P.V stops after them (P = 0 there on every row
+    // that is written)
+    float sc[8][4];
+    if (n_keys > 32) {
+      f32::dots<8, 4>(sc, sQ, tK, rg, cg);
+    } else {
+      f32::dots<8, 2>(sc, sQ, tK, rg, cg);
     }
 
+    // mask, online softmax in base 2; P to this warp's rows of sP
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + rg * 4 + i;
-      const bool row_ok = row < qlen;
+    for (int i = 0; i < 8; ++i) {
+      const int row = q0 + rg + 8 * i;
       float tile_max = NEG;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int col = kt + cg + 16 * j;
-        float x;
-        if (col >= Tk) {
-          x = -INFINITY;  // past the keys: no term at all
-        } else if (row_ok && col < mlen && (!causal || col <= row)) {
-          x = sc[i][j] * scale;
-        } else {
-          x = NEG;
-        }
-        sc[i][j] = x;
-        tile_max = fmaxf(tile_max, x);
+        sc[i][j] = col < k_end && (!causal || col <= row) ? sc[i][j] * scale2 : NEG;
+        tile_max = fmaxf(tile_max, sc[i][j]);
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
+      for (int off = 1; off < 16; off <<= 1)
         tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
       const float m_new = fmaxf(row_max[i], tile_max);
-      const float alpha = expf(row_max[i] - m_new);
+      const float alpha = exp2f(row_max[i] - m_new);
+      row_max[i] = m_new;
       float part = 0.f;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        sc[i][j] = expf(sc[i][j] - m_new);
-        part += sc[i][j];
+        const float p = exp2f(sc[i][j] - m_new);
+        part += p;
+        sP[(rg + 8 * i) * LDP + cg + 16 * j] = p;
       }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        part += __shfl_xor_sync(0xffffffffu, part, off);
       row_sum[i] = row_sum[i] * alpha + part;
-      row_max[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] *= alpha;
+      for (int c = 0; c < 4; ++c) acc[i][c] *= alpha;
     }
+    __syncwarp();  // P rows are written and read by one half-warp each
 
-    __syncthreads();  // every thread is done reading K
-    float* sP = sK;
+    f32::accumulate<8>(acc, sP, tV, rg, cg, n_keys);
+  }
+  cpa::cp_async_wait<0>();
+
+  // With two groups, group 1 hands its partial (row max, row sums, o
+  // accumulator) to group 0 through its own ring, element-major so that
+  // lanes hit distinct banks; group 0 merges them as the online softmax
+  // merges two tiles: a group with no tile, or a row that saw only masked
+  // keys in it, holds m = NEG and drops out with weight exp2(NEG - m) = 0.
+  if constexpr (GROUPS == 2) {
+    __syncthreads();  // both groups are done with their rings
+    float* xch = sQ + TILE + GROUP_FLOATS;  // [48][GROUP_THREADS]
+    if (group == 1) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < 8; ++i) {
+        xch[i * GROUP_THREADS + gtid] = row_max[i];
+        xch[(8 + i) * GROUP_THREADS + gtid] = row_sum[i];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sP[(rg * 4 + i) * PAD + cg + 16 * j] = sc[i][j];
+        for (int c = 0; c < 4; ++c) xch[(16 + 4 * i + c) * GROUP_THREADS + gtid] = acc[i][c];
+      }
+    }
     __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[4], vv[4];
+    if (group == 0) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) pv[i] = sP[(rg * 4 + i) * PAD + kk];
+      for (int i = 0; i < 8; ++i) {
+        const float m1 = xch[i * GROUP_THREADS + gtid];
+        const float m_new = fmaxf(row_max[i], m1);
+        const float a0 = exp2f(row_max[i] - m_new), a1 = exp2f(m1 - m_new);
+        row_sum[i] = row_sum[i] * a0 + xch[(8 + i) * GROUP_THREADS + gtid] * a1;
+        row_max[i] = m_new;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) vv[j] = sV[kk * HD + cg + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+        for (int c = 0; c < 4; ++c)
+          acc[i][c] = acc[i][c] * a0 + xch[(16 + 4 * i + c) * GROUP_THREADS + gtid] * a1;
+      }
     }
   }
 
+  if (group == 0) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = rg * 4 + i;
-    if (q0 + r >= rows_end) continue;  // past Tq, or written above as masked
-    const size_t row_off = q_base + (size_t)(q0 + r) * HD;
+    for (int i = 0; i < 8; ++i) {
 #pragma unroll
-    for (int j = 0; j < 4; ++j) o[row_off + cg + 16 * j] = acc[i][j] / row_sum[i];
-    if (cg == 0) {
-      m_out[stat_base + q0 + r] = row_max[i];
-      s_out[stat_base + q0 + r] = row_sum[i];
+      for (int off = 1; off < 16; off <<= 1)
+        row_sum[i] += __shfl_xor_sync(0xffffffffu, row_sum[i], off);
+      const int row = q0 + rg + 8 * i;
+      if (row >= rows_end) continue;  // past Tq, or a padding row written by the writer
+      const float inv = 1.f / row_sum[i];
+      *reinterpret_cast<float4*>(o + q_base + (size_t)row * HD + 4 * cg) =
+          make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv, acc[i][3] * inv);
+      if (cg == 0) {
+        m_out[stat_base + row] = row_max[i] * f32::LN2;
+        s_out[stat_base + row] = row_sum[i];
+      }
     }
   }
 }
 
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const void* q_len, const void* m_len, void* o, void* m,
-                   void* s, int B, int H, int Tq, int Tk, float scale,
-                   int causal, cudaStream_t stream) {
+template <int GROUPS>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* q_len,
+                   const void* m_len, void* o, void* m, void* s, int B, int H, int Tq, int Tk,
+                   float scale, int causal, cudaStream_t stream) {
   static bool smem_set = false;  // above 48 KB needs an explicit opt-in
   if (!smem_set) {
-    cudaError_t err = cudaFuncSetAttribute(
-        masked_attention_fwd_kernel,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)SMEM_BYTES);
+    const cudaError_t err = cudaFuncSetAttribute(masked_attention_fwd_kernel<GROUPS>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem_bytes<GROUPS>());
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
   const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  masked_attention_fwd_kernel<<<grid, THREADS, SMEM_BYTES, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<const int*>(q_len),
-      static_cast<const int*>(m_len), static_cast<float*>(o),
+  masked_attention_fwd_kernel<GROUPS><<<grid, GROUPS * GROUP_THREADS, smem_bytes<GROUPS>(), stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const int*>(q_len), static_cast<const int*>(m_len), static_cast<float*>(o),
       static_cast<float*>(m), static_cast<float*>(s), H, Tq, Tk, scale, causal);
   return cudaGetLastError();
 }
@@ -284,10 +325,13 @@ extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
       (Tq + BQ - 1) / BQ > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  return (int)launch(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal,
-                     static_cast<cudaStream_t>(stream));
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(Tk > TWO_GROUPS_MIN_TK
+                   ? launch<2>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal, st)
+                   : launch<1>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal, st));
 }
 
-// Dynamic shared memory each block of masked_attention_fwd asks for, in bytes
-// (ptxas -v reports static shared memory only).
-extern "C" int masked_attention_fwd_shared_bytes(void) { return (int)SMEM_BYTES; }
+// Dynamic shared memory a block of two warp groups asks for, in bytes (a
+// block of one group asks for 104,448; ptxas -v reports static shared memory
+// only).
+extern "C" int masked_attention_fwd_shared_bytes(void) { return (int)smem_bytes<2>(); }

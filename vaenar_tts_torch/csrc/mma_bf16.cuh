@@ -21,6 +21,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 namespace tc {
 
 using bf16 = __nv_bfloat16;
@@ -33,21 +35,11 @@ constexpr int LDS = HD + 8;
 constexpr int TILE_ELEMS = TILE_ROWS * LDS;
 constexpr float NEG = -4294967295.0f;  // -2^32+1, rounds to -2^32 as in fp32 JAX
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte asynchronous copy from global to shared memory; writes zeros and
-// reads nothing when `pred` is false.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(pred ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using cpa::cp_async16;
+using cpa::cp_async_commit;
+using cpa::cp_async_wait;
+using cpa::group_sync;
+using cpa::smem_addr;
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
@@ -90,12 +82,6 @@ __device__ __forceinline__ void a_split_from_acc(uint32_t (&hi)[4], uint32_t (&l
   split_bf16(acc[2 * s][2], acc[2 * s][3], hi[1], lo[1]);
   split_bf16(acc[2 * s + 1][0], acc[2 * s + 1][1], hi[2], lo[2]);
   split_bf16(acc[2 * s + 1][2], acc[2 * s + 1][3], hi[3], lo[3]);
-}
-
-// Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads: one warp
-// group of a block waits for itself alone.
-__device__ __forceinline__ void group_sync(int id, int threads) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // Rows [row0, row0 + 64) of a [T, 64] bf16 matrix into a shared tile, as

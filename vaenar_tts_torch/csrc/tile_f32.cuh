@@ -1,0 +1,147 @@
+// Building blocks of the fp32 attention kernels (masked_attention_fwd.cu,
+// masked_attention_bwd_dkv.cu): 64 x 64 fp32 tiles in shared memory, filled
+// with cp.async, and multiplied on the SIMT units with fp32 FMAs (the fp32
+// path must match the fp32 reference, which TF32 tensor cores would not).
+//
+// Register tiles. A warp group of 128 threads covers a 64 x 64 product;
+// thread t, with rg = t / 16 and cg = t % 16, owns 8 x 4 of it: rows
+// rg + 8 i (i < 8) and columns cg + 16 j (j < 4) of a score-like tile
+// (dots), or rows rg + 8 i and head-width columns 4 cg .. 4 cg + 3 of an
+// accumulator (accumulate). The 16 threads of a row group are one half-warp,
+// so a tile that one product writes and the next reads row by row (P in the
+// forward, P^T and dS^T in the backward) is exchanged within a warp:
+// __syncwarp is enough.
+//
+// Shared-memory reads are 16 bytes (LDS.128), a thread's operands
+// contiguous along the summed index: per 4 steps of a sum, dots reads 8 + 4
+// float4 for 128 FMAs, accumulate 8 + 4. Rows are LDP = 68 floats apart, so
+// the 8 rows cg .. cg + 7 of a quarter-warp's 16-byte reads fall into 8
+// different 16-byte bank groups, and the two rows rg, rg + 1 that a warp
+// reads as broadcasts into two; accumulate's second operand is one row, 16
+// threads on 16 consecutive chunks.
+
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include "cp_async.cuh"
+
+namespace f32 {
+
+constexpr int TILE_ROWS = 64;  // rows of a tile (query rows or keys)
+constexpr int HD = 64;         // head width: the columns of a tile
+constexpr int LDP = HD + 4;    // row stride of a shared tile, floats
+constexpr int TILE = TILE_ROWS * LDP;  // floats of a shared tile
+constexpr int GROUP_THREADS = 128;     // a warp group: one 64 x 64 product
+constexpr float NEG = -4294967295.0f;  // -2^32+1, rounds to -2^32 as in fp32 JAX
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+
+// Rows [row0, row0 + 64) of a [T, 64] fp32 matrix into a shared tile, as
+// asynchronous copies by THREADS threads numbered `tid` (16 bytes a copy,
+// 16 a row); rows at or past `rows_end` become zeros.
+template <int THREADS>
+__device__ __forceinline__ void load_tile_async(float* dst, const float* __restrict__ src,
+                                                int row0, int rows_end, int tid) {
+#pragma unroll
+  for (int chunk = tid; chunk < TILE_ROWS * 16; chunk += THREADS) {
+    const int r = chunk >> 4, col = (chunk & 15) * 4;
+    const bool in = row0 + r < rows_end;
+    cpa::cp_async16(dst + r * LDP + col, in ? src + (size_t)(row0 + r) * HD + col : src, in);
+  }
+}
+
+// out[i][j] = sum_d a[rg + 8 i][d] * b[cg + 16 j][d] for i < NI, j < NJ (0
+// for the others): S = Q.K^T in the forward, S^T = K.Q^T and dP^T = V.dO^T
+// in the backward. NI < 8 or NJ < 4 skips rows of `a` or `b` that the caller
+// knows to be absent or masked.
+template <int NI, int NJ>
+__device__ __forceinline__ void dots(float (&out)[8][4], const float* a, const float* b, int rg,
+                                     int cg) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < HD; d += 4) {
+    float4 bv[NJ];
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+      bv[j] = *reinterpret_cast<const float4*>(b + (cg + 16 * j) * LDP + d);
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const float4 av = *reinterpret_cast<const float4*>(a + (rg + 8 * i) * LDP + d);
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        out[i][j] = fmaf(av.w, bv[j].w,
+                         fmaf(av.z, bv[j].z, fmaf(av.y, bv[j].y, fmaf(av.x, bv[j].x, out[i][j]))));
+    }
+  }
+}
+
+// acc[i][c] += sum_{r < n} a[rg + 8 i][r] * b[r][4 cg + c] for i < NI, n
+// rounded up to 4 (the caller makes a's extra columns 0 or b's extra rows
+// 0): O += P.V in the forward, dV += P^T.dO and dK += dS^T.Q in the backward.
+template <int NI>
+__device__ __forceinline__ void accumulate(float (&acc)[8][4], const float* a, const float* b,
+                                           int rg, int cg, int n) {
+#pragma unroll 1
+  for (int r = 0; r < n; r += 4) {
+    float4 bv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) bv[u] = *reinterpret_cast<const float4*>(b + (r + u) * LDP + 4 * cg);
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      const float4 av = *reinterpret_cast<const float4*>(a + (rg + 8 * i) * LDP + r);
+      acc[i][0] = fmaf(av.w, bv[3].x, fmaf(av.z, bv[2].x, fmaf(av.y, bv[1].x, fmaf(av.x, bv[0].x, acc[i][0]))));
+      acc[i][1] = fmaf(av.w, bv[3].y, fmaf(av.z, bv[2].y, fmaf(av.y, bv[1].y, fmaf(av.x, bv[0].y, acc[i][1]))));
+      acc[i][2] = fmaf(av.w, bv[3].z, fmaf(av.z, bv[2].z, fmaf(av.y, bv[1].z, fmaf(av.x, bv[0].z, acc[i][2]))));
+      acc[i][3] = fmaf(av.w, bv[3].w, fmaf(av.z, bv[2].w, fmaf(av.y, bv[1].w, fmaf(av.x, bv[0].w, acc[i][3]))));
+    }
+  }
+}
+
+// Column sums of rows [row0, row1) of a [T, 64] fp32 matrix, each row times
+// 1 / div[r] when `div` is not null, into sum[0..64) in shared memory;
+// `scratch` is shared memory for THREADS * 4 floats. A thread reads 4
+// columns of a row with one 16-byte load, 16 threads a row, and keeps DEPTH
+// loads in flight: a sum over many rows is bound by memory latency, not by
+// instructions. Ends with a barrier, so `sum` is ready for every thread.
+template <int THREADS, int DEPTH>
+__device__ __forceinline__ void column_sums(float* sum, float* scratch,
+                                            const float* __restrict__ src, int row0, int row1,
+                                            const float* __restrict__ div) {
+  constexpr int STEP = THREADS / 16;  // rows read at once by the block
+  const int c4 = (threadIdx.x & 15) * 4;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto add = [&](const float4& x, float w) {
+    acc.x = fmaf(x.x, w, acc.x);
+    acc.y = fmaf(x.y, w, acc.y);
+    acc.z = fmaf(x.z, w, acc.z);
+    acc.w = fmaf(x.w, w, acc.w);
+  };
+  int r = row0 + (threadIdx.x >> 4);
+  for (; r + (DEPTH - 1) * STEP < row1; r += DEPTH * STEP) {
+    float4 raw[DEPTH];
+    float w[DEPTH];
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u) {
+      raw[u] = *reinterpret_cast<const float4*>(src + (size_t)(r + u * STEP) * HD + c4);
+      w[u] = div ? div[r + u * STEP] : 1.f;
+    }
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u) add(raw[u], div ? 1.f / w[u] : 1.f);
+  }
+  for (; r < row1; r += STEP)
+    add(*reinterpret_cast<const float4*>(src + (size_t)r * HD + c4), div ? 1.f / div[r] : 1.f);
+  reinterpret_cast<float4*>(scratch)[threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.x < HD) {
+    float total = 0.f;
+    for (int g = 0; g < STEP; ++g) total += scratch[g * HD + threadIdx.x];
+    sum[threadIdx.x] = total;
+  }
+  __syncthreads();
+}
+
+}  // namespace f32

@@ -28,10 +28,12 @@ Which kernel serves which dtype, on CUDA tensors (``launch_counts`` key):
   (``masked_attention_bwd_dkv_tc``), which reads that δ, all on the tensor
   cores;
 * fp32: the forward ``csrc/masked_attention_fwd.cu``
-  (``masked_attention_fwd``) and both backward kernels of
-  ``csrc/masked_attention_bwd.cu`` (``masked_attention_bwd_dq``,
-  ``masked_attention_bwd_dkv``), fp32 FMAs, which the fp32 reference's
-  tolerance needs (TF32 tensor cores would not meet it).
+  (``masked_attention_fwd``), the dQ kernel ``csrc/masked_attention_bwd.cu``
+  (``masked_attention_bwd_dq``), after a separate δ pass
+  (``attention_delta``), and the dK/dV kernel
+  ``csrc/masked_attention_bwd_dkv.cu`` (``masked_attention_bwd_dkv``), fp32
+  FMAs, which the fp32 reference's tolerance needs (TF32 tensor cores would
+  not meet it).
 
 ``masked_flash_attention`` and ``masked_flash_attention_backward`` launch
 them and raise if they cannot; there is no fall back. On CPU tensors, and

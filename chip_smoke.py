@@ -6,11 +6,12 @@ of a checkout:
 
 The main path is the shipped configuration, whose compute dtype is
 bfloat16: bf16 attention goes through the tensor-core forward, dQ and dK/dV
-kernels (masked_attention_fwd_tc, masked_attention_bwd_dq_tc, which also
-forms delta = rowsum(dO * O), and masked_attention_bwd_dkv_tc). The strict
-card-against-CPU gates run the same model at compute dtype float32, through
-the fp32 kernels (masked_attention_fwd, masked_attention_bwd_dq,
-masked_attention_bwd_dkv).
+kernels (masked_attention_fwd_tc, masked_attention_bwd_dq_tc and
+masked_attention_bwd_dkv_tc). The strict card-against-CPU gates run the
+same model at compute dtype float32, through the fp32 kernels
+(masked_attention_fwd, masked_attention_bwd_dq and masked_attention_bwd_dkv).
+In both dtypes the dQ kernel also forms delta = rowsum(dO * O), which the
+dK/dV kernel reads: a backward launches those two kernels and nothing else.
 
 1. device: the card's name, count, and `nvidia-smi` name and power limit;
 2. build: every csrc/*.cu with nvcc for sm_90a (one nvcc for each source,
@@ -20,9 +21,11 @@ masked_attention_bwd_dkv).
    synthesis path's shapes, on ragged shapes, fully masked rows and
    Tk > 4096; the dQ and dK/dV backward kernels at the training path's
    shapes (r = 2 and r = 5), with fully masked rows, an item with no key, a
-   ragged pair and a long causal site, and the bf16 dQ kernel's delta; both
-   at the edges of the kernels' tiles (padding rows over many q-blocks with
-   two warp groups, 32 and 33 keys or rows in a tile);
+   ragged pair and a long causal site, and each dQ kernel alone with its
+   delta; both at the edges of the kernels' tiles (padding rows over many
+   q-blocks with two warp groups, 32 and 33 keys or rows in a tile); and a
+   profile of one backward in each dtype, which must launch the dQ and the
+   dK/dV kernel and no other kernel;
 4. synthesis path (bf16): the shipped LJSpeech model (artifacts/toyv2_q90/
    ckpt) at full width synthesizes 4 fixed lines through the CLI's
    synthesize_batch, at temperature 0 and at 0.667 with a seeded generator,
@@ -105,9 +108,9 @@ TOL_MEL_CARD_CPU = 1e-4
 # bf16 both sum in fp32 and round the gradient once, so they may differ by
 # one bf16 ulp, at most 2**-7 * |g|, plus the fp32 order (atol 1e-3)
 TOL_GRAD = {"float32": (1e-4, 1e-5), "bfloat16": (1e-3, 2.0 ** -7)}
-# the bf16 dQ kernel's delta = rowsum(dO * O) against the plain one, per
-# element atol + rtol * |delta_plain|: the bf16 products are exact in fp32,
-# so only the order of the 64-term fp32 sum differs
+# the dQ kernels' delta = rowsum(dO * O) against the plain one, per element
+# atol + rtol * |delta_plain|: both sum 64 fp32 products (exact ones of bf16
+# inputs) in fp32, in another order
 TOL_DELTA = (1e-5, 1e-5)
 # card against CPU, one full-width train step (the parity test against JAX,
 # tests/test_torch_train_step.py, holds losses to 1e-5 relative, gradients
@@ -402,13 +405,14 @@ def backward_cases(torch, device):
 def check_backward(torch, fa, device):
     """dQ and dK/dV kernels against the plain backward, fp32
     (masked_attention_bwd_dq, masked_attention_bwd_dkv) and bf16
-    (masked_attention_bwd_dq_tc, masked_attention_bwd_dkv_tc), and the bf16
-    dQ kernel's delta against masked_attention_dq_reference's; returns
-    {kernel: {dtype: largest error}} and the kernels' worst shares of their
-    tolerances {dtype: {"dq": ..., "dkv": ...}}, with "delta" for bf16."""
+    (masked_attention_bwd_dq_tc, masked_attention_bwd_dkv_tc), and each dQ
+    kernel of the package's DELTA_FORMING_KERNELS alone, dq and delta,
+    against masked_attention_dq_reference; returns {kernel: {dtype: largest
+    error}} and the kernels' worst shares of their tolerances {dtype:
+    {"dq": ..., "dkv": ..., "delta": ...}} ("delta" 0 for a dQ kernel that
+    forms none)."""
     worst = {}
-    worst_share = {"float32": {"dq": 0.0, "dkv": 0.0},
-                   "bfloat16": {"dq": 0.0, "dkv": 0.0, "delta": 0.0}}
+    worst_share = {d: {"dq": 0.0, "dkv": 0.0, "delta": 0.0} for d in ("float32", "bfloat16")}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         atol, rtol = TOL_GRAD[dtype_name]
@@ -440,7 +444,7 @@ def check_backward(torch, fa, device):
                 by_dtype = worst.setdefault(kernels[kern], {})
                 by_dtype[dtype_name] = max(by_dtype.get(dtype_name, 0.0), diff.max().item())
                 worst_share[dtype_name][kern] = max(worst_share[dtype_name][kern], share)
-            if dtype_name == "bfloat16":
+            if kernels["dq"] in fa.DELTA_FORMING_KERNELS:
                 # the dQ kernel alone, into a delta of NaNs: every element
                 # must be written, zeros on the rows without a key
                 delta = torch.full_like(m, float("nan"))
@@ -453,18 +457,46 @@ def check_backward(torch, fa, device):
                 diff = (dq.float() - dq_want.float()).abs()
                 share = (diff / (atol + rtol * dq_want.float().abs())).max().item()
                 row["max_share_of_tol_dq_alone"] = share
-                check(share <= 1.0, f"{name}: dq alone, {share} of the tolerance")
+                check(share <= 1.0, f"{name}/{dtype_name}: dq alone, {share} of the tolerance")
                 worst_share[dtype_name]["dq"] = max(worst_share[dtype_name]["dq"], share)
                 diff = (delta - delta_want).abs()
                 share = (diff / (TOL_DELTA[0] + TOL_DELTA[1] * delta_want.abs())).max().item()
                 row.update({"max_abs_err_delta": diff.max().item(),
                             "max_share_of_tol_delta": share,
                             "delta_tol": list(TOL_DELTA)})
-                check(share <= 1.0, f"{name}: delta error {diff.max().item()} "
+                check(share <= 1.0, f"{name}/{dtype_name}: delta error {diff.max().item()} "
                       f"({share} of atol {TOL_DELTA[0]} + rtol {TOL_DELTA[1]} * |delta|)")
                 worst_share[dtype_name]["delta"] = max(worst_share[dtype_name]["delta"], share)
             print(json.dumps(row), flush=True)
     return worst, worst_share
+
+
+def check_backward_launches(torch, fa, device):
+    """The kernels that one backward runs on the card, at the train step's
+    causal site (r = 2, batch 4), in each dtype, by torch.profiler: the
+    dtype's dQ and dK/dV kernel once each and nothing else (no delta pass).
+    Returns {dtype: [[kernel, launches], ...]}."""
+    from torch.profiler import ProfilerActivity, profile
+    ql = length_sampler(torch, device, 13)(240, 60, (0, 240))
+    found = {}
+    for dtype_name in ("float32", "bfloat16"):
+        dtype = getattr(torch, dtype_name)
+        q, k, v = random_qkv(torch, device, dtype, 4, 4, 240, 240, 64, seed=600)
+        do = random_qkv(torch, device, dtype, 4, 4, 240, 240, 64, seed=601)[0]
+        o, m, s = fa.masked_flash_attention(q, k, v, ql, ql, 0.125, True)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fa.masked_flash_attention_backward(q, k, v, ql, ql, o, m, s, do, 0.125, True)
+            torch.cuda.synchronize()
+        ran = sorted([e.key, e.count] for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.self_device_time_total > 0 and not e.is_user_annotation)
+        found[dtype_name] = ran
+        want = [f"{fa.kernel_name(kind, dtype)}_kernel" for kind in ("dq", "dkv")]
+        check(len(ran) == 2 and all(n == 1 for _, n in ran)
+              and all(any(w in key for key, _ in ran) for w in want),
+              f"a {dtype_name} backward ran {ran} on the card, expected {want} once each")
+    return found
 
 
 def backward_work(torch, tq, tk, causal, ql, ml, D, B, H, dq_forms_delta):
@@ -510,9 +542,10 @@ def time_backward(torch, fa, device, sites, dtype_name):
     """Per attention site of a train step, in ``dtype_name``: the forward
     kernel, the dQ and the dK/dV kernel each alone, the whole plain backward
     and scaled_dot_product_attention's backward with a boolean mask (times
-    for one call), each kernel's bound, and the separate delta pass
-    (``attention_delta``: the fp32 path runs it before its dQ kernel, the
-    bf16 dQ kernel forms delta itself); returns the sums over one train
+    for one call), each kernel's bound, and a separate delta pass
+    (``attention_delta``, the pass that a dQ kernel of the package's
+    DELTA_FORMING_KERNELS makes needless; a tree whose dQ kernel forms no
+    delta runs it before that kernel); returns the sums over one train
     step. ``sites``: (name, calls, Tq, Tk, causal, q_len, m_len)."""
     import torch.nn.functional as F
     totals = {k: 0.0 for k in ("fwd_ms", "dq_ms", "dkv_ms", "delta_pass_ms", "plain_ms",
@@ -527,8 +560,8 @@ def time_backward(torch, fa, device, sites, dtype_name):
         q, k, v = random_qkv(torch, device, dtype, B, 4, tq, tk, 64, seed=400 + i)
         do = random_qkv(torch, device, dtype, B, 4, tq, tq, 64, seed=500 + i)[0]
         o, m, s = fa.masked_flash_attention(q, k, v, ql, ml, 0.125, causal)
-        # the bf16 dQ kernel overwrites this delta with its own (the same
-        # values on the rows the dK/dV kernel reads)
+        # a dQ kernel that forms delta overwrites this one with its own (the
+        # same values on the rows the dK/dV kernel reads)
         delta = fa.attention_delta(o, do).contiguous()
         dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
@@ -762,6 +795,8 @@ def main():
     phase("backward_checks")
     worst_bwd, share_bwd = check_backward(torch, fa, device)
     worst = {**worst_fwd, **worst_bwd}
+    print(json.dumps({"backward_device_kernels": check_backward_launches(torch, fa, device)}),
+          flush=True)
 
     phase("load")
     hp, model, epoch = load_model(MODEL_DIR, device)
@@ -1093,7 +1128,8 @@ def main():
         bwd_entry("masked_attention_bwd_dq", "dq", "float32",
                   fp32_step_counts["masked_attention_bwd_dq"],
                   {"fp32_train_step": fp32_step_counts["masked_attention_bwd_dq"]},
-                  {"max_share_of_tol": share_bwd["float32"]["dq"]}),
+                  {"max_share_of_tol": share_bwd["float32"]["dq"],
+                   "max_share_of_tol_delta": share_bwd["float32"]["delta"]}),
         bwd_entry("masked_attention_bwd_dkv_tc", "dkv", "bfloat16",
                   training_counts["masked_attention_bwd_dkv_tc"],
                   {"training": training_counts["masked_attention_bwd_dkv_tc"]},

@@ -4,6 +4,7 @@
 model:
 
     python3 scripts/torch_attention_sites.py ROOT [ROOT ...] [--checks] [--dtype float32]
+        [--batch N]
 
 Each ROOT is a directory that holds a `vaenar_tts_torch/` package (this
 checkout, or another tree unpacked with `git archive`); each runs in its own
@@ -15,8 +16,9 @@ sites and at 1024 x 4104 and for the forward, dQ and dK/dV at the train-step
 sites: device time, bound, plain and library times. The site lengths are the
 ones chip_smoke.py's times phase uses: the shipped model's bf16 synthesis
 lengths of its four lines (1093, 1000, 1166 and 919 mel frames) and the
-seeded training batch at r = 2. The last line is the card's name and power
-limit.
+seeded training batch at r = 2, or with `--batch N` its N items with the
+longest mels (N = 1: the latency of one item's blocks, the card otherwise
+idle). The last line is the card's name and power limit.
 
 It loads chip_smoke.py by file path and calls its helpers `MODEL_DIR`,
 `LINES`, `check_cases`, `check_kernels`, `check_backward`, `write_records`,
@@ -30,6 +32,9 @@ import os
 import subprocess
 import sys
 import tempfile
+import types
+
+import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # mel frames the shipped model predicts for chip_smoke.py's LINES at bf16
@@ -43,8 +48,9 @@ def _chip_smoke():
     return mod
 
 
-def run_one(root, checks, dtypes):
-    """One run from ``root``; prints JSON lines."""
+def run_one(root, checks, dtypes, batch=None):
+    """One run from ``root`` (train-step sites on the ``batch`` longest items
+    of the seeded batch, or all of them); prints JSON lines."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from vaenar_tts_torch.cli.inference import encode_lines
@@ -83,6 +89,11 @@ def run_one(root, checks, dtypes):
         big = next(iter(BucketedLoader(list_shards(tmp, "train"), hp.train.train_batch_size,
                                        hp.dataset.mel_bucket, hp.dataset.text_bucket,
                                        shuffle=False).epoch(0)))
+    if batch:
+        keep = np.argsort(-big.mel_lengths, kind="stable")[:batch]
+        big = types.SimpleNamespace(texts=big.texts[keep], mels=big.mels[keep],
+                                    text_lengths=big.text_lengths[keep],
+                                    mel_lengths=big.mel_lengths[keep])
     step_sites = cs.train_sites(torch, hp, big, device)
     for dtype_name in dtypes:
         print(json.dumps({"root": root, "dtype": dtype_name,
@@ -98,11 +109,13 @@ def run_one(root, checks, dtypes):
 def main(argv):
     if len(argv) >= 2 and argv[0] == "--one":
         run_one(argv[1], "--checks" in argv, argv[argv.index("--dtype") + 1:][:1]
-                if "--dtype" in argv else ["float32", "bfloat16"])
+                if "--dtype" in argv else ["float32", "bfloat16"],
+                int(argv[argv.index("--batch") + 1]) if "--batch" in argv else None)
         return 0
     flags = [a for a in argv if a == "--checks"]
-    if "--dtype" in argv:
-        flags += argv[argv.index("--dtype"):][:2]
+    for option in ("--dtype", "--batch"):
+        if option in argv:
+            flags += argv[argv.index(option):][:2]
     roots = [a for a in argv if a not in flags]
     if not roots:
         print(__doc__, file=sys.stderr)

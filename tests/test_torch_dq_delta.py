@@ -1,4 +1,5 @@
-"""The plain version of the bf16 dQ kernel, and the kernels' routing.
+"""The plain version of both dQ kernels (fp32 and bf16), and the kernels'
+routing.
 
 ``masked_attention_dq_reference`` (dq and δ = rowsum(dO∘O) on the rows with
 an unmasked key, 0 on the others) is held against the dq of the JAX
@@ -6,7 +7,8 @@ package's ``_pallas_backward`` (its Pallas kernels in interpret mode on the
 CPU) at the same (o, m, s, dO), at lengths that are multiples of 8 so that
 ``_block_size`` takes the Pallas path, and its δ against rowsum(dO∘O) in
 numpy. Tolerance: atol 1e-5 in fp32 (the sums run in another order). The
-kernel itself runs only on a CUDA card: ``test_dq_kernel_matches_plain_on_card``.
+kernels themselves run only on a CUDA card:
+``test_dq_kernel_matches_plain_on_card``.
 """
 
 import jax.numpy as jnp
@@ -87,18 +89,19 @@ def test_dq_reference_matches_pallas_backward(jax_dq, name, d):
 @pytest.mark.parametrize("kind", ["fwd", "dq", "dkv"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernel_routing(kind, dtype):
-    """bf16 takes the tensor-core kernels, fp32 the fp32-FMA ones; only the
-    bf16 dQ kernel forms δ."""
+    """bf16 takes the tensor-core kernels, fp32 the fp32-FMA ones; the dQ
+    kernel of either dtype forms δ, the dK/dV kernels read it."""
     base = "masked_attention_fwd" if kind == "fwd" else f"masked_attention_bwd_{kind}"
     want = f"{base}_tc" if dtype == torch.bfloat16 else base
     assert fa.kernel_name(kind, dtype) == want
     forms_delta = fa.kernel_name(kind, dtype) in fa.DELTA_FORMING_KERNELS
-    assert forms_delta == (kind == "dq" and dtype == torch.bfloat16)
+    assert forms_delta == (kind == "dq")
 
 
 @pytest.mark.parametrize("kind,dtype,give_o", [("dq", torch.bfloat16, False),
-                                                ("dq", torch.float32, True),
-                                                ("dkv", torch.bfloat16, True)])
+                                                ("dq", torch.float32, False),
+                                                ("dkv", torch.bfloat16, True),
+                                                ("dkv", torch.float32, True)])
 def test_launch_refuses_a_wrong_o(kind, dtype, give_o):
     """Only a kernel of DELTA_FORMING_KERNELS is given o: a launch that
     would pass the kernel one pointer too many or too few raises before it
@@ -137,17 +140,20 @@ def cuda_device():
 
 
 @pytest.mark.gpu
-def test_dq_kernel_matches_plain_on_card(cuda_device):
-    """The bf16 dQ kernel alone against masked_attention_dq_reference: dq
-    per element within 1e-3 + 2^-7·|dq| (one bf16 ulp and the fp32 order),
-    δ within 1e-5 + 1e-5·|δ| (the order of a 64-term fp32 sum), every δ
-    element written."""
+@pytest.mark.parametrize("dtype,atol,rtol,kernel", [
+    (torch.float32, 1e-4, 1e-5, "masked_attention_bwd_dq"),
+    (torch.bfloat16, 1e-3, 2.0 ** -7, "masked_attention_bwd_dq_tc")])
+def test_dq_kernel_matches_plain_on_card(cuda_device, dtype, atol, rtol, kernel):
+    """The dQ kernel alone against masked_attention_dq_reference: dq per
+    element within atol + rtol·|dq| (fp32: the order of the sums; bf16: one
+    bf16 ulp and the fp32 order), δ within 1e-5 + 1e-5·|δ| (the order of a
+    64-term fp32 sum), every δ element written."""
     rng = np.random.default_rng(0)
     for tq, tk, causal in [(240, 240, True), (240, 32, False), (241, 33, False)]:
         q, do = (torch.from_numpy(rng.standard_normal((2, 4, tq, 64)).astype(np.float32))
-                 .to(cuda_device, torch.bfloat16) for _ in range(2))
+                 .to(cuda_device, dtype) for _ in range(2))
         k, v = (torch.from_numpy(rng.standard_normal((2, 4, tk, 64)).astype(np.float32))
-                .to(cuda_device, torch.bfloat16) for _ in range(2))
+                .to(cuda_device, dtype) for _ in range(2))
         ql = torch.tensor([tq // 2, tq], dtype=torch.int32, device=cuda_device)
         ml = torch.tensor([tk, 0], dtype=torch.int32, device=cuda_device)
         o, m, s = fa.masked_attention_reference(q, k, v, ql, ml, 0.125, causal)
@@ -155,9 +161,9 @@ def test_dq_kernel_matches_plain_on_card(cuda_device):
         fa.launch_counts.clear()
         fa.launch_backward_kernel("dq", q, k, v, do, ql, ml, m, s, delta, (dq,), 0.125,
                                   causal, o=o)
-        assert dict(fa.launch_counts) == {"masked_attention_bwd_dq_tc": 1}
+        assert dict(fa.launch_counts) == {kernel: 1}
         dq_want, delta_want = fa.masked_attention_dq_reference(q, k, v, do, o, ql, ml, m, s,
                                                                0.125, causal)
         torch.cuda.synchronize()
-        torch.testing.assert_close(dq.float(), dq_want.float(), atol=1e-3, rtol=2.0 ** -7)
+        torch.testing.assert_close(dq.float(), dq_want.float(), atol=atol, rtol=rtol)
         torch.testing.assert_close(delta, delta_want, atol=1e-5, rtol=1e-5)

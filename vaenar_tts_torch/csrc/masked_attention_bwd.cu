@@ -1,21 +1,23 @@
 // Masked multi-head attention, backward, the dQ kernel, fp32 FMAs, for
 // sm_90a. Plain C interface, bound from Python with ctypes
-// (vaenar_tts_torch/ops/flash_attention.py, masked_flash_attention_backward).
-// fp32 only: bf16 takes the tensor-core dQ kernel,
-// masked_attention_bwd_dq_tc.cu (which also forms delta). The fp32 dK/dV
-// kernel is masked_attention_bwd_dkv.cu, launched after this one.
+// (vaenar_tts_torch/ops/flash_attention.py, masked_flash_attention_backward);
+// fp32 inputs take this kernel, bf16 ones masked_attention_bwd_dq_tc.cu. It
+// also forms delta = rowsum(dO * O), which the fp32 dK/dV kernel
+// (masked_attention_bwd_dkv.cu), launched after it on the same stream, reads.
 //
 // Replaces _dq_kernel of vaenar_tts_tpu/ops/flash_attention.py (l.320,
 // pallas_call l.442; grid batch, head, q-block, k-block, dQ accumulated over
-// the k-blocks) for fp32 inputs. Here each block owns its 64 rows of dQ and
+// the k-blocks) for fp32 inputs, and the delta that _pallas_backward forms
+// outside its kernels (l.425-427). Here each block owns its 64 rows of dQ and
 // loops over the key tiles inside the block, so nothing is carried between
 // blocks and nothing is atomic.
 //
 // Contract of the backward kernels (the forward's, masked_attention_fwd.cu):
 // logits = q.k^T * scale; mask = row < q_len[b] && col < m_len[b]
 // (&& col <= row when causal); masked logits are NEG = -2^32+1. From the
-// forward's row stats (max m, sum s) and delta = rowsum(dO * O) (computed by
-// the wrapper):
+// forward's row stats (max m, sum s):
+//   delta = rowsum(dO * O) in fp32 on every row with an unmasked key, 0 on
+//           the others (their dS is 0, so no gradient reads their delta)
 //   P  = exp(where(mask, logits, NEG) - m) / s
 //   dV = P^T . dO                       (unmasked: every row of P counts)
 //   dS = where(mask, P * (dO.V^T - delta), 0)
@@ -35,225 +37,325 @@
 //     past the row when causal, contribute nothing to any gradient. The dQ
 //     loop stops at m_len (and at the tile's last valid row when causal).
 //
-// Design. 256 threads a block, 64 x 64 tiles in shared memory, rows padded
-// to 65 floats against bank conflicts. Each
-// thread owns a 4 x 4 piece of the 64 x 64 score tile (rows 4*(tid/16)+i,
-// columns tid%16 + 16*j) and the same piece of its 64 x 64 output
-// accumulator (columns are head-width indices there). dS goes through
-// shared memory for the second product. The products are fp32 FMAs: the
-// fp32 path must match the fp32 reference, which TF32 tensor cores would
-// not.
+// What bounds it on an H100 at the training path's shapes (batch 32, H=4,
+// D=64, text 32 of which 12-24 tokens are valid, reduced mel 240 at r = 2 of
+// which 55-98 rows are valid): bytes, by the count in chip_smoke.py (backward_work,
+// dq_forms_delta): q, dO and O of the valid rows, the K and V rows they see,
+// their m and s, dQ and delta written whole. An unmasked (row, key) pair
+// costs 6*D fp32 FMA-operations and a valid row 2*D more for delta; with
+// most rows padding, the bytes outweigh them about threefold. Neither sets
+// the time at these shapes: a site runs 1-2 working blocks per (b, h), and
+// the blocks of the longest item alone take about 70 % of the 32 items'
+// time at the causal and cross sites (scripts/torch_attention_sites.py
+// --batch 1), so the latency of the heaviest block does (the q-tile of rows
+// 64-97 with two key tiles, and the launch). What held the first version
+// back, and what this design does about it:
+//   * scalar shared loads, one for every two FMAs (a thread owned 4 x 4 of
+//     S, dP and dQ, 4 bytes a load): here 16-byte loads (tile_f32.cuh);
+//   * synchronous tiles, 4-byte global loads with a division and a modulo
+//     an element, two barriers around each key tile: here Q, dO and the
+//     first key tile arrive by cp.async (16 bytes a copy), and K and V
+//     stream through a two-stage ring, the next tile loading while this one
+//     multiplies;
+//   * a division an element for P: here m * log2(e) and 1/s of a thread's
+//     rows sit in registers, so that P costs one exp2 and one multiply;
+//   * dS behind a barrier of the whole block: a row of Q, dS and dQ is read
+//     and written by one half-warp only, so on a block's last key tile dS
+//     goes over the thread's own rows of Q behind __syncwarp; on an earlier
+//     tile it goes over the V tile, which dP = dO.V^T is done with once the
+//     block passes one barrier. The block needs no tile of its own for dS,
+//     so two blocks fit on an SM;
+//   * delta from a separate pass (two more launches a site, and a read of
+//     dO and O): here the block forms it at its start from O, read once with
+//     16-byte loads, and the dO tile: a thread sums 4 columns of its rows
+//     and its half-warp adds them up by shuffles, so each thread holds the
+//     delta of its rows in registers; it is written once.
+// And for the heaviest block's latency: 256 threads a block, each owning
+// 4 x 4 of S, dP and dQ (rows rg + 16 i: tile_f32.cuh with RS = 16), half the
+// chain of dependent instructions a thread of the 8 x 4 layout has, within
+// 128 registers so that two blocks still fit on an SM; a tile computes only
+// ceil(rows / 16) row groups and ceil(keys / 16) key groups, and on the
+// causal diagonal skips the triangle of key groups past their rows. A block
+// of 128 threads with 8 x 4 tiles narrowed at 32 rows and keys (254
+// registers, the same shared memory) measured slower at every training site
+// (PERF.md §6).
 //
-// What bounds it on an H100 at the training shapes (batch 32, H=4, D=64,
-// text 32, reduced mel 240 at r = 2, of which 55-98 rows are valid): bytes,
-// by the count in chip_smoke.py. An unmasked (row, key) pair costs 6*D
-// operations, but with most rows padding, dQ written whole (zero rows
-// included) and the rows read outweigh those pairs' fp32 FMAs about
-// threefold. The kernel is far from either floor: a block runs its tiles one
-// after another with no overlap of loads and products, on the SIMT units.
+// Work skipped without changing the result:
+//   * the key loop stops at m_len and, when causal, at the tile's last row
+//     with a key: every skipped term is exp(NEG - m) = 0 exactly in fp32;
+//   * K and V rows past that end are not read (their tile rows are zeros);
+//   * a block whose rows all lack a key reads nothing: it writes its zero dQ
+//     rows and its zero delta with 16-byte stores (4-byte ones where delta's
+//     rows do not start or end at a 16-byte boundary).
+//
+// Shared memory: Q, dO and a two-stage K/V ring, 6 tiles of 64 x 68 fp32,
+// 104,448 bytes a block (two blocks an SM).
 
-#include <math.h>
-
-#include <cuda_runtime.h>
+#include "tile_f32.cuh"
 
 namespace {
 
-constexpr int BQ = 64;         // query rows per tile
-constexpr int BK = 64;         // keys per tile
-constexpr int HD = 64;         // head width
-constexpr int THREADS = 256;
-constexpr int PAD = HD + 1;    // row stride (floats) of every shared tile
-constexpr float NEG = -4294967295.0f;  // -2^32+1, rounds to -2^32 as in fp32 JAX
-// dQ: Q, dO, K, V, dS tiles
-constexpr size_t DQ_SMEM_BYTES = sizeof(float) * (5 * 64 * PAD);
+using f32::HD;
+using f32::LDP;
+using f32::TILE;
 
-// rows [row0, row0 + 64) of a [T, HD] matrix into a padded tile; rows at
-// or past `rows_end` are zero
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
-                                          int row0, int rows_end) {
-  for (int idx = threadIdx.x; idx < 64 * HD; idx += THREADS) {
-    const int r = idx / HD, d = idx % HD;
-    dst[r * PAD + d] = row0 + r < rows_end ? src[(size_t)(row0 + r) * HD + d] : 0.f;
+constexpr int BQ = 64;  // query rows per block
+constexpr int BK = 64;  // keys per tile
+constexpr int RS = 16;  // row groups: thread t owns rows t / 16 + RS i
+constexpr int NR = BQ / RS;  // rows a thread
+constexpr int THREADS = 16 * RS;
+constexpr int STAGES = 2;  // K/V tiles in the ring: one loads while one multiplies
+constexpr size_t SMEM_BYTES = sizeof(float) * (2 + 2 * STAGES) * TILE;
+
+// Zeros into dst[0, n) by the block: 16-byte stores from dst's first 16-byte
+// boundary on, 4-byte ones before it and after the last.
+__device__ __forceinline__ void store_zeros(float* __restrict__ dst, int n, int tid) {
+  const int head = min(n, (int)((4 - ((reinterpret_cast<uintptr_t>(dst) >> 2) & 3)) & 3));
+  const int body = (n - head) >> 2;
+  float4* mid = reinterpret_cast<float4*>(dst + head);
+  for (int c = tid; c < body; c += THREADS) mid[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+  const int tail = head + 4 * body;
+  for (int c = tid; c < n - 4 * body; c += THREADS) dst[c < head ? c : tail + c - head] = 0.f;
+}
+
+// What every key tile of a block reads besides K and V: the block's Q and
+// dO tiles, and this thread's rows rg + RS i with their statistics.
+struct Rows {
+  float* sQ;
+  const float* sDO;
+  float m2[NR], inv_s[NR], delta[NR];  // m * log2(e), 1/s and delta of each row
+  int rg, cg, q0, rows_end, k_end, causal;
+  float scale2;
+};
+
+// One key tile: S = Q.K^T and dP = dO.V^T, then dS = P * (dP - delta),
+// then dQ += dS.K, for the rows rg + RS i with i < NI and the keys cg + 16 j
+// with j < NJ (the tile's others are absent or masked). TRI for the tile on
+// the causal diagonal (its keys and the block's rows start at the same
+// index) skips its masked triangle. dS goes over this thread's own rows of
+// Q on the block's last tile (a row of Q, dS and dQ is read and written by
+// one half-warp only), else over the V tile, once every warp is done with V.
+template <int NI, int NJ, bool TRI>
+__device__ __forceinline__ void dq_tile(float (&acc)[NR][4], const Rows& w, const float* tK,
+                                        float* tV, int kt, int n_keys, bool last) {
+  float sc[NR][4], dp[NR][4];
+  f32::dots<NI, NJ, TRI, RS>(sc, w.sQ, tK, w.rg, w.cg);
+  f32::dots<NI, NJ, TRI, RS>(dp, w.sDO, tV, w.rg, w.cg);
+  float* sDS = last ? w.sQ : tV;
+  if (last) {
+    __syncwarp();  // the half-warp is done reading its Q rows
+  } else {
+    __syncthreads();  // every warp is done reading V
+  }
+#pragma unroll
+  for (int i = 0; i < NI; ++i) {
+    const int row = w.q0 + w.rg + RS * i;
+#pragma unroll
+    for (int j = 0; j < NJ; ++j) {
+      const int key = kt + w.cg + 16 * j;
+      // a masked key of a row with a key has P = exp(NEG - m) = 0 exactly;
+      // rows without a key take no part
+      const bool unmasked = row < w.rows_end && key < w.k_end && (!w.causal || key <= row);
+      const float p = exp2f(fmaf(sc[i][j], w.scale2, -w.m2[i])) * w.inv_s[i];
+      sDS[(w.rg + RS * i) * LDP + w.cg + 16 * j] = unmasked ? p * (dp[i][j] - w.delta[i]) : 0.f;
+    }
+  }
+  __syncwarp();  // a half-warp reads the dS rows that it wrote
+  if (TRI) {
+    f32::accumulate_tri<NI, RS>(acc, sDS, tK, w.rg, w.cg, n_keys);
+  } else {
+    f32::accumulate<NI, RS>(acc, sDS, tK, w.rg, w.cg, n_keys);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+template <int NI>
+__device__ __forceinline__ void dq_tile_keys(int nj, float (&acc)[NR][4], const Rows& w,
+                                             const float* tK, float* tV, int kt, int n_keys,
+                                             bool last) {
+  switch (nj) {
+    case 1: dq_tile<NI, 1, false>(acc, w, tK, tV, kt, n_keys, last); break;
+    case 2: dq_tile<NI, 2, false>(acc, w, tK, tV, kt, n_keys, last); break;
+    case 3: dq_tile<NI, 3, false>(acc, w, tK, tV, kt, n_keys, last); break;
+    default: dq_tile<NI, 4, false>(acc, w, tK, tV, kt, n_keys, last);
+  }
+}
+
+// dq_tile with NI = ceil(rows / 16) and NJ = ceil(keys / 16); on the
+// diagonal NJ <= NI (the keys stop at the last row), so it takes NJ = NI.
+__device__ __forceinline__ void dq_tile_sized(bool diagonal, int ni, int nj,
+                                              float (&acc)[NR][4], const Rows& w,
+                                              const float* tK, float* tV, int kt, int n_keys,
+                                              bool last) {
+  if (diagonal) {
+    switch (ni) {
+      case 1: dq_tile<1, 1, true>(acc, w, tK, tV, kt, n_keys, last); break;
+      case 2: dq_tile<2, 2, true>(acc, w, tK, tV, kt, n_keys, last); break;
+      case 3: dq_tile<3, 3, true>(acc, w, tK, tV, kt, n_keys, last); break;
+      default: dq_tile<4, 4, true>(acc, w, tK, tV, kt, n_keys, last);
+    }
+    return;
+  }
+  switch (ni) {
+    case 1: dq_tile_keys<1>(nj, acc, w, tK, tV, kt, n_keys, last); break;
+    case 2: dq_tile_keys<2>(nj, acc, w, tK, tV, kt, n_keys, last); break;
+    case 3: dq_tile_keys<3>(nj, acc, w, tK, tV, kt, n_keys, last); break;
+    default: dq_tile_keys<4>(nj, acc, w, tK, tV, kt, n_keys, last);
+  }
+}
+
+__global__ void __launch_bounds__(THREADS, 2)
 masked_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                const float* __restrict__ v, const float* __restrict__ dout,
-                               const int* __restrict__ q_len,
-                               const int* __restrict__ m_len,
-                               const float* __restrict__ m_in,
-                               const float* __restrict__ s_in,
-                               const float* __restrict__ delta_in,
-                               float* __restrict__ dq, int H, int Tq, int Tk,
-                               float scale, int causal) {
-  extern __shared__ float smem[];
-  float* sQ = smem;             // [BQ][PAD]
-  float* sDO = sQ + BQ * PAD;   // [BQ][PAD]
-  float* sK = sDO + BQ * PAD;   // [BK][PAD]
-  float* sV = sK + BK * PAD;    // [BK][PAD]
-  float* sDS = sV + BK * PAD;   // [BQ][PAD]
+                               const float* __restrict__ o, const int* __restrict__ q_len,
+                               const int* __restrict__ m_len, const float* __restrict__ m_in,
+                               const float* __restrict__ s_in, float* __restrict__ delta_out,
+                               float* __restrict__ dq, int H, int Tq, int Tk, float scale,
+                               int causal) {
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;                // [64][LDP], this block's rows
+  float* sDO = sQ + TILE;          // [64][LDP]
+  float* sK = sDO + TILE;          // [STAGES][64][LDP], the key-tile ring
+  float* sV = sK + STAGES * TILE;  // [STAGES][64][LDP]: V, then dS
 
   const int tid = threadIdx.x;
-  const int bh = blockIdx.x;    // b * H + h
+  const int bh = blockIdx.x;  // b * H + h
   const int b = bh / H;
   const int q0 = blockIdx.y * BQ;
   const int q_rows = min(BQ, Tq - q0);
   const int mlen = max(0, min(m_len ? m_len[b] : Tk, Tk));
   // rows below valid_end have an unmasked key; the others have dQ = 0
   const int valid_end = mlen > 0 ? max(0, min(q_len ? q_len[b] : Tq, Tq)) : 0;
+  const int rows_end = min(q0 + q_rows, valid_end);
   const size_t q_base = (size_t)bh * Tq * HD;
   const size_t k_base = (size_t)bh * Tk * HD;
   const size_t stat_base = (size_t)bh * Tq;
 
-  const int rg = tid / 16;     // rows 4*rg .. 4*rg+3
-  const int cg = tid % 16;     // columns cg + 16*j
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+  if (rows_end <= q0) {  // no row of the block has a key
+    store_zeros(dq + q_base + (size_t)q0 * HD, q_rows * HD, tid);
+    store_zeros(delta_out + stat_base + q0, q_rows, tid);
+    return;
+  }
+  // keys at or past k_end are masked for every row of the block
+  const int k_end = causal ? min(mlen, rows_end) : mlen;
+  const int n_tiles = (k_end + BK - 1) / BK;
 
-  const int rows_end = min(q0 + q_rows, valid_end);
-  int k_end = q0 < valid_end ? mlen : 0;
-  if (causal) k_end = min(k_end, rows_end);
+  // Q, dO and key tile 0, one commit group
+  f32::load_tile_async<THREADS>(sQ, q + q_base, q0, rows_end, tid);
+  f32::load_tile_async<THREADS>(sDO, dout + q_base, q0, rows_end, tid);
+  f32::load_tile_async<THREADS>(sK, k + k_base, 0, k_end, tid);
+  f32::load_tile_async<THREADS>(sV, v + k_base, 0, k_end, tid);
+  cpa::cp_async_commit();
 
-  float row_m[4], row_s[4], row_delta[4];
+  // This thread's rows rg + RS i: their O columns 4 cg .. 4 cg + 3 (16 bytes
+  // a load, a half-warp a row), m * log2(e) and 1/s; rows without a key
+  // read nothing and take zeros.
+  Rows w;
+  w.sQ = sQ;
+  w.sDO = sDO;
+  w.rg = tid >> 4;  // rows rg + RS i; keys cg + 16 j; columns 4 cg + c
+  w.cg = tid & 15;
+  w.q0 = q0;
+  w.rows_end = rows_end;
+  w.k_end = k_end;
+  w.causal = causal;
+  w.scale2 = scale * f32::LOG2E;
+  const int rg = w.rg, cg = w.cg;
+  float4 o_part[NR];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + rg * 4 + i;
+  for (int i = 0; i < NR; ++i) {
+    const int row = q0 + rg + RS * i;
     const bool in = row < rows_end;
-    row_m[i] = in ? m_in[stat_base + row] : 0.f;
-    row_s[i] = in ? s_in[stat_base + row] : 1.f;
-    row_delta[i] = in ? delta_in[stat_base + row] : 0.f;
+    o_part[i] = in ? *reinterpret_cast<const float4*>(o + q_base + (size_t)row * HD + 4 * cg)
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    w.m2[i] = in ? m_in[stat_base + row] * f32::LOG2E : 0.f;
+    w.inv_s[i] = in ? 1.f / s_in[stat_base + row] : 0.f;
   }
-  if (k_end > 0) {
-    load_tile(sQ, q + q_base, q0, q0 + q_rows);
-    load_tile(sDO, dout + q_base, q0, q0 + q_rows);
-  }
+  cpa::cp_async_wait<0>();
+  __syncthreads();  // Q, dO and key tile 0 have landed
 
-  for (int kt = 0; kt < k_end; kt += BK) {
-    __syncthreads();  // the previous tile's K and dS are no longer read
-    load_tile(sK, k + k_base, kt, Tk);
-    load_tile(sV, v + k_base, kt, Tk);
-    __syncthreads();
-
-    float sc[4][4], dp[4][4];
+  // delta of rows rg + RS i: 4 columns a thread, summed over the half-warp;
+  // lane cg == i writes row rg + RS i (rows without a key come out 0: their
+  // dO tile rows and O parts are zeros)
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < NR; ++i) {
+    const float4 g = *reinterpret_cast<const float4*>(sDO + (rg + RS * i) * LDP + 4 * cg);
+    float d = fmaf(g.w, o_part[i].w, fmaf(g.z, o_part[i].z,
+                                          fmaf(g.y, o_part[i].y, g.x * o_part[i].x)));
 #pragma unroll
-      for (int j = 0; j < 4; ++j) sc[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        qv[i] = sQ[(rg * 4 + i) * PAD + d];
-        ov[i] = sDO[(rg * 4 + i) * PAD + d];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        kv[j] = sK[(cg + 16 * j) * PAD + d];
-        vv[j] = sV[(cg + 16 * j) * PAD + d];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          sc[i][j] = fmaf(qv[i], kv[j], sc[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + rg * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = kt + cg + 16 * j;
-        const bool unmasked = row < rows_end && col < mlen && (!causal || col <= row);
-        float ds = 0.f;
-        if (unmasked) {
-          const float p = expf(sc[i][j] * scale - row_m[i]) / row_s[i];
-          ds = p * (dp[i][j] - row_delta[i]);
-        }
-        sDS[(rg * 4 + i) * PAD + cg + 16 * j] = ds;
-      }
-    }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int c = 0; c < BK; ++c) {
-      float dsv[4], kv[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) dsv[i] = sDS[(rg * 4 + i) * PAD + c];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) kv[j] = sK[c * PAD + cg + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(dsv[i], kv[j], acc[i][j]);
-    }
+    for (int off = 1; off < 16; off <<= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+    w.delta[i] = d;
+    if (cg == i && rg + RS * i < q_rows) delta_out[stat_base + q0 + rg + RS * i] = d;
   }
 
+  const int ni = (rows_end - q0 + 15) / 16;
+  float acc[NR][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = rg * 4 + i;
+  for (int i = 0; i < NR; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int buf = t % STAGES;
+    if (t > 0) {
+      cpa::cp_async_wait<0>();  // key tile t has landed
+      __syncthreads();          // ... for every warp, which is done with tile t - 1
+    }
+    if (t + 1 < n_tiles) {  // into the stage of tile t - 1
+      f32::load_tile_async<THREADS>(sK + (1 - buf) * TILE, k + k_base, (t + 1) * BK, k_end, tid);
+      f32::load_tile_async<THREADS>(sV + (1 - buf) * TILE, v + k_base, (t + 1) * BK, k_end, tid);
+    }
+    cpa::cp_async_commit();
+    const float* tK = sK + buf * TILE;
+    float* tV = sV + buf * TILE;
+    const int kt = t * BK;
+    const int n_keys = min(BK, k_end - kt);
+    dq_tile_sized(causal && kt == q0, ni, (n_keys + 15) / 16, acc, w, tK, tV, kt, n_keys,
+                  t + 1 == n_tiles);
+  }
+  cpa::cp_async_wait<0>();
+
+  // dQ * scale, 16 bytes a row and thread; rows without a key are zeros
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int r = rg + RS * i;
     if (r >= q_rows) continue;
-    const size_t off = q_base + (size_t)(q0 + r) * HD;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) dq[off + cg + 16 * j] = acc[i][j] * scale;
+    *reinterpret_cast<float4*>(dq + q_base + (size_t)(q0 + r) * HD + 4 * cg) =
+        make_float4(acc[i][0] * scale, acc[i][1] * scale, acc[i][2] * scale, acc[i][3] * scale);
   }
-}
-
-// above 48 KB of dynamic shared memory a kernel needs an explicit opt-in
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t bytes, bool* done) {
-  if (*done) return cudaSuccess;
-  const cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) *done = true;
-  return err;
-}
-
-cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                      const void* q_len, const void* m_len, const void* m,
-                      const void* s, const void* delta, void* dq, int B, int H,
-                      int Tq, int Tk, float scale, int causal, cudaStream_t stream) {
-  static bool smem_set = false;
-  cudaError_t err = allow_smem(masked_attention_bwd_dq_kernel, DQ_SMEM_BYTES, &smem_set);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  masked_attention_bwd_dq_kernel<<<grid, THREADS, DQ_SMEM_BYTES, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const int*>(q_len),
-      static_cast<const int*>(m_len), static_cast<const float*>(m),
-      static_cast<const float*>(s), static_cast<const float*>(delta),
-      static_cast<float*>(dq), H, Tq, Tk, scale, causal);
-  return cudaGetLastError();
-}
-
-bool bad_shape(int B, int H, int Tq, int Tk, int D) {
-  return D != HD || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
-         (Tq + BQ - 1) / BQ > 65535 || (Tk + BK - 1) / BK > 65535;
 }
 
 }  // namespace
 
-// q, dout: contiguous fp32 [B, H, Tq, 64]; k, v: fp32 [B, H, Tk, 64].
-// q_len, m_len: int32 [B] or null. m, s, delta: fp32 [B, H, Tq] (the
-// forward's row max and row sum, and rowsum(dO * O)). dq like q. Returns the
-// CUDA error code of the launch.
+// q, dout, o: contiguous fp32 [B, H, Tq, 64]; k, v: fp32 [B, H, Tk, 64];
+// q_len, m_len: int32 [B] or null; m, s: fp32 [B, H, Tq] (the forward's row
+// max and row sum); delta: fp32 [B, H, Tq], written (rowsum(dO * O) on rows
+// with a key, else 0); dq like q. Returns the CUDA error code of the launch.
 extern "C" int masked_attention_bwd_dq(const void* q, const void* k, const void* v,
-                                       const void* dout, const void* q_len,
+                                       const void* dout, const void* o, const void* q_len,
                                        const void* m_len, const void* m, const void* s,
-                                       const void* delta, void* dq, int B, int H,
-                                       int Tq, int Tk, int D, float scale, int causal,
-                                       void* stream) {
-  if (bad_shape(B, H, Tq, Tk, D)) return (int)cudaErrorInvalidValue;
-  return (int)launch_dq(q, k, v, dout, q_len, m_len, m, s, delta, dq, B, H, Tq, Tk, scale,
-                        causal, static_cast<cudaStream_t>(stream));
+                                       void* delta, void* dq, int B, int H, int Tq, int Tk,
+                                       int D, float scale, int causal, void* stream) {
+  if (D != HD || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || (Tq + BQ - 1) / BQ > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  static bool smem_set = false;  // above 48 KB needs an explicit opt-in
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        masked_attention_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)SMEM_BYTES);
+    if (err != cudaSuccess) return (int)err;
+    smem_set = true;
+  }
+  const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
+  masked_attention_bwd_dq_kernel<<<grid, THREADS, SMEM_BYTES,
+                                   static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(o),
+      static_cast<const int*>(q_len), static_cast<const int*>(m_len),
+      static_cast<const float*>(m), static_cast<const float*>(s), static_cast<float*>(delta),
+      static_cast<float*>(dq), H, Tq, Tk, scale, causal);
+  return (int)cudaGetLastError();
 }
 
 // Dynamic shared memory each block asks for, in bytes.
-extern "C" int masked_attention_bwd_dq_shared_bytes(void) { return (int)DQ_SMEM_BYTES; }
+extern "C" int masked_attention_bwd_dq_shared_bytes(void) { return (int)SMEM_BYTES; }

@@ -2,8 +2,9 @@
 // sm_90a. Plain C interface, bound from Python with ctypes
 // (vaenar_tts_torch/ops/flash_attention.py, masked_flash_attention_backward);
 // fp32 inputs take this kernel, bf16 ones masked_attention_bwd_dkv_tc.cu.
-// At fp32, delta = rowsum(dO * O) comes from a separate pass of the wrapper
-// (attention_delta), before the dQ kernel (masked_attention_bwd.cu).
+// It reads the delta = rowsum(dO * O) that the fp32 dQ kernel
+// (masked_attention_bwd.cu), launched before it, writes (0 on the rows
+// without a key, whose dS is 0).
 //
 // Replaces _dkv_kernel of vaenar_tts_tpu/ops/flash_attention.py (l.370,
 // pallas_call l.467) for fp32 inputs. The TPU kernel accumulates over a

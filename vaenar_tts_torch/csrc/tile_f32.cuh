@@ -1,15 +1,19 @@
 // Building blocks of the fp32 attention kernels (masked_attention_fwd.cu,
-// masked_attention_bwd_dkv.cu): 64 x 64 fp32 tiles in shared memory, filled
-// with cp.async, and multiplied on the SIMT units with fp32 FMAs (the fp32
-// path must match the fp32 reference, which TF32 tensor cores would not).
+// masked_attention_bwd.cu, masked_attention_bwd_dkv.cu): 64 x 64 fp32 tiles
+// in shared memory, filled with cp.async, and multiplied on the SIMT units
+// with fp32 FMAs (the fp32 path must match the fp32 reference, which TF32
+// tensor cores would not).
 //
 // Register tiles. A warp group of 128 threads covers a 64 x 64 product;
 // thread t, with rg = t / 16 and cg = t % 16, owns 8 x 4 of it: rows
 // rg + 8 i (i < 8) and columns cg + 16 j (j < 4) of a score-like tile
 // (dots), or rows rg + 8 i and head-width columns 4 cg .. 4 cg + 3 of an
-// accumulator (accumulate). The 16 threads of a row group are one half-warp,
+// accumulator (accumulate). With RS = 16 row groups instead of 8, 256
+// threads cover it, each owning 4 x 4 (rows rg + 16 i): half the chain of
+// dependent instructions a thread, for kernels that a block's latency
+// bounds. The 16 threads of a row group are one half-warp,
 // so a tile that one product writes and the next reads row by row (P in the
-// forward, P^T and dS^T in the backward) is exchanged within a warp:
+// forward, dS in dQ, P^T and dS^T in dK/dV) is exchanged within a warp:
 // __syncwarp is enough.
 //
 // Shared-memory reads are 16 bytes (LDS.128), a thread's operands
@@ -51,15 +55,18 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* __restr
   }
 }
 
-// out[i][j] = sum_d a[rg + 8 i][d] * b[cg + 16 j][d] for i < NI, j < NJ (0
-// for the others): S = Q.K^T in the forward, S^T = K.Q^T and dP^T = V.dO^T
-// in the backward. NI < 8 or NJ < 4 skips rows of `a` or `b` that the caller
-// knows to be absent or masked.
-template <int NI, int NJ>
-__device__ __forceinline__ void dots(float (&out)[8][4], const float* a, const float* b, int rg,
-                                     int cg) {
+// out[i][j] = sum_d a[rg + RS i][d] * b[cg + 16 j][d] for i < NI, j < NJ (0
+// for the others): S = Q.K^T in the forward and dQ, dP = dO.V^T in dQ,
+// S^T = K.Q^T and dP^T = V.dO^T in dK/dV. NI < 64 / RS or NJ < 4 skips rows
+// of `a` or `b` that the caller knows to be absent or masked. TRI, for a
+// tile on the causal diagonal (row x of `a` and row y of `b` are query x and
+// key y of one 64-index range), skips the pairs (i, j) whose keys all lie
+// past their rows, 16 j > RS i + RS - 1: every product there is masked.
+template <int NI, int NJ, bool TRI = false, int RS = 8>
+__device__ __forceinline__ void dots(float (&out)[TILE_ROWS / RS][4], const float* a,
+                                     const float* b, int rg, int cg) {
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < TILE_ROWS / RS; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
 #pragma unroll 2
@@ -70,21 +77,24 @@ __device__ __forceinline__ void dots(float (&out)[8][4], const float* a, const f
       bv[j] = *reinterpret_cast<const float4*>(b + (cg + 16 * j) * LDP + d);
 #pragma unroll
     for (int i = 0; i < NI; ++i) {
-      const float4 av = *reinterpret_cast<const float4*>(a + (rg + 8 * i) * LDP + d);
+      const float4 av = *reinterpret_cast<const float4*>(a + (rg + RS * i) * LDP + d);
 #pragma unroll
-      for (int j = 0; j < NJ; ++j)
+      for (int j = 0; j < NJ; ++j) {
+        if (TRI && 16 * j > RS * i + RS - 1) continue;
         out[i][j] = fmaf(av.w, bv[j].w,
                          fmaf(av.z, bv[j].z, fmaf(av.y, bv[j].y, fmaf(av.x, bv[j].x, out[i][j]))));
+      }
     }
   }
 }
 
-// acc[i][c] += sum_{r < n} a[rg + 8 i][r] * b[r][4 cg + c] for i < NI, n
+// acc[i][c] += sum_{r < n} a[rg + RS i][r] * b[r][4 cg + c] for i < NI, n
 // rounded up to 4 (the caller makes a's extra columns 0 or b's extra rows
-// 0): O += P.V in the forward, dV += P^T.dO and dK += dS^T.Q in the backward.
-template <int NI>
-__device__ __forceinline__ void accumulate(float (&acc)[8][4], const float* a, const float* b,
-                                           int rg, int cg, int n) {
+// 0): O += P.V in the forward, dQ += dS.K, dV += P^T.dO and dK += dS^T.Q in
+// the backward.
+template <int NI, int RS = 8>
+__device__ __forceinline__ void accumulate(float (&acc)[TILE_ROWS / RS][4], const float* a,
+                                           const float* b, int rg, int cg, int n) {
 #pragma unroll 1
   for (int r = 0; r < n; r += 4) {
     float4 bv[4];
@@ -92,7 +102,31 @@ __device__ __forceinline__ void accumulate(float (&acc)[8][4], const float* a, c
     for (int u = 0; u < 4; ++u) bv[u] = *reinterpret_cast<const float4*>(b + (r + u) * LDP + 4 * cg);
 #pragma unroll
     for (int i = 0; i < NI; ++i) {
-      const float4 av = *reinterpret_cast<const float4*>(a + (rg + 8 * i) * LDP + r);
+      const float4 av = *reinterpret_cast<const float4*>(a + (rg + RS * i) * LDP + r);
+      acc[i][0] = fmaf(av.w, bv[3].x, fmaf(av.z, bv[2].x, fmaf(av.y, bv[1].x, fmaf(av.x, bv[0].x, acc[i][0]))));
+      acc[i][1] = fmaf(av.w, bv[3].y, fmaf(av.z, bv[2].y, fmaf(av.y, bv[1].y, fmaf(av.x, bv[0].y, acc[i][1]))));
+      acc[i][2] = fmaf(av.w, bv[3].z, fmaf(av.z, bv[2].z, fmaf(av.y, bv[1].z, fmaf(av.x, bv[0].z, acc[i][2]))));
+      acc[i][3] = fmaf(av.w, bv[3].w, fmaf(av.z, bv[2].w, fmaf(av.y, bv[1].w, fmaf(av.x, bv[0].w, acc[i][3]))));
+    }
+  }
+}
+
+// accumulate on a tile on the causal diagonal (`a` is query x by key y of one
+// 64-index range, 0 where y > x): row group i stops after the step that
+// holds key RS i + RS - 1, and the steps unroll so that this costs no branch.
+template <int NI, int RS = 8>
+__device__ __forceinline__ void accumulate_tri(float (&acc)[TILE_ROWS / RS][4], const float* a,
+                                               const float* b, int rg, int cg, int n) {
+#pragma unroll
+  for (int r = 0; r < TILE_ROWS; r += 4) {
+    if (r >= n) break;
+    float4 bv[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) bv[u] = *reinterpret_cast<const float4*>(b + (r + u) * LDP + 4 * cg);
+#pragma unroll
+    for (int i = 0; i < NI; ++i) {
+      if (r > RS * i + RS - 1) continue;
+      const float4 av = *reinterpret_cast<const float4*>(a + (rg + RS * i) * LDP + r);
       acc[i][0] = fmaf(av.w, bv[3].x, fmaf(av.z, bv[2].x, fmaf(av.y, bv[1].x, fmaf(av.x, bv[0].x, acc[i][0]))));
       acc[i][1] = fmaf(av.w, bv[3].y, fmaf(av.z, bv[2].y, fmaf(av.y, bv[1].y, fmaf(av.x, bv[0].y, acc[i][1]))));
       acc[i][2] = fmaf(av.w, bv[3].z, fmaf(av.z, bv[2].z, fmaf(av.y, bv[1].z, fmaf(av.x, bv[0].z, acc[i][2]))));

@@ -29,7 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 # (C function, pointer arguments): the fp32 SIMT kernels and the bf16
 # tensor-core kernels
 KERNELS = (("masked_attention_fwd", 8),
-           ("masked_attention_bwd_dq", 10),
+           ("masked_attention_bwd_dq", 11),
            ("masked_attention_bwd_dkv", 11),
            ("masked_attention_fwd_tc", 8),
            ("masked_attention_bwd_dq_tc", 11),

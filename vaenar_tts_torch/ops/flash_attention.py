@@ -23,24 +23,25 @@ Which kernel serves which dtype, on CUDA tensors (``launch_counts`` key):
 * bf16 (the shipped ``compute_dtype``): the forward
   ``csrc/masked_attention_fwd_tc.cu`` (``masked_attention_fwd_tc``), the dQ
   kernel ``csrc/masked_attention_bwd_dq_tc.cu``
-  (``masked_attention_bwd_dq_tc``), which also forms δ, and the dK/dV
-  kernel ``csrc/masked_attention_bwd_dkv_tc.cu``
-  (``masked_attention_bwd_dkv_tc``), which reads that δ, all on the tensor
-  cores;
+  (``masked_attention_bwd_dq_tc``) and the dK/dV kernel
+  ``csrc/masked_attention_bwd_dkv_tc.cu`` (``masked_attention_bwd_dkv_tc``),
+  all on the tensor cores;
 * fp32: the forward ``csrc/masked_attention_fwd.cu``
   (``masked_attention_fwd``), the dQ kernel ``csrc/masked_attention_bwd.cu``
-  (``masked_attention_bwd_dq``), after a separate δ pass
-  (``attention_delta``), and the dK/dV kernel
+  (``masked_attention_bwd_dq``) and the dK/dV kernel
   ``csrc/masked_attention_bwd_dkv.cu`` (``masked_attention_bwd_dkv``), fp32
   FMAs, which the fp32 reference's tolerance needs (TF32 tensor cores would
   not meet it).
+
+In both dtypes the dQ kernel also reads O and forms δ, which the dK/dV
+kernel launched after it reads: no separate δ pass runs on the card.
 
 ``masked_flash_attention`` and ``masked_flash_attention_backward`` launch
 them and raise if they cannot; there is no fall back. On CPU tensors, and
 only there, they call ``masked_attention_reference`` and
 ``masked_attention_backward_reference``, which have the same signatures;
-``masked_attention_dq_reference`` is the plain version of the bf16 dQ kernel
-alone (dq and δ), which the checks on the card hold it against.
+``masked_attention_dq_reference`` is the plain version of either dQ kernel
+alone (dq and δ), which the checks on the card hold them against.
 ``MaskedFlashAttention`` is the differentiable op the model calls.
 """
 
@@ -58,9 +59,10 @@ KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 # launches of each hand-written kernel in this process; callers reset it
 launch_counts: Counter = Counter()
 
-# the backward kernels that read O and write δ themselves; every other one
-# reads a δ formed before it (``attention_delta``)
-DELTA_FORMING_KERNELS = frozenset({"masked_attention_bwd_dq_tc"})
+# the backward kernels that read O and write δ themselves (both dQ
+# kernels); every other one reads the δ they wrote
+DELTA_FORMING_KERNELS = frozenset({"masked_attention_bwd_dq",
+                                   "masked_attention_bwd_dq_tc"})
 
 
 def attention_mask(q_lengths: Optional[torch.Tensor],
@@ -107,7 +109,8 @@ def masked_attention_reference(q: torch.Tensor, k: torch.Tensor,
 
 def attention_delta(o: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
     """δ = rowsum(dO∘O), fp32 [B, H, Tq], as the JAX package computes it
-    outside its kernels (``_pallas_backward``)."""
+    outside its kernels (``_pallas_backward``): the plain backward's δ. On
+    the card the dQ kernels form it themselves."""
     acc = _acc_dtype(o.dtype)
     return (do.to(acc) * o.to(acc)).sum(dim=-1)
 
@@ -152,9 +155,9 @@ def masked_attention_dq_reference(
         o: torch.Tensor, q_lengths: Optional[torch.Tensor],
         m_lengths: Optional[torch.Tensor], m: torch.Tensor, s: torch.Tensor,
         scale: float, causal: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain PyTorch version of the bf16 dQ kernel: (dq in q's dtype,
-    δ fp32 [B, H, Tq]), δ = rowsum(dO∘O) on the rows that have an unmasked
-    key and 0 on the others."""
+    """The plain PyTorch version of both dQ kernels (fp32 and bf16): (dq in
+    q's dtype, δ fp32 [B, H, Tq]), δ = rowsum(dO∘O) on the rows that have
+    an unmasked key and 0 on the others."""
     _, ds, delta = _backward_terms(q, k, v, q_lengths, m_lengths, o, m, s, do,
                                    scale, causal)
     return (torch.matmul(ds, k.to(ds.dtype)) * scale).to(q.dtype), delta
@@ -258,18 +261,14 @@ def masked_flash_attention_backward(
     ql = _check_lengths(q_lengths, B, q.device, "q_lengths")
     ml = _check_lengths(m_lengths, B, q.device, "m_lengths")
 
-    if kernel_name("dq", q.dtype) in DELTA_FORMING_KERNELS:
-        # the dQ kernel reads O and writes δ for the dK/dV kernel
-        delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-        dq_reads_o = o
-    else:
-        delta, dq_reads_o = attention_delta(o, do).contiguous(), None
+    # the dQ kernel reads O and writes δ for the dK/dV kernel
+    delta = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     dq = torch.empty_like(q)
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
         launch_backward_kernel("dq", q, k, v, do, ql, ml, m, s, delta, (dq,),
-                               scale, causal, o=dq_reads_o)
+                               scale, causal, o=o)
         launch_backward_kernel("dkv", q, k, v, do, ql, ml, m, s, delta,
                                (dk, dv), scale, causal)
     return dq, dk, dv

@@ -32,8 +32,16 @@ dK/dV kernel reads: a backward launches those two kernels and nothing else.
    with the kernels' launch counts reset before and read after;
 5. synthesis at fp32, card against CPU: the same model at compute dtype
    float32 on the card and on the CPU at temperature 0 must predict the same
-   lengths and agree on the mels; then the bf16 lengths of 4. against these
-   fp32 ones, within a stated bound;
+   lengths and agree on the mels; the decoder's alignments asked of the
+   bf16 synthesis (the same 32 forward launches, the same mels bit for bit,
+   rows summing to 1) and of the fp32 one (card against CPU); then the bf16
+   lengths of 4. against the fp32 ones, within a stated bound;
+   audio: the STFT, mel and iSTFT on the card against audio/dsp.py at the
+   shipped audio config on a ragged batch of 4 seeded 2-3 s signals;
+   Griffin-Lim from one phase against an fp64 numpy run of the JAX
+   package's iteration, its 60-iteration convergence against the numpy
+   gl_core's, mel_to_wav of 4.'s mels, and the device streaming backend
+   against the host one;
 6. training path (bf16): a record set made from a seed (64 train and 32 dev
    utterances in the toy-v2 corpus's ranges) in a temporary directory, and
    `vaenar_tts_torch.cli.train` with the shipped hparams.json at full width
@@ -46,8 +54,18 @@ dK/dV kernel reads: a backward launches those two kernels and nothing else.
    every gradient element and the BatchNorm statistics agree;
 8. bf16 against fp32 on the card: the dev step's losses from the trained
    state, within the JAX package's own bf16 thresholds;
-9. export and synthesis: the trained directory exported to export.npz and
-   synthesized from;
+9. export and synthesis: the trained directory exported to export.npz,
+   which is copied with hparams.json into a directory of its own, loaded
+   from there, held to the epoch-2 checkpoint's weights in float16 and synthesized
+   from; the synthesis CLI (cli.inference.main, bf16) over a
+   test split of 16 generated utterances with --write_wavs (the RTF line,
+   16 mels and 16 wavs of mel length * hop samples, forward launches only),
+   again with --stream_wavs (time to first audio), and in free-text mode
+   with 4 takes a line by each score, with the launch counts reset before
+   and read after each run; then the vocoders' times: Griffin-Lim on the
+   card per batch of 4 synthesized lines in both DFT forms, the host's
+   numpy Griffin-Lim on the same batch, the test-set RTF and the time to
+   first audio on each streaming backend;
 10. times on the card, in bf16 and in fp32: each kernel at its path's shapes
    beside its bound, its plain version and one PyTorch library call (device
    time); synthesis wall time; train step wall time at r = 2 and r = 5 and
@@ -65,7 +83,9 @@ deletes.
 
 import itertools
 import json
+import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -147,6 +167,29 @@ TOL_BN = (1e-5, 1e-6)
 TOL_BF16_FP32_REL = 0.08
 TOL_BF16_FP32_KL = 60.0
 TOL_LEN_BF16 = (0.03, 1.0)
+# audio on the card against the numpy DSP (audio/dsp.py), at the shipped
+# audio config: magnitudes and normalized mels to atol 2e-4 and the torch
+# preemphasis to 1e-5, the tolerances of the JAX package's own DSP tests
+# (tests/test_jax_dsp.py); the iSTFT of the STFT back to the signal to 1e-4
+# (tests/test_griffin_lim.py); Griffin-Lim's 4 fp32 iterations from one
+# phase against an fp64 numpy run of the same iteration to 5e-5 of the
+# reference's peak (an fp32 sum of 2048 terms is off by ~45 ulps, ~3e-6,
+# and the chain has 10 transforms; torch's fp32 run on the CPU lands within
+# 7e-6 of it on these signals); 60 iterations' spectral convergence
+# within the numpy gl_core's * 1.1 + 0.02 on the same mel; the device
+# streaming backend against the host one at the same seed, correlation
+# above 0.95 (tests/test_streaming.py); decoder alignments' rows sum to 1
+# within 1e-5, and the fp32 card's match the CPU's to 1e-4
+TOL_MAG = 2e-4
+TOL_MEL_NORM = 2e-4
+TOL_PREEMPHASIS = 1e-5
+TOL_ISTFT = 1e-4
+TOL_GL_F64_REL = 5e-5
+TOL_GL_CONVERGENCE = (1.1, 0.02)
+TOL_STREAM_CORR = 0.95
+TOL_ALI_ROWSUM = 1e-5
+TOL_ALI_CARD_CPU = 1e-4
+N_TEST = 16
 NO_DROPOUT = ["encoder.pre_drop_rate=0", "encoder.pos_drop_rate=0",
               "decoder.post_drop_rate=0", "posterior.pre_drop_rate=0",
               "posterior.pos_drop_rate=0"]
@@ -671,13 +714,14 @@ def bn_fed_conv_biases(torch, model):
             if isinstance(mod, Conv1D) and (mod.bn_before_act or mod.act in linear)}
 
 
-def write_records(data_dir, seed):
-    """64 train and 32 dev utterances from a seed, in the toy-v2 corpus's
-    ranges, as shards of the port's record format."""
+def write_records(data_dir, seed, splits=(("train", N_TRAIN), ("dev", N_DEV))):
+    """Utterances from a seed, in the toy-v2 corpus's ranges, as shards of
+    the port's record format: ``splits`` (mode, count), by default 64 train
+    and 32 dev."""
     import numpy as np
     from vaenar_tts_torch.data.records import RecordShardWriter
     rng = np.random.default_rng(seed)
-    for mode, n in (("train", N_TRAIN), ("dev", N_DEV)):
+    for mode, n in splits:
         writer = RecordShardWriter(os.path.join(data_dir, f"{mode}-0.vrs"), 80)
         for i in range(n):
             text_len = int(rng.integers(12, 33))
@@ -685,6 +729,234 @@ def write_records(data_dir, seed):
             writer.add(f"{mode}-{i:03d}", rng.integers(3, 43, text_len),
                        rng.uniform(0.0, 1.0, (mel_len, 80)).astype(np.float32))
         writer.close()
+
+
+def audio_signals(np, sample_rate, seed, n=4):
+    """``n`` float32 signals of 2-3 s from a seed: 8 harmonics of a random
+    fundamental and a little noise."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(n):
+        t = np.arange(int(sample_rate * rng.uniform(2.0, 3.0))) / sample_rate
+        f0 = rng.uniform(100.0, 250.0)
+        y = sum(0.3 / (k + 1) * np.sin(2 * np.pi * f0 * (k + 1) * t + rng.uniform(0, 2 * np.pi))
+                for k in range(8))
+        out.append((y + 0.02 * rng.standard_normal(len(t))).astype(np.float32))
+    return out
+
+
+def pad_ragged(np, ys, n_fft):
+    """Each signal reflect-padded by n_fft // 2 on both sides, zero-padded
+    to the longest: [B, T] float32 (the JAX package's ragged-batch recipe,
+    data/corpus.py ``_extract_mels_device``)."""
+    padded = [np.pad(y, n_fft // 2, mode="reflect") for y in ys]
+    out = np.zeros((len(ys), max(map(len, padded))), np.float32)
+    for i, y in enumerate(padded):
+        out[i, :len(y)] = y
+    return out
+
+
+def gl_reference_f64(np, window, mag, phase0, n_fft, hop, n_iters):
+    """Griffin-Lim in float64 numpy with the JAX package's conventions
+    (ops/griffin_lim.py): initial phase [B, bins, F], the window sum-square
+    1 where below 1e-11, re-analysis of the untrimmed signal, updates over
+    sqrt(|X|^2 + 1e-12); magnitudes [B, F, bins] -> [B, hop * (F - 1)]."""
+    B, F, _ = mag.shape
+    total = n_fft + hop * (F - 1)
+    wss = np.zeros(total)
+    for f in range(F):
+        wss[f * hop:f * hop + n_fft] += window ** 2
+    wss[wss < 1e-11] = 1.0
+    idx = np.arange(F)[:, None] * hop + np.arange(n_fft)[None]
+
+    def synth(spec):
+        frames = np.fft.irfft(spec, n=n_fft, axis=-1) * window
+        y = np.zeros((B, total))
+        for f in range(F):
+            y[:, f * hop:f * hop + n_fft] += frames[:, f]
+        return y / wss
+
+    spec = mag * np.exp(1j * np.transpose(phase0, (0, 2, 1)))
+    for _ in range(n_iters):
+        x = np.fft.rfft(synth(spec)[:, idx] * window, axis=-1)
+        spec = mag * x / np.sqrt(np.abs(x) ** 2 + 1e-12)
+    return synth(spec)[:, n_fft // 2: total - n_fft // 2]
+
+
+def dft_matmul_bases(torch, np, window, device):
+    """The DFT as fp32 matmuls, the form the JAX package takes for the TPU's
+    matrix unit, kept here only to be timed against the port's cuFFT: the
+    windowed basis [n_fft, 2 * bins] and its inverse [2 * bins, n_fft], real
+    and imaginary parts interleaved."""
+    n_fft = len(window)
+    k = np.arange(1 + n_fft // 2)
+    angle = 2.0 * np.pi * np.arange(n_fft)[:, None] * k[None, :] / n_fft
+    fwd = np.stack([np.cos(angle), -np.sin(angle)], -1) * window[:, None, None]
+    weight = np.where((k == 0) | (k == n_fft // 2), 1.0, 2.0) / n_fft
+    inv = (np.stack([np.cos(angle.T), -np.sin(angle.T)], 1) * weight[:, None, None]
+           * window[None, None, :])
+    return (torch.tensor(fwd.reshape(n_fft, -1), dtype=torch.float32, device=device),
+            torch.tensor(inv.reshape(-1, n_fft), dtype=torch.float32, device=device))
+
+
+def matmul_magnitude(torch, ops_stft, y, bases, hop):
+    """|STFT| [B, F, bins] of pre-padded [B, T] signals with the DFT as one
+    fp32 matmul (TF32 off)."""
+    fwd, _ = bases
+    with ops_stft.full_fp32_matmuls():
+        ri = y.unfold(-1, fwd.shape[0], hop) @ fwd
+    return torch.sqrt(ri.reshape(*ri.shape[:-1], -1, 2).square().sum(-1) + 1e-30)
+
+
+def matmul_mel_to_wav(torch, gl, ops_stft, mel, cfg, bases, generator):
+    """``ops.griffin_lim.mel_to_wav`` with each DFT an fp32 basis matmul
+    (TF32 off) in place of cuFFT, for the times only."""
+    fwd, inv = bases
+    n_fft, hop = cfg.n_fft, cfg.frame_shift_sample
+    amp = torch.pow(10.0, (ops_stft.denormalize(mel.float(), cfg) + cfg.ref_level_db) * 0.05)
+    with ops_stft.full_fp32_matmuls():
+        mag = torch.clamp(amp @ ops_stft.inv_mel_basis(cfg, str(mel.device)),
+                          min=1e-10) ** cfg.power
+        B, F, n_bins = mag.shape
+        phase0 = torch.rand((B, n_bins, F), generator=generator, device=mel.device) * (2 * math.pi)
+        ri = torch.view_as_real(torch.polar(mag, phase0.transpose(1, 2)))
+        wss = gl.window_sumsquare(n_fft, cfg.frame_length_sample, hop, F, str(mel.device))
+
+        def synthesize(ri):
+            return gl.overlap_add(ri.reshape(B, F, -1) @ inv, hop) / wss
+
+        for _ in range(cfg.griffin_lim_iters):
+            ri = (synthesize(ri).unfold(-1, n_fft, hop) @ fwd).reshape(B, F, n_bins, 2)
+            ri = ri * (mag / torch.sqrt(ri.square().sum(-1) + 1e-12))[..., None]
+        y = synthesize(ri)
+    return y[:, n_fft // 2: y.shape[1] - n_fft // 2]
+
+
+def spectral_convergence(np, ap, wav, target):
+    """||target - |STFT(wav)||| / ||target|| over their common frames;
+    ``target`` [bins, F]."""
+    got = np.abs(ap._stft(np.asarray(wav, np.float64)))
+    k = min(got.shape[1], target.shape[1])
+    return float(np.linalg.norm(target[:, :k] - got[:, :k]) / np.linalg.norm(target[:, :k]))
+
+
+def run_cli(main, argv):
+    """``main(argv)`` with its standard output caught and printed again:
+    (its return value, that output)."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        result = main(argv)
+    print(buf.getvalue(), end="", flush=True)
+    return result, buf.getvalue()
+
+
+def chosen_takes(text):
+    """The chosen takes that the free-text CLI printed, in line order."""
+    import re
+    return [int(x) for m in re.finditer(r"chosen takes \[([0-9, ]*)\]", text)
+            for x in m.group(1).split(",") if x.strip()]
+
+
+def check_audio(torch, np, device, cfg, mels0, lens0):
+    """The audio phases: the mel frontend at ``cfg`` against the numpy DSP,
+    and Griffin-Lim (4 iterations against fp64 numpy, 60 against gl_core's
+    convergence, ``mel_to_wav`` of the synthesized batch ``mels0``, and the
+    device streaming backend against the host one on its first utterance);
+    returns the AudioProcessor and that utterance's mel."""
+    from vaenar_tts_torch.audio.dsp import AudioProcessor
+    from vaenar_tts_torch.audio.streaming import StreamingVocoder
+    from vaenar_tts_torch.ops import griffin_lim as gl
+    from vaenar_tts_torch.ops import stft as ops_stft
+    # the mel frontend at the shipped audio config against the numpy DSP
+    phase("audio_frontend")
+    ap = AudioProcessor(cfg)
+    n_fft, hop, win = cfg.n_fft, cfg.frame_shift_sample, cfg.frame_length_sample
+    ys = audio_signals(np, cfg.sample_rate, seed=77)
+    frames = [1 + len(y) // hop for y in ys]
+    padded = torch.from_numpy(pad_ragged(np, ys, n_fft)).to(device)
+    pre = torch.from_numpy(pad_ragged(np, [ap.preemphasize(y).astype(np.float32) for y in ys],
+                                      n_fft)).to(device)
+    audio_share = {"magnitude": 0.0, "magnitude_matmul_form": 0.0, "mel": 0.0,
+                   "mel_center_preemphasis": 0.0, "preemphasis": 0.0, "istft": 0.0}
+    mag_dev = ops_stft.batched_stft_magnitude(padded, n_fft, hop, win, center=False)
+    mags = {"fft": mag_dev.cpu().numpy(), "matmul": matmul_magnitude(
+        torch, ops_stft, padded, dft_matmul_bases(torch, np, ops_stft.padded_window(
+            n_fft, win, "cpu").double().numpy(), device), hop).cpu().numpy()}
+    mel_dev = ops_stft.batched_melspectrogram(pre, cfg, apply_preemphasis=False,
+                                              center=False).cpu().numpy()
+    mel0 = ops_stft.batched_melspectrogram(torch.from_numpy(ys[0]).to(device), cfg)[0]
+    spec = ops_stft.stft(padded, n_fft, hop, win)
+    wss = gl.window_sumsquare(n_fft, win, hop, spec.shape[1], str(device))
+    y_back = (gl.overlap_add(ops_stft.istft_frames(spec, n_fft, win), hop) / wss).cpu().numpy()
+    emph = ops_stft.preemphasis(torch.from_numpy(ys[0]).to(device), cfg.preemphasize).cpu().numpy()
+    audio_share["preemphasis"] = float(np.abs(emph - ap.preemphasize(ys[0])).max()
+                                       / TOL_PREEMPHASIS)
+    for i, y in enumerate(ys):
+        ref_mag = np.abs(ap._stft(y)).T
+        ref_mel = ap.melspectrogram(ap.preemphasize(y)).T
+        audio_share["magnitude"] = max(audio_share["magnitude"], float(
+            np.abs(mags["fft"][i, :frames[i]] - ref_mag).max() / TOL_MAG))
+        audio_share["magnitude_matmul_form"] = max(audio_share["magnitude_matmul_form"], float(
+            np.abs(mags["matmul"][i, :frames[i]] - ref_mag).max() / TOL_MAG))
+        audio_share["mel"] = max(audio_share["mel"], float(
+            np.abs(mel_dev[i, :frames[i]] - ref_mel).max() / TOL_MEL_NORM))
+        if i == 0:
+            audio_share["mel_center_preemphasis"] = float(
+                np.abs(mel0.cpu().numpy() - ref_mel).max() / TOL_MEL_NORM)
+        audio_share["istft"] = max(audio_share["istft"], float(
+            np.abs(y_back[i, n_fft // 2:n_fft // 2 + len(y)] - y).max() / TOL_ISTFT))
+    print(json.dumps({"signals_s": [len(y) / cfg.sample_rate for y in ys], "frames": frames,
+                      "max_share_of_tol": audio_share,
+                      "tolerances": {"magnitude": TOL_MAG, "mel": TOL_MEL_NORM,
+                                     "preemphasis": TOL_PREEMPHASIS, "istft": TOL_ISTFT}}),
+          flush=True)
+    gated = {k: v for k, v in audio_share.items() if k != "magnitude_matmul_form"}
+    check(max(gated.values()) <= 1.0, f"mel frontend against audio/dsp.py: {gated}")
+
+    # Griffin-Lim on the card against the plain versions
+    phase("griffin_lim")
+    window = ops_stft.padded_window(n_fft, win, "cpu").double().numpy()
+    mag_b = mag_dev
+    phase0 = np.random.default_rng(5).uniform(0.0, 2 * np.pi, (len(ys), mag_b.shape[2],
+                                                                mag_b.shape[1]))
+    gl_ref = gl_reference_f64(np, window, mags["fft"].astype(np.float64), phase0, n_fft, hop, 4)
+    got = gl.griffin_lim(mag_b, cfg, init_phase=torch.from_numpy(phase0).float(),
+                         n_iters=4).cpu().numpy()
+    gl_share = float(np.abs(got - gl_ref).max() / (TOL_GL_F64_REL * np.abs(gl_ref).max()))
+    mel_one = ap.melspectrogram(ap.preemphasize(ys[0])).T.astype(np.float32)
+    target = ap.mel_to_linear(ap.db_to_amp(ap.denormalize(mel_one.T) + cfg.ref_level_db)) ** cfg.power
+    wav_card = gl.mel_to_wav(torch.from_numpy(mel_one)[None].to(device), cfg,
+                             torch.Generator(device=device).manual_seed(0))[0].cpu().numpy()
+    wav_host = ap.inv_mel_spectrogram(mel_one.T, np.random.default_rng(0))
+    conv = {"card": spectral_convergence(np, ap, wav_card, target),
+            "host_gl_core": spectral_convergence(np, ap, wav_host, target)}
+    wavs_main = gl.mel_to_wav(mels0, cfg, torch.Generator(device=device).manual_seed(0))
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    n_main = mels0.shape[1]
+    mel_s = mels0[0, :int(lens0[0])].cpu().numpy()
+    stream_wavs = {be: StreamingVocoder(ap, backend=be, device=device).synthesize(
+        mel_s, np.random.default_rng(3)) for be in ("host", "device")}
+    corr = float(np.corrcoef(stream_wavs["host"], stream_wavs["device"])[0, 1])
+    print(json.dumps({"gl_4_iterations_share_of_tol": gl_share,
+                      "spectral_convergence_60_iterations": conv,
+                      "mel_to_wav_batch": {"shape": list(wavs_main.shape),
+                                           "peak": wavs_main.abs().max().item()},
+                      "streaming_lengths": {k: len(v) for k, v in stream_wavs.items()},
+                      "streaming_correlation": corr}), flush=True)
+    check(gl_share <= 1.0, f"Griffin-Lim against fp64 numpy: {gl_share}")
+    check(conv["card"] <= conv["host_gl_core"] * TOL_GL_CONVERGENCE[0] + TOL_GL_CONVERGENCE[1],
+          f"spectral convergence {conv}")
+    check(list(wavs_main.shape) == [len(mels0), hop * (n_main - 1)]
+          and bool(torch.isfinite(wavs_main).all()) and wavs_main.abs().max().item() > 1e-3,
+          f"mel_to_wav of the synthesized batch: {list(wavs_main.shape)}")
+    check(len(stream_wavs["host"]) == len(stream_wavs["device"]) == hop * (len(mel_s) - 1),
+          f"streaming lengths {[len(v) for v in stream_wavs.values()]}")
+    check(corr > TOL_STREAM_CORR, f"device streaming against host: correlation {corr}")
+
+    return ap, mel_s
 
 
 def train_step_times(torch, fa, steps, model, hp, batch, r, reps=10, warmup=2):
@@ -752,9 +1024,15 @@ def main():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    from scipy.io import wavfile
+    from vaenar_tts_torch.audio.export import TestUtils
+    from vaenar_tts_torch.audio.streaming import StreamingVocoder
+    from vaenar_tts_torch.cli import inference as cli_inference
     from vaenar_tts_torch.cli import train as cli_train
     from vaenar_tts_torch.cli.inference import (encode_lines, resolve_length_source,
                                                 synthesize_batch)
+    from vaenar_tts_torch.ops import griffin_lim as gl
+    from vaenar_tts_torch.ops import stft as ops_stft
     from vaenar_tts_torch.configs.overrides import apply_overrides
     from vaenar_tts_torch.configs.serialize import load_hparams
     from vaenar_tts_torch.data.loader import BucketedLoader
@@ -852,6 +1130,41 @@ def main():
           f"fp32 synthesis launched {fp32_synthesis_counts}, expected 32 masked_attention_fwd")
     check(torch.equal(lens_cpu, lens32.cpu()), f"card lengths {lens32} != CPU lengths {lens_cpu}")
     check(diff.max().item() <= TOL_MEL_CARD_CPU, f"card vs CPU mel error {diff.max().item()}")
+
+    # the decoder's alignments, asked of synthesis: the same kernel launches
+    # and the same mels, and the weights of the plain softmax beside them
+    phase("alignments")
+    fa.launch_counts.clear()
+    mels_a, lens_a, ali = synthesize_batch(model, hp, token_ids, 0.0, use_q,
+                                           return_alignments=True)
+    torch.cuda.synchronize()
+    alignment_counts = dict(fa.launch_counts)
+    mels_b, _ = synthesize_batch(model, hp, token_ids, 0.0, use_q)
+    _, _, ali32 = synthesize_batch(model32, hp, token_ids, 0.0, use_q, return_alignments=True)
+    _, _, ali_cpu = synthesize_batch(cpu_model, hp, token_ids, 0.0, use_q,
+                                     return_alignments=True)
+    torch.cuda.synchronize()
+    r_final = hp.common.final_reduction_factor
+    text_max = -(-max(map(len, token_ids)) // hp.dataset.text_bucket) * hp.dataset.text_bucket
+    want_shape = [len(LINES), hp.decoder.attention_heads, max_mel // r_final, text_max]
+    row_err = max((a.sum(-1) - 1).abs().max().item() for a in ali.values())
+    ali_err = max((ali32[k].cpu() - ali_cpu[k]).abs().max().item() for k in ali_cpu)
+    print(json.dumps({"launches": alignment_counts,
+                      "shapes": {k: list(a.shape) for k, a in ali.items()},
+                      "dtypes": sorted({str(a.dtype) for a in ali.values()}),
+                      "mels_equal_kernel_only_run": torch.equal(mels_a, mels0),
+                      "kernel_only_runs_equal": torch.equal(mels_b, mels0),
+                      "max_row_sum_err": row_err, "max_abs_err_fp32_card_vs_cpu": ali_err}),
+          flush=True)
+    check(alignment_counts == {"masked_attention_fwd_tc": n_attn},
+          f"synthesis with alignments launched {alignment_counts}")
+    check(sorted(ali) == [f"dec_{i}" for i in range(hp.decoder.nblk)]
+          and all(list(a.shape) == want_shape and a.dtype == torch.float32
+                  for a in ali.values()), f"alignments {[(k, a.shape) for k, a in ali.items()]}")
+    check(torch.equal(mels_a, mels0) and torch.equal(lens_a, lens0),
+          "mels with alignments differ from the kernel-only run")
+    check(row_err <= TOL_ALI_ROWSUM, f"alignment rows sum to 1 within {row_err}")
+    check(ali_err <= TOL_ALI_CARD_CPU, f"fp32 alignments card vs CPU {ali_err}")
     del cpu_model
 
     # the bf16 main path's synthesis at temperature 0 against the fp32 one
@@ -865,6 +1178,10 @@ def main():
                       .abs().mean().item()}), flush=True)
     check(len_share <= 1.0, f"bf16 lengths {lens0} against fp32 {lens32}: {len_share} of "
           f"the bound {TOL_LEN_BF16}")
+
+    ap, mel_s = check_audio(torch, np, device, hp.audio, mels0, lens0)
+    cfg, hop = hp.audio, hp.audio.frame_shift_sample
+    n_fft, n_main = cfg.n_fft, mels0.shape[1]
 
     with tempfile.TemporaryDirectory(prefix="vaenar_smoke_") as tmp:
         data_dir, model_dir = os.path.join(tmp, "records"), os.path.join(tmp, "ckpt")
@@ -992,15 +1309,128 @@ def main():
         check(max(dev_share.values()) <= 1.0, f"bf16 against fp32 dev losses: {dev_share}")
 
         phase("export_synthesis")
+        # the export alone in its own directory, so that load_model reads it
+        # and not the training directory's newest checkpoint
         export = export_model_dir(model_dir)
-        hp_exp, exported, exp_epoch = load_model(model_dir, device)
+        export_dir = os.path.join(tmp, "export_only")
+        os.makedirs(export_dir)
+        for name in (os.path.basename(export), "hparams.json"):
+            shutil.copy(os.path.join(model_dir, name), export_dir)
+        hp_exp, exported, exp_epoch = load_model(export_dir, device)
+        _, restored, ckpt_epoch = load_model(model_dir, device)
+        # the export stores floating leaves as float16
+        want = restored.state_dict()
+        same_weights = all(torch.equal(a, want[k].half().to(a.dtype))
+                           for k, a in exported.state_dict().items() if a.is_floating_point())
         mels_e, lens_e = synthesize_batch(exported, hp_exp, encode_lines(hp_exp, LINES), 0.0,
                                           resolve_length_source("auto", hp_exp))
         torch.cuda.synchronize()
         print(json.dumps({"export_bytes": os.path.getsize(export), "epoch": exp_epoch,
+                          "checkpoint_epoch": ckpt_epoch, "same_weights": same_weights,
                           "mel_shape": list(mels_e.shape), "lengths": lens_e.tolist()}), flush=True)
-        check(exp_epoch == 2, f"exported epoch {exp_epoch}, expected 2")
+        check(exp_epoch == 2 and ckpt_epoch == 2,
+              f"exported epoch {exp_epoch} and checkpoint epoch {ckpt_epoch}, expected 2")
+        check(same_weights, "the export's weights differ from its epoch-2 checkpoint's in float16")
         check(bool(torch.isfinite(mels_e).all()), "non-finite mel from the exported model")
+
+        # the synthesis CLI's test-set and free-text modes, bf16 on the card
+        phase("test_set_cli")
+        test_records = os.path.join(tmp, "test_records")
+        os.makedirs(test_records)
+        write_records(test_records, seed=2027, splits=(("test", N_TEST),))
+        test_loader = BucketedLoader(list_shards(test_records, "test"), 4,
+                                     hp.dataset.mel_bucket, hp.dataset.text_bucket, shuffle=False)
+        n_calls = len(test_loader) + len({tm for tm, _ in test_loader.shape_census()})
+        out_dir = os.path.join(tmp, "test_out")
+        common = ["--dataset", "ljspeech", "--data_dir", test_records, "--model_dir", MODEL_DIR,
+                  "--batch_size", "4", "--device", DEVICE, "--no-draw_alignments"]
+        fa.launch_counts.clear()
+        test_result, test_text = run_cli(cli_inference.main,
+                                         common + ["--test_dir", out_dir, "--write_wavs"])
+        torch.cuda.synchronize()
+        test_set_counts = dict(fa.launch_counts)
+        names = sorted(os.listdir(out_dir))
+        npys = [n for n in names if n.endswith(".npy")]
+        wav_lens = {}
+        for name in npys:
+            sr, wav = wavfile.read(os.path.join(out_dir, name[:-4] + ".wav"))
+            wav_lens[name] = (np.load(os.path.join(out_dir, name)).shape[0], len(wav),
+                              int(np.abs(wav).max()))
+        print(json.dumps({"launches": test_set_counts, "result": test_result,
+                          "files": len(names), "mel_and_wav_lengths": wav_lens}), flush=True)
+        check("Average RTF is" in test_text, "test-set mode printed no RTF line")
+        check(test_set_counts == {"masked_attention_fwd_tc": n_attn * n_calls},
+              f"test-set launches {test_set_counts}, expected {n_attn * n_calls} forward")
+        check(len(npys) == N_TEST and len(names) == 2 * N_TEST, f"test-set files {names}")
+        check(all(w == m * hop and peak > 0 for m, w, peak in wav_lens.values()),
+              f"wav lengths against mel lengths * hop: {wav_lens}")
+        _, stream_text = run_cli(cli_inference.main, common + [
+            "--test_dir", os.path.join(tmp, "stream_out"), "--write_wavs", "--stream_wavs"])
+        check("time-to-first-audio" in stream_text, "--stream_wavs printed no TTFA")
+        lines_file = os.path.join(tmp, "lines.txt")
+        with open(lines_file, "w") as f:
+            f.write("\n".join(LINES) + "\n")
+        free_text_counts = {}
+        for score in ("medoid", "coverage"):
+            fa.launch_counts.clear()
+            res, text = run_cli(cli_inference.main, [
+                "--dataset", "ljspeech", "--text", lines_file, "--model_dir", MODEL_DIR,
+                "--test_dir", os.path.join(tmp, f"free_{score}"), "--device", DEVICE,
+                "--takes", "4", "--take_score", score, "--no-draw_alignments"])
+            torch.cuda.synchronize()
+            free_text_counts[score] = dict(fa.launch_counts)
+            check(chosen_takes(text) == res["chosen"] and len(res["chosen"]) == len(LINES)
+                  and all(0 <= c < 4 for c in res["chosen"]),
+                  f"--take_score {score}: chosen takes {res['chosen']}")
+            check(free_text_counts[score] == {"masked_attention_fwd_tc": 4 * n_attn},
+                  f"free-text launches {free_text_counts[score]}")
+        print(json.dumps({"free_text_launches": free_text_counts}), flush=True)
+
+        phase("audio_times")
+        tester = TestUtils(hp, os.path.join(tmp, "times_out"), device)
+        mels_np, lens_np = mels0.cpu().numpy(), lens0.cpu().numpy()
+        gl_ms, gl_wall = {}, {}
+        # the CLI's padded batch with cuFFT and with the DFT as fp32 matmuls,
+        # and the batch cut to its longest line (+1 frame) with cuFFT
+        trimmed = mels0[:, :int(lens0.max()) + 1]
+        bases = dft_matmul_bases(torch, np, ops_stft.padded_window(
+            n_fft, cfg.frame_length_sample, "cpu").double().numpy(), device)
+        vocoders = {"fft": lambda m, g: gl.mel_to_wav(m, cfg, g),
+                    "matmul": lambda m, g: matmul_mel_to_wav(torch, gl, ops_stft, m, cfg,
+                                                             bases, g)}
+        for name, mels_in, form in (("fft", mels0, "fft"), ("matmul", mels0, "matmul"),
+                                    ("fft_trimmed", trimmed, "fft")):
+            def run():
+                gen = torch.Generator(device=device).manual_seed(0)
+                return vocoders[form](mels_in, gen)
+            gl_ms[name] = time_ms(torch, run, reps=3, warmup=1)
+            t = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            gl_wall[name] = time.perf_counter() - t
+        t = time.perf_counter()
+        tester.synthesize_and_save_wavs(0, mels_np, lens_np, list(range(len(LINES))), "host")
+        host_gl_s = time.perf_counter() - t
+        # the matmul form's products: 2 * iterations + 1 of [frames, n_fft]
+        # x [n_fft, 2 * bins] (analysis and synthesis alike), fp32 FMAs
+        frames_gl = len(LINES) * n_main
+        matmul_flops = (2 * cfg.griffin_lim_iters + 1) * 2 * frames_gl * n_fft * (n_fft + 2)
+        ttfa = {}
+        for be in ("host", "device"):
+            sv = StreamingVocoder(ap, backend=be, device=device)
+            t = time.perf_counter()
+            next(iter(sv.stream(mel_s, np.random.default_rng(3))))
+            ttfa[be] = time.perf_counter() - t
+        audio_times = {"gl_batch": [len(LINES), n_main, cfg.griffin_lim_iters],
+                       "gl_trimmed_frames": trimmed.shape[1],
+                       "gl_device_ms": gl_ms, "gl_wall_s": gl_wall,
+                       "gl_matmul_bound_ms": 1e3 * matmul_flops / PEAK_FLOPS["float32"],
+                       "host_gl_threads_s": host_gl_s, "host_gl_frames": lens_np.tolist(),
+                       "test_set_rtf": test_result["rtf"],
+                       "test_set_seconds": test_result["seconds"],
+                       "test_set_audio_seconds": test_result["audio_seconds"],
+                       "ttfa_s": ttfa, "ttfa_frames": len(mel_s)}
+        print(json.dumps(audio_times), flush=True)
 
         phase("times")
         sites = synthesis_sites(torch, hp, token_ids, lens0, max_mel, device)
@@ -1110,9 +1540,16 @@ def main():
     kernels = [
         fwd_entry("masked_attention_fwd_tc", "bfloat16",
                   synthesis_counts["masked_attention_fwd_tc"]
-                  + training_counts["masked_attention_fwd_tc"],
+                  + training_counts["masked_attention_fwd_tc"]
+                  + alignment_counts["masked_attention_fwd_tc"]
+                  + test_set_counts["masked_attention_fwd_tc"]
+                  + sum(c["masked_attention_fwd_tc"] for c in free_text_counts.values()),
                   {"synthesis": synthesis_counts["masked_attention_fwd_tc"],
-                   "training": training_counts["masked_attention_fwd_tc"]},
+                   "training": training_counts["masked_attention_fwd_tc"],
+                   "synthesis_with_alignments": alignment_counts["masked_attention_fwd_tc"],
+                   "test_set_cli": test_set_counts["masked_attention_fwd_tc"],
+                   "free_text_cli_takes": {k: c["masked_attention_fwd_tc"]
+                                           for k, c in free_text_counts.items()}},
                   {"max_share_of_tol": share_fwd["bfloat16"]}),
         fwd_entry("masked_attention_fwd", "float32",
                   fp32_synthesis_counts["masked_attention_fwd"]

@@ -37,8 +37,12 @@ def test_cli_writes_finite_mels(model_dir, tmp_path):
                     "--device", "cpu", "--batch_size", "2",
                     "--temperature", "0.667", "--sample_seed", "5"])
     names = sorted(os.listdir(out))
-    assert names == ["test-3-0.npy", "test-3-1.npy", "test-3-2.npy"]
-    for name in names:
+    # free-text mode writes mels, wavs and the decoder's alignment plots
+    assert names == (["prior-dec_0-3-0-ali.pdf", "prior-dec_0-3-1-ali.pdf",
+                      "prior-dec_0-3-2-ali.pdf"]
+                     + ["test-3-0.npy", "test-3-0.wav", "test-3-1.npy", "test-3-1.wav",
+                        "test-3-2.npy", "test-3-2.wav"])
+    for name in names[3::2]:
         mel = np.load(out / name)
         assert mel.ndim == 2 and mel.shape[1] == 80 and mel.shape[0] >= 1
         assert np.isfinite(mel).all()

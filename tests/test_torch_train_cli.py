@@ -1,10 +1,13 @@
 """The port's training CLI on the CPU at tiny size: a cold start (random
 init, data-dependent flow init, epoch-0 checkpoint, priming step) and one
 epoch of 2 steps, then a resume for one more epoch, then the export, which
-the port's synthesis and the JAX package's ``load_npz`` both load."""
+the port's synthesis (from a directory that holds only the export) and the
+JAX package's ``load_npz`` both load, with the weights of the epoch-2
+checkpoint."""
 
 import json
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -62,8 +65,22 @@ def test_train_resume_export(data_dir, tmp_path):
     path = export_model_dir(ckpt)
     state = jax_load_npz(path)
     assert state["epoch"] == 2 and set(state["params"]) >= {"text_encoder", "prior"}
-    hp, model, epoch = load_model(ckpt, device="cpu")
+    # the export alone in a directory of its own: load_model would take the
+    # training directory's newest checkpoint over it
+    export_only = tmp_path / "export_only"
+    export_only.mkdir()
+    for name in (os.path.basename(path), "hparams.json"):
+        shutil.copy(os.path.join(ckpt, name), export_only)
+    hp, model, epoch = load_model(str(export_only), device="cpu")
     assert epoch == 2
+    _, restored, ckpt_epoch = load_model(ckpt, device="cpu")
+    assert ckpt_epoch == 2
+    # the export stores floating leaves as float16 (integer buffers such as
+    # num_batches_tracked are not exported)
+    want = restored.state_dict()
+    for name, a in model.state_dict().items():
+        if a.is_floating_point():
+            assert torch.equal(a, want[name].half().to(a.dtype)), name
     with torch.no_grad():
         mel, lens = model.infer_with_length_prediction(
             torch.randint(3, 43, (2, 16)), torch.tensor([16, 9]), max_mel_length=120)

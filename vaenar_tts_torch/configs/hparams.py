@@ -1,18 +1,18 @@
 """Hyper-parameter trees, the port's own copy of ``vaenar_tts_tpu.configs``.
 
 Frozen dataclasses with the field names and defaults of the JAX package,
-holding only the fields that the port's synthesis and training read: a
-``hparams.json`` written by JAX training loads unchanged, and the rest of it
-(the audio front end, the TPU knobs, test-interval and probe settings) is
-ignored. ``train.compute_dtype`` ("bfloat16", the default, or "float32") is
-the transformer stacks' dtype, as in the JAX package; the flow stays fp32
-(``models/vaenar.py``).
+holding only the fields that the port's synthesis, vocoder and training
+read: a ``hparams.json`` written by JAX training loads unchanged, and the
+rest of it (MFCC settings, the TPU knobs, test-interval and probe settings)
+is ignored. ``train.compute_dtype`` ("bfloat16", the default, or
+"float32") is the transformer stacks' dtype, as in the JAX package; the
+flow stays fp32 (``models/vaenar.py``).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Tuple
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -79,6 +79,24 @@ class TextConfig:
 @dataclass(frozen=True)
 class AudioConfig:
     num_mels: int = 80
+    num_freq: int = 1025
+    min_mel_freq: float = 0.0
+    max_mel_freq: float = 8000.0
+    sample_rate: int = 22050
+    frame_length_sample: int = 1024
+    frame_shift_sample: int = 256
+    preemphasize: Optional[float] = 0.97
+    min_level_db: float = -100.0
+    ref_level_db: float = 20.0
+    max_abs_value: float = 1.0
+    symmetric_specs: bool = False
+    griffin_lim_iters: int = 60
+    power: float = 1.5
+    center: bool = True
+
+    @property
+    def n_fft(self) -> int:
+        return (self.num_freq - 1) * 2
 
 
 @dataclass(frozen=True)

@@ -9,8 +9,15 @@ in it.
 The blocks keep the reference's concat(input, context) -> Dense -> residual
 -> LayerNorm topology, with the JAX package's promotions: a block whose
 input is fp32 (the first block after a positional encoding) concatenates
-and adds in fp32, and its LayerNorm returns the compute dtype. Alignments
-are never materialized on this path.
+and adds in fp32, and its LayerNorm returns the compute dtype.
+
+Alignments (the attention weights, which the kernel never writes out) are
+computed only when asked for (``return_weights``, the decoder's
+cross-attention when synthesis is asked for alignments): the plain masked
+softmax of the same q and k in fp32, as ``masked_attention_xla`` of the JAX
+package forms them, with the finite NEG, so a row with no key stays
+uniform. The contexts still come from the kernel, so the outputs are the
+same with and without them.
 """
 
 from __future__ import annotations
@@ -21,7 +28,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from ..ops.flash_attention import MaskedFlashAttention, attention_mask
+from ..ops.flash_attention import NEG, MaskedFlashAttention, attention_mask
 from .layers import FFN, Dense, LayerNorm
 
 __all__ = ["attention_mask", "MultiHeadAttention", "SelfAttentionBlock",
@@ -54,14 +61,22 @@ class MultiHeadAttention(nn.Module):
     def forward(self, inputs: torch.Tensor, memory: torch.Tensor,
                 query_lengths: Optional[torch.Tensor] = None,
                 memory_lengths: Optional[torch.Tensor] = None,
-                causal: bool = False) -> torch.Tensor:
+                causal: bool = False, return_weights: bool = False):
+        """The contexts [B, Tq, attention_dim], and with ``return_weights``
+        also the attention weights, fp32 [B, H, Tq, Tk]."""
         q = self._split(self.query_layer(inputs))
         k = self._split(self.key_layer(memory))
         v = self._split(self.value_layer(memory))
         o = MaskedFlashAttention.apply(q, k, v, query_lengths, memory_lengths,
                                        self.scale, causal)
         b, _, tq, _ = o.shape
-        return o.transpose(1, 2).reshape(b, tq, self.num_heads * self.head_dim)
+        out = o.transpose(1, 2).reshape(b, tq, self.num_heads * self.head_dim)
+        if not return_weights:
+            return out
+        mask = attention_mask(query_lengths, memory_lengths, b, tq, k.shape[2], causal,
+                              q.device)
+        logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * self.scale
+        return out, torch.softmax(logits.masked_fill(~mask, NEG), dim=-1)
 
 
 class SelfAttentionBlock(nn.Module):
@@ -108,12 +123,18 @@ class CrossAttentionBlock(nn.Module):
         self.ffn = FFN(attention_dim, ffn_hidden, dtype)
 
     def forward(self, inputs, memory, query_lengths=None,
-                memory_lengths=None) -> torch.Tensor:
+                memory_lengths=None, return_alignment: bool = False):
+        """The block's output, and with ``return_alignment`` also the
+        cross-attention's weights, fp32 [B, H, Tq, T_memory]."""
         self_att = self.self_attention(inputs, inputs, query_lengths,
                                        query_lengths, causal=True)
         h = self.att_proj1(torch.cat([inputs, self_att], dim=-1))
         h = self.layer_norm1(h + inputs)
-        cross = self.cross_attention(h, memory, query_lengths, memory_lengths)
+        cross = self.cross_attention(h, memory, query_lengths, memory_lengths,
+                                     return_weights=return_alignment)
+        if return_alignment:
+            cross, alignment = cross
         h2 = self.att_proj2(torch.cat([h, cross], dim=-1))
         h2 = self.layer_norm2(h2 + h)
-        return self.ffn(h2)
+        out = self.ffn(h2)
+        return (out, alignment) if return_alignment else out

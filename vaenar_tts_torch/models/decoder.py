@@ -4,11 +4,13 @@ CrossAttentionBlocks over the text -> linear head of out_dim *
 max_reduction_factor, sliced to r * out_dim and reshaped to r frames per
 latent step -> PostNet residual. All in the compute dtype: at bfloat16 the
 mels come out bf16, and the losses and the synthesis entry points cast them
-to fp32."""
+to fp32. Asked for alignments, it also returns each block's cross-attention
+weights, ``{"dec_<i>": fp32 [B, H, T, T_text]}``, as the JAX package's
+plots path does (``vaenar_tts_tpu/models/decoder.py:53-67``)."""
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -40,17 +42,22 @@ class TransformerDecoder(nn.Module):
 
     def forward(self, inputs, text_embd, z_lengths=None, text_lengths=None,
                 reduction_factor: int = 2, train: bool = False,
-                generator: Optional[torch.Generator] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+                generator: Optional[torch.Generator] = None,
+                return_alignments: bool = False):
         """latents [B, T, latent] -> (initial, refined), each
-        [B, T * r, out_dim]."""
+        [B, T * r, out_dim], and with ``return_alignments`` the dict of
+        alignments as a third value."""
         batch, max_len = inputs.shape[0], inputs.shape[1]
         x = self.pre_projection(inputs)
-        for name in self.names:
-            x = getattr(self, name)(x, text_embd, z_lengths, text_lengths)
+        alignments: Dict[str, torch.Tensor] = {}
+        for i, name in enumerate(self.names):
+            x = getattr(self, name)(x, text_embd, z_lengths, text_lengths,
+                                    return_alignment=return_alignments)
+            if return_alignments:
+                x, alignments[f"dec_{i}"] = x
         full = self.linear_outputs(x)
         initial = full[:, :, : reduction_factor * self.out_dim].reshape(
             batch, max_len * reduction_factor, self.out_dim)
         outputs = (self.residual_outputs(self.postnet(initial, train, generator))
                    + initial)
-        return initial, outputs
+        return (initial, outputs, alignments) if return_alignments else (initial, outputs)

@@ -12,8 +12,8 @@ length head -> flow-prior sample -> decoder + PostNet -> mel.
 
 ``init_pass`` and ``merge_flow_init``: the data-dependent ActNorm init of a
 cold start. ``load_model`` builds the model from a model directory holding
-``hparams.json`` and ``export.npz``, on ``cuda`` unless the caller asks for
-the CPU.
+``hparams.json`` and checkpoints or ``export.npz``, on ``cuda`` unless the
+caller asks for the CPU.
 
 Precision follows ``train.compute_dtype`` as in the JAX package: at
 bfloat16 the transformer stacks (encoder, length heads' logits, posterior
@@ -216,8 +216,11 @@ class VAENAR(nn.Module):
               reduction_factor: int = 2, max_mel_length: Optional[int] = None,
               temperature: float = 1.0,
               generator: Optional[torch.Generator] = None,
-              epsilon: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Sample z from the prior for the given mel lengths and decode."""
+              epsilon: Optional[torch.Tensor] = None,
+              return_alignments: bool = False):
+        """Sample z from the prior for the given mel lengths and decode:
+        mels [B, max_mel_length, out_dim], and with ``return_alignments``
+        the decoder's ``{"dec_<i>": [B, H, T_reduced, T_text]}`` too."""
         r = reduction_factor
         if max_mel_length is None:
             raise ValueError("max_mel_length must be provided")
@@ -227,8 +230,10 @@ class VAENAR(nn.Module):
                                  max_length=-(-max_mel_length // r),
                                  temperature=temperature, generator=generator,
                                  epsilon=epsilon)
-        _, mel = self.decoder(z, text_embd, reduced_lens, text_lengths, r)
-        return mel.float()
+        decoded = self.decoder(z, text_embd, reduced_lens, text_lengths, r,
+                               return_alignments=return_alignments)
+        mel = decoded[1].float()
+        return (mel, decoded[2]) if return_alignments else mel
 
     @torch.no_grad()
     def predict_lengths(self, inputs, text_lengths, reduction_factor: int = 2
@@ -246,11 +251,13 @@ class VAENAR(nn.Module):
             reduction_factor: int = 2, temperature: float = 0.0,
             length_headroom: int = 80, use_length_quantile: bool = False,
             generator: Optional[torch.Generator] = None,
-            epsilon: Optional[torch.Tensor] = None
-    ) -> Tuple[torch.Tensor, torch.Tensor]:
+            epsilon: Optional[torch.Tensor] = None,
+            return_alignments: bool = False):
         """Predict lengths from the text (mean or quantile head), add
         ``length_headroom`` frames, clamp to ``max_mel_length``, sample and
-        decode. Returns (mels [B, max_mel_length, out_dim], lengths [B])."""
+        decode. Returns (mels [B, max_mel_length, out_dim], lengths [B]),
+        and with ``return_alignments`` the decoder's alignments (``infer``)
+        as a third value."""
         r = reduction_factor
         text_embd = self._encode(inputs, text_lengths, r)
         head = (self.length_predictor.quantile_lengths if use_length_quantile
@@ -264,8 +271,10 @@ class VAENAR(nn.Module):
                                  max_length=-(-max_mel_length // r),
                                  temperature=temperature, generator=generator,
                                  epsilon=epsilon)
-        _, mel = self.decoder(z, text_embd, reduced_lens, text_lengths, r)
-        return mel.float(), mel_lens
+        decoded = self.decoder(z, text_embd, reduced_lens, text_lengths, r,
+                               return_alignments=return_alignments)
+        mel = decoded[1].float()
+        return (mel, mel_lens, decoded[2]) if return_alignments else (mel, mel_lens)
 
 
 def build_model(hp: HParams, params: dict, batch_stats: dict,
@@ -278,21 +287,32 @@ def build_model(hp: HParams, params: dict, batch_stats: dict,
     return model.eval().to(dev)
 
 
-def load_model(model_dir: str, device="cuda", compute_dtype: Optional[str] = None
-               ) -> Tuple[HParams, VAENAR, int]:
-    """(hparams, model, epoch) from ``model_dir``'s hparams.json and
-    export.npz. ``compute_dtype`` ("float32" or "bfloat16") overrides the
-    file's ``train.compute_dtype``, as the JAX package's
-    ``load_model_state`` does: the parameters are fp32 either way."""
+def load_model(model_dir: str, device="cuda", compute_dtype: Optional[str] = None,
+               epoch: Optional[int] = None) -> Tuple[HParams, VAENAR, int]:
+    """(hparams, model, epoch) from ``model_dir``: its hparams.json, and the
+    weights of its newest checkpoint (``utils.checkpoint``), or of the
+    checkpoint of ``epoch``; only a directory without checkpoints falls back
+    to its export.npz, as the JAX package's ``load_model_state``
+    (``vaenar_tts_tpu/cli/inference.py:37-89``) does. ``compute_dtype``
+    ("float32" or "bfloat16") overrides the file's ``train.compute_dtype``:
+    the parameters are fp32 either way."""
+    from ..utils.checkpoint import CheckpointManager
     hp = load_hparams(model_dir)
     if hp is None:
         raise FileNotFoundError(f"no hparams.json in {model_dir}")
     if compute_dtype:
         hp = dataclasses.replace(hp, train=dataclasses.replace(
             hp.train, compute_dtype=compute_dtype))
+    ckpt = CheckpointManager(model_dir)
+    epochs = ckpt.epochs()
+    if epoch is not None and epoch not in epochs:
+        raise FileNotFoundError(f"no epoch-{epoch} checkpoint in {model_dir}")
+    if epochs:
+        model = VAENAR(hp).to(resolve_device(device))
+        return hp, model.eval(), ckpt.restore(model, epoch=epoch)
     path = os.path.join(model_dir, EXPORT_NAME)
     if not os.path.isfile(path):
-        raise FileNotFoundError(f"no {EXPORT_NAME} in {model_dir}")
+        raise FileNotFoundError(f"no checkpoint and no {EXPORT_NAME} in {model_dir}")
     state = load_npz(path)
     model = build_model(hp, state["params"], state["batch_stats"], device)
     return hp, model, state["epoch"]

@@ -63,11 +63,14 @@ class CheckpointManager:
             shutil.rmtree(path)
 
     def restore(self, model: torch.nn.Module,
-                optimizer: Optional[torch.optim.Optimizer] = None) -> Optional[int]:
-        """Load the latest checkpoint into ``model`` (and ``optimizer``), on
-        the model's device; return its epoch, or None when there is none."""
-        epoch = self.latest_epoch()
+                optimizer: Optional[torch.optim.Optimizer] = None,
+                epoch: Optional[int] = None) -> Optional[int]:
+        """Load the latest checkpoint, or the one of ``epoch``, into
+        ``model`` (and ``optimizer``), on the model's device; return its
+        epoch, or None when there is none (of that epoch)."""
         if epoch is None:
+            epoch = self.latest_epoch()
+        if epoch is None or epoch not in self.epochs():
             return None
         state = torch.load(os.path.join(self.model_dir, str(epoch), STATE_NAME),
                            map_location=next(model.parameters()).device,

@@ -71,7 +71,26 @@ dK/dV kernel reads: a backward launches those two kernels and nothing else.
    time); synthesis wall time; train step wall time at r = 2 and r = 5 and
    launches per train step; a torch.profiler pass over train steps in both
    dtypes for the device busy share and the kernels that take the most
-   device time.
+   device time;
+11. preprocessing: a toy-v2 corpus of 96 utterances from a seed in
+   LJSpeech's layout (metadata.csv, 22.05 kHz wavs) and 6 DataBaker
+   utterances (label file, 16 kHz wavs) through `vaenar_tts_torch.cli.
+   preprocess`, with the mels on the card (--device_mels) and on the host:
+   the same splits and shards, the mels within 5e-4, a smoke batch; the
+   extraction times on each side;
+12. probed training: `cli.train` on the toy records at the shipped
+   hparams.json (bf16, full width), 2 epochs of 2 steps with `--probe
+   toy_ler --probe_every 1`: a probe line an epoch with a finite LER in
+   [0, 1], the forward kernel launched inside each probe, the backward
+   kernels in the steps; the best probed weights (export_best.npz) loaded
+   from a directory of their own synthesize a line;
+13. the shipped model's letter error rate: the 16 texts of
+   random_text(default_rng(4242)) through the free-text CLI at 1 take
+   (coverage score) and 4 (medoid), mean length head, temperature 0.6, over
+   4 sample seeds, transcribed by the port's ToyLetterDecoder, beside the
+   JAX package's 0.257 and 0.236 at epoch 1700; the decoder's floor on
+   procedural renders must read 0.077 and the 1-take mean stay at or below
+   0.40.
 
 Each phase prints a JSON line {"phase": ..., "seconds": ...} first. A failed
 check raises; the script then exits non-zero without printing the final
@@ -196,6 +215,30 @@ NO_DROPOUT = ["encoder.pre_drop_rate=0", "encoder.pos_drop_rate=0",
 # the toy-v2 corpus's ranges (artifacts/toyv2_q90/corpus_stats.json): text
 # 12-32 ids, mel about 9 frames a token, at most 370 frames
 N_TRAIN, N_DEV = 64, 32
+# preprocessing: a toy-v2 corpus of N_TOY utterances in LJSpeech's layout
+# and N_DATABAKER DataBaker utterances; card mels against the host's numpy
+# mels within 5e-4, the JAX package's own bound for its device mels
+# (tests/test_corpus.py)
+N_TOY = 96
+TOL_MEL_DEVICE_HOST = 5e-4
+DATABAKER_LABELS = [
+    ("妈妈#1当时#1表示#3，儿子#1开心得#2像花儿#1一样#4。",
+     "ma1 ma1 dang1 shi2 biao3 shi4 er2 zi5 kai1 xin1 de5 xiang4 huar1 yi2 yang4"),
+    ("你好#4。", "ni3 hao3"),
+    ("那儿#2有#1一个#1小孩儿#3在#1玩儿#4。", "nar4 you3 yi2 ge4 xiao3 hair2 zai4 war2"),
+    ("今天#1天气#2很好#4。", "jin1 tian1 tian1 qi4 hen3 hao3"),
+    ("我们#1一起#1去#2公园#4。", "wo3 men5 yi4 qi3 qu4 gong1 yuan2"),
+    ("谢谢#4。", "xie4 xie5"),
+]
+# the shipped model's letter error rate: the 16 texts of
+# random_text(default_rng(4242)) through the free-text CLI at the settings
+# of scripts/freetext_toyv2_eval.py, over LER_SEEDS sample seeds; the
+# decoder's floor on procedural renders (default_rng(4243)) is numpy and
+# must read 0.077 as in artifacts/toyv2_q90/freetext_eval.json; the 1-take
+# mean must stay at or below 0.40 (an untrained model reads near 1)
+LER_TEXTS, LER_SEEDS = 16, (0, 1, 2, 3)
+LER_FLOOR = 0.077
+LER_CEILING = 0.40
 T0 = time.perf_counter()
 
 
@@ -745,17 +788,6 @@ def audio_signals(np, sample_rate, seed, n=4):
     return out
 
 
-def pad_ragged(np, ys, n_fft):
-    """Each signal reflect-padded by n_fft // 2 on both sides, zero-padded
-    to the longest: [B, T] float32 (the JAX package's ragged-batch recipe,
-    data/corpus.py ``_extract_mels_device``)."""
-    padded = [np.pad(y, n_fft // 2, mode="reflect") for y in ys]
-    out = np.zeros((len(ys), max(map(len, padded))), np.float32)
-    for i, y in enumerate(padded):
-        out[i, :len(y)] = y
-    return out
-
-
 def gl_reference_f64(np, window, mag, phase0, n_fft, hop, n_iters):
     """Griffin-Lim in float64 numpy with the JAX package's conventions
     (ops/griffin_lim.py): initial phase [B, bins, F], the window sum-square
@@ -840,6 +872,93 @@ def spectral_convergence(np, ap, wav, target):
     return float(np.linalg.norm(target[:, :k] - got[:, :k]) / np.linalg.norm(target[:, :k]))
 
 
+def write_toy_corpus(np, wavfile, root, n, seed):
+    """``n`` toy-v2 utterances from a seed in LJSpeech's layout:
+    ``metadata.csv`` (fid|text|text) and 22.05 kHz int16 wavs."""
+    from vaenar_tts_torch.configs.hparams import get_config
+    from vaenar_tts_torch.data.toy import random_text, synthesize_utterance_v2
+    hp = get_config("ljspeech")
+    rng = np.random.default_rng(seed)
+    os.makedirs(root)
+    lines = []
+    for i in range(n):
+        fid, text = f"TOY-{i:04d}", random_text(rng)
+        wav = synthesize_utterance_v2(text, hp, rng)
+        wavfile.write(os.path.join(root, fid + ".wav"), hp.audio.sample_rate,
+                      (wav * 32767).astype(np.int16))
+        lines.append(f"{fid}|{text}|{text}")
+    with open(os.path.join(root, "metadata.csv"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def write_databaker(np, wavfile, root, seed):
+    """DATABAKER_LABELS as DataBaker's ``000001-010000.txt`` and 16 kHz
+    int16 wavs of ``audio_signals`` under ``Wave/``."""
+    os.makedirs(os.path.join(root, "Wave"))
+    with open(os.path.join(root, "000001-010000.txt"), "w", encoding="utf-8") as f:
+        for i, (hanzi, py) in enumerate(DATABAKER_LABELS):
+            f.write(f"{i + 1:06d}\t{hanzi}\n\t{py}\n")
+    for i, y in enumerate(audio_signals(np, 16000, seed, n=len(DATABAKER_LABELS))):
+        wavfile.write(os.path.join(root, "Wave", f"{i + 1:06d}.wav"), 16000,
+                      (0.9 * 32767 * y / np.abs(y).max()).astype(np.int16))
+
+
+def compare_preprocessed(np, a, b):
+    """Two preprocessed directories of one corpus: whether the split lists
+    are equal, the largest mel difference (inf where shapes differ), the
+    mels compared, and whether the shards hold the same fids and texts."""
+    from vaenar_tts_torch.data.records import RecordShardReader, list_shards
+
+    def read(d, name):
+        with open(os.path.join(d, name)) as f:
+            return f.read()
+
+    splits = all(read(a, f"{m}.txt") == read(b, f"{m}.txt") for m in ("train", "dev", "test"))
+    names = sorted(os.listdir(os.path.join(a, "mels")))
+    err = 0.0 if names == sorted(os.listdir(os.path.join(b, "mels"))) else math.inf
+    for name in names:
+        x, y = (np.load(os.path.join(d, "mels", name)) for d in (a, b))
+        err = max(err, float(np.abs(x - y).max()) if x.shape == y.shape else math.inf)
+    shards = True
+    for mode in ("train", "dev", "test"):
+        pa, pb = list_shards(a, mode), list_shards(b, mode)
+        shards &= [os.path.basename(p) for p in pa] == [os.path.basename(p) for p in pb]
+        for x, y in zip(pa, pb):
+            rx, ry = RecordShardReader(x), RecordShardReader(y)
+            shards &= rx.fids == ry.fids and all(
+                np.array_equal(rx.get(i).text, ry.get(i).text) for i in range(len(rx)))
+    return {"splits_equal": splits, "max_abs_err_mel": err, "mels": len(names),
+            "shards_equal": bool(shards)}
+
+
+def counting_probe(torch, fa, probe_module, calls):
+    """``probe_module.make_toy_ler_probe`` wrapped so that each probe call
+    appends its epoch, seconds and kernel launches to ``calls``."""
+    make = probe_module.make_toy_ler_probe
+
+    def made(*args, **kwargs):
+        probe = make(*args, **kwargs)
+
+        def call(epoch, model):
+            torch.cuda.synchronize()
+            before, t = dict(fa.launch_counts), time.perf_counter()
+            try:
+                return probe(epoch, model)
+            finally:
+                torch.cuda.synchronize()
+                calls.append({"epoch": epoch, "seconds": time.perf_counter() - t,
+                              "launches": {k: v - before.get(k, 0)
+                                           for k, v in fa.launch_counts.items()
+                                           if v != before.get(k, 0)}})
+        return call
+    return made
+
+
+def letters_ler(toy, hyp, ref):
+    """The letters-only LER of scripts/freetext_toyv2_eval.py."""
+    return toy.letter_error_rate(hyp.replace(" ", ""), ref.replace(" ", ""))
+
+
 def run_cli(main, argv):
     """``main(argv)`` with its standard output caught and printed again:
     (its return value, that output)."""
@@ -867,6 +986,7 @@ def check_audio(torch, np, device, cfg, mels0, lens0):
     returns the AudioProcessor and that utterance's mel."""
     from vaenar_tts_torch.audio.dsp import AudioProcessor
     from vaenar_tts_torch.audio.streaming import StreamingVocoder
+    from vaenar_tts_torch.data.corpus import pad_ragged
     from vaenar_tts_torch.ops import griffin_lim as gl
     from vaenar_tts_torch.ops import stft as ops_stft
     # the mel frontend at the shipped audio config against the numpy DSP
@@ -875,8 +995,8 @@ def check_audio(torch, np, device, cfg, mels0, lens0):
     n_fft, hop, win = cfg.n_fft, cfg.frame_shift_sample, cfg.frame_length_sample
     ys = audio_signals(np, cfg.sample_rate, seed=77)
     frames = [1 + len(y) // hop for y in ys]
-    padded = torch.from_numpy(pad_ragged(np, ys, n_fft)).to(device)
-    pre = torch.from_numpy(pad_ragged(np, [ap.preemphasize(y).astype(np.float32) for y in ys],
+    padded = torch.from_numpy(pad_ragged(ys, n_fft)).to(device)
+    pre = torch.from_numpy(pad_ragged([ap.preemphasize(y).astype(np.float32) for y in ys],
                                       n_fft)).to(device)
     audio_share = {"magnitude": 0.0, "magnitude_matmul_form": 0.0, "mel": 0.0,
                    "mel_center_preemphasis": 0.0, "preemphasis": 0.0, "istft": 0.0}
@@ -1003,6 +1123,199 @@ def profile_train_steps(torch, steps, model, hp, batch, r, reps=3):
             sum(e.count for e in kernels) / reps,
             [[e.key[:90], e.self_device_time_total / 1e3 / reps, e.count / reps]
              for e in kernels[:12]])
+
+
+def preprocess_phase(torch, np, wavfile, tmp, device, smi):
+    """``cli.preprocess`` on a toy-v2 corpus of N_TOY utterances
+    (LJSpeech's layout) and on DATABAKER_LABELS, with the mels on
+    ``device`` and on the host: the same splits, mels within
+    TOL_MEL_DEVICE_HOST, the same shards, a smoke batch; and the toy
+    corpus's extraction alone, timed once more on each side. Returns the
+    card's toy records."""
+    from vaenar_tts_torch.cli import preprocess as cli_preprocess
+    from vaenar_tts_torch.configs.hparams import get_config
+    from vaenar_tts_torch.data.corpus import CORPORA
+    phase("toy_corpus_preprocess")
+    toy_wavs = os.path.join(tmp, "toy_wavs")
+    t = time.perf_counter()
+    write_toy_corpus(np, wavfile, toy_wavs, N_TOY, seed=2028)
+    toy_write_s = time.perf_counter() - t
+    db_wavs = os.path.join(tmp, "databaker_wavs")
+    write_databaker(np, wavfile, db_wavs, seed=2029)
+    prep, compared = {}, {}
+    for dataset, wavs in (("ljspeech", toy_wavs), ("databaker", db_wavs)):
+        for where, flags in (("card", ["--device_mels", "--device", device]),
+                             ("host", ["--num_workers", "0"])):
+            out = os.path.join(tmp, f"{dataset}_{where}")
+            t = time.perf_counter()
+            _, text = run_cli(cli_preprocess.main, ["--dataset", dataset, "--data_dir", wavs,
+                                                    "--save_dir", out, "--record_split", "2",
+                                                    *flags])
+            torch.cuda.synchronize()
+            prep[f"{dataset}_{where}"] = {
+                "dir": out, "cli_s": time.perf_counter() - t,
+                "smoke_batch": "sample batch:" in text,
+                "on_device": f"on {device}" in text if where == "card" else None}
+        compared[dataset] = compare_preprocessed(np, prep[f"{dataset}_card"]["dir"],
+                                                 prep[f"{dataset}_host"]["dir"])
+    # the extraction alone, once more: on the card, and on host processes
+    # (serial, and a pool of 8 spawned ones, which pays their start)
+    extract_s = {}
+    for where, workers in (("card", 0), ("host_serial", 0), ("host_pool8", 8)):
+        corpus = CORPORA["ljspeech"](toy_wavs, os.path.join(tmp, f"toy_{where}_again"),
+                                     get_config("ljspeech"))
+        corpus._validate_dir()
+        t = time.perf_counter()
+        corpus.extract_mels(num_workers=workers, use_device=where == "card", device=device)
+        torch.cuda.synchronize()
+        extract_s[where] = time.perf_counter() - t
+    print(json.dumps({"card": smi, "toy_utterances": N_TOY, "toy_write_s": toy_write_s,
+                      "databaker_utterances": len(DATABAKER_LABELS),
+                      "mel_extraction_s": extract_s,
+                      "preprocess": {k: {kk: vv for kk, vv in v.items() if kk != "dir"}
+                                     for k, v in prep.items()},
+                      "card_vs_host": compared}), flush=True)
+    for dataset, n in (("ljspeech", N_TOY), ("databaker", len(DATABAKER_LABELS))):
+        got = compared[dataset]
+        check(got["splits_equal"] and got["shards_equal"] and got["mels"] == n,
+              f"{dataset}: card and host preprocessing differ: {got}")
+        check(got["max_abs_err_mel"] <= TOL_MEL_DEVICE_HOST,
+              f"{dataset}: card mels against host mels {got['max_abs_err_mel']}")
+        check(prep[f"{dataset}_card"]["on_device"], f"{dataset}: mels not extracted on {device}")
+        check(all(prep[f"{dataset}_{w}"]["smoke_batch"] for w in ("card", "host")),
+              f"{dataset}: no smoke batch printed")
+    return prep["ljspeech_card"]["dir"]
+
+
+def probe_phase(torch, fa, tmp, records, hparams_path, device, smi, n_attn, expected_launches):
+    """``cli.train`` on ``records`` at ``hparams_path`` with ``--probe
+    toy_ler --probe_every 1``, 2 epochs of 2 steps: one ler_probe.jsonl line
+    an epoch with a finite LER in [0, 1], 2 * n_attn forward launches inside
+    each probe, ``expected_launches(dev batches)`` plus those in the run;
+    then export_best.npz, loaded from a directory of its own, synthesizes a
+    line. Returns (the run's launches, the synthesis's, those inside the
+    probes)."""
+    from vaenar_tts_torch.cli import train as cli_train
+    from vaenar_tts_torch.cli.inference import encode_lines, synthesize_batch
+    from vaenar_tts_torch.configs.serialize import load_hparams
+    from vaenar_tts_torch.data.loader import BucketedLoader
+    from vaenar_tts_torch.data.records import list_shards
+    from vaenar_tts_torch.models.vaenar import load_model
+    from vaenar_tts_torch.training import probe as probe_module
+    phase("probe_training")
+    root = os.path.join(tmp, "probe_run")
+    model_dir = os.path.join(root, "ckpt")
+    calls = []
+    make_probe = probe_module.make_toy_ler_probe
+    probe_module.make_toy_ler_probe = counting_probe(torch, fa, probe_module, calls)
+    fa.launch_counts.clear()
+    try:
+        history = cli_train.main([
+            "--dataset", "ljspeech", "--data_dir", records, "--model_dir", model_dir,
+            "--log_dir", os.path.join(root, "logs"), "--hparams", hparams_path,
+            "--device", device, "--max_epochs", "2", "--steps_per_epoch", "2",
+            "--probe", "toy_ler", "--probe_every", "1"])
+    finally:
+        probe_module.make_toy_ler_probe = make_probe
+    torch.cuda.synchronize()
+    counts = dict(fa.launch_counts)
+    rows = []
+    if os.path.isfile(os.path.join(root, "ler_probe.jsonl")):
+        with open(os.path.join(root, "ler_probe.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+    hp = load_hparams(model_dir)
+    n_dev = 2 * len(BucketedLoader(list_shards(records, "dev"), hp.train.train_batch_size,
+                                   hp.dataset.mel_bucket, hp.dataset.text_bucket, shuffle=False))
+    in_probes = sum(c["launches"].get("masked_attention_fwd_tc", 0) for c in calls)
+    expected = expected_launches(n_dev)
+    expected["masked_attention_fwd_tc"] += in_probes
+    check([r["epoch"] for r in rows] == [1, 2]
+          and all(math.isfinite(r["probe_ler"]) and 0.0 <= r["probe_ler"] <= 1.0 for r in rows),
+          f"ler_probe.jsonl: {rows}")
+    check(sorted(history["probe"]) == [1, 2], "the loop recorded no probe result")
+    # the best probed weights, from a directory of their own
+    best_dir = os.path.join(tmp, "export_best_only")
+    os.makedirs(best_dir)
+    shutil.copy(os.path.join(root, "export_best.npz"), os.path.join(best_dir, "export.npz"))
+    shutil.copy(os.path.join(model_dir, "hparams.json"), best_dir)
+    with open(os.path.join(root, "export_best.json")) as f:
+        best = json.load(f)
+    hp_best, model, best_epoch = load_model(best_dir, device)
+    fa.launch_counts.clear()
+    mels, lens = synthesize_batch(model, hp_best, encode_lines(hp_best, LINES[:1]), 0.667, False)
+    torch.cuda.synchronize()
+    best_counts = dict(fa.launch_counts)
+    print(json.dumps({"card": smi, "probe_rows": rows, "probe_calls": calls, "launches": counts,
+                      "launches_expected": expected, "history_probe": history["probe"],
+                      "export_best": best, "export_best_epoch_loaded": best_epoch,
+                      "export_best_synthesis": {"mel_shape": list(mels.shape),
+                                                "lengths": lens.tolist(),
+                                                "launches": best_counts}}), flush=True)
+    check([c["epoch"] for c in calls] == [1, 2]
+          and all(c["launches"] == {"masked_attention_fwd_tc": 2 * n_attn} for c in calls),
+          f"launches inside the probes: {calls}")
+    check(counts == expected, f"probed training launches {counts} != {expected}")
+    check(best_epoch == best["epoch"] and best_counts == {"masked_attention_fwd_tc": n_attn},
+          f"export_best: epoch {best_epoch} of {best}, launches {best_counts}")
+    check(bool(torch.isfinite(mels).all()), "non-finite mel from export_best.npz")
+    return counts, best_counts, in_probes
+
+
+def shipped_ler_phase(torch, np, fa, tmp, model_dir, hp, device, smi, n_attn):
+    """The letter error rate of ``model_dir`` through the free-text CLI
+    over LER_SEEDS, at 1 take (coverage) and 4 (medoid), mean length head,
+    temperature 0.6, scored by the port's ToyLetterDecoder, beside the JAX
+    package's figures at epoch 1700 and the decoder's floor. Returns the
+    forward launches of each setting."""
+    from vaenar_tts_torch.audio.dsp import AudioProcessor
+    from vaenar_tts_torch.cli import inference as cli_inference
+    from vaenar_tts_torch.data import toy
+    phase("shipped_ler")
+    text_rng = np.random.default_rng(4242)
+    texts = [toy.random_text(text_rng) for _ in range(LER_TEXTS)]
+    lines = os.path.join(tmp, "ler_lines.txt")
+    with open(lines, "w") as f:
+        f.write("\n".join(texts) + "\n")
+    decoder, ap = toy.ToyLetterDecoder(hp), AudioProcessor(hp.audio)
+    render_rng = np.random.default_rng(4243)
+    floor = float(np.mean([letters_ler(toy, decoder.decode(ap.melspectrogram(
+        toy.synthesize_utterance_v2(text, hp, render_rng)).T), text) for text in texts]))
+    jax_ler = {}
+    for key, name in (("takes1_coverage", "freetext_eval.json"),
+                      ("takes4_medoid", "freetext_eval_takes4_mean_medoid.json")):
+        with open(os.path.join(HERE, "artifacts", "toyv2_q90", name)) as f:
+            jax_ler[key] = json.load(f)["synthesis_ler"]
+    runs, counts_by_key = {}, {}
+    for takes, score in ((1, "coverage"), (4, "medoid")):
+        key = f"takes{takes}_{score}"
+        runs[key], counts_by_key[key] = [], 0
+        for seed in LER_SEEDS:
+            fa.launch_counts.clear()
+            t = time.perf_counter()
+            res, _ = run_cli(cli_inference.main, [
+                "--dataset", "ljspeech", "--text", lines, "--model_dir", model_dir,
+                "--test_dir", os.path.join(tmp, f"ler_{key}_{seed}"), "--device", device,
+                "--takes", str(takes), "--take_score", score, "--length_source", "mean",
+                "--sample_seed", str(seed), "--no-draw_alignments"])
+            torch.cuda.synchronize()
+            cli_s = time.perf_counter() - t
+            counts = dict(fa.launch_counts)
+            check(counts == {"masked_attention_fwd_tc": takes * n_attn},
+                  f"{key} seed {seed}: launches {counts}")
+            counts_by_key[key] += counts.get("masked_attention_fwd_tc", 0)
+            lers = [letters_ler(toy, decoder.decode(np.load(p)), text)
+                    for p, text in zip(res["paths"], texts)]
+            runs[key].append({"seed": seed, "ler": float(np.mean(lers)), "cli_s": cli_s})
+    summary = {k: {"mean": statistics.mean(r["ler"] for r in v),
+                   "stdev": statistics.stdev(r["ler"] for r in v),
+                   "min": min(r["ler"] for r in v), "max": max(r["ler"] for r in v),
+                   "jax_epoch_1700": jax_ler[k]} for k, v in runs.items()}
+    print(json.dumps({"card": smi, "texts": LER_TEXTS, "decoder_floor": floor,
+                      "runs": runs, "summary": summary}), flush=True)
+    check(round(floor, 3) == LER_FLOOR, f"decoder floor {floor}, expected {LER_FLOOR}")
+    check(summary["takes1_coverage"]["mean"] <= LER_CEILING,
+          f"1-take LER mean {summary['takes1_coverage']['mean']} above {LER_CEILING}")
+    return counts_by_key
 
 
 def load_trained(VAENAR, CheckpointManager, hp, model_dir, device):
@@ -1491,6 +1804,15 @@ def main():
                               "device_busy_share": device_ms / wall_ms if device_ms else None,
                               "top_kernels_ms_per_step": top}), flush=True)
 
+        toy_records = preprocess_phase(torch, np, wavfile, tmp, DEVICE, smi)
+        probe_counts, best_counts, in_probes = probe_phase(
+            torch, fa, tmp, toy_records, os.path.join(MODEL_DIR, "hparams.json"), DEVICE, smi,
+            n_attn, lambda n_dev: {
+                "masked_attention_fwd_tc": init_pass + per_step * (n_steps + n_dev),
+                "masked_attention_bwd_dq_tc": per_step * n_steps,
+                "masked_attention_bwd_dkv_tc": per_step * n_steps})
+        ler_counts = shipped_ler_phase(torch, np, fa, tmp, MODEL_DIR, hp, DEVICE, smi, n_attn)
+
     phase("done")
     print(smi)
     train_per = (f"ms: one train step at r = 2 (the curriculum's last stage), batch "
@@ -1543,14 +1865,20 @@ def main():
                   + training_counts["masked_attention_fwd_tc"]
                   + alignment_counts["masked_attention_fwd_tc"]
                   + test_set_counts["masked_attention_fwd_tc"]
-                  + sum(c["masked_attention_fwd_tc"] for c in free_text_counts.values()),
+                  + sum(c["masked_attention_fwd_tc"] for c in free_text_counts.values())
+                  + probe_counts["masked_attention_fwd_tc"]
+                  + best_counts["masked_attention_fwd_tc"] + sum(ler_counts.values()),
                   {"synthesis": synthesis_counts["masked_attention_fwd_tc"],
                    "training": training_counts["masked_attention_fwd_tc"],
                    "synthesis_with_alignments": alignment_counts["masked_attention_fwd_tc"],
                    "test_set_cli": test_set_counts["masked_attention_fwd_tc"],
                    "free_text_cli_takes": {k: c["masked_attention_fwd_tc"]
-                                           for k, c in free_text_counts.items()}},
-                  {"max_share_of_tol": share_fwd["bfloat16"]}),
+                                           for k, c in free_text_counts.items()},
+                   "probe_training_cli": probe_counts["masked_attention_fwd_tc"],
+                   "export_best_synthesis": best_counts["masked_attention_fwd_tc"],
+                   "shipped_ler_cli": ler_counts},
+                  {"max_share_of_tol": share_fwd["bfloat16"],
+                   "launches_inside_probes": in_probes}),
         fwd_entry("masked_attention_fwd", "float32",
                   fp32_synthesis_counts["masked_attention_fwd"]
                   + fp32_step_counts["masked_attention_fwd"],
@@ -1558,8 +1886,10 @@ def main():
                    "fp32_train_step": fp32_step_counts["masked_attention_fwd"]},
                   {"max_share_of_tol": share_fwd["float32"]}),
         bwd_entry("masked_attention_bwd_dq_tc", "dq", "bfloat16",
-                  training_counts["masked_attention_bwd_dq_tc"],
-                  {"training": training_counts["masked_attention_bwd_dq_tc"]},
+                  training_counts["masked_attention_bwd_dq_tc"]
+                  + probe_counts["masked_attention_bwd_dq_tc"],
+                  {"training": training_counts["masked_attention_bwd_dq_tc"],
+                   "probe_training_cli": probe_counts["masked_attention_bwd_dq_tc"]},
                   {"max_share_of_tol": share_bwd["bfloat16"]["dq"],
                    "max_share_of_tol_delta": share_bwd["bfloat16"]["delta"]}),
         bwd_entry("masked_attention_bwd_dq", "dq", "float32",
@@ -1568,8 +1898,10 @@ def main():
                   {"max_share_of_tol": share_bwd["float32"]["dq"],
                    "max_share_of_tol_delta": share_bwd["float32"]["delta"]}),
         bwd_entry("masked_attention_bwd_dkv_tc", "dkv", "bfloat16",
-                  training_counts["masked_attention_bwd_dkv_tc"],
-                  {"training": training_counts["masked_attention_bwd_dkv_tc"]},
+                  training_counts["masked_attention_bwd_dkv_tc"]
+                  + probe_counts["masked_attention_bwd_dkv_tc"],
+                  {"training": training_counts["masked_attention_bwd_dkv_tc"],
+                   "probe_training_cli": probe_counts["masked_attention_bwd_dkv_tc"]},
                   {"max_share_of_tol": share_bwd["bfloat16"]["dkv"]}),
         bwd_entry("masked_attention_bwd_dkv", "dkv", "float32",
                   fp32_step_counts["masked_attention_bwd_dkv"],

@@ -43,6 +43,10 @@ def test_cli_imports_with_jax_blocked():
             "for name in ('jax', 'flax', 'optax', 'vaenar_tts_tpu'):\n"
             "    sys.modules[name] = None\n"
             "import vaenar_tts_torch.cli.inference\n"
+            "import vaenar_tts_torch.cli.preprocess\n"
+            "import vaenar_tts_torch.cli.train\n"
+            "import vaenar_tts_torch.training.probe\n"
+            "import vaenar_tts_torch.data.toy\n"
             "import vaenar_tts_torch.ops.flash_attention\n"
             "import vaenar_tts_torch.interop.weights\n"
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m] is not None]\n")

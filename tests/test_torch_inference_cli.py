@@ -14,6 +14,9 @@ tests/test_griffin_lim.py):
 * free-text ``--takes 3`` for both scores choosing the takes that the JAX
   CLI's selection code chooses on the same takes;
 * checkpoints before the export, and ``--ckpt_epoch``;
+* ``--dataset databaker`` on a tiny DataBaker model: free-text lines go
+  through the pinyin frontend, as the JAX CLI's ``DataBakerCorpus``
+  encodes them, and hanzi without ``pypinyin`` raise;
 * a plot asked for without matplotlib, and ``cuda`` without a card, raise.
 """
 
@@ -30,6 +33,7 @@ from scipy.io import wavfile
 
 from vaenar_tts_tpu.configs import apply_overrides, get_config
 from vaenar_tts_tpu.configs.serialize import hparams_to_dict, save_hparams
+from vaenar_tts_tpu.data.corpus import DataBakerCorpus as JaxDataBakerCorpus
 from vaenar_tts_tpu.models.vaenar import VAENAR as JaxVAENAR
 from vaenar_tts_tpu.training.steps import make_inference_step, plots_variant
 from vaenar_tts_tpu.utils import metrics as jax_metrics
@@ -258,3 +262,39 @@ def test_test_set_mode_without_a_card_raises(tiny, tmp_path):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         inference.main(["--dataset", "ljspeech", "--data_dir", str(records), "--model_dir",
                         model_dir, "--test_dir", str(tmp_path / "out"), "--write_wavs"])
+
+
+def test_databaker_free_text(tmp_path, capsys):
+    hp = apply_overrides(get_config("databaker"), TINY_OVERRIDES + AUDIO_OVERRIDES)
+    model_dir = str(tmp_path / "model")
+    params, stats = torch_to_jax(VAENAR(hparams_from_dict(hparams_to_dict(hp))))
+    rng = np.random.default_rng(12)
+    save_hparams(hp, model_dir)
+    save_npz(os.path.join(model_dir, "export.npz"),
+             {"params": randomize_model(params, rng), "batch_stats": randomize(stats, rng),
+              "epoch": EPOCH})
+    lines = ["ni3 hao3 shi4 jie4", "Ma1 MA1"]
+    port_hp = hparams_from_dict(hparams_to_dict(hp))
+    want = [JaxDataBakerCorpus(None, None, hp).text_to_array(line) for line in lines]
+    assert inference.encode_lines(port_hp, lines, "databaker") == want
+    # the English frontend would spell the tone digits out
+    assert inference.encode_lines(port_hp, lines) != want
+    text = tmp_path / "lines.txt"
+    text.write_text("\n".join(lines) + "\n")
+    argv = ["--dataset", "databaker", "--text", str(text), "--model_dir", model_dir,
+            "--test_dir", str(tmp_path / "out"), "--device", "cpu", "--no-draw_alignments"]
+    result, out = _run(argv, capsys)
+    assert "synthesized 2 line(s) on cpu" in out
+    assert [os.path.basename(p) for p in result["paths"]] == [f"test-{EPOCH}-0.npy",
+                                                             f"test-{EPOCH}-1.npy"]
+    for path in result["paths"]:
+        mel = np.load(path)
+        assert mel.shape[1] == 80 and mel.shape[0] >= 1 and np.isfinite(mel).all()
+        sr, wav = wavfile.read(path[:-4] + ".wav")
+        assert sr == 16000 and len(wav) == mel.shape[0] * hp.audio.frame_shift_sample
+    try:
+        import pypinyin  # noqa: F401
+    except ImportError:
+        text.write_text("你好\n")
+        with pytest.raises(ImportError, match="pypinyin"):
+            inference.main(argv)

@@ -3,10 +3,13 @@ init, data-dependent flow init, epoch-0 checkpoint, priming step) and one
 epoch of 2 steps, then a resume for one more epoch, then the export, which
 the port's synthesis (from a directory that holds only the export) and the
 JAX package's ``load_npz`` both load, with the weights of the epoch-2
-checkpoint."""
+checkpoint; ``--compute_dtype``; and a model directory of the JAX package
+(numbered Orbax directories without ``state.pt``), which ``load_model`` and
+the CLI refuse, naming it, without touching a file."""
 
 import json
 import os
+import re
 import shutil
 
 import numpy as np
@@ -19,6 +22,7 @@ from vaenar_tts_torch.cli import train as cli_train
 from vaenar_tts_torch.configs.hparams import HParams
 from vaenar_tts_torch.data.records import RecordShardWriter
 from vaenar_tts_torch.models.vaenar import load_model
+from vaenar_tts_torch.utils.checkpoint import ForeignCheckpointError
 from vaenar_tts_torch.utils.export import export_model_dir
 
 from test_torch_data import utterances
@@ -101,3 +105,43 @@ def test_cuda_without_a_card_raises(data_dir, tmp_path):
         cli_train.main(["--dataset", "ljspeech", "--data_dir", data_dir,
                         "--model_dir", str(tmp_path / "c"), "--log_dir",
                         str(tmp_path / "l")])
+
+
+def test_compute_dtype_flag(data_dir, tmp_path):
+    ckpt = tmp_path / "ckpt"
+    history = cli_train.main(
+        ["--dataset", "ljspeech", "--data_dir", data_dir, "--model_dir", str(ckpt),
+         "--log_dir", str(tmp_path / "logs"), "--device", "cpu", "--max_epochs", "0",
+         "--hparams", os.path.join(SHIPPED, "hparams.json"), "--compute_dtype", "float32"]
+        + [a for o in TRAIN_OVERRIDES for a in ("--override", o)])
+    assert history["epoch"] == 0 and history["initial"] is not None
+    with open(ckpt / "hparams.json") as f:
+        assert json.load(f)["train"]["compute_dtype"] == "float32"
+
+
+def _snapshot(root):
+    return {os.path.relpath(os.path.join(d, n), root): (os.path.getmtime(os.path.join(d, n)),
+                                                       open(os.path.join(d, n), "rb").read())
+            for d, _, names in os.walk(root) for n in names}
+
+
+def test_jax_model_dir_is_refused_untouched(data_dir, tmp_path):
+    """A model directory as the JAX package's training leaves it: Orbax
+    checkpoints ``0/`` and ``5/`` (no ``state.pt``) beside ``hparams.json``."""
+    jax_dir = tmp_path / "jax_model"
+    for epoch in ("0", "5"):
+        (jax_dir / epoch / "default").mkdir(parents=True)
+        (jax_dir / epoch / "_CHECKPOINT_METADATA").write_text("{}")
+        (jax_dir / epoch / "default" / "array_metadatas").write_bytes(b"\0" * 16)
+    shutil.copy(os.path.join(SHIPPED, "hparams.json"), jax_dir)
+    before = _snapshot(jax_dir)
+    named = re.escape(str(jax_dir))
+    with pytest.raises(ForeignCheckpointError, match=named):
+        load_model(str(jax_dir), device="cpu")
+    with pytest.raises(ForeignCheckpointError, match=named):
+        cli_train.main(["--dataset", "ljspeech", "--data_dir", data_dir, "--model_dir",
+                        str(jax_dir), "--log_dir", str(tmp_path / "logs"), "--device", "cpu",
+                        "--max_epochs", "1", "--steps_per_epoch", "1"])
+    assert _snapshot(jax_dir) == before
+    assert sorted(os.listdir(jax_dir)) == ["0", "5", "hparams.json"]
+    assert not (tmp_path / "logs").exists()

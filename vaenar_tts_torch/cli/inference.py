@@ -41,8 +41,10 @@ vocodes in chunks on the same choice of backend and prints the time to
 first audio. ``--device_vocoder`` names the default and changes nothing: it
 stands for the JAX CLI's ``--jax_vocoder``, whose name would be false here,
 so that the two CLIs take the same flags. Text and mel lengths
-are bucketed as the JAX CLI does them. Not ported yet: ``--neural_vocoder``
-and the DataBaker front end.
+are bucketed as the JAX CLI does them. Free-text lines go through the
+dataset's text frontend: English cleaners for ``ljspeech``, TONE3 pinyin
+(``text.pinyin.text_to_pinyin``; hanzi need ``pypinyin``) for
+``databaker``. Not ported yet: ``--neural_vocoder``.
 """
 
 from __future__ import annotations
@@ -57,10 +59,10 @@ import torch
 
 from ..audio.export import TestUtils, require_matplotlib
 from ..configs.hparams import HParams
+from ..data.corpus import CORPORA
 from ..data.loader import BucketedLoader
 from ..data.records import list_shards
 from ..models.vaenar import VAENAR, load_model, resolve_device
-from ..text.tokenizer import CharTokenizer
 from ..utils.metrics import alignment_diagonality, medoid_take
 
 # one take: (mels [B, T, num_mels], lengths [B], {"dec_<i>": [B, H, T_r, T_text]})
@@ -87,10 +89,11 @@ def resolve_length_source(source: str, hp: HParams) -> bool:
     return has_q
 
 
-def encode_lines(hp: HParams, lines: Sequence[str]) -> List[List[int]]:
-    """English cleaners + BOS/EOS character ids, one list per line."""
-    tokenizer = CharTokenizer(hp.text)
-    return [tokenizer.encode_english(line) for line in lines]
+def encode_lines(hp: HParams, lines: Sequence[str], dataset: str = "ljspeech") -> List[List[int]]:
+    """BOS + the dataset frontend's symbols + EOS as character ids, one list
+    per line (``data.corpus``'s ``text_to_array``)."""
+    corpus = CORPORA[dataset](None, None, hp)
+    return [corpus.text_to_array(line) for line in lines]
 
 
 def synthesize(model: VAENAR, hp: HParams, texts: np.ndarray, text_lens: np.ndarray,
@@ -298,7 +301,7 @@ def synthesize_from_text(args) -> Dict[str, list]:
         lines = [line.strip() for line in f if line.strip()]
     if not lines:
         raise SystemExit(f"no text lines in {args.text}")
-    token_ids = encode_lines(hp, lines)
+    token_ids = encode_lines(hp, lines, args.dataset)
     tester = TestUtils(hp, args.test_dir, device)
     takes = max(1, args.takes)
     temps = ([float(x) for x in args.takes_temperatures.split(",")]
@@ -340,8 +343,8 @@ def synthesize_from_text(args) -> Dict[str, list]:
 
 def main(argv=None):
     parser = argparse.ArgumentParser("Synthesis (PyTorch)")
-    # the text frontend: English cleaners and the LJSpeech character set
-    parser.add_argument("--dataset", type=str, required=True, choices=["ljspeech"])
+    # the text frontend of free-text lines: English cleaners, or pinyin
+    parser.add_argument("--dataset", type=str, required=True, choices=["ljspeech", "databaker"])
     parser.add_argument("--data_dir", type=str, default=None,
                         help="records directory: synthesize its test split (test-set mode)")
     parser.add_argument("--text", type=str, default=None,

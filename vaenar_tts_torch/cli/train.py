@@ -1,18 +1,28 @@
 """Training CLI (counterpart of ``vaenar_tts_tpu/cli/train.py``,
 single process):
 
-    python -m vaenar_tts_torch.cli.train --dataset ljspeech \\
+    python -m vaenar_tts_torch.cli.train --dataset ljspeech|databaker \\
         --data_dir RECORDS --model_dir CKPT --log_dir LOGS \\
         [--hparams artifacts/toyv2_q90/ckpt/hparams.json] \\
-        [--max_epochs N] [--steps_per_epoch N] [--override key.path=value]
+        [--max_epochs N] [--steps_per_epoch N] [--compute_dtype float32|bfloat16] \\
+        [--override key.path=value] \\
+        [--probe toy_ler|dev_mcd --probe_every N [--stop_probe X]]
 
 ``RECORDS`` holds ``train-*.vrs`` and ``dev-*.vrs`` shards
-(``data/records.py``). When ``CKPT`` already holds a checkpoint, its
+(``cli.preprocess``). When ``CKPT`` already holds a checkpoint, its
 ``hparams.json`` is the config and the run resumes; otherwise the config is
-``--hparams`` or the dataset's defaults, then the overrides. Runs on
-``cuda`` unless ``--device cpu``. ``utils.export.export_model_dir`` turns
-the result into the ``export.npz`` that inference (the port's or the JAX
-package's) loads.
+``--hparams`` or the dataset's preset, then ``--compute_dtype``, then the
+overrides. A ``CKPT`` that holds another writer's numbered checkpoints (the
+JAX package's Orbax ones) is refused before anything is written.
+
+``--probe`` runs a product-metric probe (``training/probe.py``) every
+``--probe_every`` epochs, writing its jsonl history and the best probed
+weights (``export_best.npz``) to the directory above ``CKPT``: ``toy_ler``
+transcribes held-out toy-v2 texts, ``dev_mcd`` scores the first dev
+utterances by DTW-aligned MCD. ``--stop_probe X`` ends the run once the
+probe's metric is at or under X. Runs on ``cuda`` unless ``--device cpu``.
+``utils.export.export_model_dir`` turns the result into the ``export.npz``
+that inference (the port's or the JAX package's) loads.
 """
 
 from __future__ import annotations
@@ -21,15 +31,16 @@ import argparse
 import json
 import os
 
-from ..configs.hparams import HParams
+from ..configs.hparams import get_config
 from ..configs.overrides import apply_overrides
 from ..configs.serialize import hparams_from_dict, load_hparams
 from ..training.loop import train
+from ..utils.checkpoint import checkpoint_epochs
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser("Training (PyTorch)")
-    parser.add_argument("--dataset", type=str, required=True, choices=["ljspeech"])
+    parser.add_argument("--dataset", type=str, required=True, choices=["ljspeech", "databaker"])
     parser.add_argument("--data_dir", type=str, required=True,
                         help="record shard directory")
     parser.add_argument("--model_dir", type=str, required=True,
@@ -37,34 +48,64 @@ def main(argv=None):
     parser.add_argument("--log_dir", type=str, required=True)
     parser.add_argument("--hparams", type=str, default=None,
                         help="hparams.json to start a new run from, in place "
-                             "of the dataset's defaults")
+                             "of the dataset's preset")
     parser.add_argument("--max_epochs", type=int, default=None,
                         help="run through epoch N inclusive")
     parser.add_argument("--steps_per_epoch", type=int, default=None,
                         help="cut each epoch to N steps")
     parser.add_argument("--log_every", type=int, default=50,
                         help="print a train step's losses every N steps")
+    parser.add_argument("--compute_dtype", type=str, default=None,
+                        choices=["float32", "bfloat16"],
+                        help="the transformer stacks' dtype (train.compute_dtype)")
     parser.add_argument("--override", action="append", default=[],
                         metavar="key.path=value",
                         help="config override, e.g. prior.n_blk=12 (repeatable)")
+    parser.add_argument("--probe", type=str, default="none",
+                        choices=["none", "dev_mcd", "toy_ler"],
+                        help="in-training product-metric probe: 'toy_ler' transcribes "
+                             "held-out toy-v2 free text (toy corpus only), 'dev_mcd' "
+                             "scores dev utterances by DTW-MCD and decoder diagonality; "
+                             "each improving probe also writes export_best.npz")
+    parser.add_argument("--probe_every", type=int, default=50,
+                        help="probe cadence in epochs (with --probe)")
+    parser.add_argument("--stop_probe", type=float, default=0.0,
+                        help="stop when the probe's metric (toy_ler: LER; dev_mcd: "
+                             "MCD-DTW dB) is at or under this (0: never)")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
     args = parser.parse_args(argv)
 
+    # one check for the CLI and the loop: a foreign directory raises here
+    epochs = checkpoint_epochs(args.model_dir)
     saved = load_hparams(args.model_dir) if os.path.isdir(args.model_dir) else None
-    has_ckpt = saved is not None and any(e.isdigit() for e in os.listdir(args.model_dir))
-    if has_ckpt:
+    if saved is not None and epochs:
         hp = saved
         print(f"Resuming with persisted hparams.json from {args.model_dir}")
     elif args.hparams:
         with open(args.hparams) as f:
             hp = hparams_from_dict(json.load(f))
     else:
-        hp = HParams()
+        hp = get_config(args.dataset)
+    if args.compute_dtype:
+        hp = apply_overrides(hp, [f"train.compute_dtype={args.compute_dtype}"])
     hp = apply_overrides(hp, args.override)
+
+    probe = None
+    if args.probe != "none":
+        from ..training.probe import make_dev_mcd_probe, make_toy_ler_probe, with_early_stop
+        probe_dir = os.path.dirname(os.path.abspath(args.model_dir))
+        if args.probe == "dev_mcd":
+            probe, metric = make_dev_mcd_probe(hp, args.data_dir, probe_dir), "probe_mcd_dtw"
+        else:
+            probe, metric = make_toy_ler_probe(hp, probe_dir), "probe_ler"
+        if args.stop_probe > 0:
+            probe = with_early_stop(probe, metric, args.stop_probe, probe_dir)
+
     os.makedirs(args.model_dir, exist_ok=True)
     return train(hp, args.data_dir, args.model_dir, args.log_dir,
                  max_epochs=args.max_epochs, steps_per_epoch=args.steps_per_epoch,
-                 log_every=args.log_every, device=args.device)
+                 log_every=args.log_every, device=args.device, probe=probe,
+                 probe_every=args.probe_every)
 
 
 if __name__ == "__main__":

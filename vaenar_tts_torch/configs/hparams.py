@@ -3,14 +3,17 @@
 Frozen dataclasses with the field names and defaults of the JAX package,
 holding only the fields that the port's synthesis, vocoder and training
 read: a ``hparams.json`` written by JAX training loads unchanged, and the
-rest of it (MFCC settings, the TPU knobs, test-interval and probe settings)
-is ignored. ``train.compute_dtype`` ("bfloat16", the default, or
-"float32") is the transformer stacks' dtype, as in the JAX package; the
-flow stays fp32 (``models/vaenar.py``).
+rest of it (MFCC settings, the TPU knobs, test-interval settings) is
+ignored. The two presets are ``LJSpeechConfig`` and ``DataBakerConfig``
+(16 kHz Mandarin pinyin); ``get_config`` looks one up by its CLI name.
+``train.compute_dtype`` ("bfloat16", the default, or "float32") is the
+transformer stacks' dtype, as in the JAX package; the flow stays fp32
+(``models/vaenar.py``).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
@@ -64,6 +67,9 @@ class TrainConfig:
 
 @dataclass(frozen=True)
 class DatasetConfig:
+    record_split: int = 8  # train shards written by preprocessing
+    dev_set_rate: float = 0.01
+    test_set_rate: float = 0.01
     mel_bucket: int = 120  # multiple of lcm(2,3,4,5)=60 so every r divides it
     text_bucket: int = 32
 
@@ -171,6 +177,7 @@ class LengthPredictorConfig:
 
 @dataclass(frozen=True)
 class HParams:
+    name: str = "ljspeech"
     train: TrainConfig = field(default_factory=TrainConfig)
     dataset: DatasetConfig = field(default_factory=DatasetConfig)
     text: TextConfig = field(default_factory=TextConfig)
@@ -182,3 +189,34 @@ class HParams:
     prior: PriorConfig = field(default_factory=PriorConfig)
     length_predictor: LengthPredictorConfig = field(
         default_factory=LengthPredictorConfig)
+
+
+def LJSpeechConfig() -> HParams:
+    """The LJSpeech preset: the defaults."""
+    return HParams(name="ljspeech")
+
+
+def DataBakerConfig() -> HParams:
+    """The DataBaker Mandarin preset: 16 kHz audio, 800-sample windows and
+    200-sample hops, a pinyin character set of 39 symbols."""
+    return HParams(
+        name="databaker",
+        train=TrainConfig(random_seed=12),
+        text=TextConfig(characters="_^~abcdefghijklmnopqrstuvwxyz12345,./- "),
+        audio=AudioConfig(sample_rate=16000, frame_length_sample=800,
+                          frame_shift_sample=200, min_level_db=-115.0),
+        common=CommonConfig(mel_text_len_ratio=4.21),
+        encoder=EncoderConfig(vocab_size=39),
+    )
+
+
+_PRESETS = {"ljspeech": LJSpeechConfig, "databaker": DataBakerConfig}
+
+
+def get_config(name: str, **overrides) -> HParams:
+    """The preset of a CLI dataset name, with top-level fields replaced by
+    ``overrides``."""
+    if name not in _PRESETS:
+        raise KeyError(f"unknown dataset preset {name!r}; choices: {sorted(_PRESETS)}")
+    hp = _PRESETS[name]()
+    return dataclasses.replace(hp, **overrides) if overrides else hp

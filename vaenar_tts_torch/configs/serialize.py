@@ -22,6 +22,9 @@ def hparams_from_dict(d: dict) -> HParams:
     for f in dataclasses.fields(HParams):
         if f.name not in d:
             continue
+        if f.default_factory is dataclasses.MISSING:  # a plain field: the name
+            kwargs[f.name] = d[f.name]
+            continue
         sub, section = f.default_factory, d[f.name]
         kwargs[f.name] = sub(**{
             sf.name: tuple(section[sf.name]) if isinstance(section[sf.name], list)

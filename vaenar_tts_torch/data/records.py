@@ -8,6 +8,8 @@ port's numpy copy of the ``.vrs`` format of
 The JSON header carries the fids and each utterance's offsets and lengths,
 so a reader memory-maps the two blobs and slices an utterance in O(1).
 Shards are ``{mode}-{i}.vrs`` and are listed by file-name prefix.
+``RecordWriter`` writes a preprocessed directory's train, dev and test
+shards from its per-utterance ``texts/`` and ``mels/`` files.
 """
 
 from __future__ import annotations
@@ -16,7 +18,7 @@ import json
 import os
 import shutil
 from dataclasses import dataclass
-from typing import List
+from typing import Dict, List, Tuple
 
 import numpy as np
 
@@ -135,6 +137,59 @@ class RecordShardReader:
         return Utterance(fid=self.fids[i],
                          text=np.asarray(self._text_blob[to:to + tl]),
                          mel=np.asarray(self._mel_blob[mo:mo + ml], np.float32))
+
+
+class RecordWriter:
+    """The train, dev and test shards of a preprocessed directory: the
+    fids of ``data_dir/{mode}.txt``, their ``texts/<fid>.npy`` and
+    ``mels/<fid>.npy``; train is dealt round-robin over ``train_split``
+    shards, dev and test go to one shard each."""
+
+    def __init__(self, data_dir: str, save_dir: str, train_split: int = 8,
+                 num_mels: int = 80, mel_dtype: str = "float32"):
+        self.data_dir = data_dir
+        self.save_dir = save_dir
+        self.train_split = train_split
+        self.num_mels = num_mels
+        self.mel_dtype = mel_dtype
+
+    def _parse_fids(self, mode: str) -> List[str]:
+        with open(os.path.join(self.data_dir, f"{mode}.txt")) as f:
+            return [line.strip() for line in f if line.strip()]
+
+    def _get_features(self, fid: str) -> Tuple[np.ndarray, np.ndarray]:
+        text = np.load(os.path.join(self.data_dir, "texts", f"{fid}.npy"))
+        mel = np.load(os.path.join(self.data_dir, "mels", f"{fid}.npy"))
+        return text, mel
+
+    def write(self, mode: str = "train", worker_index: int = 0,
+              worker_count: int = 1) -> List[str]:
+        """Write this mode's shards and return their paths. With
+        ``worker_count`` > 1 this worker writes only the train shards
+        ``worker_index::worker_count``; dev and test fall to worker 0."""
+        os.makedirs(self.save_dir, exist_ok=True)
+        fids = self._parse_fids(mode)
+        if mode == "train":
+            split_fids = list(enumerate(
+                fids[i::self.train_split] for i in range(self.train_split)))
+            if worker_count > 1:
+                split_fids = split_fids[worker_index::worker_count]
+        else:
+            split_fids = [(0, fids)] if worker_index == 0 else []
+        paths = []
+        for i, ids in split_fids:
+            path = os.path.join(self.save_dir, f"{mode}-{i}.vrs")
+            w = RecordShardWriter(path, self.num_mels, self.mel_dtype)
+            for fid in ids:
+                w.add(fid, *self._get_features(fid))
+            w.close()
+            paths.append(path)
+        return paths
+
+    def write_all(self, worker_index: int = 0,
+                  worker_count: int = 1) -> Dict[str, List[str]]:
+        return {mode: self.write(mode, worker_index, worker_count)
+                for mode in ("train", "dev", "test")}
 
 
 def list_shards(save_dir: str, mode: str) -> List[str]:

@@ -9,12 +9,19 @@ single process):
   seeded generator (so a resumed run draws what an uninterrupted one would);
   ``steps_per_epoch`` cuts an epoch short;
 * the dev loss after each epoch, weighted by real utterances;
-* a checkpoint every ``checkpoint_every_n_epochs`` and after the last epoch.
+* a checkpoint every ``checkpoint_every_n_epochs`` and after the last epoch;
+* an optional product-metric probe (``training/probe.py``) every
+  ``probe_every`` epochs from ``probe_start`` on, run after that epoch's
+  checkpoint (a probed epoch is always checkpointed, so that it can be
+  selected); a probe that asks for ``stop_training`` ends the run after its
+  epoch, and a probe that raises is printed and does not end the run.
 
-Metrics go to stdout and, one JSON line per epoch and split, to
-``log_dir/metrics.jsonl``. Left out of the port so far: the device data
-cache, probes, test-interval wavs and plots, SIGTERM handling and
-multi-process training.
+Metrics go to stdout and, one JSON line per epoch and split (``train``,
+``dev``, ``probe``), to ``log_dir/metrics.jsonl``. A model directory that
+holds another writer's numbered checkpoints is refused before anything is
+written (``utils.checkpoint.checkpoint_epochs``). Left out of the port so
+far: the device data cache, test-interval wavs and plots, SIGTERM handling,
+logging to tensorboard, prefetching and multi-process training.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ from __future__ import annotations
 import json
 import os
 import time
-from typing import Dict, Optional
+from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
@@ -32,7 +39,7 @@ from ..configs.serialize import save_hparams
 from ..data.loader import Batch, BucketedLoader
 from ..data.records import list_shards
 from ..models.vaenar import resolve_device
-from ..utils.checkpoint import CheckpointManager
+from ..utils.checkpoint import CheckpointManager, checkpoint_epochs
 from .steps import (dev_step, init_model, make_optimizer, metric_floats,
                     run_data_dependent_init, train_step)
 
@@ -74,11 +81,15 @@ def _log(log_dir: str, record: dict) -> None:
 def train(hp: HParams, data_dir: str, model_dir: str, log_dir: str,
           max_epochs: Optional[int] = None,
           steps_per_epoch: Optional[int] = None, log_every: int = 50,
-          device="cuda") -> Dict[str, object]:
+          device="cuda", probe: Optional[Callable] = None, probe_every: int = 0,
+          probe_start: int = 0) -> Dict[str, object]:
     """Run or resume training. ``max_epochs`` is inclusive ("run through
-    epoch N"); without it the run ends before ``hp.train.epochs``. Returns
+    epoch N"); without it the run ends before ``hp.train.epochs``.
+    ``probe(epoch, model) -> dict or None`` runs after the checkpoint of
+    every ``probe_every``-th epoch from ``probe_start`` on. Returns
     {"epoch": last epoch, "initial": the priming step's metrics or None,
-    "train": {epoch: averages}, "dev": {epoch: averages}}."""
+    "train", "dev", "probe": {epoch: metrics}}."""
+    checkpoint_epochs(model_dir)  # a foreign directory raises before any write
     dev = resolve_device(device)
     os.makedirs(log_dir, exist_ok=True)
     train_loader, dev_loader = make_loaders(hp, data_dir)
@@ -94,7 +105,7 @@ def train(hp: HParams, data_dir: str, model_dir: str, log_dir: str,
     # written after the restore attempt, so that a resume that fails on a
     # mismatched architecture leaves the trained one's hparams.json alone
     save_hparams(hp, model_dir)
-    history: Dict[str, object] = {"initial": None, "train": {}, "dev": {}}
+    history: Dict[str, object] = {"initial": None, "train": {}, "dev": {}, "probe": {}}
     if start is not None:
         print(f"Restored from epoch {start}")
     else:
@@ -151,7 +162,26 @@ def train(hp: HParams, data_dir: str, model_dir: str, log_dir: str,
         _log(log_dir, {"epoch": epoch, "split": "train", **train_avg})
         _log(log_dir, {"epoch": epoch, "split": "dev", **dev_avg})
 
-        if epoch % hp.train.checkpoint_every_n_epochs == 0 or epoch == total_epochs - 1:
+        saved = epoch % hp.train.checkpoint_every_n_epochs == 0 or epoch == total_epochs - 1
+        if saved:
             ckpt.save(epoch, model, optimizer)
+        if (probe is not None and probe_every > 0 and epoch >= probe_start
+                and epoch % probe_every == 0):
+            if not saved:  # a probed epoch is a checkpoint to select from
+                ckpt.save(epoch, model, optimizer)
+            stop = False
+            try:
+                scalars = probe(epoch, model)
+                if scalars:
+                    stop = bool(scalars.pop("stop_training", False))
+                    print(f"Epoch {epoch} probe: " + ", ".join(
+                        f"{k} {v:.4f}" for k, v in scalars.items()))
+                    history["probe"][epoch] = scalars
+                    _log(log_dir, {"epoch": epoch, "split": "probe", **scalars})
+            except Exception as e:  # a probe never ends the run
+                print(f"probe failed at epoch {epoch}: {e!r}")
+            if stop:
+                print(f"stopping after epoch {epoch}: probe requested early stop")
+                break
     history["epoch"] = epoch
     return history

@@ -6,7 +6,14 @@ retention contract: the newest ``max_to_keep`` checkpoints stay, and of the
 older ones a checkpoint also stays when it was saved at least
 ``keep_every_n_hours`` after the last older one that stayed. Directories are
 named by the epoch alone, as the training CLI's resume check expects; a save
-goes to ``<epoch>.tmp`` first and is renamed into place.
+goes to ``<epoch>.tmp`` first and is renamed into place, and a directory is
+renamed away before it is deleted, so every numbered directory holds its
+``state.pt``.
+
+A numbered directory without ``state.pt`` is another writer's checkpoint
+(the JAX package's Orbax checkpoints are ``model_dir/<epoch>/`` too):
+``checkpoint_epochs`` raises ``ForeignCheckpointError`` on such a directory
+rather than read past it or overwrite it.
 """
 
 from __future__ import annotations
@@ -20,18 +27,51 @@ import torch
 STATE_NAME = "state.pt"
 
 
+class ForeignCheckpointError(RuntimeError):
+    """A model directory holds checkpoints that this package did not write."""
+
+
+def checkpoint_epochs(model_dir: str) -> List[int]:
+    """The sorted epochs of the checkpoints in ``model_dir`` (none if it
+    does not exist). Raises ``ForeignCheckpointError``, naming the
+    directory, when a numbered directory in it holds no ``state.pt``."""
+    if not os.path.isdir(model_dir):
+        return []
+    numbered = sorted((e for e in os.listdir(model_dir)
+                       if e.isdigit() and os.path.isdir(os.path.join(model_dir, e))), key=int)
+    foreign = [e for e in numbered
+               if not os.path.isfile(os.path.join(model_dir, e, STATE_NAME))]
+    if foreign:
+        raise ForeignCheckpointError(
+            f"{os.path.abspath(model_dir)} holds epoch directories {foreign} without "
+            f"{STATE_NAME}: they are not checkpoints of vaenar_tts_torch (an Orbax "
+            f"checkpoint of the JAX package?). Nothing was read or written there; "
+            f"export the JAX model to export.npz in a directory of its own, or use "
+            f"another model directory.")
+    return [int(e) for e in numbered]
+
+
+def _remove_dir(path: str) -> None:
+    """Rename ``path`` away, then delete it: an interrupted delete leaves
+    no numbered directory without its state."""
+    if os.path.isdir(path):
+        gone = path + ".del"
+        shutil.rmtree(gone, ignore_errors=True)
+        os.replace(path, gone)
+        shutil.rmtree(gone)
+
+
 class CheckpointManager:
     def __init__(self, model_dir: str, max_to_keep: int = 20,
                  keep_every_n_hours: float = 4.0):
         self.model_dir = os.path.abspath(model_dir)
         self.max_to_keep = max_to_keep
         self.keep_seconds = keep_every_n_hours * 3600.0
+        checkpoint_epochs(self.model_dir)  # refuses a foreign directory first
         os.makedirs(self.model_dir, exist_ok=True)
 
     def epochs(self) -> List[int]:
-        return sorted(int(e) for e in os.listdir(self.model_dir)
-                      if e.isdigit() and os.path.isfile(
-                          os.path.join(self.model_dir, e, STATE_NAME)))
+        return checkpoint_epochs(self.model_dir)
 
     def latest_epoch(self) -> Optional[int]:
         epochs = self.epochs()
@@ -46,7 +86,7 @@ class CheckpointManager:
         torch.save({"model": model.state_dict(),
                     "optimizer": optimizer.state_dict() if optimizer else None,
                     "epoch": int(epoch)}, os.path.join(tmp, STATE_NAME))
-        shutil.rmtree(final, ignore_errors=True)
+        _remove_dir(final)
         os.replace(tmp, final)
         self._prune()
         return final
@@ -60,7 +100,7 @@ class CheckpointManager:
             if kept_time is None or saved - kept_time >= self.keep_seconds:
                 kept_time = saved
                 continue
-            shutil.rmtree(path)
+            _remove_dir(path)
 
     def restore(self, model: torch.nn.Module,
                 optimizer: Optional[torch.optim.Optimizer] = None,

@@ -90,7 +90,32 @@ dK/dV kernel reads: a backward launches those two kernels and nothing else.
    4 sample seeds, transcribed by the port's ToyLetterDecoder, beside the
    JAX package's 0.257 and 0.236 at epoch 1700; the decoder's floor on
    procedural renders must read 0.077 and the 1-take mean stay at or below
-   0.40.
+   0.40;
+14. the rest of the training loop (bf16, shipped config, the toy-v2
+   ranges' records with a test split of 8): `cli.train` with
+   `--test_dir`, `train.test_interval=1` and `--no-draw_plots`, the device
+   data cache on and then off: test wavs from the card's Griffin-Lim of
+   mel length * hop samples, finite test_mel_l1/l2/mcd_db in
+   logs/dev/metrics.jsonl, train.log, the predicted launches, and the two
+   runs' losses against each other; each run resumed for 2 epochs under
+   torch.profiler, for its host-to-device copies; then SIGTERM: cli.train
+   in a subprocess, signalled after epoch 2's first step line, must exit
+   0 with the checkpoints of epochs 0 and 1 only, and resumed to epoch 3
+   match an uninterrupted run's dev losses;
+15. remat "on" and "dots" against "off" at fp32 (batch 4, r = 2, dropout
+   on, one generator state: loss and every gradient within the card-vs-CPU
+   step's tolerances, twice the forward launches) and at bf16, batch 32
+   (peak memory, step time, launches); prior.batched_lu on against off
+   (the prior's fp32 log-probability, and the bf16 step's time);
+16. the neural vocoder: `cli.train_vocoder --toy --toy_version 2` at the
+   full VocoderConfig in fp32 and bf16 (the loss must fall), its fp32
+   forward card against CPU, `vocode` of the 4 synthesized lines beside
+   Griffin-Lim on the same mels (device ms), `cli.inference
+   --neural_vocoder` over the test split (wavs of max(length - 1, 1) * hop
+   samples) and `cli.train --neural_vocoder` (its test wavs);
+17. a torch.profiler trace (utils/profiling.profile_trace) of one bf16
+   synthesis call: device busy share, launches, top device operations
+   (run after the times of 10.).
 
 Each phase prints a JSON line {"phase": ..., "seconds": ...} first. A failed
 check raises; the script then exits non-zero without printing the final
@@ -239,6 +264,37 @@ DATABAKER_LABELS = [
 LER_TEXTS, LER_SEEDS = 16, (0, 1, 2, 3)
 LER_FLOOR = 0.077
 LER_CEILING = 0.40
+# the training loop's phases: a test split of N_LOOP_TEST (one test batch
+# at the shipped test_batch_size); a cache cap above the ~15 MB that the
+# train and dev splits take on the card; the cache's losses against the
+# uncached run's, and a resumed run's dev losses against an uninterrupted
+# one's, within TOL_CACHE_REL (3 steps) and TOL_RESUME_REL (9 steps)
+# relative: the same ops on the same inputs, so exact unless a library
+# reduction's order changes between runs (cuDNN may pick an algorithm that
+# sums with atomics); a changed order flips bf16 roundings of 2^-8, which
+# Adam carries into the next steps
+N_LOOP_TEST = 8
+LOOP_CACHE_MB = 64
+TOL_CACHE_REL = 1e-3
+TOL_RESUME_REL = 1e-2
+# SIGTERM: 4 train batches of 32, so that epoch 2 has steps after the one
+# whose line triggers the signal; the child is killed after this long
+N_SIGTERM_TRAIN = 128
+SIGTERM_TIMEOUT_S = 400
+# remat and batched_lu: timed steps per mode; the prior's log-probability
+# with one batched LU against per-layer slogdet and inverse, fp32, relative
+REMAT_REPS = 5
+TOL_LU_REL = 1e-5
+# the neural vocoder: toy-v2 utterances and steps of each training run, the
+# last logged loss at most VOC_LOSS_DROP of the first (the PERF.md
+# prediction), and the fp32 forward on the card against the CPU's within
+# TOL_VOC_CARD_CPU of the largest element, over the first
+# VOC_CARD_CPU_FRAMES frames of the shipped lines' mels (fp32 convolutions
+# and GEMMs summed in another order; TF32 is off)
+VOC_UTTS, VOC_STEPS, VOC_LOG_EVERY = 32, 300, 50
+VOC_LOSS_DROP = 0.9
+VOC_CARD_CPU_FRAMES = 480
+TOL_VOC_CARD_CPU = 1e-4
 T0 = time.perf_counter()
 
 
@@ -1318,6 +1374,466 @@ def shipped_ler_phase(torch, np, fa, tmp, model_dir, hp, device, smi, n_attn):
     return counts_by_key
 
 
+def loop_records(tmp):
+    """Records for the loop's phases: N_TRAIN train and N_DEV dev
+    utterances in the toy-v2 ranges (one padded train batch shape at the
+    shipped buckets) and a test split of N_LOOP_TEST."""
+    records = os.path.join(tmp, "loop_records")
+    os.makedirs(records)
+    write_records(records, seed=2030,
+                  splits=(("train", N_TRAIN), ("dev", N_DEV), ("test", N_LOOP_TEST)))
+    return records
+
+
+def test_wav_lengths(np, wavfile, test_dir, records, hop, neural):
+    """{fid: (mel length, wav samples)} of the test artifacts' wavs of epoch
+    1, and whether each has Griffin-Lim's mel length · hop samples or, with
+    ``neural``, the ISTFT head's max(mel length - 1, 1) · hop."""
+    from vaenar_tts_torch.data.records import RecordShardReader, list_shards
+    lens = {}
+    for path in list_shards(records, "test"):
+        reader = RecordShardReader(path)
+        for i in range(len(reader)):
+            u = reader.get(i)
+            lens[u.fid] = u.mel_len
+    out = {}
+    for fid, n in lens.items():
+        wav_path = os.path.join(test_dir, f"test-1-{fid}.wav")
+        samples = len(wavfile.read(wav_path)[1]) if os.path.isfile(wav_path) else -1
+        want = (max(n - 1, 1) if neural else n) * hop
+        out[fid] = (n, samples, samples == want)
+    return out
+
+
+def h2d_copies(prof):
+    """(copies, device ms) of the host-to-device memcpys in a profile."""
+    rows = [e for e in prof.key_averages() if "Memcpy HtoD" in e.key]
+    return (sum(e.count for e in rows),
+            sum(e.self_device_time_total for e in rows) / 1e3)
+
+
+def loop_phase(torch, np, fa, wavfile, tmp, records, device, smi, hop, init_pass, per_step,
+               n_attn):
+    """``cli.train`` (bf16, shipped config) with the test-interval artifacts
+    every epoch and the device data cache on, then off: 1 epoch of 2 steps
+    from a cold start each; test wavs from the device Griffin-Lim, finite
+    test metrics in dev/metrics.jsonl, the predicted launches, and the two
+    runs' losses against each other. Then each run resumed for 2 more epochs
+    under torch.profiler: its host-to-device copies. Returns {path:
+    launches}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vaenar_tts_torch.cli import train as cli_train
+    phase("loop_test_artifacts")
+    paths, runs, copies = {}, {}, {}
+    n_dev = -(-N_DEV // 32)
+    expected = {"masked_attention_fwd_tc": init_pass + per_step * (3 + n_dev) + n_attn,
+                "masked_attention_bwd_dq_tc": per_step * 3,
+                "masked_attention_bwd_dkv_tc": per_step * 3}
+    expected_resume = {"masked_attention_fwd_tc": per_step * 2 * (2 + n_dev),
+                       "masked_attention_bwd_dq_tc": per_step * 4,
+                       "masked_attention_bwd_dkv_tc": per_step * 4}
+    for name, cache_mb in (("cache", LOOP_CACHE_MB), ("no_cache", 0)):
+        root = os.path.join(tmp, f"loop_{name}")
+        common = ["--dataset", "ljspeech", "--data_dir", records,
+                  "--model_dir", os.path.join(root, "ckpt"), "--log_dir", os.path.join(root, "logs"),
+                  "--test_dir", os.path.join(root, "test"), "--device", device,
+                  "--steps_per_epoch", "2", "--no-draw_plots"]
+        fa.launch_counts.clear()
+        history, text = run_cli(cli_train.main, common + [
+            "--hparams", os.path.join(MODEL_DIR, "hparams.json"), "--max_epochs", "1",
+            "--override", "train.test_interval=1",
+            "--override", f"train.device_data_cache_mb={cache_mb}"])
+        torch.cuda.synchronize()
+        counts = dict(fa.launch_counts)
+        with open(os.path.join(root, "logs", "dev", "metrics.jsonl")) as f:
+            dev_rows = [json.loads(line) for line in f]
+        wavs = test_wav_lengths(np, wavfile, os.path.join(root, "test"), records, hop, False)
+        runs[name] = {"history": history, "launches": counts, "dev_rows": dev_rows,
+                      "wavs": wavs, "cache_line": [l for l in text.splitlines()
+                                                   if l.startswith("device data cache")]}
+        check(history["cache"] == (cache_mb > 0), f"{name}: cache {history['cache']}")
+        check(counts == expected, f"{name}: launches {counts} != {expected}")
+        check(len(wavs) == N_LOOP_TEST and all(ok for _, _, ok in wavs.values()),
+              f"{name}: test wavs {wavs}")
+        test_row = [r for r in dev_rows if "test_mel_l1" in r]
+        check(len(test_row) == 1 and all(math.isfinite(test_row[0][k])
+                                         for k in ("test_mel_l1", "test_mel_l2", "test_mcd_db")),
+              f"{name}: dev metrics {dev_rows}")
+        check(os.path.isfile(os.path.join(root, "logs", "train.log")), "no train.log")
+        paths[f"loop_{name}"] = counts
+        # two more epochs, resumed, under the profiler: the copies an epoch
+        fa.launch_counts.clear()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            run_cli(cli_train.main, common + ["--max_epochs", "3",
+                                              "--override", "train.test_interval=1000"])
+            torch.cuda.synchronize()
+        resume_counts = dict(fa.launch_counts)
+        check(resume_counts == expected_resume,
+              f"{name} resume: launches {resume_counts} != {expected_resume}")
+        paths[f"loop_{name}_resume_profiled"] = resume_counts
+        copies[name] = h2d_copies(prof)
+    a, b = runs["cache"]["history"], runs["no_cache"]["history"]
+    pairs = [(a["initial"], b["initial"])] + [(a[s][1], b[s][1]) for s in ("train", "dev")]
+    rel = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30) for x, y in pairs for k in y)
+    print(json.dumps({"card": smi, "runs": runs, "losses_equal_exactly": rel == 0.0,
+                      "max_rel_diff_cache_vs_no_cache": rel,
+                      "h2d_copies_two_resumed_epochs": {
+                          k: {"copies": c, "device_ms": ms} for k, (c, ms) in copies.items()},
+                      "h2d_copies_saved_per_epoch": (copies["no_cache"][0]
+                                                     - copies["cache"][0]) / 2}), flush=True)
+    check(rel <= TOL_CACHE_REL, f"cache on against off: losses differ by {rel} relative")
+    return paths
+
+
+def sigterm_phase(torch, fa, tmp, device, smi, init_pass, per_step):
+    """``cli.train`` (bf16, shipped config: epoch 1 is not a checkpoint
+    epoch) in a subprocess, SIGTERM after epoch 2's first step line: exit 0,
+    the epoch-1 checkpoint and no other new one; then resumed to epoch 3 and
+    held against an uninterrupted run to epoch 3. Returns {path:
+    launches} of the two in-process runs."""
+    import signal
+    import threading
+
+    from vaenar_tts_torch.cli import train as cli_train
+    from vaenar_tts_torch.utils.checkpoint import checkpoint_epochs
+    phase("sigterm")
+    records = os.path.join(tmp, "sigterm_records")
+    os.makedirs(records)
+    write_records(records, seed=2031, splits=(("train", N_SIGTERM_TRAIN), ("dev", N_DEV)))
+    steps_per_epoch = N_SIGTERM_TRAIN // 32
+
+    def argv(name, *extra):
+        return ["--dataset", "ljspeech", "--data_dir", records,
+                "--model_dir", os.path.join(tmp, name, "ckpt"),
+                "--log_dir", os.path.join(tmp, name, "logs"), "--device", device,
+                "--hparams", os.path.join(MODEL_DIR, "hparams.json"), "--max_epochs", "3",
+                "--steps_per_epoch", str(steps_per_epoch), "--log_every", "1", *extra]
+
+    proc = subprocess.Popen([sys.executable, "-m", "vaenar_tts_torch.cli.train", *argv("cut")],
+                            cwd=HERE, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, env=dict(os.environ, PYTHONUNBUFFERED="1"))
+    watchdog = threading.Timer(SIGTERM_TIMEOUT_S, proc.kill)
+    watchdog.start()
+    lines, sent_after, epoch2 = [], None, False
+    try:
+        for line in proc.stdout:
+            lines.append(line.rstrip("\n"))
+            if line.startswith("Epoch 2:"):
+                epoch2 = True
+            elif epoch2 and sent_after is None and line.strip().startswith("step 1:"):
+                proc.send_signal(signal.SIGTERM)
+                sent_after = line.strip()
+        rc = proc.wait(timeout=60)
+    finally:
+        watchdog.cancel()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    cut_dir = os.path.join(tmp, "cut", "ckpt")
+    epochs_after_cut = checkpoint_epochs(cut_dir)
+    tail = [l for l in lines if "preemption" in l or "SIGTERM" in l or "step" in l][-8:]
+    print(json.dumps({"card": smi, "return_code": rc, "signal_after": sent_after,
+                      "checkpoints_after_signal": epochs_after_cut, "lines": tail}), flush=True)
+    check(sent_after is not None, "no step line of epoch 2 came: " + " | ".join(lines[-20:]))
+    check(rc == 0, f"SIGTERM'd cli.train exited {rc}: " + " | ".join(lines[-20:]))
+    check(any(l.startswith("preemption: stopped during epoch 2") for l in lines),
+          "no mid-epoch stop line")
+    check(epochs_after_cut == [0, 1], f"checkpoints after SIGTERM: {epochs_after_cut}")
+    paths = {}
+    fa.launch_counts.clear()
+    resumed, _ = run_cli(cli_train.main, argv("cut"))
+    torch.cuda.synchronize()
+    paths["sigterm_resume"] = dict(fa.launch_counts)
+    fa.launch_counts.clear()
+    whole, _ = run_cli(cli_train.main, argv("whole"))
+    torch.cuda.synchronize()
+    paths["sigterm_uninterrupted"] = dict(fa.launch_counts)
+    n_dev = -(-N_DEV // 32)
+    want_resume = {"masked_attention_fwd_tc": per_step * 2 * (steps_per_epoch + n_dev),
+                   "masked_attention_bwd_dq_tc": per_step * 2 * steps_per_epoch,
+                   "masked_attention_bwd_dkv_tc": per_step * 2 * steps_per_epoch}
+    n_steps = 1 + 3 * steps_per_epoch
+    want_whole = {"masked_attention_fwd_tc": init_pass + per_step * (n_steps + 3 * n_dev),
+                  "masked_attention_bwd_dq_tc": per_step * n_steps,
+                  "masked_attention_bwd_dkv_tc": per_step * n_steps}
+    got, want = resumed["dev"][3], whole["dev"][3]
+    rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-30) for k in want}
+    print(json.dumps({"card": smi, "resumed_epochs": sorted(resumed["train"]),
+                      "dev_epoch3_resumed": got, "dev_epoch3_uninterrupted": want,
+                      "equal_exactly": got == want, "rel_diff": rel,
+                      "launches": paths}), flush=True)
+    check(sorted(resumed["train"]) == [2, 3] and resumed["initial"] is None,
+          f"the resumed run trained epochs {sorted(resumed['train'])}")
+    check(paths["sigterm_resume"] == want_resume, f"resume launches {paths['sigterm_resume']}")
+    check(paths["sigterm_uninterrupted"] == want_whole,
+          f"uninterrupted launches {paths['sigterm_uninterrupted']}")
+    check(max(rel.values()) <= TOL_RESUME_REL, f"resumed dev losses against uninterrupted: {rel}")
+    return paths
+
+
+def grads_share(torch, got, want):
+    """The largest share of TOL_GRAD_LEAF · max|want| that a leaf's error
+    takes, over all leaves."""
+    worst = 0.0
+    for n, g in want.items():
+        err, tol = (got[n] - g).abs().max().item(), TOL_GRAD_LEAF * g.abs().max().item()
+        worst = max(worst, err / tol if tol > 0 else (0.0 if err == 0 else float("inf")))
+    return worst
+
+
+def remat_phase(torch, np, fa, steps, load, hp_train, data_dir, device, smi, per_step):
+    """remat "on" and "dots" against "off" on the card: fp32, batch 4, r =
+    2, dropout on, one generator state: loss and every gradient element
+    within the card-against-CPU step's tolerances, and the predicted
+    launches; then bf16 at the shipped batch: peak memory, step time and
+    launches per mode. Returns {path: launches}."""
+    from vaenar_tts_torch.configs.overrides import apply_overrides
+    from vaenar_tts_torch.data.loader import BucketedLoader
+    from vaenar_tts_torch.data.records import list_shards
+    from vaenar_tts_torch.training.loop import to_device
+    phase("remat")
+    paths, fp32 = {}, {}
+    hp32 = apply_overrides(hp_train, ["train.compute_dtype=float32"])
+    small = to_device(next(iter(BucketedLoader(list_shards(data_dir, "train"), 4,
+                                               hp32.dataset.mel_bucket, hp32.dataset.text_bucket,
+                                               shuffle=False).epoch(0))), device)
+    for mode in ("off", "on", "dots"):
+        hp_m = apply_overrides(hp32, [f"train.remat={mode}"])
+        model = load(hp_m)
+        gen = torch.Generator(device=device).manual_seed(7)
+        fa.launch_counts.clear()
+        metrics = steps.train_step(model, steps.make_optimizer(hp_m, model), hp_m, *small,
+                                   1e-5, 2, gen)
+        torch.cuda.synchronize()
+        paths[f"remat_{mode}_fp32_step"] = dict(fa.launch_counts)
+        fp32[mode] = (steps.metric_floats(metrics),
+                      {n: p.grad.detach().clone() for n, p in model.named_parameters()})
+        del model
+    shares = {}
+    for mode in ("on", "dots"):
+        m, g = fp32[mode]
+        m0, g0 = fp32["off"]
+        shares[mode] = {"loss": max(abs(m[k] - m0[k]) / ((TOL_KL_REL if k == "kl" else
+                                                          TOL_LOSS_REL) * abs(m0[k])) for k in m0),
+                        "grads": grads_share(torch, g, g0)}
+    want = {"off": 1, "on": 2, "dots": 2}
+    for mode, k in want.items():
+        check(paths[f"remat_{mode}_fp32_step"] == {"masked_attention_fwd": k * per_step,
+                                                   "masked_attention_bwd_dq": per_step,
+                                                   "masked_attention_bwd_dkv": per_step},
+              f"remat {mode} fp32 launches {paths[f'remat_{mode}_fp32_step']}")
+    big = to_device(next(iter(BucketedLoader(list_shards(data_dir, "train"),
+                                             hp_train.train.train_batch_size,
+                                             hp_train.dataset.mel_bucket,
+                                             hp_train.dataset.text_bucket,
+                                             shuffle=False).epoch(0))), device)
+    bf16 = {}
+    for mode in ("off", "on", "dots"):
+        hp_m = apply_overrides(hp_train, [f"train.remat={mode}"])
+        model = load(hp_m)
+        optimizer = steps.make_optimizer(hp_m, model)
+        gen = torch.Generator(device=device).manual_seed(8)
+        steps.train_step(model, optimizer, hp_m, *big, 1e-5, 2, gen)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fa.launch_counts.clear()
+        walls = []
+        for _ in range(REMAT_REPS):
+            t = time.perf_counter()
+            steps.train_step(model, optimizer, hp_m, *big, 1e-5, 2, gen)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        counts = dict(fa.launch_counts)
+        paths[f"remat_{mode}_bf16_steps"] = counts
+        bf16[mode] = {"peak_bytes_above_resident": torch.cuda.max_memory_allocated() - base,
+                      "resident_bytes": base, "wall_s": walls,
+                      "median_ms": 1e3 * statistics.median(walls),
+                      "launches_per_step": {k: v / REMAT_REPS for k, v in counts.items()}}
+        del model, optimizer
+        check(counts == {"masked_attention_fwd_tc": want[mode] * per_step * REMAT_REPS,
+                         "masked_attention_bwd_dq_tc": per_step * REMAT_REPS,
+                         "masked_attention_bwd_dkv_tc": per_step * REMAT_REPS},
+              f"remat {mode} bf16 launches {counts}")
+    print(json.dumps({"card": smi, "fp32_batch": list(small[1].shape),
+                      "fp32_share_of_tol": shares, "fp32_loss": {k: v[0] for k, v in fp32.items()},
+                      "bf16_batch": list(big[1].shape), "bf16": bf16}), flush=True)
+    check(all(v["loss"] <= 1.0 and v["grads"] <= 1.0 for v in shares.values()),
+          f"remat against off on the card: {shares}")
+    return paths
+
+
+def batched_lu_phase(torch, fa, steps, load, hp_train, data_dir, device, smi, per_step):
+    """prior.batched_lu on against off: the prior's log-probability at fp32
+    within TOL_LU_REL, and the bf16 train step's time at the shipped batch
+    each way. Returns {path: launches}."""
+    from vaenar_tts_torch.configs.overrides import apply_overrides
+    from vaenar_tts_torch.data.loader import BucketedLoader
+    from vaenar_tts_torch.data.records import list_shards
+    from vaenar_tts_torch.training.loop import to_device
+    phase("batched_lu")
+    big = to_device(next(iter(BucketedLoader(list_shards(data_dir, "train"),
+                                             hp_train.train.train_batch_size,
+                                             hp_train.dataset.mel_bucket,
+                                             hp_train.dataset.text_bucket,
+                                             shuffle=False).epoch(0))), device)
+    texts, mels, t_lens, m_lens = big
+    z_lens = (m_lens + 1) // 2
+    z = torch.randn((mels.shape[0], mels.shape[1] // 2, hp_train.common.latent_dim),
+                    generator=torch.Generator(device=device).manual_seed(9), device=device)
+    paths, logp, times = {}, {}, {}
+    for on in (False, True):
+        hp32 = apply_overrides(hp_train, ["train.compute_dtype=float32",
+                                          f"prior.batched_lu={on}"])
+        model = load(hp32)
+        fa.launch_counts.clear()
+        with torch.no_grad():
+            cond = model._encode(texts, t_lens, 2)
+            logp[on] = model.prior.log_probability(z, cond, z_lens, t_lens)
+        torch.cuda.synchronize()
+        paths[f"batched_lu_{on}_fp32_log_prob"] = dict(fa.launch_counts)
+        del model
+        hp16 = apply_overrides(hp_train, [f"prior.batched_lu={on}"])
+        model = load(hp16)
+        walls, per_step_counts = train_step_times(torch, fa, steps, model, hp16, big, 2,
+                                                  reps=REMAT_REPS, warmup=1)
+        paths[f"batched_lu_{on}_bf16_steps"] = {k: int(v * REMAT_REPS)
+                                               for k, v in per_step_counts.items()}
+        times[str(on)] = {"wall_s": walls, "median_ms": 1e3 * statistics.median(walls)}
+        del model
+    rel = ((logp[True] - logp[False]).abs() / logp[False].abs()).max().item()
+    print(json.dumps({"card": smi, "log_prob_off": logp[False].tolist(),
+                      "max_rel_diff": rel, "bf16_train_step": times,
+                      "launches": paths}), flush=True)
+    check(rel <= TOL_LU_REL, f"batched_lu log-probability differs by {rel} relative")
+    return paths
+
+
+def neural_vocoder_phase(torch, np, fa, wavfile, tmp, device, smi, hp, mels0, loop_recs,
+                         test_records, init_pass, per_step, n_attn, n_test_calls):
+    """The ISTFT-head vocoder: ``cli.train_vocoder --toy --toy_version 2``
+    at the full VocoderConfig in fp32 and bf16 (the last logged loss under
+    VOC_LOSS_DROP of the first); the fp32 forward card against CPU; vocode
+    against Griffin-Lim on the shipped lines' mels; ``cli.inference
+    --neural_vocoder`` and ``cli.train --neural_vocoder``. Returns {path:
+    launches}."""
+    from vaenar_tts_torch.cli import inference as cli_inference
+    from vaenar_tts_torch.cli import train as cli_train
+    from vaenar_tts_torch.cli import train_vocoder as cli_vocoder
+    from vaenar_tts_torch.models.vocoder import load_vocoder, spec_to_wav, vocode
+    from vaenar_tts_torch.ops import griffin_lim as gl
+    phase("neural_vocoder")
+    trained, vdirs = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        vdirs[dtype] = os.path.join(tmp, f"vocoder_{dtype}")
+        t = time.perf_counter()
+        result, _ = run_cli(cli_vocoder.main, [
+            "--dataset", "ljspeech", "--toy", "--toy_version", "2",
+            "--n_toy_utterances", str(VOC_UTTS), "--model_dir", vdirs[dtype],
+            "--steps", str(VOC_STEPS), "--log_every", str(VOC_LOG_EVERY),
+            "--save_every", str(10 * VOC_STEPS), "--compute_dtype", dtype, "--device", device])
+        trained[dtype] = {**result, "cli_s": time.perf_counter() - t}
+    print(json.dumps({"card": smi, "vocoder_training": trained}), flush=True)
+    for dtype, r in trained.items():
+        check(math.isfinite(r["last_loss"]) and r["last_loss"] <= VOC_LOSS_DROP * r["first_loss"],
+              f"{dtype} vocoder: loss {r['first_loss']} -> {r['last_loss']}")
+    card, _ = load_vocoder(vdirs["float32"], device)
+    cpu, _ = load_vocoder(vdirs["float32"], "cpu")
+    crop = mels0[:, :VOC_CARD_CPU_FRAMES]
+    with torch.no_grad():
+        spec_card, spec_cpu = card(crop), cpu(crop.cpu())
+        wav_card, wav_cpu = spec_to_wav(spec_card, card.audio), spec_to_wav(spec_cpu, cpu.audio)
+    errs = {"spec": ((spec_card.cpu() - spec_cpu).abs().max() / spec_cpu.abs().max()).item(),
+            "wav": ((wav_card.cpu() - wav_cpu).abs().max() / wav_cpu.abs().max()).item()}
+    bf16_model, _ = load_vocoder(vdirs["bfloat16"], device)
+    gen = torch.Generator(device=device)
+    ms = {"neural_fp32": time_ms(torch, lambda: vocode(card, mels0), reps=5, warmup=2),
+          "neural_bf16": time_ms(torch, lambda: vocode(bf16_model, mels0), reps=5, warmup=2),
+          "griffin_lim": time_ms(torch, lambda: gl.mel_to_wav(mels0, hp.audio,
+                                                              gen.manual_seed(0)),
+                                 reps=3, warmup=1)}
+    walls = {}
+    for name, fn in (("neural_fp32", lambda: vocode(card, mels0)),
+                     ("griffin_lim", lambda: gl.mel_to_wav(mels0, hp.audio, gen.manual_seed(0)))):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t
+    print(json.dumps({"card": smi, "card_vs_cpu_fp32_share_of_max": errs,
+                      "card_vs_cpu_frames": crop.shape[1], "vocode_batch": list(mels0.shape),
+                      "device_ms": ms, "wall_s": walls}), flush=True)
+    check(max(errs.values()) <= TOL_VOC_CARD_CPU, f"vocoder card against CPU: {errs}")
+    paths = {}
+    out = os.path.join(tmp, "neural_test_set")
+    fa.launch_counts.clear()
+    run_cli(cli_inference.main, [
+        "--dataset", "ljspeech", "--data_dir", test_records, "--model_dir", MODEL_DIR,
+        "--batch_size", "4", "--device", device, "--no-draw_alignments", "--test_dir", out,
+        "--write_wavs", "--neural_vocoder", vdirs["float32"]])
+    torch.cuda.synchronize()
+    paths["test_set_cli_neural_vocoder"] = dict(fa.launch_counts)
+    hop = hp.audio.frame_shift_sample
+    lens = {}
+    for name in sorted(os.listdir(out)):
+        if name.endswith(".npy"):
+            n = np.load(os.path.join(out, name)).shape[0]
+            lens[name] = (n, len(wavfile.read(os.path.join(out, name[:-4] + ".wav"))[1]))
+    check(len(lens) == N_TEST and all(w == max(n - 1, 1) * hop for n, w in lens.values()),
+          f"--neural_vocoder wav lengths: {lens}")
+    check(paths["test_set_cli_neural_vocoder"] == {"masked_attention_fwd_tc": n_attn * n_test_calls},
+          f"--neural_vocoder test-set launches {paths['test_set_cli_neural_vocoder']}")
+    root = os.path.join(tmp, "loop_neural")
+    fa.launch_counts.clear()
+    run_cli(cli_train.main, [
+        "--dataset", "ljspeech", "--data_dir", loop_recs, "--model_dir", os.path.join(root, "ckpt"),
+        "--log_dir", os.path.join(root, "logs"), "--test_dir", os.path.join(root, "test"),
+        "--hparams", os.path.join(MODEL_DIR, "hparams.json"), "--device", device,
+        "--max_epochs", "1", "--steps_per_epoch", "1", "--no-draw_plots",
+        "--override", "train.test_interval=1", "--neural_vocoder", vdirs["float32"]])
+    torch.cuda.synchronize()
+    counts = dict(fa.launch_counts)
+    paths["train_cli_neural_vocoder"] = counts
+    wavs = test_wav_lengths(np, wavfile, os.path.join(root, "test"), loop_recs, hop, True)
+    print(json.dumps({"card": smi, "test_set_wav_lengths": lens, "train_test_wavs": wavs,
+                      "launches": paths}), flush=True)
+    check(all(ok for _, _, ok in wavs.values()) and len(wavs) == N_LOOP_TEST,
+          f"cli.train --neural_vocoder test wavs {wavs}")
+    n_dev = -(-N_DEV // 32)
+    check(counts == {"masked_attention_fwd_tc": init_pass + per_step * (2 + n_dev) + n_attn,
+                     "masked_attention_bwd_dq_tc": per_step * 2,
+                     "masked_attention_bwd_dkv_tc": per_step * 2},
+          f"cli.train --neural_vocoder launches {counts}")
+    return paths
+
+
+def synthesis_trace_phase(torch, fa, tmp, model, hp, token_ids, use_q, smi, wall_unprofiled_s):
+    """One bf16 synthesize_batch call under utils.profiling.profile_trace:
+    the device busy share against the unprofiled wall, the kernel launches
+    and the operations that take the most device time. Returns {path:
+    launches}."""
+    from vaenar_tts_torch.cli.inference import synthesize_batch
+    from vaenar_tts_torch.utils.profiling import device_summary, profile_trace
+    phase("synthesis_trace")
+    trace_dir = os.path.join(tmp, "synthesis_trace")
+    fa.launch_counts.clear()
+    with profile_trace(trace_dir) as prof:
+        t = time.perf_counter()
+        synthesize_batch(model, hp, token_ids, 0.0, use_q)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+    counts = dict(fa.launch_counts)
+    summary = device_summary(prof, top=12)
+    print(json.dumps({"card": smi, "wall_s_profiled": wall,
+                      "wall_s_unprofiled_median": wall_unprofiled_s,
+                      "device_busy_share": summary["device_ms"] / (1e3 * wall_unprofiled_s),
+                      "trace_bytes": os.path.getsize(os.path.join(trace_dir, "trace.json")),
+                      **summary, "attention_launches": counts}), flush=True)
+    check(summary["launches"] > 0 and summary["device_ms"] > 0, "the trace saw no device work")
+    return {"synthesis_trace": counts}
+
+
 def load_trained(VAENAR, CheckpointManager, hp, model_dir, device):
     """The model of ``hp`` (its compute dtype) with the newest checkpoint of
     ``model_dir`` restored, on ``device``."""
@@ -1767,6 +2283,8 @@ def main():
                           "attention_ms_per_synthesis": {d: v["ms"] for d, v in totals.items()},
                           "bound_ms_per_synthesis": {d: v["bound_ms"] for d, v in totals.items()},
                           "tk_4104": blocked}), flush=True)
+        new_paths = synthesis_trace_phase(torch, fa, tmp, model, hp, token_ids, use_q, smi,
+                                          statistics.median(synthesis_walls["bfloat16"]))
 
         # training at the shipped batch of 32, from the trained state
         big = next(iter(BucketedLoader(list_shards(data_dir, "train"),
@@ -1812,6 +2330,22 @@ def main():
                 "masked_attention_bwd_dq_tc": per_step * n_steps,
                 "masked_attention_bwd_dkv_tc": per_step * n_steps})
         ler_counts = shipped_ler_phase(torch, np, fa, tmp, MODEL_DIR, hp, DEVICE, smi, n_attn)
+
+        # the rest of the training loop and the neural vocoder
+        loop_recs = loop_records(tmp)
+        new_paths.update(loop_phase(torch, np, fa, wavfile, tmp, loop_recs, DEVICE, smi, hop,
+                                    init_pass, per_step, n_attn))
+        new_paths.update(sigterm_phase(torch, fa, tmp, DEVICE, smi, init_pass, per_step))
+
+        def load(h):
+            return load_trained(VAENAR, CheckpointManager, h, model_dir, device)
+        new_paths.update(remat_phase(torch, np, fa, steps, load, hp_train, data_dir, device,
+                                     smi, per_step))
+        new_paths.update(batched_lu_phase(torch, fa, steps, load, hp_train, data_dir, device,
+                                          smi, per_step))
+        new_paths.update(neural_vocoder_phase(torch, np, fa, wavfile, tmp, DEVICE, smi, hp, mels0,
+                                              loop_recs, test_records, init_pass, per_step,
+                                              n_attn, n_calls))
 
     phase("done")
     print(smi)
@@ -1908,6 +2442,11 @@ def main():
                   {"fp32_train_step": fp32_step_counts["masked_attention_bwd_dkv"]},
                   {"max_share_of_tol": share_bwd["float32"]["dkv"]}),
     ]
+    for entry in kernels:
+        for path, counts in new_paths.items():
+            if counts.get(entry["name"]):
+                entry["launches"] += counts[entry["name"]]
+                entry["launches_by_path"][path] = counts[entry["name"]]
     for entry in kernels:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on its path")
     print(json.dumps({"kernels": kernels}))

@@ -45,6 +45,12 @@ def test_cli_imports_with_jax_blocked():
             "import vaenar_tts_torch.cli.inference\n"
             "import vaenar_tts_torch.cli.preprocess\n"
             "import vaenar_tts_torch.cli.train\n"
+            "import vaenar_tts_torch.cli.train_vocoder\n"
+            "import vaenar_tts_torch.models.vocoder\n"
+            "import vaenar_tts_torch.training.vocoder\n"
+            "import vaenar_tts_torch.utils.logging\n"
+            "import vaenar_tts_torch.utils.prefetch\n"
+            "import vaenar_tts_torch.utils.profiling\n"
             "import vaenar_tts_torch.training.probe\n"
             "import vaenar_tts_torch.data.toy\n"
             "import vaenar_tts_torch.ops.flash_attention\n"

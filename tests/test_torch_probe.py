@@ -16,7 +16,9 @@ small audio config of tests/test_griffin_lim.py:
 * ``cli.train --probe toy_ler --probe_every 1`` on a toy corpus writes
   ``ler_probe.jsonl`` and an ``export_best.npz`` that the JAX package's
   ``load_npz`` reads leaf for leaf as the probed checkpoint's weights in
-  float16, and ``--stop_probe`` ends the run after the first probe.
+  float16 and the probe's scalars in ``log_dir/dev/metrics.jsonl`` (the
+  JAX package's layout), and ``--stop_probe`` ends the run after the
+  first probe.
 """
 
 import json
@@ -214,8 +216,10 @@ def test_train_cli_probe_writes_history_and_best_export(toy_records, tmp_path):
         for key, value in want.items():
             assert got[key].dtype == np.float32, key
             np.testing.assert_array_equal(got[key], value.astype(np.float16).astype(np.float32))
-    with open(tmp_path / "logs" / "metrics.jsonl") as f:
-        assert [json.loads(line)["epoch"] for line in f if '"probe"' in line] == [1, 2]
+    # the JAX package's layout: the probe's scalars are dev metrics
+    with open(tmp_path / "logs" / "dev" / "metrics.jsonl") as f:
+        rows = [json.loads(line) for line in f]
+    assert [r["step"] for r in rows if "probe_ler" in r] == [1, 2]
 
 
 def test_stop_probe_ends_the_run(toy_records, tmp_path):

@@ -1,13 +1,18 @@
 """Synthesis artifacts (the port's counterpart of ``TestUtils`` in
 ``vaenar_tts_tpu/audio/export.py``): trimmed mel ``.npy`` files, Griffin-Lim
-wavs (batched on the device, or numpy on host threads), streaming wavs with
+wavs (batched on the device, or numpy on host threads), wavs of the neural
+ISTFT-head vocoder (``models/vocoder.py``), streaming wavs with
 time-to-first-audio, and mel and alignment plots.
 
-The device vocoder runs on the device that the model was asked to run on
-(``device``): the JAX package's capability probe, its
-``VAENAR_JAX_VOCODER`` switch and its neural vocoder are not part of this
-port. Plots import matplotlib when they are drawn, with the Agg backend; a
-plot asked for without matplotlib raises.
+The vocoders run on the device that the model was asked to run on
+(``device``); the JAX package's capability probe and its
+``VAENAR_JAX_VOCODER`` switch are not part of this port.
+``synthesize_and_save_wavs_auto`` takes the neural vocoder when one was
+given (``neural_vocoder_dir``, loaded at construction, so that a broken or
+mismatched vocoder fails at once and not at the first test interval), else
+Griffin-Lim on a CUDA device, else Griffin-Lim on host threads. Plots import
+matplotlib when they are drawn, with the Agg backend; a plot asked for
+without matplotlib raises.
 """
 
 from __future__ import annotations
@@ -15,7 +20,7 @@ from __future__ import annotations
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +34,8 @@ def _agg_pyplot():
         import matplotlib
     except ImportError as e:
         raise RuntimeError("drawing plots needs matplotlib, which is not installed; "
-                           "pass --no-draw_alignments") from e
+                           "pass --no-draw_alignments (cli.inference) or "
+                           "--no-draw_plots (cli.train)") from e
     matplotlib.use("Agg")
     import matplotlib.pyplot as plt
     return plt
@@ -38,12 +44,33 @@ def _agg_pyplot():
 class TestUtils:
     __test__ = False  # not a pytest class
 
-    def __init__(self, hps: HParams, save_dir: str, device="cuda"):
+    def __init__(self, hps: HParams, save_dir: str, device="cuda",
+                 neural_vocoder_dir: Optional[str] = None):
         self.hps = hps
         self.save_dir = save_dir
         self.device = torch.device(device)
         os.makedirs(save_dir, exist_ok=True)
         self.audio = AudioProcessor(hps.audio)
+        self.neural_vocoder = (self._load_neural_vocoder(neural_vocoder_dir)
+                               if neural_vocoder_dir else None)
+
+    def _load_neural_vocoder(self, vocoder_dir: str):
+        """The vocoder of ``vocoder_dir`` on ``device``; raise when it was
+        trained under another audio config than the model's (a mismatched
+        hop or rate would cut and stamp the wavs wrongly)."""
+        from ..models.vocoder import load_vocoder
+        model, _ = load_vocoder(vocoder_dir, self.device)
+        va, ta = model.audio, self.hps.audio
+        mismatches = {k: (getattr(va, k), getattr(ta, k))
+                      for k in ("sample_rate", "frame_shift_sample", "frame_length_sample",
+                                "num_mels", "num_freq")
+                      if getattr(va, k) != getattr(ta, k)}
+        if mismatches:
+            raise ValueError(
+                f"neural vocoder at {vocoder_dir} was trained under a different audio "
+                f"config than this model: {mismatches} (vocoder, model). Retrain it "
+                f"with the matching --dataset.")
+        return model
 
     def _path(self, prefix: str, tag, fid, suffix: str) -> str:
         return os.path.join(self.save_dir, f"{prefix}-{tag}-{fid}{suffix}")
@@ -94,6 +121,40 @@ class TestUtils:
             self.audio.save_wav(wav, path)
             paths.append(path)
         return paths
+
+    def synthesize_and_save_wavs_neural(self, tag, mel_batch: np.ndarray, mel_lengths, ids,
+                                        prefix: str = "") -> List[str]:
+        """The neural vocoder given at construction: the padded batch in
+        one pass on ``device``, each wav
+        trimmed to max(mel length - 1, 1) · hop samples (the ISTFT head gives
+        hop · (T - 1) for T frames, where Griffin-Lim's cut is mel length ·
+        hop), then inverse preemphasis and the file on the host."""
+        from ..models.vocoder import vocode
+        if self.neural_vocoder is None:
+            raise ValueError("no neural vocoder: construct TestUtils with neural_vocoder_dir")
+        mels = torch.as_tensor(np.asarray(mel_batch, np.float32), device=self.device)
+        wavs = vocode(self.neural_vocoder, mels).cpu().numpy()
+        hop = self.hps.audio.frame_shift_sample
+        paths = []
+        for i in range(len(mel_batch)):
+            path = self._path(prefix, tag, ids[i], ".wav")
+            n = max(int(mel_lengths[i]) - 1, 1) * hop
+            self.audio.save_wav(self.audio.inv_preemphasize(wavs[i][:n]), path)
+            paths.append(path)
+        return paths
+
+    def synthesize_and_save_wavs_auto(self, tag, mel_batch: np.ndarray, mel_lengths, ids,
+                                      prefix: str = "", seed: int = 0) -> List[str]:
+        """The neural vocoder when one was given, else Griffin-Lim on a CUDA
+        ``device``, else Griffin-Lim on host threads (the caller asked for
+        the CPU)."""
+        if self.neural_vocoder is not None:
+            return self.synthesize_and_save_wavs_neural(tag, mel_batch, mel_lengths, ids,
+                                                        prefix=prefix)
+        if self.device.type == "cuda":
+            return self.synthesize_and_save_wavs_device(tag, mel_batch, mel_lengths, ids,
+                                                        prefix, seed)
+        return self.synthesize_and_save_wavs(tag, mel_batch, mel_lengths, ids, prefix, seed)
 
     def synthesize_and_save_wavs_streaming(self, tag, mel_batch: np.ndarray, mel_lengths, ids,
                                            prefix: str = "", seed: int = 0,

@@ -40,11 +40,15 @@ Griffin-Lim on host threads with ``--host_vocoder``; ``--stream_wavs``
 vocodes in chunks on the same choice of backend and prints the time to
 first audio. ``--device_vocoder`` names the default and changes nothing: it
 stands for the JAX CLI's ``--jax_vocoder``, whose name would be false here,
-so that the two CLIs take the same flags. Text and mel lengths
+so that the two CLIs take the same flags. ``--neural_vocoder DIR``
+vocodes each batch in one pass of a vocoder that ``cli.train_vocoder``
+trained, on the model's device, in either mode (the JAX CLI takes it in
+test-set mode); it is loaded, and its audio config checked against the
+model's, before any synthesis. Text and mel lengths
 are bucketed as the JAX CLI does them. Free-text lines go through the
 dataset's text frontend: English cleaners for ``ljspeech``, TONE3 pinyin
 (``text.pinyin.text_to_pinyin``; hanzi need ``pypinyin``) for
-``databaker``. Not ported yet: ``--neural_vocoder``.
+``databaker``.
 """
 
 from __future__ import annotations
@@ -211,7 +215,9 @@ def vocode_batch(args, tester: TestUtils, tag, mels: np.ndarray, lens: np.ndarra
     """Vocode one batch as the flags say; the streaming vocoder prints its
     time to first audio."""
     backend = "host" if args.host_vocoder else "device"
-    if args.stream_wavs:
+    if args.neural_vocoder:
+        tester.synthesize_and_save_wavs_neural(tag, mels, lens, ids, prefix=prefix)
+    elif args.stream_wavs:
         _, ttfas = tester.synthesize_and_save_wavs_streaming(tag, mels, lens, ids, prefix=prefix,
                                                              backend=backend)
         print(f"streaming vocoder ({backend}): time-to-first-audio mean {np.mean(ttfas):.3f}s "
@@ -236,7 +242,7 @@ def inference_test(args) -> Dict[str, float]:
         require_matplotlib()
     device = resolve_device(args.device)
     hp, model, epoch = load_model(args.model_dir, device, args.compute_dtype, args.ckpt_epoch)
-    tester = TestUtils(hp, args.test_dir, device)
+    tester = TestUtils(hp, args.test_dir, device, neural_vocoder_dir=args.neural_vocoder)
     r = hp.common.final_reduction_factor
     use_q = resolve_length_source(args.length_source, hp)
     shards = list_shards(args.data_dir, "test")
@@ -302,7 +308,7 @@ def synthesize_from_text(args) -> Dict[str, list]:
     if not lines:
         raise SystemExit(f"no text lines in {args.text}")
     token_ids = encode_lines(hp, lines, args.dataset)
-    tester = TestUtils(hp, args.test_dir, device)
+    tester = TestUtils(hp, args.test_dir, device, neural_vocoder_dir=args.neural_vocoder)
     takes = max(1, args.takes)
     temps = ([float(x) for x in args.takes_temperatures.split(",")]
              if args.takes_temperatures else [args.temperature])
@@ -391,6 +397,9 @@ def main(argv=None):
                          help="numpy Griffin-Lim on host threads")
     parser.add_argument("--stream_wavs", action="store_true", default=False,
                         help="vocode in chunks and print the time to first audio")
+    parser.add_argument("--neural_vocoder", type=str, default=None,
+                        help="directory of a trained ISTFT-head vocoder (cli.train_vocoder): "
+                             "vocode each batch in one pass instead of Griffin-Lim")
     args = parser.parse_args(argv)
     if args.batch_size < 1:
         parser.error("--batch_size must be at least 1")

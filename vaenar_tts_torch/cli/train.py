@@ -2,15 +2,25 @@
 single process):
 
     python -m vaenar_tts_torch.cli.train --dataset ljspeech|databaker \\
-        --data_dir RECORDS --model_dir CKPT --log_dir LOGS \\
+        --data_dir RECORDS --model_dir CKPT --log_dir LOGS [--test_dir OUT] \\
         [--hparams artifacts/toyv2_q90/ckpt/hparams.json] \\
         [--max_epochs N] [--steps_per_epoch N] [--compute_dtype float32|bfloat16] \\
         [--override key.path=value] \\
-        [--probe toy_ler|dev_mcd --probe_every N [--stop_probe X]]
+        [--probe toy_ler|dev_mcd --probe_every N [--stop_probe X]] \\
+        [--neural_vocoder VOCODER_DIR] [--no-draw_plots]
 
-``RECORDS`` holds ``train-*.vrs`` and ``dev-*.vrs`` shards
-(``cli.preprocess``). When ``CKPT`` already holds a checkpoint, its
-``hparams.json`` is the config and the run resumes; otherwise the config is
+``RECORDS`` holds ``train-*.vrs`` and ``dev-*.vrs`` shards, and for the
+test-interval artifacts ``test-*.vrs`` (``cli.preprocess``). Every
+``train.test_interval`` epochs the loop writes one test batch's wavs,
+quality metrics and, unless ``--no-draw_plots`` (a machine without
+matplotlib needs it), mel and alignment plots to ``OUT`` (default
+``LOGS/test``); ``--neural_vocoder`` vocodes them with a vocoder that
+``cli.train_vocoder`` trained, in place of Griffin-Lim. Stdout is teed into
+``LOGS/train.log``, and the per-epoch metrics go to
+``LOGS/train/metrics.jsonl`` and ``LOGS/dev/metrics.jsonl``. SIGTERM
+checkpoints the last completed epoch and ends the run with exit code 0.
+
+When ``CKPT`` already holds a checkpoint, its ``hparams.json`` is the config and the run resumes; otherwise the config is
 ``--hparams`` or the dataset's preset, then ``--compute_dtype``, then the
 overrides. A ``CKPT`` that holds another writer's numbered checkpoints (the
 JAX package's Orbax ones) is refused before anything is written.
@@ -36,6 +46,7 @@ from ..configs.overrides import apply_overrides
 from ..configs.serialize import hparams_from_dict, load_hparams
 from ..training.loop import train
 from ..utils.checkpoint import checkpoint_epochs
+from ..utils.logging import Logger
 
 
 def main(argv=None):
@@ -46,6 +57,15 @@ def main(argv=None):
     parser.add_argument("--model_dir", type=str, required=True,
                         help="directory for checkpoints and hparams.json")
     parser.add_argument("--log_dir", type=str, required=True)
+    parser.add_argument("--test_dir", type=str, default=None,
+                        help="test-interval artifacts (default LOG_DIR/test)")
+    parser.add_argument("--neural_vocoder", type=str, default=None,
+                        help="directory of a trained ISTFT-head vocoder "
+                             "(cli.train_vocoder): the test-interval wavs use it "
+                             "instead of Griffin-Lim")
+    parser.add_argument("--draw_plots", action=argparse.BooleanOptionalAction, default=True,
+                        help="draw the test-interval mel and alignment plots (needs "
+                             "matplotlib)")
     parser.add_argument("--hparams", type=str, default=None,
                         help="hparams.json to start a new run from, in place "
                              "of the dataset's preset")
@@ -102,10 +122,15 @@ def main(argv=None):
             probe = with_early_stop(probe, metric, args.stop_probe, probe_dir)
 
     os.makedirs(args.model_dir, exist_ok=True)
-    return train(hp, args.data_dir, args.model_dir, args.log_dir,
-                 max_epochs=args.max_epochs, steps_per_epoch=args.steps_per_epoch,
-                 log_every=args.log_every, device=args.device, probe=probe,
-                 probe_every=args.probe_every)
+    logger = Logger(args.log_dir).install()
+    try:
+        return train(hp, args.data_dir, args.model_dir, args.log_dir,
+                     test_dir=args.test_dir, max_epochs=args.max_epochs,
+                     steps_per_epoch=args.steps_per_epoch, log_every=args.log_every,
+                     device=args.device, neural_vocoder_dir=args.neural_vocoder,
+                     draw_plots=args.draw_plots, probe=probe, probe_every=args.probe_every)
+    finally:
+        logger.uninstall()
 
 
 if __name__ == "__main__":

@@ -3,8 +3,8 @@
 Frozen dataclasses with the field names and defaults of the JAX package,
 holding only the fields that the port's synthesis, vocoder and training
 read: a ``hparams.json`` written by JAX training loads unchanged, and the
-rest of it (MFCC settings, the TPU knobs, test-interval settings) is
-ignored. The two presets are ``LJSpeechConfig`` and ``DataBakerConfig``
+rest of it (MFCC settings, the TPU-only knobs such as
+``use_pallas_attention``) is ignored. The two presets are ``LJSpeechConfig`` and ``DataBakerConfig``
 (16 kHz Mandarin pinyin); ``get_config`` looks one up by its CLI name.
 ``train.compute_dtype`` ("bfloat16", the default, or "float32") is the
 transformer stacks' dtype, as in the JAX package; the flow stays fp32
@@ -18,11 +18,20 @@ from dataclasses import dataclass, field
 from typing import Optional, Tuple
 
 
+# the values ``train.remat`` takes, as the JAX package's ``maybe_remat``
+# reads them: False, None and "off" are off; True, "on" and "full" on
+REMAT_MODES = (False, None, "off", True, "on", "full", "dots")
+
+
 @dataclass(frozen=True)
 class TrainConfig:
     random_seed: int = 123456
     epochs: int = 2000
     train_batch_size: int = 32
+    test_batch_size: int = 8
+    # every this many epochs the loop synthesizes one test batch to wavs,
+    # plots and quality metrics (``training/loop.py``)
+    test_interval: int = 50
     shuffle: bool = True
     num_samples: int = 1
     length_weight: float = 1.0
@@ -39,6 +48,17 @@ class TrainConfig:
     compute_dtype: str = "bfloat16"
     # micro-batches per step: gradients averaged, one Adam update
     grad_accum: int = 1
+    # activation checkpointing of every transformer block: "off", "on"
+    # (recompute the whole block in the backward) or "dots" (keep the
+    # matmul outputs, recompute the rest); models/attention.maybe_remat
+    remat: str = "off"
+    # > 0: when the train split (and the dev split, counted here too) fits
+    # in this many MB and every train batch has one shape, the loop keeps
+    # the batches on the device for the whole run (training/loop.py)
+    device_data_cache_mb: int = 0
+    # the JAX package's one-dispatch epoch over the cache; the port has no
+    # counterpart yet and refuses True at the start of training
+    device_cache_epoch_scan: bool = False
     checkpoint_max_to_keep: int = 20
     checkpoint_keep_every_n_hours: float = 4.0
     checkpoint_every_n_epochs: int = 1
@@ -47,6 +67,8 @@ class TrainConfig:
         if self.compute_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"train.compute_dtype must be 'float32' or 'bfloat16'; "
                              f"got {self.compute_dtype!r}")
+        if self.remat not in REMAT_MODES:
+            raise ValueError(f"train.remat must be 'off', 'on' or 'dots'; got {self.remat!r}")
 
     def kl_weight_at(self, epoch: int) -> float:
         """KL-anneal schedule (``vaenar_tts_tpu/configs/hparams.py:119``)."""
@@ -166,6 +188,10 @@ class PriorConfig:
     attention_heads: int = 4
     temperature: float = 1.0
     ffn_hidden: int = 1024
+    # factor the whole invertible-linear stack with one batched LU a pass
+    # (models/flow.precompute_invertible_stack) in place of a slogdet and an
+    # inverse a layer; the same math either way
+    batched_lu: bool = False
 
 
 @dataclass(frozen=True)

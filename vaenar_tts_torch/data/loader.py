@@ -61,6 +61,10 @@ class BucketedLoader:
     def __len__(self) -> int:
         return len(self._groups())
 
+    @property
+    def num_utterances(self) -> int:
+        return len(self._entries)
+
     def _make_batch(self, entries: Sequence[Tuple[int, int, int, int]]) -> Batch:
         n_valid = len(entries)
         entries = list(entries) + [entries[-1]] * (self.batch_size - n_valid)
@@ -86,6 +90,11 @@ class BucketedLoader:
         if self.shuffle:
             np.random.default_rng(self.seed + epoch_index).shuffle(order)
         return order
+
+    def all_batches(self) -> List[Batch]:
+        """Every batch group in the base (length-sorted) order: index i here
+        is the group that ``batch_order`` rows name i."""
+        return [self._make_batch(g) for g in self._groups()]
 
     def epoch(self, epoch_index: int = 0) -> Iterator[Batch]:
         groups = self._groups()

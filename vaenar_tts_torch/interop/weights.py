@@ -17,7 +17,9 @@ The mapping is strict: an unknown leaf raises, and ``load_jax_weights``
 raises on any key the model does not have and on any model key left unset.
 ``torch_to_jax`` is the inverse of ``jax_to_torch``: it turns the port's
 state dict (or a dict of its gradients) into the flax trees, so that
-weights the port trained load in the JAX package.
+weights the port trained load in the JAX package. ``vocoder_from_jax``
+carries a flax ``MelVocoder`` tree (conv kernels [k, in / groups, out],
+Dense kernels, LayerNorm scales) into the port's vocoder, as strictly.
 """
 
 from __future__ import annotations
@@ -122,7 +124,17 @@ def load_jax_weights(model: nn.Module, params: Mapping,
                      batch_stats: Mapping) -> None:
     """Load the flax trees into ``model``; raise on any key or shape that
     does not match."""
-    sd = jax_to_torch(params, batch_stats)
+    _load_strict(model, jax_to_torch(params, batch_stats))
+
+
+def vocoder_from_jax(model: nn.Module, params: Mapping) -> None:
+    """Load a flax ``MelVocoder`` param tree (numpy leaves) into the port's
+    ``models.vocoder.MelVocoder``; raise on any key or shape that does not
+    match."""
+    _load_strict(model, jax_to_torch(params, {}))
+
+
+def _load_strict(model: nn.Module, sd: Dict[str, torch.Tensor]) -> None:
     expected = model.state_dict()
     extra = sorted(set(sd) - set(expected))
     missing = sorted(set(expected) - set(sd))

@@ -18,21 +18,69 @@ softmax of the same q and k in fp32, as ``masked_attention_xla`` of the JAX
 package forms them, with the finite NEG, so a row with no key stays
 uniform. The contexts still come from the kernel, so the outputs are the
 same with and without them.
+
+``maybe_remat`` (``train.remat``) wraps a block's call in activation
+checkpointing, at the sites where the JAX package's ``maybe_remat`` wraps
+the block class: "on" keeps only the block's inputs and recomputes the
+whole block in the backward, attention kernels included; "dots" keeps the
+outputs of the matrix products (``aten.mm``, ``bmm`` and ``addmm``, as
+``jax.checkpoint_policies.dots_saveable`` keeps dot_general's) and
+recomputes the rest, the attention kernels too, whose outputs are not
+products that the policy sees. The blocks draw no random numbers (dropout
+lives in the prenets and positional encodings, outside them), so the
+recompute needs no generator state put back and the RNG state is not
+stashed.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as _checkpoint
 
 from ..ops.flash_attention import NEG, MaskedFlashAttention, attention_mask
 from .layers import FFN, Dense, LayerNorm
 
-__all__ = ["attention_mask", "MultiHeadAttention", "SelfAttentionBlock",
-           "CrossAttentionBlock"]
+__all__ = ["attention_mask", "maybe_remat", "MultiHeadAttention",
+           "SelfAttentionBlock", "CrossAttentionBlock"]
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (_checkpoint.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _checkpoint.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def remat_mode(remat) -> str:
+    """``train.remat`` as "off", "on" or "dots" (False, None and "off" are
+    off; True, "on" and "full" on); any other value raises."""
+    if remat in (False, None, "off"):
+        return "off"
+    if remat in (True, "on", "full"):
+        return "on"
+    if remat == "dots":
+        return "dots"
+    raise ValueError(f"remat must be 'off', 'on' or 'dots'; got {remat!r}")
+
+
+def maybe_remat(block: nn.Module, remat) -> Callable:
+    """``block`` itself with remat off, or while no gradient is recorded;
+    otherwise a callable that runs it under non-reentrant
+    ``torch.utils.checkpoint`` with the mode's policy."""
+    mode = remat_mode(remat)
+    if mode == "off" or not torch.is_grad_enabled():
+        return block
+    context_fn = (functools.partial(_checkpoint.create_selective_checkpoint_contexts,
+                                    _dots_saveable) if mode == "dots"
+                  else _checkpoint.noop_context_fn)
+    return functools.partial(_checkpoint.checkpoint, block, use_reentrant=False,
+                             preserve_rng_state=False, context_fn=context_fn)
 
 
 class MultiHeadAttention(nn.Module):

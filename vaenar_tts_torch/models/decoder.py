@@ -2,7 +2,7 @@
 ``vaenar_tts_tpu/models/decoder.py``): pre-projection -> N
 CrossAttentionBlocks over the text -> linear head of out_dim *
 max_reduction_factor, sliced to r * out_dim and reshaped to r frames per
-latent step -> PostNet residual. All in the compute dtype: at bfloat16 the
+latent step -> PostNet residual, the blocks under ``maybe_remat``. All in the compute dtype: at bfloat16 the
 mels come out bf16, and the losses and the synthesis entry points cast them
 to fp32. Asked for alignments, it also returns each block's cross-attention
 weights, ``{"dec_<i>": fp32 [B, H, T, T_text]}``, as the JAX package's
@@ -15,7 +15,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from .attention import CrossAttentionBlock
+from .attention import CrossAttentionBlock, maybe_remat
 from .layers import Dense, PostNet
 
 
@@ -25,8 +25,9 @@ class TransformerDecoder(nn.Module):
                  ffn_hidden: int, post_n_conv: int, post_conv_filters: int,
                  post_conv_kernel: int, out_dim: int,
                  max_reduction_factor: int, post_drop_rate: float = 0.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat="off"):
         super().__init__()
+        self.remat = remat
         self.out_dim = out_dim
         self.pre_projection = Dense(latent_dim, attention_dim, dtype=dtype)
         self.names = [f"decoder_attention_{i}" for i in range(nblk)]
@@ -51,10 +52,12 @@ class TransformerDecoder(nn.Module):
         x = self.pre_projection(inputs)
         alignments: Dict[str, torch.Tensor] = {}
         for i, name in enumerate(self.names):
-            x = getattr(self, name)(x, text_embd, z_lengths, text_lengths,
-                                    return_alignment=return_alignments)
             if return_alignments:
-                x, alignments[f"dec_{i}"] = x
+                x, alignments[f"dec_{i}"] = getattr(self, name)(
+                    x, text_embd, z_lengths, text_lengths, return_alignment=True)
+            else:
+                x = maybe_remat(getattr(self, name), self.remat)(
+                    x, text_embd, z_lengths, text_lengths)
         full = self.linear_outputs(x)
         initial = full[:, :, : reduction_factor * self.out_dim].reshape(
             batch, max_len * reduction_factor, self.out_dim)

@@ -1,8 +1,8 @@
 """Transformer text encoder (counterpart of
 ``vaenar_tts_tpu/models/encoder.py``): Embedding -> ConvPreNet -> positional
 encoding scaled by a trained ``pos_weight`` at a fractional step -> dropout
--> N SelfAttentionBlocks. In the compute dtype, with the positional sum in
-fp32 as the JAX package's promotion makes it."""
+-> N SelfAttentionBlocks, each under ``maybe_remat``. In the compute dtype,
+with the positional sum in fp32 as the JAX package's promotion makes it."""
 
 from __future__ import annotations
 
@@ -11,7 +11,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from .attention import SelfAttentionBlock
+from .attention import SelfAttentionBlock, maybe_remat
 from .layers import ConvPreNet, Embedding, add_positions, dropout
 
 
@@ -21,8 +21,10 @@ class TransformerEncoder(nn.Module):
                  bn_before_act: bool, nblk: int, attention_dim: int,
                  attention_heads: int, attention_temperature: float,
                  ffn_hidden: int, prenet_drop_rate: float = 0.0,
-                 pos_drop_rate: float = 0.0, dtype: torch.dtype = torch.float32):
+                 pos_drop_rate: float = 0.0, dtype: torch.dtype = torch.float32,
+                 remat="off"):
         super().__init__()
+        self.remat = remat
         self.pos_drop_rate = pos_drop_rate
         self.compute_dtype = dtype
         self.text_init_encoding = Embedding(vocab_size, embd_dim, dtype)
@@ -44,5 +46,6 @@ class TransformerEncoder(nn.Module):
         x = dropout(add_positions(x, self.pos_weight, self.compute_dtype, pos_step),
                     self.pos_drop_rate, train, generator)
         for name in self.names:
-            x = getattr(self, name)(x, x, input_lengths, input_lengths)
+            x = maybe_remat(getattr(self, name), self.remat)(
+                x, x, input_lengths, input_lengths)
         return x

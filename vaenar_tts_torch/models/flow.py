@@ -22,7 +22,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .attention import CrossAttentionBlock
+from .attention import CrossAttentionBlock, maybe_remat
 from .layers import Dense, add_positions, sequence_mask
 
 
@@ -72,33 +72,60 @@ class ActNorm(nn.Module):
         return out, _length_logdet(logdet, lengths, x.shape[0], x.shape[1])
 
 
+def precompute_invertible_stack(weights: torch.Tensor, reverse: bool
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One batched LU over a stack of invertible-linear weights [n, C, C]
+    (``vaenar_tts_tpu/models/flow.py:90``): (the matrix each layer multiplies
+    by, [n, C, C]: W forward, W⁻¹ from ``lu_solve`` against the identity in
+    reverse; and the unsigned log|det W| of each, [n], the sum of
+    log|diag U|). The sign of the determinant does not enter the density."""
+    weights = weights.float()
+    lu, pivots = torch.linalg.lu_factor(weights)
+    logabsdets = torch.log(torch.abs(torch.diagonal(lu, dim1=-2, dim2=-1))).sum(-1)
+    if not reverse:
+        return weights, logabsdets
+    eye = torch.eye(weights.shape[-1], dtype=torch.float32,
+                    device=weights.device).expand_as(weights)
+    return torch.linalg.lu_solve(lu, pivots, eye), logabsdets
+
+
 class InvertibleLinear(nn.Module):
     """Channel mix y = x @ W with logdet = frames * log|det W|; the reverse
-    multiplies by inv(W) and takes logdet = -frames * log|det W|."""
+    multiplies by inv(W) and takes logdet = -frames * log|det W|. A caller
+    that factored the whole stack at once (``precompute_invertible_stack``)
+    passes this layer's (matrix, log|det W|) as ``precomputed``."""
 
     def __init__(self, channels: int):
         super().__init__()
         self.weight = nn.Parameter(torch.eye(channels))
 
-    def forward(self, x, lengths=None, reverse: bool = False
+    def forward(self, x, lengths=None, reverse: bool = False,
+                precomputed: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-        w = self.weight.float()
-        _, logabsdet = torch.linalg.slogdet(w)
+        if precomputed is not None:
+            w, logabsdet = precomputed
+        else:
+            w = self.weight.float()
+            _, logabsdet = torch.linalg.slogdet(w)
+            if reverse:
+                w = torch.linalg.inv(w)
         if reverse:
-            w, logabsdet = torch.linalg.inv(w), -logabsdet
+            logabsdet = -logabsdet
         out = torch.matmul(x.float(), w)
         return out, _length_logdet(logabsdet, lengths, x.shape[0], x.shape[1])
 
 
 class TransformerTransform(nn.Module):
     """Text-conditioned scale/shift net inside a coupling: pre-projection ->
-    positional encoding -> N CrossAttentionBlocks over the text -> scale and
-    shift heads."""
+    positional encoding -> N CrossAttentionBlocks over the text (under
+    ``maybe_remat``) -> scale and shift heads."""
 
     def __init__(self, in_dim: int, memory_dim: int, nblk: int,
                  attention_dim: int, attention_heads: int, temperature: float,
-                 ffn_hidden: int, out_dim: int, dtype: torch.dtype = torch.float32):
+                 ffn_hidden: int, out_dim: int, dtype: torch.dtype = torch.float32,
+                 remat="off"):
         super().__init__()
+        self.remat = remat
         self.compute_dtype = dtype
         self.pre_projection = Dense(in_dim, attention_dim, dtype=dtype)
         self.pos_weight = nn.Parameter(torch.ones(()))
@@ -115,8 +142,8 @@ class TransformerTransform(nn.Module):
         x = add_positions(self.pre_projection(inputs), self.pos_weight,
                           self.compute_dtype)
         for name in self.names:
-            x = getattr(self, name)(x, condition_inputs, target_lengths,
-                                    condition_lengths)
+            x = maybe_remat(getattr(self, name), self.remat)(
+                x, condition_inputs, target_lengths, condition_lengths)
         return self.log_scale_projection(x), self.shift_projection(x)
 
 
@@ -130,14 +157,14 @@ class TransformerCoupling(nn.Module):
     def __init__(self, channels: int, memory_dim: int, nblk: int,
                  attention_dim: int, attention_heads: int, temperature: float,
                  ffn_hidden: int, order: str = "upper",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, remat="off"):
         super().__init__()
         if order not in ("upper", "lower"):
             raise ValueError(f"order must be 'upper' or 'lower', got {order!r}")
         self.order = order
         self.net = TransformerTransform(
             channels // 2, memory_dim, nblk, attention_dim, attention_heads,
-            temperature, ffn_hidden, channels // 2, dtype)
+            temperature, ffn_hidden, channels // 2, dtype, remat)
 
     def forward(self, inputs, condition_inputs, inputs_lengths=None,
                 condition_lengths=None, reverse: bool = False,

@@ -83,18 +83,20 @@ class Dense(nn.Linear):
 class Conv(nn.Conv1d):
     """flax ``nn.Conv(dtype=dtype)`` on [batch, channels, time] that the
     caller has padded: in bf16 the input and weight are cast, the product
-    rounded to bf16 and the bias added in bf16."""
+    rounded to bf16 and the bias added in bf16. ``groups`` is flax's
+    ``feature_group_count`` (``groups=channels``: depthwise)."""
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
-                 dtype: torch.dtype = torch.float32):
-        super().__init__(in_channels, out_channels, kernel_size)
+                 dtype: torch.dtype = torch.float32, groups: int = 1):
+        super().__init__(in_channels, out_channels, kernel_size, groups=groups)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         if dt == torch.float32:
             return super().forward(x.float())
-        return F.conv1d(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)[None, :, None]
+        return (F.conv1d(x.to(dt), self.weight.to(dt), groups=self.groups)
+                + self.bias.to(dt)[None, :, None])
 
 
 class Embedding(nn.Embedding):
@@ -110,11 +112,12 @@ class Embedding(nn.Embedding):
 
 
 class LayerNorm(nn.LayerNorm):
-    """flax ``nn.LayerNorm(epsilon=1e-3, dtype=dtype)``: statistics and
-    normalisation in fp32, the result in dtype."""
+    """flax ``nn.LayerNorm(epsilon=eps, dtype=dtype)``: statistics and
+    normalisation in fp32, the result in dtype. The model's norms use
+    eps 1e-3; flax's default, which the vocoder keeps, is 1e-6."""
 
-    def __init__(self, dim: int, dtype: torch.dtype = torch.float32):
-        super().__init__(dim, eps=LN_EPS)
+    def __init__(self, dim: int, dtype: torch.dtype = torch.float32, eps: float = LN_EPS):
+        super().__init__(dim, eps=eps)
         self.compute_dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

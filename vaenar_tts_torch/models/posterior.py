@@ -1,6 +1,6 @@
 """Attention-based VAE posterior q(z | mel, text) (counterpart of
 ``vaenar_tts_tpu/models/posterior.py``): PreNet -> positional encoding ->
-dropout -> N CrossAttentionBlocks over the text -> mu and logvar heads, and
+dropout -> N CrossAttentionBlocks over the text (under ``maybe_remat``) -> mu and logvar heads, and
 the reparameterised sample and its masked diagonal-Gaussian log-prob.
 Training runs it; synthesis does not. The net runs in the compute dtype;
 the mu and logvar heads, which the JAX package builds without a dtype, run
@@ -14,7 +14,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from .attention import CrossAttentionBlock
+from .attention import CrossAttentionBlock, maybe_remat
 from .layers import Dense, PreNet, add_positions, dropout, sequence_mask
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -63,8 +63,10 @@ class TransformerPosterior(nn.Module):
                  pre_activation: str, nblk: int, attention_dim: int,
                  attention_heads: int, temperature: float, ffn_hidden: int,
                  latent_dim: int, pre_drop_rate: float = 0.0,
-                 pos_drop_rate: float = 0.0, dtype: torch.dtype = torch.float32):
+                 pos_drop_rate: float = 0.0, dtype: torch.dtype = torch.float32,
+                 remat="off"):
         super().__init__()
+        self.remat = remat
         self.pos_drop_rate = pos_drop_rate
         self.compute_dtype = dtype
         self.decoder_prenet = PreNet(in_dim, pre_hidden, pre_activation,
@@ -86,5 +88,6 @@ class TransformerPosterior(nn.Module):
         x = dropout(add_positions(x, self.pos_weight, self.compute_dtype),
                     self.pos_drop_rate, train, generator)
         for name in self.names:
-            x = getattr(self, name)(x, src_enc, target_lengths, src_lengths)
+            x = maybe_remat(getattr(self, name), self.remat)(
+                x, src_enc, target_lengths, src_lengths)
         return self.mu_projection(x), self.logvar_projection(x)

@@ -10,6 +10,11 @@ conditioning nets run in the compute dtype. Three entry points:
 * ``init_pass``: the forward stack with ActNorm's data-dependent init; each
   ActNorm applies the statistics of its own input, and the pass returns them
   (``flow_init``) for the caller to copy into the parameters.
+
+With ``batched_lu`` (``hp.prior.batched_lu``) each direction factors the
+stacked invertible-linear weights with one batched LU
+(``flow.precompute_invertible_stack``) in place of a slogdet and, in
+reverse, an inverse a layer: the same math, an A/B knob.
 """
 
 from __future__ import annotations
@@ -20,7 +25,8 @@ from typing import Dict, Optional, Tuple
 import torch
 from torch import nn
 
-from .flow import ActNorm, InvertibleLinear, TransformerCoupling, actnorm_init_stats
+from .flow import (ActNorm, InvertibleLinear, TransformerCoupling, actnorm_init_stats,
+                   precompute_invertible_stack)
 from .layers import sequence_mask
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -30,17 +36,29 @@ class TransformerPrior(nn.Module):
     def __init__(self, n_blk: int, channels: int, memory_dim: int,
                  n_transformer_blk: int, attention_dim: int,
                  attention_heads: int, temperature: float, ffn_hidden: int,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, batched_lu: bool = False,
+                 remat="off"):
         super().__init__()
         self.channels = channels
         self.n_blk = n_blk
+        self.batched_lu = batched_lu
         for i in range(n_blk):
             self.add_module(f"actnorm_{i}", ActNorm(channels))
             self.add_module(f"invertible_linear_{i}", InvertibleLinear(channels))
             self.add_module(f"transformerCoupling{i}", TransformerCoupling(
                 channels, memory_dim, n_transformer_blk, attention_dim,
                 attention_heads, temperature, ffn_hidden,
-                order=("upper", "lower")[i % 2], dtype=dtype))
+                order=("upper", "lower")[i % 2], dtype=dtype, remat=remat))
+
+    def _linear_precompute(self, reverse: bool) -> list:
+        """Each layer's ``precomputed`` for InvertibleLinear: one batched LU
+        over the stack with ``batched_lu``, else None a layer."""
+        if not self.batched_lu:
+            return [None] * self.n_blk
+        weights = torch.stack([getattr(self, f"invertible_linear_{i}").weight
+                               for i in range(self.n_blk)])
+        mats, logabsdets = precompute_invertible_stack(weights, reverse)
+        return [(mats[i], logabsdets[i]) for i in range(self.n_blk)]
 
     def _initial_sample(self, targets_lengths: torch.Tensor, max_length: int,
                         temperature: float = 1.0,
@@ -66,6 +84,7 @@ class TransformerPrior(nn.Module):
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
         """``flow_init``: a dict to fill with each ActNorm's data-dependent
         (log_scale, bias), which that ActNorm then applies."""
+        pre = self._linear_precompute(reverse=False)
         for i in range(self.n_blk):
             stats = None
             if flow_init is not None:
@@ -73,7 +92,8 @@ class TransformerPrior(nn.Module):
             z, logdet = getattr(self, f"actnorm_{i}")(z, targets_lengths,
                                                       stats=stats)
             logprobs = logprobs - logdet
-            z, logdet = getattr(self, f"invertible_linear_{i}")(z, targets_lengths)
+            z, logdet = getattr(self, f"invertible_linear_{i}")(z, targets_lengths,
+                                                                precomputed=pre[i])
             logprobs = logprobs - logdet
             z, logdet = getattr(self, f"transformerCoupling{i}")(
                 z, condition_inputs, inputs_lengths=targets_lengths,
@@ -101,13 +121,14 @@ class TransformerPrior(nn.Module):
         epsilon = z.float()
         accum_logdet = torch.zeros((z.shape[0],), dtype=torch.float32,
                                    device=z.device)
+        pre = self._linear_precompute(reverse=True)
         for i in reversed(range(self.n_blk)):
             epsilon, logdet = getattr(self, f"transformerCoupling{i}")(
                 epsilon, condition_inputs, inputs_lengths=z_lengths,
                 condition_lengths=condition_lengths, reverse=True)
             accum_logdet = accum_logdet + logdet
             epsilon, logdet = getattr(self, f"invertible_linear_{i}")(
-                epsilon, z_lengths, reverse=True)
+                epsilon, z_lengths, reverse=True, precomputed=pre[i])
             accum_logdet = accum_logdet + logdet
             epsilon, logdet = getattr(self, f"actnorm_{i}")(
                 epsilon, z_lengths, reverse=True)

@@ -37,6 +37,7 @@ from ..configs.serialize import load_hparams
 from ..utils.export import EXPORT_NAME, load_npz
 from .decoder import TransformerDecoder
 from .encoder import TransformerEncoder
+from .attention import remat_mode
 from .layers import COMPUTE_DTYPES, sequence_mask
 from .length_predictor import DenseLengthPredictor, pinball_log_loss
 from .posterior import (TransformerPosterior, gaussian_log_probability,
@@ -76,17 +77,18 @@ class VAENAR(nn.Module):
         self.n_sample = hp.train.num_samples
         self.length_quantile = float(hp.length_predictor.quantile)
         dtype = COMPUTE_DTYPES[hp.train.compute_dtype]
+        remat = remat_mode(hp.train.remat)
         self.text_encoder = TransformerEncoder(
             enc.vocab_size, enc.embd_dim, enc.n_conv, enc.pre_hidden,
             enc.conv_kernel, enc.pre_activation, enc.bn_before_act, enc.n_blk,
             enc.attention_dim, enc.attention_heads, enc.attention_temperature,
-            enc.ffn_hidden, enc.pre_drop_rate, enc.pos_drop_rate, dtype)
+            enc.ffn_hidden, enc.pre_drop_rate, enc.pos_drop_rate, dtype, remat)
         self.decoder = TransformerDecoder(
             hp.common.latent_dim, text_dim, dec.nblk, dec.attention_dim,
             dec.attention_heads, dec.attention_temperature, dec.ffn_hidden,
             dec.post_n_conv, dec.post_conv_filters, dec.post_conv_kernel,
             hp.common.output_dim, hp.common.max_reduction_factor,
-            dec.post_drop_rate, dtype)
+            dec.post_drop_rate, dtype, remat)
         self.length_predictor = DenseLengthPredictor(
             text_dim, hp.length_predictor.activation, self.length_quantile, dtype)
         post = hp.posterior
@@ -94,11 +96,11 @@ class VAENAR(nn.Module):
             hp.audio.num_mels, text_dim, post.pre_hidden, post.pre_activation,
             post.nblk, post.attention_dim, post.attention_heads,
             post.temperature, post.ffn_hidden, hp.common.latent_dim,
-            post.pre_drop_rate, post.pos_drop_rate, dtype)
+            post.pre_drop_rate, post.pos_drop_rate, dtype, remat)
         self.prior = TransformerPrior(
             pri.n_blk, hp.common.latent_dim, text_dim, pri.n_transformer_blk,
             pri.attention_dim, pri.attention_heads, pri.temperature,
-            pri.ffn_hidden, dtype)
+            pri.ffn_hidden, dtype, pri.batched_lu, remat)
 
     def _encode(self, inputs, text_lengths, reduction_factor: int,
                 train: bool = False, generator: Optional[torch.Generator] = None):

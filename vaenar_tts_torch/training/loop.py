@@ -7,47 +7,75 @@ single process):
   the maximum reduction factor;
 * epochs with the KL-weight and reduction-factor schedules, each on its own
   seeded generator (so a resumed run draws what an uninterrupted one would);
-  ``steps_per_epoch`` cuts an epoch short;
+  ``steps_per_epoch`` cuts an epoch short. Batches are assembled and copied
+  to the device one ahead of the step, in a prefetch thread
+  (``utils/prefetch.py``), on the same default stream as the compute;
+* the device data cache (``train.device_data_cache_mb`` > 0): when every
+  train batch has one shape and the train and dev splits together fit in
+  the cap (the JAX package counts the train split alone), both are copied to
+  the device once, and each step takes its batch by index. The JAX
+  package's one-dispatch epoch (``device_cache_epoch_scan``) has no
+  counterpart yet: asking for it raises at the start;
 * the dev loss after each epoch, weighted by real utterances;
 * a checkpoint every ``checkpoint_every_n_epochs`` and after the last epoch;
 * an optional product-metric probe (``training/probe.py``) every
   ``probe_every`` epochs from ``probe_start`` on, run after that epoch's
   checkpoint (a probed epoch is always checkpointed, so that it can be
   selected); a probe that asks for ``stop_training`` ends the run after its
-  epoch, and a probe that raises is printed and does not end the run.
+  epoch, and a probe that raises is printed and does not end the run;
+* every ``test_interval`` epochs, one batch of the ``test`` split is
+  synthesized at its mel lengths (``steps.test_step``, temperature 0): its
+  mel L1, L2 and MCD against the records go to the dev metrics, its wavs
+  (``TestUtils.synthesize_and_save_wavs_auto``: the neural vocoder of
+  ``neural_vocoder_dir`` if given, else Griffin-Lim on the model's device)
+  and, with ``draw_plots``, its mel and decoder-alignment plots to
+  ``test_dir``;
+* SIGTERM: a step in flight finishes, the rest of the epoch is discarded,
+  the last completed epoch is checkpointed if it was not (from a copy of
+  the state taken when that epoch ended), and the run returns normally; a
+  signal after an epoch's last step stops the run at that epoch's end. The
+  previous handler is put back on the way out.
 
-Metrics go to stdout and, one JSON line per epoch and split (``train``,
-``dev``, ``probe``), to ``log_dir/metrics.jsonl``. A model directory that
+Metrics go to stdout and, as the JAX package writes them
+(``utils/logging.MetricsWriter``), one JSON line an epoch to
+``log_dir/train/metrics.jsonl`` and ``log_dir/dev/metrics.jsonl`` (the
+probe's and the test artifacts' scalars go to dev). A model directory that
 holds another writer's numbered checkpoints is refused before anything is
-written (``utils.checkpoint.checkpoint_epochs``). Left out of the port so
-far: the device data cache, test-interval wavs and plots, SIGTERM handling,
-logging to tensorboard, prefetching and multi-process training.
+written (``utils.checkpoint.checkpoint_epochs``). Multi-process training is
+not part of the port yet.
 """
 
 from __future__ import annotations
 
-import json
+import contextlib
+import copy
 import os
+import signal
 import time
 from typing import Callable, Dict, Optional
 
 import numpy as np
 import torch
 
+from ..audio.export import TestUtils, require_matplotlib
 from ..configs.hparams import HParams
 from ..configs.serialize import save_hparams
 from ..data.loader import Batch, BucketedLoader
 from ..data.records import list_shards
 from ..models.vaenar import resolve_device
 from ..utils.checkpoint import CheckpointManager, checkpoint_epochs
+from ..utils.logging import MetricsWriter
+from ..utils.metrics import batch_summary
+from ..utils.prefetch import prefetch
 from .steps import (dev_step, init_model, make_optimizer, metric_floats,
-                    run_data_dependent_init, train_step)
+                    run_data_dependent_init, test_step, train_step)
 
 
 def make_loaders(hp: HParams, data_dir: str):
-    """(train, dev): bucketed loaders over the ``train-*`` and ``dev-*``
-    shards; train shuffles its batch order per epoch and drops a short last
-    batch, dev keeps both."""
+    """(train, dev, test): bucketed loaders over the ``train-*``, ``dev-*``
+    and ``test-*`` shards; train shuffles its batch order per epoch and
+    drops a short last batch, dev and test keep both, and test batches hold
+    ``test_batch_size`` utterances. A split without shards has no batches."""
     mel_b, text_b = hp.dataset.mel_bucket, hp.dataset.text_bucket
     train = BucketedLoader(list_shards(data_dir, "train"), hp.train.train_batch_size,
                            mel_bucket=mel_b, text_bucket=text_b,
@@ -56,7 +84,10 @@ def make_loaders(hp: HParams, data_dir: str):
     dev = BucketedLoader(list_shards(data_dir, "dev"), hp.train.train_batch_size,
                          mel_bucket=mel_b, text_bucket=text_b, shuffle=False,
                          seed=hp.train.random_seed)
-    return train, dev
+    test = BucketedLoader(list_shards(data_dir, "test"), hp.train.test_batch_size,
+                          mel_bucket=mel_b, text_bucket=text_b, shuffle=False,
+                          seed=hp.train.random_seed)
+    return train, dev, test
 
 
 def to_device(batch: Batch, device: torch.device):
@@ -67,34 +98,91 @@ def to_device(batch: Batch, device: torch.device):
             torch.from_numpy(batch.mel_lengths).to(device))
 
 
+def valid_mask(batch: Batch, device: torch.device) -> torch.Tensor:
+    """1 on the batch's real rows, 0 on its repeated ones."""
+    return torch.from_numpy((np.arange(batch.texts.shape[0]) < batch.n_valid)
+                            .astype(np.float32)).to(device)
+
+
 def epoch_generator(device: torch.device, seed: int, epoch: int) -> torch.Generator:
     """The generator of dropout and posterior noise for one epoch (epoch 0
     is the cold start's init and priming step)."""
     return torch.Generator(device=device).manual_seed(seed * 10007 + epoch)
 
 
-def _log(log_dir: str, record: dict) -> None:
-    with open(os.path.join(log_dir, "metrics.jsonl"), "a") as f:
-        f.write(json.dumps(record) + "\n")
+def _split_mb(loader: BucketedLoader) -> float:
+    """MB (1e6 bytes) that the loader's batches take on the device, as
+    ``to_device`` and ``valid_mask`` make them: int64 texts, fp32 mels, two
+    int32 lengths and an fp32 mask a row."""
+    row = lambda t, m: 8 * t + 4 * m * loader.num_mels + 12  # noqa: E731
+    return sum(n * loader.batch_size * row(t, m)
+               for (t, m), n in loader.shape_census().items()) / 1e6
+
+
+def device_cache(hp: HParams, train_loader: BucketedLoader, dev_loader: BucketedLoader,
+                 device: torch.device):
+    """(train cache, dev cache), or (None, None) with the reason printed.
+    The train cache is the train batches stacked in their base order, a
+    tuple of [n_batches, ...] tensors on ``device``; the dev cache is a list
+    of (texts, mels, text lengths, mel lengths, valid mask, n_valid), one a
+    dev batch. Both splits count against ``device_data_cache_mb``."""
+    cap = hp.train.device_data_cache_mb
+    if not cap or cap <= 0 or len(train_loader) == 0:
+        return None, None
+    census = train_loader.shape_census()
+    if len(census) != 1:
+        print(f"device data cache OFF: {len(census)} static train batch shapes "
+              f"(the cache needs exactly 1)")
+        return None, None
+    train_mb, dev_mb = _split_mb(train_loader), _split_mb(dev_loader)
+    if train_mb + dev_mb > cap:
+        print(f"device data cache OFF: train {train_mb:.3f} MB + dev {dev_mb:.3f} MB "
+              f"(the dev split counted) > device_data_cache_mb={cap}")
+        return None, None
+    batches = train_loader.all_batches()
+    train_cache = tuple(torch.stack(parts) for parts in
+                        zip(*(to_device(b, device) for b in batches)))
+    dev_cache = [(*to_device(b, device), valid_mask(b, device), b.n_valid)
+                 for b in dev_loader.all_batches()]
+    print(f"device data cache ON: {len(batches)} train batches ({train_mb:.3f} MB) + "
+          f"{len(dev_cache)} dev batches ({dev_mb:.3f} MB), both counted against "
+          f"device_data_cache_mb={cap}, on {device}")
+    return train_cache, dev_cache
+
+
+def _snapshot(model: torch.nn.Module, optimizer: torch.optim.Optimizer):
+    """Copies of the model's and the optimizer's state, on their device."""
+    return ({k: v.detach().clone() for k, v in model.state_dict().items()},
+            copy.deepcopy(optimizer.state_dict()))
 
 
 def train(hp: HParams, data_dir: str, model_dir: str, log_dir: str,
-          max_epochs: Optional[int] = None,
+          test_dir: Optional[str] = None, max_epochs: Optional[int] = None,
           steps_per_epoch: Optional[int] = None, log_every: int = 50,
-          device="cuda", probe: Optional[Callable] = None, probe_every: int = 0,
-          probe_start: int = 0) -> Dict[str, object]:
+          device="cuda", neural_vocoder_dir: Optional[str] = None,
+          draw_plots: bool = True, probe: Optional[Callable] = None,
+          probe_every: int = 0, probe_start: int = 0) -> Dict[str, object]:
     """Run or resume training. ``max_epochs`` is inclusive ("run through
     epoch N"); without it the run ends before ``hp.train.epochs``.
-    ``probe(epoch, model) -> dict or None`` runs after the checkpoint of
-    every ``probe_every``-th epoch from ``probe_start`` on. Returns
-    {"epoch": last epoch, "initial": the priming step's metrics or None,
-    "train", "dev", "probe": {epoch: metrics}}."""
+    ``test_dir`` defaults to ``log_dir/test``. ``probe(epoch, model) -> dict
+    or None`` runs after the checkpoint of every ``probe_every``-th epoch
+    from ``probe_start`` on. Returns {"epoch": the last completed epoch,
+    "initial": the priming step's metrics or None, "train", "dev", "probe",
+    "test": {epoch: metrics}, "stopped": None, "sigterm" or "probe",
+    "cache": whether the device data cache was on}."""
     checkpoint_epochs(model_dir)  # a foreign directory raises before any write
+    if hp.train.device_cache_epoch_scan:
+        raise ValueError("train.device_cache_epoch_scan=True (the JAX package's one "
+                         "lax.scan dispatch an epoch) has no counterpart in the port yet; "
+                         "set it to false (the cache then runs a step per batch)")
     dev = resolve_device(device)
-    os.makedirs(log_dir, exist_ok=True)
-    train_loader, dev_loader = make_loaders(hp, data_dir)
-    print(f"train batches/epoch: {len(train_loader)}, dev: {len(dev_loader)}")
+    train_loader, dev_loader, test_loader = make_loaders(hp, data_dir)
+    test_dir = test_dir or os.path.join(log_dir, "test")
+    tester = TestUtils(hp, test_dir, dev, neural_vocoder_dir=neural_vocoder_dir)
+    print(f"train batches/epoch: {len(train_loader)}, dev: {len(dev_loader)}, "
+          f"test: {len(test_loader)}")
     print(f"shape census (text_max, mel_max) -> count: {train_loader.shape_census()}")
+    train_cache, dev_cache = device_cache(hp, train_loader, dev_loader, dev)
 
     seed = hp.train.random_seed
     model = init_model(hp, seed, dev)
@@ -105,7 +193,13 @@ def train(hp: HParams, data_dir: str, model_dir: str, log_dir: str,
     # written after the restore attempt, so that a resume that fails on a
     # mismatched architecture leaves the trained one's hparams.json alone
     save_hparams(hp, model_dir)
-    history: Dict[str, object] = {"initial": None, "train": {}, "dev": {}, "probe": {}}
+    total_epochs = max_epochs + 1 if max_epochs is not None else hp.train.epochs
+    if draw_plots and len(test_loader) and any(
+            e % hp.train.test_interval == 0 for e in range((start or 0) + 1, total_epochs)):
+        require_matplotlib()  # at once, not at the first test interval
+    history: Dict[str, object] = {"initial": None, "train": {}, "dev": {}, "probe": {},
+                                  "test": {}, "stopped": None,
+                                  "cache": train_cache is not None}
     if start is not None:
         print(f"Restored from epoch {start}")
     else:
@@ -122,66 +216,158 @@ def train(hp: HParams, data_dir: str, model_dir: str, log_dir: str,
         print("Initial step:", initial)
         history["initial"] = initial
 
-    total_epochs = max_epochs + 1 if max_epochs is not None else hp.train.epochs
-    epoch = start
-    for epoch in range(start + 1, total_epochs):
-        gen = epoch_generator(dev, seed, epoch)
-        kl_weight = hp.train.kl_weight_at(epoch)
-        r = hp.train.reduction_factor_at(epoch)
-        print(f"Epoch {epoch}: kl_weight={kl_weight}, reduction_factor={r}")
-        epoch_start = time.time()
-        sums: Dict[str, torch.Tensor] = {}
-        n_steps = 0
-        for batch in train_loader.epoch(epoch):
-            if steps_per_epoch and n_steps >= steps_per_epoch:
+    stop = {"sigterm": False}
+
+    def on_sigterm(_sig, _frame):
+        stop["sigterm"] = True
+        print("SIGTERM received: will checkpoint and stop at the next step", flush=True)
+
+    try:
+        prev_handler = signal.signal(signal.SIGTERM, on_sigterm)
+    except ValueError:  # not the main thread
+        prev_handler = None
+    metrics_train = MetricsWriter(os.path.join(log_dir, "train"))
+    metrics_dev = MetricsWriter(os.path.join(log_dir, "dev"))
+    try:
+        # the last completed epoch's state when it is not on disk: a SIGTERM in
+        # the next epoch saves it, without that epoch's partial steps
+        last_saved, snapshot = start, None
+        history["epoch"] = start
+        for epoch in range(start + 1, total_epochs):
+            gen = epoch_generator(dev, seed, epoch)
+            kl_weight = hp.train.kl_weight_at(epoch)
+            r = hp.train.reduction_factor_at(epoch)
+            print(f"Epoch {epoch}: kl_weight={kl_weight}, reduction_factor={r}")
+            epoch_start = time.time()
+            sums: Dict[str, torch.Tensor] = {}
+            n_steps = 0
+            if train_cache is not None:
+                order = train_loader.batch_order(epoch)[:steps_per_epoch or None]
+                batch_iter = (tuple(x[i] for x in train_cache) for i in order)
+            else:
+                def device_batches():
+                    for i, b in enumerate(train_loader.epoch(epoch)):
+                        if steps_per_epoch and i >= steps_per_epoch:
+                            return  # the prefetch worker drains and exits
+                        yield to_device(b, dev)
+                batch_iter = prefetch(device_batches())
+            interrupted = False
+            with contextlib.closing(batch_iter):
+                for batch in batch_iter:
+                    if stop["sigterm"]:
+                        interrupted = True
+                        break
+                    step_start = time.time()
+                    m = train_step(model, optimizer, hp, *batch, kl_weight, r, gen)
+                    n_steps += 1
+                    if n_steps % log_every == 0 or n_steps == 1:
+                        print(f"  step {n_steps}: " + ", ".join(
+                            f"{k} {v:.6f}" for k, v in metric_floats(m).items())
+                            + f", time {time.time() - step_start:.3f}s", flush=True)
+                    sums = {k: sums[k] + v if k in sums else v for k, v in m.items()}
+            if interrupted:
+                if last_saved != epoch - 1:
+                    ckpt.save_state(epoch - 1, *snapshot)
+                print(f"preemption: stopped during epoch {epoch}; checkpoint at completed "
+                      f"epoch {epoch - 1}", flush=True)
+                history["stopped"] = "sigterm"
                 break
-            step_start = time.time()
-            m = train_step(model, optimizer, hp, *to_device(batch, dev),
-                           kl_weight, r, gen)
-            n_steps += 1
-            if n_steps % log_every == 0 or n_steps == 1:
-                print(f"  step {n_steps}: " + ", ".join(
-                    f"{k} {v:.6f}" for k, v in metric_floats(m).items())
-                    + f", time {time.time() - step_start:.3f}s")
-            sums = {k: sums[k] + v if k in sums else v for k, v in m.items()}
-        train_avg = {k: float(v) / max(n_steps, 1) for k, v in sums.items()}
-        print(f"Epoch {epoch} train done in {time.time() - epoch_start:.1f}s: {train_avg}")
+            train_avg = {k: float(v) / max(n_steps, 1) for k, v in sums.items()}
+            print(f"Epoch {epoch} train done in {time.time() - epoch_start:.1f}s: {train_avg}")
+            metrics_train.scalars(epoch, train_avg)
 
-        dev_sums: Dict[str, float] = {}
-        n_dev = 0
-        for batch in dev_loader.epoch(epoch):
-            vmask = torch.from_numpy(
-                (np.arange(batch.texts.shape[0]) < batch.n_valid).astype(np.float32)).to(dev)
-            m = dev_step(model, hp, *to_device(batch, dev), kl_weight, vmask, r, gen)
-            for k, v in metric_floats(m).items():
-                dev_sums[k] = dev_sums.get(k, 0.0) + v * batch.n_valid
-            n_dev += batch.n_valid
-        dev_avg = {k: v / max(n_dev, 1) for k, v in dev_sums.items()}
-        print(f"Epoch {epoch} dev: {dev_avg}")
-        history["train"][epoch], history["dev"][epoch] = train_avg, dev_avg
-        _log(log_dir, {"epoch": epoch, "split": "train", **train_avg})
-        _log(log_dir, {"epoch": epoch, "split": "dev", **dev_avg})
+            dev_sums: Dict[str, float] = {}
+            n_dev = 0
+            dev_batches = dev_cache if dev_cache is not None else (
+                (*to_device(b, dev), valid_mask(b, dev), b.n_valid)
+                for b in dev_loader.epoch(epoch))
+            for texts, mels, t_lens, m_lens, vmask, n_valid in dev_batches:
+                m = dev_step(model, hp, texts, mels, t_lens, m_lens, kl_weight, vmask, r, gen)
+                for k, v in metric_floats(m).items():
+                    dev_sums[k] = dev_sums.get(k, 0.0) + v * n_valid
+                n_dev += n_valid
+            dev_avg = {k: v / max(n_dev, 1) for k, v in dev_sums.items()}
+            print(f"Epoch {epoch} dev: {dev_avg}")
+            history["train"][epoch], history["dev"][epoch] = train_avg, dev_avg
+            history["epoch"] = epoch
+            metrics_dev.scalars(epoch, dev_avg)
 
-        saved = epoch % hp.train.checkpoint_every_n_epochs == 0 or epoch == total_epochs - 1
-        if saved:
-            ckpt.save(epoch, model, optimizer)
-        if (probe is not None and probe_every > 0 and epoch >= probe_start
-                and epoch % probe_every == 0):
-            if not saved:  # a probed epoch is a checkpoint to select from
+            if epoch % hp.train.checkpoint_every_n_epochs == 0 or epoch == total_epochs - 1:
                 ckpt.save(epoch, model, optimizer)
-            stop = False
-            try:
-                scalars = probe(epoch, model)
-                if scalars:
-                    stop = bool(scalars.pop("stop_training", False))
-                    print(f"Epoch {epoch} probe: " + ", ".join(
-                        f"{k} {v:.4f}" for k, v in scalars.items()))
-                    history["probe"][epoch] = scalars
-                    _log(log_dir, {"epoch": epoch, "split": "probe", **scalars})
-            except Exception as e:  # a probe never ends the run
-                print(f"probe failed at epoch {epoch}: {e!r}")
-            if stop:
+                last_saved = epoch
+            probe_stop = False
+            if (probe is not None and probe_every > 0 and epoch >= probe_start
+                    and epoch % probe_every == 0):
+                if last_saved != epoch:  # a probed epoch is a checkpoint to select from
+                    ckpt.save(epoch, model, optimizer)
+                    last_saved = epoch
+                try:
+                    scalars = probe(epoch, model)
+                    if scalars:
+                        probe_stop = bool(scalars.pop("stop_training", False))
+                        print(f"Epoch {epoch} probe: " + ", ".join(
+                            f"{k} {v:.4f}" for k, v in scalars.items()))
+                        history["probe"][epoch] = scalars
+                        metrics_dev.scalars(epoch, scalars)
+                except Exception as e:  # a probe never ends the run
+                    print(f"probe failed at epoch {epoch}: {e!r}")
+            if probe_stop:
                 print(f"stopping after epoch {epoch}: probe requested early stop")
+                history["stopped"] = "probe"
                 break
-    history["epoch"] = epoch
+            if epoch % hp.train.test_interval == 0 and len(test_loader):
+                history["test"][epoch] = run_test_artifacts(
+                    hp, model, test_loader, tester, epoch, r, gen, metrics_dev, draw_plots)
+            if stop["sigterm"]:
+                if last_saved != epoch:
+                    ckpt.save(epoch, model, optimizer)
+                print(f"stopping after epoch {epoch} (preemption); checkpoint at epoch {epoch}",
+                      flush=True)
+                history["stopped"] = "sigterm"
+                break
+            snapshot = _snapshot(model, optimizer) if last_saved != epoch else None
+    finally:
+        if prev_handler is not None:
+            signal.signal(signal.SIGTERM, prev_handler)
+        metrics_train.close()
+        metrics_dev.close()
     return history
+
+
+def run_test_artifacts(hp: HParams, model, test_loader: BucketedLoader, tester: TestUtils,
+                       epoch: int, r: int, generator: torch.Generator,
+                       metrics_writer: Optional[MetricsWriter] = None,
+                       draw_plots: bool = True) -> Dict[str, float]:
+    """Synthesize the test split's first batch at its mel lengths
+    (``_run_test_artifacts``): its quality against the records (mel L1, L2
+    and MCD over each utterance's valid frames) printed, written as
+    ``test_mel_l1``, ``test_mel_l2`` and ``test_mcd_db`` and returned; its
+    wavs through ``synthesize_and_save_wavs_auto`` (a vocoder failure is
+    printed and does not end the run, as in the reference); and with
+    ``draw_plots`` its mel plots and the decoder's alignment plots."""
+    device = next(model.parameters()).device
+    batch = next(iter(test_loader.epoch(epoch)))
+    texts, _, t_lens, m_lens = to_device(batch, device)
+    mels, alignments = test_step(model, texts, t_lens, m_lens, r, batch.mels.shape[1],
+                                 generator=generator)
+    mels = mels.cpu().numpy()
+    lens = batch.mel_lengths
+    quality = batch_summary([(mels[i][: int(lens[i])], batch.mels[i][: int(lens[i])])
+                             for i in range(batch.n_valid)])
+    print(f"test quality @ epoch {epoch}: mel_l1 {quality['mel_l1']:.4f}, "
+          f"mcd {quality['mcd_db']:.2f} dB over {quality['n']} utts")
+    scalars = {"test_mel_l1": quality["mel_l1"], "test_mel_l2": quality["mel_l2"],
+               "test_mcd_db": quality["mcd_db"]}
+    if metrics_writer is not None:
+        metrics_writer.scalars(epoch, scalars)
+    try:
+        tester.synthesize_and_save_wavs_auto(epoch, mels, lens, batch.fids, "test")
+    except Exception as e:  # the reference swallows vocoder failures too
+        print(f"Something wrong with the generated waveform: {e!r}")
+    if draw_plots:
+        tester.draw_melspectrograms(epoch, mels, lens, batch.fids, "test")
+        for k, a in alignments.items():
+            tester.multi_draw_attention_alignments(
+                a.cpu().numpy(), batch.text_lengths, lens, epoch, batch.fids,
+                prefix=f"test-{k}", reduction_factor=r)
+    return scalars

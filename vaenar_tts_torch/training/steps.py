@@ -1,4 +1,4 @@
-"""Train, dev and init steps (counterpart of
+"""Train, dev, test and init steps (counterpart of
 ``vaenar_tts_tpu/training/steps.py``).
 
 The state is the model itself (parameters and BatchNorm buffers) and a
@@ -159,6 +159,22 @@ def dev_step(model: VAENAR, hp: HParams, texts: torch.Tensor, mels: torch.Tensor
     total = mel_l2 + kl_weight * kl + hp.train.length_weight * length_loss
     return _metrics(mel_l2, kl, length_loss,
                     None if pinball is None else vmean(pinball), total)
+
+
+@torch.no_grad()
+def test_step(model: VAENAR, texts: torch.Tensor, t_lens: torch.Tensor,
+              m_lens: torch.Tensor, reduction_factor: int, max_mel_length: int,
+              temperature: float = 0.0, generator: Optional[torch.Generator] = None,
+              epsilon: Optional[torch.Tensor] = None):
+    """The test-interval synthesis (``make_test_step``): a prior sample at
+    the given mel lengths, decoded. Returns (mels fp32 [B, max_mel_length,
+    out_dim], the decoder's alignments {"dec_<i>": [B, H, T_reduced,
+    T_text]}). The JAX package runs it on its plots variant (no Pallas
+    kernel); here the forward kernel runs and the alignments are the plain
+    softmax of the same q and k beside it (``models/attention.py``)."""
+    return model.infer(texts, m_lens, t_lens, reduction_factor=reduction_factor,
+                       max_mel_length=max_mel_length, temperature=temperature,
+                       generator=generator, epsilon=epsilon, return_alignments=True)
 
 
 @torch.no_grad()

@@ -79,12 +79,17 @@ class CheckpointManager:
 
     def save(self, epoch: int, model: torch.nn.Module,
              optimizer: Optional[torch.optim.Optimizer] = None) -> str:
+        return self.save_state(epoch, model.state_dict(),
+                               optimizer.state_dict() if optimizer else None)
+
+    def save_state(self, epoch: int, model_state: dict,
+                   optimizer_state: Optional[dict] = None) -> str:
+        """``save`` of state dicts taken earlier (a snapshot)."""
         final = os.path.join(self.model_dir, str(epoch))
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
-        torch.save({"model": model.state_dict(),
-                    "optimizer": optimizer.state_dict() if optimizer else None,
+        torch.save({"model": model_state, "optimizer": optimizer_state,
                     "epoch": int(epoch)}, os.path.join(tmp, STATE_NAME))
         _remove_dir(final)
         os.replace(tmp, final)

@@ -1,8 +1,9 @@
 """Mel metrics and take selection in numpy: the port's own copy of
 ``mel_l1``, ``mel_l2``, ``mcd``, ``mcd_dtw``, ``medoid_take`` and
-``alignment_diagonality`` of ``vaenar_tts_tpu/utils/metrics.py``. The
-synthesis CLI's multi-take selection (``--take_score medoid`` and
-``coverage``) reads them.
+``alignment_diagonality`` and ``batch_summary`` of
+``vaenar_tts_tpu/utils/metrics.py``. The synthesis CLI's multi-take
+selection (``--take_score medoid`` and ``coverage``) reads them, and the
+training loop's test-interval quality metrics read ``batch_summary``.
 """
 
 from __future__ import annotations
@@ -160,3 +161,15 @@ def alignment_diagonality(ali: np.ndarray, mel_len: int, text_len: int
             best_cov = float(np.mean(token_peak >= 2.0 / text_len))
     return {"diagonality": best_corr, "focus": best_focus,
             "coverage": best_cov}
+
+
+def batch_summary(pairs: Sequence[tuple], dtw: bool = False) -> Dict[str, float]:
+    """The means of ``mel_l1``, ``mel_l2`` and ``mcd`` over (pred, ref) mel
+    pairs, with their count ``n``; ``dtw=True`` adds ``mcd_dtw_db``."""
+    out = {"mel_l1": float(np.mean([mel_l1(p, r) for p, r in pairs])),
+           "mel_l2": float(np.mean([mel_l2(p, r) for p, r in pairs])),
+           "mcd_db": float(np.mean([mcd(p, r) for p, r in pairs])),
+           "n": len(pairs)}
+    if dtw:
+        out["mcd_dtw_db"] = float(np.mean([mcd_dtw(p, r) for p, r in pairs]))
+    return out

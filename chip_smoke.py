@@ -115,11 +115,32 @@ dK/dV kernel reads: a backward launches those two kernels and nothing else.
    samples) and `cli.train --neural_vocoder` (its test wavs);
 17. a torch.profiler trace (utils/profiling.profile_trace) of one bf16
    synthesis call: device busy share, launches, top device operations
-   (run after the times of 10.).
+   (run after the times of 10.);
+18. the native batch packer over 11.'s toy records and over 2048
+   utterances at LJSpeech's lengths: the loader says "native", an epoch
+   of its batches equals the numpy path's to the byte, and 5 epochs'
+   assembly timed each way;
+19. multi-process training: `cli.train --distributed` in two processes
+   sharing the card over gloo, the shipped config at full width, on
+   records in 4 train shards whose shapes span two buckets: at fp32 every
+   logged step loss and the epoch-1 dev losses against one process on the
+   same global batches (write_fleet_records, fleet_mirror), both processes'
+   losses equal, the lockstep schedule with 2 or more shapes, checkpoints
+   from process 0 only, each process's launches as counted; at bf16 3
+   epochs, finite and equal losses, its step wall beside one process's on
+   the same global batches; then SIGTERM to both processes of a bf16 fleet
+   once both are in epoch 1: one stop epoch, exit 0, and the fleet resumed
+   from there logs epoch 3 equal to the 3-epoch fleet's to the last bit;
+20. sharded synthesis: two processes (`chip_smoke.py --synthesis-worker`)
+   run parallel/synthesis.ShardedSynthesizer over the 4 shipped lines at
+   fp32, temperature 0 and 0.667: lengths equal to one process's call,
+   mels within TOL_SHARDED_MEL; and which gloo collectives take CUDA
+   tensors. The fleets' launches, read from each process's
+   logs/process_<i>.json, join the kernels' counts.
 
 Each phase prints a JSON line {"phase": ..., "seconds": ...} first. A failed
 check raises; the script then exits non-zero without printing the final
-line. Without a CUDA device, or without the rest of the repository beside
+line. With `--synthesis-worker RANK PORT OUT` it is one process of 20. Without a CUDA device, or without the rest of the repository beside
 it, it exits non-zero at once. It writes the kernel build directory
 (vaenar_tts_torch/_build/, ignored by git) and a temporary directory that it
 deletes.
@@ -295,6 +316,22 @@ VOC_UTTS, VOC_STEPS, VOC_LOG_EVERY = 32, 300, 50
 VOC_LOSS_DROP = 0.9
 VOC_CARD_CPU_FRAMES = 480
 TOL_VOC_CARD_CPU = 1e-4
+# multi-process data parallelism: two processes share the one card over
+# gloo (NCCL refuses two processes on one device). The fleets train the
+# shipped config at full width on FLEET_SHARDS train shards of
+# FLEET_PER_SHARD utterances whose texts span two text buckets and whose
+# mels span two mel buckets (so that the lockstep schedule has several
+# shapes), FLEET_STEPS steps an epoch. fp32: every logged step loss and
+# the epoch-1 dev losses within TOL_FLEET_REL relative of one process on
+# the same global batches (the JAX package's tests/test_distributed.py
+# tolerance); the sharded synthesis's fp32 mels within TOL_SHARDED_MEL of
+# one process's call (the card-vs-CPU mel tolerance: rows of a batch of 2
+# against a batch of 4, GEMMs that may sum in another order), its lengths
+# exactly. A fleet is killed after FLEET_TIMEOUT_S.
+FLEET_SHARDS, FLEET_PER_SHARD, FLEET_STEPS = 4, 40, 2
+TOL_FLEET_REL = 2e-3
+TOL_SHARDED_MEL = 1e-4
+FLEET_TIMEOUT_S = 300
 T0 = time.perf_counter()
 
 
@@ -1834,6 +1871,516 @@ def synthesis_trace_phase(torch, fa, tmp, model, hp, token_ids, use_q, smi, wall
     return {"synthesis_trace": counts}
 
 
+def write_fleet_records(data_dir, seed):
+    """FLEET_SHARDS train shards of FLEET_PER_SHARD utterances and one dev
+    shard of N_DEV: texts of 12-64 ids (text buckets 32 and 64 at the
+    shipped config), mels of about 9 frames an id (mel buckets 480 and 960)."""
+    import numpy as np
+    from vaenar_tts_torch.data.records import RecordShardWriter
+    rng = np.random.default_rng(seed)
+    for name, n in [(f"train-{i}", FLEET_PER_SHARD) for i in range(FLEET_SHARDS)] + [
+            ("dev-0", N_DEV)]:
+        writer = RecordShardWriter(os.path.join(data_dir, f"{name}.vrs"), 80)
+        for i in range(n):
+            text_len = int(rng.integers(12, 65))
+            mel_len = int(round(9.0 * text_len * rng.uniform(0.85, 1.15)))
+            writer.add(f"{name}-{i:03d}", rng.integers(3, 43, text_len),
+                       rng.uniform(0.0, 1.0, (mel_len, 80)).astype(np.float32))
+        writer.close()
+
+
+def join_batches(parts, device):
+    """The processes' batches of one step -> the global batch on ``device``,
+    as the loop feeds it."""
+    import numpy as np
+    import torch
+    texts, mels, t_lens, m_lens = (np.concatenate([getattr(b, k) for b in parts])
+                                   for k in ("texts", "mels", "text_lengths", "mel_lengths"))
+    return (torch.from_numpy(texts).long().to(device), torch.from_numpy(mels).to(device),
+            torch.from_numpy(t_lens).to(device), torch.from_numpy(m_lens).to(device))
+
+
+def fleet_global_batches(hp, data_dir, nprocs, epoch, device):
+    """The global train batches of epoch ``epoch`` of an ``nprocs`` fleet of
+    ``cli.train --distributed`` over ``data_dir``: the same shard partition,
+    loaders and lockstep schedule, each step's batches joined."""
+    import numpy as np
+    from vaenar_tts_torch.data.loader import BucketedLoader
+    from vaenar_tts_torch.data.records import list_shards
+    shards = sorted(list_shards(data_dir, "train"))
+    local_bs = hp.train.train_batch_size // nprocs
+    loaders = [BucketedLoader(shards[i::nprocs], local_bs, hp.dataset.mel_bucket,
+                              hp.dataset.text_bucket, shuffle=hp.train.shuffle,
+                              seed=hp.train.random_seed + i, drop_last=True)
+               for i in range(nprocs)]
+    cap = min(len(ld) for ld in loaders)
+    sched = np.max([ld.epoch_shape_schedule(epoch, n_steps=cap) for ld in loaders], axis=0)
+    for parts in zip(*(ld.epoch(epoch, shape_schedule=sched) for ld in loaders)):
+        yield join_batches(parts, device)
+
+
+def fleet_mirror(hp, data_dir, nprocs, n_steps, device):
+    """One process on the global batches of an ``nprocs`` fleet of
+    ``cli.train --distributed`` over ``data_dir`` (the same shard partition,
+    loaders, lockstep schedules and generators): the cold start, then
+    epoch 1's first ``n_steps`` steps and its dev pass. Returns (the steps'
+    metrics, the dev losses, the model and its optimizer)."""
+    import numpy as np
+    import torch
+    from vaenar_tts_torch.data.loader import BucketedLoader, repad_batch
+    from vaenar_tts_torch.data.records import list_shards
+    from vaenar_tts_torch.training import loop, steps
+
+    local_bs = hp.train.train_batch_size // nprocs
+    mb, tb, seed = hp.dataset.mel_bucket, hp.dataset.text_bucket, hp.train.random_seed
+
+    def global_batches(epoch):
+        return fleet_global_batches(hp, data_dir, nprocs, epoch, device)
+
+    model = steps.init_model(hp, seed, device)
+    optimizer = steps.make_optimizer(hp, model)
+    gen = loop.epoch_generator(device, seed, 0)
+    first = next(global_batches(0))
+    texts, mels, t_lens, m_lens = first
+    steps.run_data_dependent_init(model, texts, t_lens, m_lens, mels.shape[1], generator=gen)
+    steps.train_step(model, optimizer, hp, *first, hp.train.kl_weight_init,
+                     hp.common.max_reduction_factor, gen)
+    gen = loop.epoch_generator(device, seed, 1)
+    kl_w, r = hp.train.kl_weight_at(1), hp.train.reduction_factor_at(1)
+    got = []
+    for i, batch in enumerate(global_batches(1)):
+        if i >= n_steps:
+            break
+        got.append(steps.metric_floats(steps.train_step(model, optimizer, hp, *batch, kl_w, r,
+                                                        gen)))
+    dev_loaders = [BucketedLoader(list_shards(data_dir, "dev"), local_bs, mb, tb, shuffle=False,
+                                  seed=seed, shard_index=p, shard_count=nprocs)
+                   for p in range(nprocs)]
+    dev_groups = -(-dev_loaders[0].num_utterances // local_bs)
+    dev_steps = -(-dev_groups // nprocs)
+    sched = np.max([ld.epoch_shape_schedule(0, n_steps=dev_steps) for ld in dev_loaders], axis=0)
+    slices = [list(ld.epoch(1, shape_schedule=sched)) for ld in dev_loaders]
+    sums, n_utts = {}, 0
+    for s in range(dev_steps):
+        parts, masks, n_valid = [], [], 0
+        for p in range(nprocs):
+            if s < len(slices[p]):
+                b, nv = slices[p][s], slices[p][s].n_valid
+            else:  # a dry process re-feeds its last batch with no real rows
+                b, nv = repad_batch(slices[p][-1], int(sched[s][0]), int(sched[s][1])), 0
+            parts.append(b)
+            masks.append((np.arange(b.texts.shape[0]) < nv).astype(np.float32))
+            n_valid += nv
+        m = steps.metric_floats(steps.dev_step(
+            model, hp, *join_batches(parts, device), kl_w,
+            torch.from_numpy(np.concatenate(masks)).to(device), r, gen))
+        for k, v in m.items():
+            sums[k] = sums.get(k, 0.0) + v * n_valid
+        n_utts += n_valid
+    return got, {k: v / max(n_utts, 1) for k, v in sums.items()}, model, optimizer
+
+
+FLEET_STEP_RE = r"step (\d+): (kl [^,]+, len_l2 [^,]+, len_pinball [^,]+, mel_l2 [^,]+, total [^,]+), time ([\d.]+)s"
+
+
+def fleet_log(text):
+    """A fleet process's output -> ({epoch: [(loss fields, step seconds)]},
+    {epoch: dev losses})."""
+    import re
+    steps_, devs, cur = {}, {}, None
+    for line in text.splitlines():
+        m = re.match(r"Epoch (\d+): kl_weight", line)
+        if m:
+            cur = int(m.group(1))
+            steps_[cur] = []
+            continue
+        s = re.search(FLEET_STEP_RE, line)
+        if cur is not None and s:
+            steps_[cur].append((s.group(2), float(s.group(3))))
+        d = re.match(r"Epoch (\d+) dev: (\{.*\})", line)
+        if d:
+            devs[int(d.group(1))] = json.loads(d.group(2).replace("'", '"'))
+    return steps_, devs
+
+
+def loss_fields(fields):
+    return {k: float(v) for k, v in (p.split(" ") for p in fields.split(", "))}
+
+
+def spawn_fleet(root, tag, data_dir, nprocs, max_epochs, extra=(), ckpt=None):
+    """``cli.train --distributed`` in ``nprocs`` processes on the one card
+    (gloo), the shipped hparams.json, checkpoints in ``ckpt_<ckpt or
+    tag>``, output to files. Returns (processes, output paths, log dirs)."""
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs, outs, logs = [], [], []
+    for pid in range(nprocs):
+        env = dict(os.environ, PYTHONUNBUFFERED="1", VAENAR_DIST_BACKEND="gloo",
+                   VAENAR_COORDINATOR=f"localhost:{port}", VAENAR_NUM_PROCESSES=str(nprocs),
+                   VAENAR_PROCESS_ID=str(pid))
+        log_dir = os.path.join(root, f"logs_{tag}_p{pid}")
+        cmd = [sys.executable, "-m", "vaenar_tts_torch.cli.train", "--dataset", "ljspeech",
+               "--data_dir", data_dir, "--model_dir", os.path.join(root, f"ckpt_{ckpt or tag}"),
+               "--log_dir", log_dir, "--device", DEVICE, "--distributed", "--no-draw_plots",
+               "--max_epochs", str(max_epochs),
+               "--steps_per_epoch", str(FLEET_STEPS), "--log_every", "1",
+               "--hparams", os.path.join(MODEL_DIR, "hparams.json"), *extra]
+        out = os.path.join(root, f"out_{tag}_p{pid}.txt")
+        with open(out, "w") as f:
+            procs.append(subprocess.Popen(cmd, cwd=HERE, env=env, stdout=f,
+                                          stderr=subprocess.STDOUT))
+        outs.append(out)
+        logs.append(log_dir)
+    return procs, outs, logs
+
+
+def wait_fleet(procs, outs, logs):
+    """Wait for a fleet (killed after FLEET_TIMEOUT_S); every process must
+    exit 0. Returns (outputs, the processes' process_<i>.json reports)."""
+    deadline = time.time() + FLEET_TIMEOUT_S
+    try:
+        for p in procs:
+            p.wait(timeout=max(1.0, deadline - time.time()))
+    except subprocess.TimeoutExpired:
+        pass
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = []
+    for out in outs:
+        with open(out) as f:
+            texts.append(f.read())
+    for pid, (p, text) in enumerate(zip(procs, texts)):
+        check(p.returncode == 0, f"fleet process {pid} exited {p.returncode}: {text[-3000:]}")
+    reports = []
+    for pid, log in enumerate(logs):
+        with open(os.path.join(log, f"process_{pid}.json")) as f:
+            reports.append(json.load(f))
+    return texts, reports
+
+
+def fleet_counts(reports):
+    """The kernel launches of a fleet's processes, summed."""
+    total = {}
+    for r in reports:
+        for k, v in r["launch_counts"].items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def write_ljspeech_scale_records(data_dir, n=2048, shards=8, seed=5):
+    """``n`` utterances of random mels at LJSpeech's lengths (~570 frames,
+    70-870, at 22.05 kHz and hop 256; text a sixth of that) in ``shards``
+    train shards: the data size a packer meets in a real run (~370 MB)."""
+    import numpy as np
+    from vaenar_tts_torch.data.records import RecordShardWriter
+    os.makedirs(data_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    writers = [RecordShardWriter(os.path.join(data_dir, f"train-{i}.vrs"), 80)
+               for i in range(shards)]
+    for k in range(n):
+        ml = int(np.clip(rng.normal(570, 190), 70, 870))
+        tl = max(8, ml // 6)
+        writers[k % shards].add(f"LJS-{k:05d}", rng.integers(3, 60, tl).astype(np.int32),
+                                rng.standard_normal((ml, 80), np.float32))
+    for w in writers:
+        w.close()
+
+
+def native_packer_phase(records, tmp, smi):
+    """The loader over ``records``' train shards and over a corpus at
+    LJSpeech's scale (batch 32, the shipped buckets): the native packer
+    runs, every epoch of its batches equals the numpy path's to the byte,
+    and an epoch's assembly is timed each way, one batch alive at a time as
+    the training loop holds them, 5 epochs a way interleaved (medians)."""
+    import numpy as np
+    from vaenar_tts_torch import native
+    from vaenar_tts_torch.data.loader import BucketedLoader
+    from vaenar_tts_torch.data.records import list_shards
+    phase("native_packer")
+    big = os.path.join(tmp, "ljspeech_scale_records")
+    write_ljspeech_scale_records(big)
+    report = {"card": smi, "host_cpu": os.cpu_count()}
+    for name, data in (("toy", records), ("ljspeech_scale", big)):
+        paths = list_shards(data, "train")
+        fast = BucketedLoader(paths, 32, 480, 32, seed=1)
+        slow = BucketedLoader(paths, 32, 480, 32, seed=1, native=False)
+        check(fast.packer == "native" and slow.packer == "numpy",
+              f"packers {fast.packer}/{slow.packer}: the native packer did not build "
+              f"({native.failure()})")
+        equal = len(fast) == len(slow) > 0 and all(
+            a.fids == b.fids and a.n_valid == b.n_valid and all(
+                getattr(a, k).tobytes() == getattr(b, k).tobytes()
+                for k in ("texts", "mels", "text_lengths", "mel_lengths"))
+            for a, b in zip(fast.epoch(0), slow.epoch(0)))  # also warms both
+        check(equal, f"{name}: native batches differ from the numpy path's")
+        seconds = {"native": [], "numpy": []}
+        for e in range(1, 6):
+            for way, loader in (("native", fast), ("numpy", slow)):
+                t = time.perf_counter()
+                for _ in loader.epoch(e):
+                    pass
+                seconds[way].append(time.perf_counter() - t)
+        report[name] = {"utterances": fast.num_utterances, "batches": len(fast),
+                        "equal_to_the_byte": equal, "epoch_assembly_s": seconds,
+                        "median_s": {k: float(np.median(v)) for k, v in seconds.items()}}
+    print(json.dumps(report), flush=True)
+    shutil.rmtree(big)
+    return report
+
+
+def distributed_phases(torch, tmp, smi, init_pass, per_step):
+    """Two-process fleets of ``cli.train --distributed`` on the one card
+    (gloo) at the shipped config, full width: fp32 against one process on
+    the same global batches; bf16, 3 epochs, against its own processes and
+    timed against one process's step; SIGTERM to a bf16 fleet and its
+    resume against the 3-epoch fleet, to the last bit. Returns {path:
+    launches summed over the processes}."""
+    from vaenar_tts_torch.configs.overrides import apply_overrides
+    from vaenar_tts_torch.configs.serialize import load_hparams
+    from vaenar_tts_torch.training import steps
+    import signal
+    phase("distributed_training")
+    root = os.path.join(tmp, "fleet")
+    records = os.path.join(root, "records")
+    os.makedirs(records)
+    write_fleet_records(records, seed=2032)
+    paths = {}
+    # one fleet at a time on the card, so that the bf16 one's step walls
+    # are its own
+    f32_out, f32_rep = wait_fleet(*spawn_fleet(root, "fp32", records, 2, 1,
+                                               ["--compute_dtype", "float32"]))
+    b16_out, b16_rep = wait_fleet(*spawn_fleet(root, "bf16", records, 2, 3))
+    paths["fleet_fp32"], paths["fleet_bf16"] = fleet_counts(f32_rep), fleet_counts(b16_rep)
+    hp32 = apply_overrides(load_hparams(MODEL_DIR), ["train.compute_dtype=float32"])
+    ref_steps, ref_dev, _, _ = fleet_mirror(hp32, records, 2, FLEET_STEPS, torch.device(DEVICE))
+    logs32 = [fleet_log(t) for t in f32_out]
+    logs16 = [fleet_log(t) for t in b16_out]
+    got = [loss_fields(f) for f, _ in logs32[0][0][1]]
+    rel = {f"step{i + 1}_{k}": abs(g[k] - w[k]) / abs(w[k])
+           for i, (g, w) in enumerate(zip(got, ref_steps)) for k in w}
+    rel.update({f"dev_{k}": abs(logs32[0][1][1][k] - v) / abs(v) for k, v in ref_dev.items()})
+    import re
+    sched = re.search(r"lockstep bucket schedule \(epoch 0\): (\d+) distinct shapes (.*?); "
+                      r"scheduled mel frames = ([\d.]+)%", f32_out[0])
+    # one process's bf16 steps on the global batches of the bf16 fleet's
+    # epochs 2 and 3, timed as the loop times a step (host clock around
+    # train_step, which ends in Adam's update), after a warm-up step
+    hp16 = load_hparams(MODEL_DIR)
+    _, _, model16, optimizer = fleet_mirror(hp16, records, 2, 1, torch.device(DEVICE))
+    walls, shapes = [], []
+    for e in (2, 3):
+        for i, batch in enumerate(fleet_global_batches(hp16, records, 2, e,
+                                                       torch.device(DEVICE))):
+            if i >= FLEET_STEPS:
+                break
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            steps.train_step(model16, optimizer, hp16, *batch, hp16.train.kl_weight_at(e),
+                             hp16.train.reduction_factor_at(e))
+            walls.append(time.perf_counter() - t)
+            shapes.append(list(batch[1].shape))
+    fleet_walls = [s for e in (2, 3) for _, s in logs16[0][0].get(e, [])]
+    local_bs = hp16.train.train_batch_size // 2
+    n_dev = -(-(-(-N_DEV // local_bs)) // 2)  # dev steps a process
+    expected = {}
+    for name, epochs, dt in (("fleet_fp32", 1, ""), ("fleet_bf16", 3, "_tc")):
+        n_steps = 1 + epochs * FLEET_STEPS
+        expected[name] = {f"masked_attention_fwd{dt}": 2 * (init_pass + per_step * (
+            n_steps + epochs * n_dev)), f"masked_attention_bwd_dq{dt}": 2 * per_step * n_steps,
+            f"masked_attention_bwd_dkv{dt}": 2 * per_step * n_steps}
+    print(json.dumps({
+        "card": smi, "fleet": "2 processes on one card, gloo",
+        "records": {"train_shards": FLEET_SHARDS, "per_shard": FLEET_PER_SHARD, "dev": N_DEV},
+        "schedule_line": sched.group(0) if sched else None,
+        "fp32_steps": got, "fp32_steps_one_process": ref_steps,
+        "fp32_dev": logs32[0][1].get(1), "fp32_dev_one_process": ref_dev,
+        "max_rel_diff": max(rel.values()) if rel else None, "rel_diff": rel,
+        "bf16_dev": logs16[0][1], "devices": [r["device"] for r in f32_rep + b16_rep],
+        "backends": sorted({r["backend"] for r in f32_rep + b16_rep}),
+        "packers": sorted({r["packer"] for r in f32_rep + b16_rep}),
+        "checkpoints_written": {t: [r["checkpoints_written"] for r in rep]
+                                for t, rep in (("fp32", f32_rep), ("bf16", b16_rep))},
+        "bf16_step_wall_s_fleet_process0": fleet_walls,
+        "bf16_step_wall_s_one_process_global_batch": walls,
+        "global_batches_timed": shapes, "launches": paths,
+        "launches_expected": expected}), flush=True)
+    check(len(got) == len(ref_steps) == FLEET_STEPS and max(rel.values()) <= TOL_FLEET_REL,
+          f"fp32 fleet against one process: {rel}")
+    for logs in (logs32, logs16):
+        check([[f for f, _ in s] for s in logs[0][0].values()]
+              == [[f for f, _ in s] for s in logs[1][0].values()] and logs[0][1] == logs[1][1],
+              "the fleet's processes logged different losses")
+    check(sched is not None and int(sched.group(1)) >= 2 and float(sched.group(3)) < 100.0,
+          f"lockstep schedule: {sched.group(0) if sched else f32_out[0][-2000:]}")
+    check(all(r["checkpoints_written"] for r in (f32_rep[0], b16_rep[0]))
+          and not any(r["checkpoints_written"] for r in (f32_rep[1], b16_rep[1])),
+          "a process other than 0 wrote checkpoints, or process 0 none")
+    check(all(r["packer"] == "native" and r["backend"] == "gloo" for r in f32_rep + b16_rep),
+          "a fleet process ran without the native packer or without gloo")
+    check(all(math.isfinite(v) for e in logs16[0][0].values() for f, _ in e
+              for v in loss_fields(f).values()) and len(logs16[0][0]) == 3,
+          "bf16 fleet: non-finite or missing losses")
+    for name in expected:
+        check(paths[name] == expected[name], f"{name} launches {paths[name]} != "
+              f"{expected[name]}")
+
+    phase("distributed_sigterm_resume")
+    procs, outs, logs = spawn_fleet(root, "sig", records, 2, 30)
+    deadline = time.time() + FLEET_TIMEOUT_S
+    try:
+        while True:  # both processes past their cold start and its handler
+            started = []
+            for out in outs:
+                with open(out) as f:
+                    started.append("Epoch 1: kl_weight" in f.read())
+            if all(started):
+                break
+            check(time.time() < deadline and all(p.poll() is None for p in procs),
+                  "the SIGTERM fleet did not reach epoch 1")
+            time.sleep(0.05)
+        for p in procs:
+            p.send_signal(signal.SIGTERM)
+    finally:
+        sig_out, sig_rep = wait_fleet(procs, outs, logs)
+    stops = [re.search(r"stopping after epoch (\d+) \(preemption\)", t) for t in sig_out]
+    check(all(stops), "a SIGTERM'd process did not stop at an epoch boundary")
+    stopped = {int(m.group(1)) for m in stops}
+    at = min(stopped)
+    res = spawn_fleet(root, "resumed", records, 2, 3, ckpt="sig")
+    res_out, res_rep = wait_fleet(*res)
+    paths["fleet_sigterm"], paths["fleet_resumed"] = fleet_counts(sig_rep), fleet_counts(res_rep)
+    full, resumed = fleet_log(b16_out[0]), fleet_log(res_out[0])
+    equal3 = ([f for f, _ in resumed[0].get(3, [])] == [f for f, _ in full[0][3]]
+              and resumed[1].get(3) == full[1][3])
+    print(json.dumps({"card": smi, "stopped_at": sorted(stopped),
+                      "return_codes": [p.returncode for p in procs],
+                      "restored": f"Restored from epoch {at}" in res_out[0],
+                      "resumed_epochs": sorted(resumed[0]), "epoch3_equal_to_the_bit": equal3,
+                      "epoch3_resumed": resumed[0].get(3), "epoch3_uninterrupted": full[0][3],
+                      "dev3_resumed": resumed[1].get(3), "dev3_uninterrupted": full[1][3],
+                      "launches": {k: paths[k] for k in ("fleet_sigterm", "fleet_resumed")}}),
+          flush=True)
+    check(len(stopped) == 1 and at in (1, 2), f"the fleet stopped at epochs {stopped}")
+    check(f"Restored from epoch {at}" in res_out[0], "the resumed fleet did not restore")
+    check(sorted(resumed[0]) == list(range(at + 1, 4)), f"resumed epochs {sorted(resumed[0])}")
+    check(equal3, "the resumed fleet's epoch-3 losses differ from the uninterrupted fleet's")
+    return paths
+
+
+def synthesis_worker(rank, port, out_dir):
+    """``chip_smoke.py --synthesis-worker RANK PORT OUT``: one of two
+    processes of a gloo group on the card: which gloo collectives take CUDA
+    tensors in this torch, then ``ShardedSynthesizer`` over the 4 shipped
+    lines at fp32, temperature 0 and 0.667 (generator seeded 1234); the
+    results and the launch counts to OUT/synthesis_<rank>.pt."""
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, HERE)
+    from vaenar_tts_torch.cli.inference import encode_lines, pad_lines
+    from vaenar_tts_torch.models.vaenar import load_model
+    from vaenar_tts_torch.ops import flash_attention as fa
+    from vaenar_tts_torch.parallel.distributed import DistContext
+    from vaenar_tts_torch.parallel.synthesis import ShardedSynthesizer
+    device = torch.device(DEVICE, 0)
+    torch.cuda.set_device(device)
+    tdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                             rank=rank)
+    dist = DistContext(device)
+    probe = {}
+    for name, fn in (
+            ("all_reduce", lambda t: tdist.all_reduce(t)),
+            ("broadcast", lambda t: tdist.broadcast(t, src=0)),
+            ("all_gather", lambda t: tdist.all_gather([torch.empty_like(t) for _ in range(2)],
+                                                      t)),
+            ("reduce", lambda t: tdist.reduce(t, dst=0))):
+        try:
+            fn(torch.ones(4, device=device))
+            torch.cuda.synchronize()
+            probe[name] = True
+        except Exception as e:  # this collective refuses CUDA tensors
+            probe[name] = repr(e)[:200]
+        dist.barrier()
+    hp, model, _ = load_model(MODEL_DIR, device, "float32")
+    batch, text_lens, max_mel = pad_lines(hp, encode_lines(hp, LINES))
+    synth = ShardedSynthesizer(hp, model, dist)
+    fa.launch_counts.clear()
+    result = {"gloo_cuda": probe}
+    for temp in (0.0, 0.667):
+        gen = torch.Generator(device=device).manual_seed(1234)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mels, lens = synth.synthesize(batch, text_lens, max_mel, temp, gen)
+        torch.cuda.synchronize()
+        result[f"t{temp}"] = (mels.cpu(), lens.cpu(), time.perf_counter() - t)
+    result["launch_counts"] = dict(fa.launch_counts)
+    torch.save(result, os.path.join(out_dir, f"synthesis_{rank}.pt"))
+    dist.close()
+    return 0
+
+
+def sharded_synthesis_phase(torch, tmp, smi, model32, hp, n_attn):
+    """Two processes of ``synthesis_worker`` against one process's
+    synthesis of the same lines at fp32 on the card."""
+    import socket
+    from vaenar_tts_torch.cli.inference import encode_lines, pad_lines, resolve_length_source
+    from vaenar_tts_torch.cli.inference import synthesize
+    phase("sharded_synthesis")
+    out = os.path.join(tmp, "sharded")
+    os.makedirs(out)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                               "--synthesis-worker", str(r), str(port), out], cwd=HERE,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=FLEET_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        check(p.returncode == 0, f"synthesis process {r} exited {p.returncode}: {text[-3000:]}")
+    got = [torch.load(os.path.join(out, f"synthesis_{r}.pt"), weights_only=False)
+           for r in range(2)]
+    batch, text_lens, max_mel = pad_lines(hp, encode_lines(hp, LINES))
+    use_q = resolve_length_source("auto", hp)
+    report, ok = {}, True
+    for temp in (0.0, 0.667):
+        gen = torch.Generator(device=DEVICE).manual_seed(1234)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        mels, lens = synthesize(model32, hp, batch, text_lens, max_mel, temp, use_q,
+                                generator=gen)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t
+        mels, lens = mels.cpu(), lens.cpu()
+        errs = [(g[f"t{temp}"][0] - mels).abs().max().item() for g in got]
+        same_lens = all(torch.equal(g[f"t{temp}"][1], lens) for g in got)
+        report[f"temperature_{temp}"] = {
+            "lengths_one_process": lens.tolist(), "lengths_fleet": got[0][f"t{temp}"][1].tolist(),
+            "lengths_equal": same_lens, "max_abs_err_mel": errs,
+            "max_abs_mel": mels.abs().max().item(), "wall_s_fleet": got[0][f"t{temp}"][2],
+            "wall_s_one_process": one_s}
+        ok = ok and same_lens and max(errs) <= TOL_SHARDED_MEL
+    counts = fleet_counts(got)
+    print(json.dumps({"card": smi, "gloo_takes_cuda_tensors": got[0]["gloo_cuda"],
+                      **report, "launches": counts}), flush=True)
+    check(ok, f"sharded synthesis against one process: {report}")
+    check(counts == {"masked_attention_fwd": 2 * n_attn * 2},
+          f"sharded synthesis launches {counts}")
+    return {"sharded_synthesis": counts}
+
+
 def load_trained(VAENAR, CheckpointManager, hp, model_dir, device):
     """The model of ``hp`` (its compute dtype) with the newest checkpoint of
     ``model_dir`` restored, on ``device``."""
@@ -2347,6 +2894,11 @@ def main():
                                               loop_recs, test_records, init_pass, per_step,
                                               n_attn, n_calls))
 
+        # multi-process data parallelism and the native batch packer
+        native_packer_phase(toy_records, tmp, smi)
+        new_paths.update(distributed_phases(torch, tmp, smi, init_pass, per_step))
+        new_paths.update(sharded_synthesis_phase(torch, tmp, smi, model32, hp, n_attn))
+
     phase("done")
     print(smi)
     train_per = (f"ms: one train step at r = 2 (the curriculum's last stage), batch "
@@ -2455,4 +3007,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--synthesis-worker"]:
+        sys.exit(synthesis_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

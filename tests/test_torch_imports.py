@@ -55,6 +55,12 @@ def test_cli_imports_with_jax_blocked():
             "import vaenar_tts_torch.data.toy\n"
             "import vaenar_tts_torch.ops.flash_attention\n"
             "import vaenar_tts_torch.interop.weights\n"
+            "import vaenar_tts_torch.native\n"
+            "import vaenar_tts_torch.parallel\n"
+            "import vaenar_tts_torch.parallel.data_group\n"
+            "import vaenar_tts_torch.parallel.distributed\n"
+            "import vaenar_tts_torch.parallel.mesh\n"
+            "import vaenar_tts_torch.parallel.synthesis\n"
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m] is not None]\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

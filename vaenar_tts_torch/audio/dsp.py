@@ -15,9 +15,6 @@ of the port calls them.
 from __future__ import annotations
 
 import numpy as np
-from scipy import fft as sp_fft
-from scipy import signal as sp_signal
-from scipy.io import wavfile
 
 from ..configs.hparams import AudioConfig
 
@@ -155,6 +152,7 @@ def gl_core(mag: np.ndarray, angles: np.ndarray, n_fft: int, hop_length: int,
     ``(signal, final_angles)`` so callers (the streaming vocoder,
     audio/streaming.py) can propagate converged phases across chunks.
     """
+    from scipy import fft as sp_fft  # slow to import: where used
     window = _pad_center(hann_window(win_length), n_fft).astype(np.float32)
     n_frames = mag.shape[0]
     expected_len = n_fft + hop_length * (n_frames - 1)
@@ -252,6 +250,7 @@ class AudioProcessor:
     def load_wav(self, path: str) -> np.ndarray:
         """Load and resample to cfg.sample_rate, float32 mono in [-1, 1]
         (reference audio.py:15-16 via librosa.core.load)."""
+        from scipy.io import wavfile  # slow to import: where used
         sr, data = wavfile.read(path)
         if data.dtype == np.int16:
             y = data.astype(np.float32) / 32768.0
@@ -265,6 +264,7 @@ class AudioProcessor:
             y = y.mean(axis=1)
         if sr != self.cfg.sample_rate:
             from math import gcd
+            from scipy import signal as sp_signal  # slow to import: where used
             g = gcd(self.cfg.sample_rate, sr)
             y = sp_signal.resample_poly(
                 y, self.cfg.sample_rate // g, sr // g).astype(np.float32)
@@ -272,6 +272,7 @@ class AudioProcessor:
 
     def save_wav(self, wav: np.ndarray, path: str) -> None:
         # reference audio.py:18-21
+        from scipy.io import wavfile  # slow to import: where used
         wav = wav * (32767 / max(0.01, float(np.max(np.abs(wav)))))
         wavfile.write(path, self.cfg.sample_rate, wav.astype(np.int16))
 
@@ -359,10 +360,12 @@ class AudioProcessor:
         # reference audio.py:214-226
         if self.cfg.preemphasize is None:
             return x
+        from scipy import signal as sp_signal  # slow to import: where used
         return sp_signal.lfilter([1, -self.cfg.preemphasize], [1], x)
 
     def inv_preemphasize(self, x: np.ndarray) -> np.ndarray:
         # reference audio.py:228-242
         if self.cfg.preemphasize is None:
             return x
+        from scipy import signal as sp_signal  # slow to import: where used
         return sp_signal.lfilter([1], [1, -self.cfg.preemphasize], x)

@@ -1,5 +1,4 @@
-"""Training CLI (counterpart of ``vaenar_tts_tpu/cli/train.py``,
-single process):
+"""Training CLI (counterpart of ``vaenar_tts_tpu/cli/train.py``):
 
     python -m vaenar_tts_torch.cli.train --dataset ljspeech|databaker \\
         --data_dir RECORDS --model_dir CKPT --log_dir LOGS [--test_dir OUT] \\
@@ -7,7 +6,16 @@ single process):
         [--max_epochs N] [--steps_per_epoch N] [--compute_dtype float32|bfloat16] \\
         [--override key.path=value] \\
         [--probe toy_ler|dev_mcd --probe_every N [--stop_probe X]] \\
-        [--neural_vocoder VOCODER_DIR] [--no-draw_plots]
+        [--neural_vocoder VOCODER_DIR] [--no-draw_plots] [--distributed]
+
+``--distributed`` joins the process group that the environment describes
+(``VAENAR_COORDINATOR=host:port VAENAR_NUM_PROCESSES=N VAENAR_PROCESS_ID=i``,
+or ``torchrun``'s variables) and trains data-parallel, each process on its
+own train shards (``training/loop.py``); it prints ``distributed: process
+i/N``, the backend (``nccl`` on CUDA, ``gloo`` on the CPU,
+``VAENAR_DIST_BACKEND`` to choose) and the process's device. A group of one
+process takes the single-process path. Process i > 0 tees its stdout into
+``LOGS/train_p{i}.log``.
 
 ``RECORDS`` holds ``train-*.vrs`` and ``dev-*.vrs`` shards, and for the
 test-interval artifacts ``test-*.vrs`` (``cli.preprocess``). Every
@@ -93,7 +101,16 @@ def main(argv=None):
                         help="stop when the probe's metric (toy_ler: LER; dev_mcd: "
                              "MCD-DTW dB) is at or under this (0: never)")
     parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+    parser.add_argument("--distributed", action="store_true",
+                        help="multi-process data-parallel training in the process group "
+                             "the environment describes (VAENAR_COORDINATOR, "
+                             "VAENAR_NUM_PROCESSES, VAENAR_PROCESS_ID, or torchrun's)")
     args = parser.parse_args(argv)
+
+    dist = None
+    if args.distributed:
+        from ..parallel.distributed import initialize_from_env
+        dist = initialize_from_env(args.device)
 
     # one check for the CLI and the loop: a foreign directory raises here
     epochs = checkpoint_epochs(args.model_dir)
@@ -122,15 +139,24 @@ def main(argv=None):
             probe = with_early_stop(probe, metric, args.stop_probe, probe_dir)
 
     os.makedirs(args.model_dir, exist_ok=True)
-    logger = Logger(args.log_dir).install()
+    logger = Logger(args.log_dir, "train.log" if dist is None or dist.is_main
+                    else f"train_p{dist.process_index}.log").install()
+    if dist is not None:
+        print(f"distributed: process {dist.process_index}/{dist.process_count}, "
+              f"backend {dist.backend}, device {dist.device}", flush=True)
+    elif args.distributed:
+        print("distributed: 1 process, the single-process path", flush=True)
     try:
         return train(hp, args.data_dir, args.model_dir, args.log_dir,
                      test_dir=args.test_dir, max_epochs=args.max_epochs,
                      steps_per_epoch=args.steps_per_epoch, log_every=args.log_every,
                      device=args.device, neural_vocoder_dir=args.neural_vocoder,
-                     draw_plots=args.draw_plots, probe=probe, probe_every=args.probe_every)
+                     draw_plots=args.draw_plots, probe=probe, probe_every=args.probe_every,
+                     dist=dist)
     finally:
         logger.uninstall()
+        if dist is not None:
+            dist.close()
 
 
 if __name__ == "__main__":

@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from .attention import CrossAttentionBlock, maybe_remat
+from ..parallel.data_group import active
 from .layers import Dense, add_positions, sequence_mask
 
 
@@ -40,10 +41,20 @@ def actnorm_init_stats(x: torch.Tensor, init_scale: float = 1.0,
     """Data-dependent ActNorm init: (log_scale, bias) that bring ``x`` to zero
     mean and ``init_scale`` std per channel, with the statistics taken over
     ALL positions, padding included, and the biased std (correction 0), as
-    the JAX package's ``ActNorm(data_init=True)``."""
+    the JAX package's ``ActNorm(data_init=True)``. In a data group the
+    statistics are the global batch's: the processes' sums and counts are
+    summed, then the sums of squared deviations from the global mean."""
     flat = x.float().reshape(-1, x.shape[-1])
-    mean = flat.mean(dim=0)
-    std = flat.std(dim=0, correction=0)
+    group = active()
+    if group is None:
+        mean = flat.mean(dim=0)
+        std = flat.std(dim=0, correction=0)
+    else:
+        count = torch.full((1,), float(flat.shape[0]), device=flat.device)
+        sums = group.all_reduce_sum(torch.cat([flat.sum(dim=0), count]))
+        mean = sums[:-1] / sums[-1]
+        std = torch.sqrt(group.all_reduce_sum(torch.square(flat - mean).sum(dim=0))
+                         / sums[-1])
     return torch.log(init_scale / (std + epsilon)), -mean / (std + epsilon)
 
 

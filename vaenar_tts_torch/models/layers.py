@@ -11,7 +11,10 @@ Training and inference differ through an explicit ``train`` flag, as in the
 JAX package, not through ``nn.Module.train()``: with ``train=True`` dropout
 draws its mask from the caller's ``torch.Generator`` and BatchNorm
 normalises with the batch's statistics and updates its running ones the way
-flax does (``BatchNorm`` below).
+flax does (``BatchNorm`` below). Inside a data group
+(``parallel/data_group.py``: this process's rows of a multi-process global
+batch) the mask is this process's rows of the global batch's draw and the
+statistics are the global batch's.
 
 Compute dtype. Every module takes a ``dtype`` (``train.compute_dtype``:
 fp32 or bf16), the counterpart of flax's ``dtype=`` field, and rounds where
@@ -32,6 +35,8 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..parallel.data_group import active, draw
 
 LN_EPS = 1e-3
 BN_EPS = 1e-3
@@ -58,7 +63,7 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
     if not train or rate == 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = draw(torch.rand, x.shape, generator=generator, device=x.device) < keep
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -129,7 +134,9 @@ class BatchNorm(nn.BatchNorm1d):
 
     ``train=False`` normalises with the running statistics. ``train=True``
     normalises with the batch's mean and *biased* variance over (batch,
-    time), padding included, var = max(mean(x²) - mean(x)², 0), and updates
+    time), padding included, var = max(mean(x²) - mean(x)², 0) (in a data
+    group, mean(x) and mean(x²) of the global batch: the processes' means
+    averaged, with the gradient carried back to every process), and updates
     the running statistics as 0.99 * old + 0.01 * batch with that same
     biased variance. ``nn.BatchNorm1d`` in training mode would update
     ``running_var`` with the unbiased variance instead, and drift from the
@@ -147,8 +154,11 @@ class BatchNorm(nn.BatchNorm1d):
             y = F.batch_norm(x, self.running_mean, self.running_var,
                              self.weight, self.bias, False, 0.0, self.eps)
             return y.to(self.compute_dtype)
-        mean = x.mean(dim=(0, 2))
-        var = torch.clamp((x * x).mean(dim=(0, 2)) - mean * mean, min=0.0)
+        mean, mean_sq = x.mean(dim=(0, 2)), (x * x).mean(dim=(0, 2))
+        group = active()
+        if group is not None:  # the global batch's statistics
+            mean, mean_sq = group.global_mean(torch.stack([mean, mean_sq])).unbind(0)
+        var = torch.clamp(mean_sq - mean * mean, min=0.0)
         with torch.no_grad():
             self.running_mean.mul_(1.0 - self.momentum).add_(self.momentum * mean)
             self.running_var.mul_(1.0 - self.momentum).add_(self.momentum * var)

@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from ..parallel.data_group import draw
 from .attention import CrossAttentionBlock, maybe_remat
 from .layers import Dense, PreNet, add_positions, dropout, sequence_mask
 
@@ -29,8 +30,8 @@ def reparameterize(mu: torch.Tensor, logvar: torch.Tensor, nsamples: int = 1,
     [B, nsamples, T, dim]."""
     batch, max_time, dim = mu.shape
     if eps is None:
-        eps = torch.randn((batch, nsamples, max_time, dim), generator=generator,
-                          device=mu.device, dtype=mu.dtype)
+        eps = draw(torch.randn, (batch, nsamples, max_time, dim), generator=generator,
+                   device=mu.device, dtype=mu.dtype)
     std = torch.exp(0.5 * logvar)
     return eps * std[:, None] + mu[:, None], eps
 

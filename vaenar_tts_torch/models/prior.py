@@ -27,6 +27,7 @@ from torch import nn
 
 from .flow import (ActNorm, InvertibleLinear, TransformerCoupling, actnorm_init_stats,
                    precompute_invertible_stack)
+from ..parallel.data_group import draw
 from .layers import sequence_mask
 
 LOG_2PI = math.log(2.0 * math.pi)
@@ -70,9 +71,8 @@ class TransformerPrior(nn.Module):
         draw instead of taking it from ``generator``."""
         batch = targets_lengths.shape[0]
         if epsilon is None:
-            epsilon = torch.randn((batch, max_length, self.channels),
-                                  generator=generator,
-                                  device=targets_lengths.device)
+            epsilon = draw(torch.randn, (batch, max_length, self.channels),
+                           generator=generator, device=targets_lengths.device)
         epsilon = epsilon.float() * temperature
         logprobs = -0.5 * (LOG_2PI + epsilon ** 2)
         mask = sequence_mask(targets_lengths, max_length, torch.float32)[..., None]

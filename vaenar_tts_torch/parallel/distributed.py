@@ -1,0 +1,207 @@
+"""Multi-process data-parallel runtime on ``torch.distributed`` (the port of
+``vaenar_tts_tpu/parallel/distributed.py``).
+
+One process per device, each owning a disjoint SET of ``.vrs`` train shards
+(``partition_shards``) and feeding its rows of a GLOBAL batch. Every process
+holds the whole model (replicated: broadcast from process 0 at the start);
+a train step averages the gradients over the processes before Adam, so the
+fleet computes what one process computes on the global batch.
+
+* ``initialize_from_env``: ``VAENAR_COORDINATOR`` (host:port),
+  ``VAENAR_NUM_PROCESSES`` and ``VAENAR_PROCESS_ID`` give
+  ``init_process_group(init_method="tcp://...")``; without them the
+  ``env://`` variables of ``torchrun``. The backend is ``nccl`` on CUDA and
+  ``gloo`` on the CPU; ``VAENAR_DIST_BACKEND`` overrides it (NCCL refuses
+  two processes on one card, so a fleet that shares one card runs gloo).
+  The process's device is ``cuda:{local_rank % device_count}``.
+* ``DistContext``: the collectives the loop uses, on tensors on the
+  process's device under either backend. gloo takes CUDA tensors in every
+  collective used here (all_reduce, broadcast, all_gather; checked on the
+  card by ``chip_smoke.py``'s sharded-synthesis processes, torch 2.11) and
+  stages them through the host itself.
+
+Contract, as the JAX package's: every process runs the same number of steps
+an epoch (``sync_min`` of the local counts); step i is padded to one shape
+on every process (the lockstep bucket schedule, ``sync_elementwise_max``);
+process 0 writes checkpoints and the others wait at a barrier; SIGTERM must
+reach every process (``kill -TERM -- -pgid``), and the fleet stops at the
+end of the epoch in which any process was signalled.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.distributed as tdist
+
+from .data_group import DataGroup
+
+
+def _backend(device: torch.device) -> str:
+    return os.environ.get("VAENAR_DIST_BACKEND") or (
+        "nccl" if device.type == "cuda" else "gloo")
+
+
+def process_device(device="cuda") -> torch.device:
+    """``cuda:{local_rank % device_count}`` (local rank: ``LOCAL_RANK``, else
+    ``VAENAR_PROCESS_ID``, else 0) for ``cuda``; the CPU for ``cpu``."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return torch.device("cpu")
+    if not torch.cuda.is_available():
+        raise RuntimeError("device 'cuda' was asked for but no CUDA device is available; "
+                           "pass --device cpu to run on the CPU")
+    local = int(os.environ.get("LOCAL_RANK", os.environ.get("VAENAR_PROCESS_ID", "0")))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def initialize_from_env(device="cuda") -> Optional["DistContext"]:
+    """Join the process group the environment describes; return its
+    ``DistContext``, or None (the group left again) when it has one
+    process."""
+    dev = process_device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    backend = _backend(dev)
+    coord = os.environ.get("VAENAR_COORDINATOR")
+    if coord:
+        tdist.init_process_group(backend, init_method=f"tcp://{coord}",
+                                 world_size=int(os.environ["VAENAR_NUM_PROCESSES"]),
+                                 rank=int(os.environ["VAENAR_PROCESS_ID"]))
+    else:
+        tdist.init_process_group(backend, init_method="env://")
+    if tdist.get_world_size() == 1:
+        tdist.destroy_process_group()
+        return None
+    return DistContext(dev)
+
+
+def is_multiprocess() -> bool:
+    return tdist.is_available() and tdist.is_initialized() and tdist.get_world_size() > 1
+
+
+def partition_shards(paths: Sequence[str], index: Optional[int] = None,
+                     count: Optional[int] = None) -> List[str]:
+    """This process's disjoint set of shards: a round robin over the sorted
+    list. Raises when the process would own none."""
+    index = tdist.get_rank() if index is None else index
+    count = tdist.get_world_size() if count is None else count
+    mine = sorted(paths)[index::count]
+    if not mine:
+        raise ValueError(f"process {index}: no record shards to own ({len(paths)} shards < "
+                         f"{count} processes; re-preprocess with dataset.record_split >= "
+                         f"process count)")
+    return mine
+
+
+class DistContext:
+    """The process group of a run, seen from one process on ``device``."""
+
+    def __init__(self, device):
+        self.device = torch.device(device)
+        self.process_index = tdist.get_rank()
+        self.process_count = tdist.get_world_size()
+        self.backend = tdist.get_backend()
+
+    @property
+    def is_main(self) -> bool:
+        return self.process_index == 0
+
+    def close(self) -> None:
+        if tdist.is_initialized():
+            tdist.destroy_process_group()
+
+    # -- the collectives, each on a copy of its input -------------------------
+
+    def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the processes."""
+        t = x.detach().clone(memory_format=torch.contiguous_format)
+        tdist.all_reduce(t, op=tdist.ReduceOp.SUM)
+        return t
+
+    def _reduce_host(self, values, dtype, op) -> np.ndarray:
+        t = torch.as_tensor(np.asarray(values), dtype=dtype).to(self.device)
+        tdist.all_reduce(t, op=op)
+        return t.cpu().numpy()
+
+    def fetch(self, x: torch.Tensor) -> torch.Tensor:
+        """The full batch of a tensor of which each process holds its rows
+        (equal shapes), in process order."""
+        t = x.detach().contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.process_count)]
+        tdist.all_gather(parts, t)
+        return torch.cat(parts)
+
+    def replicate(self, module: torch.nn.Module) -> torch.nn.Module:
+        """Process 0's parameters and buffers in every process's ``module``."""
+        with torch.no_grad():
+            for t in list(module.parameters()) + list(module.buffers()):
+                tdist.broadcast(t.data, src=0)
+        return module
+
+    def to_host(self, tree):
+        """Tensors of a (nested dict or list) tree -> numpy."""
+        if isinstance(tree, dict):
+            return {k: self.to_host(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return type(tree)(self.to_host(v) for v in tree)
+        return tree.detach().cpu().numpy() if isinstance(tree, torch.Tensor) else tree
+
+    def global_batch(self, *arrays: np.ndarray) -> Tuple[torch.Tensor, ...]:
+        """This process's rows of a batch (numpy) onto its device; integer
+        token ids as int64, as the loop feeds them."""
+        out = []
+        for a in arrays:
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            out.append((t.long() if t.dim() == 2 and not t.is_floating_point() else t)
+                       .to(self.device))
+        return tuple(out)
+
+    def rows(self, local_rows: int) -> DataGroup:
+        """The data group of a forward on ``local_rows`` rows a process."""
+        i = self.process_index
+        return DataGroup(i * local_rows, (i + 1) * local_rows,
+                         local_rows * self.process_count, self.process_count,
+                         self.all_reduce_sum)
+
+    def average_gradients(self, params: Sequence[torch.nn.Parameter],
+                          extra: Optional[Dict[str, torch.Tensor]] = None
+                          ) -> Dict[str, torch.Tensor]:
+        """Average the gradients of ``params`` (those that have one; every
+        process has the same set) and the scalars ``extra`` over the
+        processes, in one collective; return the averaged ``extra``."""
+        grads = [p.grad for p in params if p.grad is not None]
+        names = sorted(extra or {})
+        flat = torch.cat([g.reshape(-1).float() for g in grads]
+                         + [extra[k].reshape(1).float() for k in names])
+        flat = self.all_reduce_sum(flat) / self.process_count
+        offset = 0
+        with torch.no_grad():
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
+        return {k: flat[offset + j] for j, k in enumerate(names)}
+
+    # -- host values ---------------------------------------------------------
+
+    def sync_min(self, value: int) -> int:
+        return int(self._reduce_host([value], torch.int64, tdist.ReduceOp.MIN)[0])
+
+    def sync_max(self, value: int) -> int:
+        return int(self._reduce_host([value], torch.int64, tdist.ReduceOp.MAX)[0])
+
+    def sync_elementwise_max(self, arr: np.ndarray) -> np.ndarray:
+        """The element-wise max of an equally shaped int array over the
+        processes (the lockstep bucket schedule, once an epoch)."""
+        return self._reduce_host(np.ascontiguousarray(arr), torch.int64, tdist.ReduceOp.MAX)
+
+    def allsum(self, values) -> np.ndarray:
+        """The sum of a small host array over the processes, in float64."""
+        return self._reduce_host(values, torch.float64, tdist.ReduceOp.SUM)
+
+    def barrier(self) -> None:
+        """Every process reaches this point before any leaves it."""
+        self._reduce_host([0], torch.int64, tdist.ReduceOp.SUM)

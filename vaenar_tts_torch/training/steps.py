@@ -11,12 +11,22 @@ as ``len_pinball``, as the JAX steps do.
 At ``train.compute_dtype`` bfloat16 the model computes in bf16 where the
 JAX package does (``models/vaenar.py``); the parameters, their gradients,
 Adam's moments and the losses stay fp32.
+
+Given a ``DistContext`` of several processes (``parallel/distributed.py``),
+each holding its rows of a global batch, the steps compute what one process
+computes on the global batch, as the JAX package's global ``jit`` does:
+every forward runs in a data group (``parallel/data_group.py``: dropout
+masks and noise are this process's rows of the global batch's draws, and
+BatchNorm and the ActNorm init take the global batch's statistics); the
+gradients and the metrics are averaged over the processes before Adam (each
+process's loss is a mean over an equal number of rows); and the dev step
+returns sums over the real rows, for ``DistContext.allsum``.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
@@ -26,6 +36,7 @@ from ..models.flow import ActNorm, InvertibleLinear, TransformerTransform
 from ..models.layers import BatchNorm
 from ..models.posterior import TransformerPosterior
 from ..models.vaenar import VAENAR, resolve_device
+from ..parallel.data_group import data_group
 
 # flax's truncated normal: N(0, 1) cut at +-2, rescaled to unit variance
 _TRUNC_STD = 0.87962566103423978
@@ -103,37 +114,73 @@ def _metrics(mel_l2, kl, length_loss, pinball, total) -> Dict[str, torch.Tensor]
     return {k: v.detach() for k, v in m.items()}
 
 
+def _world(dist) -> Tuple[int, int]:
+    """(process index, process count); (0, 1) without a fleet."""
+    if dist is None or dist.process_count == 1:
+        return 0, 1
+    return dist.process_index, dist.process_count
+
+
 def train_step(model: VAENAR, optimizer: torch.optim.Optimizer, hp: HParams,
                texts: torch.Tensor, mels: torch.Tensor, t_lens: torch.Tensor,
                m_lens: torch.Tensor, kl_weight: float, reduction_factor: int,
                generator: Optional[torch.Generator] = None,
-               epsilon: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+               epsilon: Optional[torch.Tensor] = None,
+               dist=None) -> Dict[str, torch.Tensor]:
     """One Adam update on the batch. With ``hp.train.grad_accum = A > 1``
     the batch is split into A equal micro-batches whose gradients are
     averaged before the one update; BatchNorm's running statistics carry
     from one micro-batch to the next. Returns the metrics (device scalars,
     averaged over the micro-batches). ``epsilon``: the posterior noise of
     the whole batch, [B, n, T_reduced, latent], in place of draws from
-    ``generator``."""
+    ``generator``.
+
+    With ``dist`` (W processes) the tensors are this process's rows of the
+    global batch and ``epsilon``, if given, the global batch's noise. The
+    micro-batches are contiguous rows of the GLOBAL batch, as the JAX step
+    splits its global array: the processes first gather the global batch,
+    and each then takes its 1 / W of every micro-batch. The kl clamp
+    max(kl, 0) acts on the global micro-batch's mean kl (one more scalar
+    sum over the processes)."""
     accum = max(1, int(hp.train.grad_accum))
-    batch = texts.shape[0]
-    if batch % accum:
-        raise ValueError(f"grad_accum={accum} must divide batch size {batch}")
-    size = batch // accum
+    rank, world = _world(dist)
+    if world > 1 and accum > 1:
+        texts, mels, t_lens, m_lens = (dist.fetch(x) for x in (texts, mels, t_lens, m_lens))
+    batch = texts.shape[0] * (world if accum == 1 else 1)  # the global batch
+    if batch % (accum * world):
+        raise ValueError(f"grad_accum={accum} x {world} process(es) must divide batch "
+                         f"size {batch}")
+    size = batch // accum  # rows of a micro-batch
+    share = size // world  # this process's rows of it
     optimizer.zero_grad(set_to_none=True)
     sums: Dict[str, torch.Tensor] = {}
     for i in range(accum):
-        part = slice(i * size, (i + 1) * size)
-        _, mel_l2, kl, length_loss, pinball = model(
-            texts[part], mels[part], m_lens[part], t_lens[part],
-            reduction_factor=reduction_factor, train=True, reduce_loss=True,
-            generator=generator,
-            epsilon=None if epsilon is None else epsilon[part])
-        loss = (mel_l2 + kl_weight * torch.clamp(kl, min=0.0)
-                + hp.train.length_weight * length_loss)
+        rows = slice(i * size + rank * share, i * size + (rank + 1) * share)  # global rows
+        part = slice(None) if world > 1 and accum == 1 else rows
+        with data_group(dist.rows(share) if world > 1 else None):
+            _, mel_l2, kl, length_loss, pinball = model(
+                texts[part], mels[part], m_lens[part], t_lens[part],
+                reduction_factor=reduction_factor, train=True, reduce_loss=True,
+                generator=generator,
+                epsilon=None if epsilon is None else epsilon[rows])
+        if world == 1:
+            loss = (mel_l2 + kl_weight * torch.clamp(kl, min=0.0)
+                    + hp.train.length_weight * length_loss)
+            total = loss
+        else:
+            # the clamp acts on the GLOBAL micro-batch's kl, as one process's
+            # would: a process whose own mean kl is negative still passes its
+            # gradient when the global mean is not
+            kl_global = dist.all_reduce_sum(kl.detach()) / world
+            loss = (mel_l2 + kl_weight * kl * (kl_global >= 0).float()
+                    + hp.train.length_weight * length_loss)
+            total = (mel_l2 + kl_weight * torch.clamp(kl_global, min=0.0)
+                     + hp.train.length_weight * length_loss)
         (loss / accum).backward()
-        for k, v in _metrics(mel_l2, kl, length_loss, pinball, loss).items():
+        for k, v in _metrics(mel_l2, kl, length_loss, pinball, total).items():
             sums[k] = sums[k] + v if k in sums else v
+    if world > 1:
+        sums = dist.average_gradients(list(model.parameters()), sums)
     optimizer.step()
     return {k: v / accum for k, v in sums.items()}
 
@@ -143,22 +190,31 @@ def dev_step(model: VAENAR, hp: HParams, texts: torch.Tensor, mels: torch.Tensor
              t_lens: torch.Tensor, m_lens: torch.Tensor, kl_weight: float,
              valid_mask: torch.Tensor, reduction_factor: int,
              generator: Optional[torch.Generator] = None,
-             epsilon: Optional[torch.Tensor] = None) -> Dict[str, torch.Tensor]:
+             epsilon: Optional[torch.Tensor] = None, dist=None) -> Dict[str, torch.Tensor]:
     """Eval losses (dropout off, BatchNorm on running statistics): the
     per-example losses averaged over the rows where ``valid_mask`` is 1 (a
-    repeat-padded tail batch counts only its real rows), kl unclamped."""
-    _, mel_l2, kl, length_loss, pinball = model(
-        texts, mels, m_lens, t_lens, reduction_factor=reduction_factor,
-        train=False, reduce_loss=False, generator=generator, epsilon=epsilon)
+    repeat-padded tail batch counts only its real rows), kl unclamped.
+
+    With ``dist`` (several processes, each on its rows of a global batch,
+    noise drawn for the global batch) the metrics are SUMS over this
+    process's real rows instead, with the row count as ``n_valid``: the
+    loop adds them over the processes (``DistContext.allsum``) and divides."""
+    _, world = _world(dist)
+    with data_group(dist.rows(texts.shape[0]) if world > 1 else None):
+        _, mel_l2, kl, length_loss, pinball = model(
+            texts, mels, m_lens, t_lens, reduction_factor=reduction_factor,
+            train=False, reduce_loss=False, generator=generator, epsilon=epsilon)
     n_valid = valid_mask.sum()
 
     def vmean(x):
-        return (x * valid_mask).sum() / n_valid
+        return (x * valid_mask).sum() / (n_valid if world == 1 else 1.0)
 
     mel_l2, kl, length_loss = vmean(mel_l2), vmean(kl), vmean(length_loss)
     total = mel_l2 + kl_weight * kl + hp.train.length_weight * length_loss
-    return _metrics(mel_l2, kl, length_loss,
-                    None if pinball is None else vmean(pinball), total)
+    m = _metrics(mel_l2, kl, length_loss, None if pinball is None else vmean(pinball), total)
+    if world > 1:
+        m["n_valid"] = n_valid
+    return m
 
 
 @torch.no_grad()
@@ -182,14 +238,17 @@ def run_data_dependent_init(model: VAENAR, texts: torch.Tensor,
                             t_lens: torch.Tensor, m_lens: torch.Tensor,
                             max_mel_length: int,
                             generator: Optional[torch.Generator] = None,
-                            epsilon: Optional[torch.Tensor] = None) -> None:
+                            epsilon: Optional[torch.Tensor] = None, dist=None) -> None:
     """The cold start's init step: one ``init_pass`` on the batch, whose
     ActNorm statistics become the flow's initial parameters. The BatchNorm
     running statistics that the pass moves are put back, as the JAX package
-    keeps only the pass's ``flow_init``."""
+    keeps only the pass's ``flow_init``. With ``dist`` the batch is this
+    process's rows of the global batch, and the statistics the global
+    batch's."""
     buffers = {name: b.clone() for name, b in model.named_buffers()}
-    flow_init = model.init_pass(texts, m_lens, t_lens, max_mel_length,
-                                generator=generator, epsilon=epsilon)
+    with data_group(dist.rows(texts.shape[0]) if _world(dist)[1] > 1 else None):
+        flow_init = model.init_pass(texts, m_lens, t_lens, max_mel_length,
+                                    generator=generator, epsilon=epsilon)
     for name, b in model.named_buffers():
         b.copy_(buffers[name])
     model.merge_flow_init(flow_init)

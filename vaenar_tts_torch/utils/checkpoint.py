@@ -14,6 +14,11 @@ A numbered directory without ``state.pt`` is another writer's checkpoint
 (the JAX package's Orbax checkpoints are ``model_dir/<epoch>/`` too):
 ``checkpoint_epochs`` raises ``ForeignCheckpointError`` on such a directory
 rather than read past it or overwrite it.
+
+In a multi-process run (``dist``, a ``parallel.distributed.DistContext``)
+process 0 writes each checkpoint (every process holds the same state) and
+every process then waits at a barrier, so that no process goes on to read
+or prune a checkpoint that is half written.
 """
 
 from __future__ import annotations
@@ -63,10 +68,12 @@ def _remove_dir(path: str) -> None:
 
 class CheckpointManager:
     def __init__(self, model_dir: str, max_to_keep: int = 20,
-                 keep_every_n_hours: float = 4.0):
+                 keep_every_n_hours: float = 4.0, dist=None):
         self.model_dir = os.path.abspath(model_dir)
         self.max_to_keep = max_to_keep
         self.keep_seconds = keep_every_n_hours * 3600.0
+        self.dist = dist
+        self.written: List[int] = []  # the epochs this process wrote
         checkpoint_epochs(self.model_dir)  # refuses a foreign directory first
         os.makedirs(self.model_dir, exist_ok=True)
 
@@ -86,14 +93,18 @@ class CheckpointManager:
                    optimizer_state: Optional[dict] = None) -> str:
         """``save`` of state dicts taken earlier (a snapshot)."""
         final = os.path.join(self.model_dir, str(epoch))
-        tmp = final + ".tmp"
-        shutil.rmtree(tmp, ignore_errors=True)
-        os.makedirs(tmp)
-        torch.save({"model": model_state, "optimizer": optimizer_state,
-                    "epoch": int(epoch)}, os.path.join(tmp, STATE_NAME))
-        _remove_dir(final)
-        os.replace(tmp, final)
-        self._prune()
+        if self.dist is None or self.dist.is_main:
+            tmp = final + ".tmp"
+            shutil.rmtree(tmp, ignore_errors=True)
+            os.makedirs(tmp)
+            torch.save({"model": model_state, "optimizer": optimizer_state,
+                        "epoch": int(epoch)}, os.path.join(tmp, STATE_NAME))
+            _remove_dir(final)
+            os.replace(tmp, final)
+            self._prune()
+            self.written.append(int(epoch))
+        if self.dist is not None:
+            self.dist.barrier()
         return final
 
     def _prune(self) -> None:

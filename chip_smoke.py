@@ -394,6 +394,20 @@ def check_cases(torch, device):
         ("empty_memory_300x200", 300, 200, False, rand_len(300, 1), rand_len(200, 1, (2, 0))),
         ("tile_edges_97", 97, 97, True, fixed_len(torch, device, 32, 33, 97, 65),
          fixed_len(torch, device, 33, 32, 97, 64)),
+        # edges of the bf16 kernel's narrowed key tiles (16, 32, 48 or 64
+        # keys) and of its q-tiles: 1, 15, 16, 17, 48, 63, 64, 65 and 97
+        # valid rows or keys, in one and in two warp groups (Tk > 512), and
+        # an item with no key on a long causal site
+        ("row_edges_97", 97, 97, False, fixed_len(torch, device, 1, 15, 16, 17),
+         fixed_len(torch, device, 48, 63, 64, 65)),
+        ("row_edges_causal_130", 130, 130, True, fixed_len(torch, device, 48, 63, 64, 65),
+         fixed_len(torch, device, 97, 1, 17, 16)),
+        ("key_edges_100x97", 100, 97, False, fixed_len(torch, device, 97, 65, 1, 100),
+         fixed_len(torch, device, 1, 15, 16, 17)),
+        ("key_edges_600", 600, 600, False, fixed_len(torch, device, 97, 17, 600, 15),
+         fixed_len(torch, device, 63, 64, 65, 48)),
+        ("no_key_causal_700", 700, 700, True, fixed_len(torch, device, 700, 650, 97, 1),
+         fixed_len(torch, device, 700, 0, 97, 600)),
     ]
 
 
@@ -578,6 +592,15 @@ def backward_cases(torch, device):
          fixed_len(torch, device, 33, 32, 1, 0)),
         ("tile_edges_causal_97", 97, 97, True, fixed_len(torch, device, 32, 33, 97, 65),
          fixed_len(torch, device, 33, 32, 97, 64)),
+        # edges of the bf16 dK/dV kernel's narrowed q-tiles (16, 32, 48 or 64
+        # rows): 1, 15, 16, 17, 48, 63, 64, 65 and 97 valid rows, key counts
+        # at the same edges, and an item with no key
+        ("row_edges_130x97", 130, 97, False, fixed_len(torch, device, 1, 15, 16, 17),
+         fixed_len(torch, device, 97, 48, 63, 64)),
+        ("row_edges_causal_130", 130, 130, True, fixed_len(torch, device, 48, 63, 64, 65),
+         fixed_len(torch, device, 130, 97, 17, 1)),
+        ("row_edges_97x130", 97, 130, False, fixed_len(torch, device, 97, 65, 63, 48),
+         fixed_len(torch, device, 65, 0, 16, 15)),
     ]
 
 
@@ -719,7 +742,8 @@ def backward_work(torch, tq, tk, causal, ql, ml, D, B, H, dq_forms_delta):
 
 def time_backward(torch, fa, device, sites, dtype_name):
     """Per attention site of a train step, in ``dtype_name``: the forward
-    kernel, the dQ and the dK/dV kernel each alone, the whole plain backward
+    kernel, the dQ and the dK/dV kernel each alone and back to back (the
+    pair, as a backward launches them), the whole plain backward
     and scaled_dot_product_attention's backward with a boolean mask (times
     for one call), each kernel's bound, and a separate delta pass
     (``attention_delta``, the pass that a dQ kernel of the package's
@@ -727,8 +751,8 @@ def time_backward(torch, fa, device, sites, dtype_name):
     delta runs it before that kernel); returns the sums over one train
     step. ``sites``: (name, calls, Tq, Tk, causal, q_len, m_len)."""
     import torch.nn.functional as F
-    totals = {k: 0.0 for k in ("fwd_ms", "dq_ms", "dkv_ms", "delta_pass_ms", "plain_ms",
-                               "library_ms", "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms",
+    totals = {k: 0.0 for k in ("fwd_ms", "dq_ms", "dkv_ms", "pair_ms", "delta_pass_ms",
+                               "plain_ms", "library_ms", "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms",
                                "fwd_flop_ms", "fwd_byte_ms",
                                "dq_bound_ms", "dkv_bound_ms", "dq_flop_ms", "dq_byte_ms",
                                "dkv_flop_ms", "dkv_byte_ms")}
@@ -765,6 +789,7 @@ def time_backward(torch, fa, device, sites, dtype_name):
                "fwd_bound_ms": max(fwd_flop_ms, fwd_byte_ms),
                "dq_ms": time_ms(torch, lambda: launch("dq", dq)),
                "dkv_ms": time_ms(torch, lambda: launch("dkv", dk, dv)),
+               "pair_ms": time_ms(torch, lambda: (launch("dq", dq), launch("dkv", dk, dv))),
                "delta_pass_ms": time_ms(torch, lambda: fa.attention_delta(o, do)),
                "plain_ms": time_ms(torch, lambda: fa.masked_attention_backward_reference(
                    q, k, v, ql, ml, o, m, s, do, 0.125, causal))}

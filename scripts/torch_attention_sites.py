@@ -9,11 +9,14 @@ model:
 Each ROOT is a directory that holds a `vaenar_tts_torch/` package (this
 checkout, or another tree unpacked with `git archive`); each runs in its own
 process, in the order given, which imports the package and builds its
-kernels from its root. A run prints its ptxas report, with `--checks`
+kernels from its root. A run prints its ptxas report (registers, spills,
+warnings), each kernel's count of tensor-core product instructions in the
+built library's SASS (`HGMMA` for wgmma, `HMMA` for mma.sync), with `--checks`
 chip_smoke.py's kernel checks, and then, in each dtype (both unless
 `--dtype` names one), chip_smoke.py's rows for the forward at the synthesis
 sites and at 1024 x 4104 and for the forward, dQ and dK/dV at the train-step
-sites: device time, bound, plain and library times. The site lengths are the
+sites: device time, bound, plain and library times, and the dQ and dK/dV
+kernels back to back (`pair_ms`). The site lengths are the
 ones chip_smoke.py's times phase uses: the shipped model's bf16 synthesis
 lengths of its four lines (1093, 1000, 1166 and 919 mel frames) and the
 seeded training batch at r = 2, or with `--batch N` its N items with the
@@ -48,33 +51,52 @@ def _chip_smoke():
     return mod
 
 
-def run_one(root, checks, dtypes, batch=None):
-    """One run from ``root`` (train-step sites on the ``batch`` longest items
-    of the seeded batch, or all of them); prints JSON lines."""
-    sys.path.insert(0, os.path.abspath(root))
-    import torch
+def tensor_core_counts(build):
+    """{kernel function: {instruction: count}} of the tensor-core product
+    instructions in the built library's SASS (``cuobjdump -sass``): HGMMA
+    (wgmma) and HMMA (mma.sync), for the functions whose mangled name holds
+    a C entry point's name. Without cuobjdump, the counts of
+    ``wgmma.mma_async`` and ``mma.sync`` in each source's ``nvcc -ptx``."""
+    nvcc = build.find_nvcc()
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    names = [name for name, _ in build.KERNELS]
+    counts = {}
+    if os.path.isfile(cuobjdump):
+        sass = subprocess.run([cuobjdump, "-sass", build.build()], capture_output=True,
+                              text=True, check=True).stdout
+        func = None
+        for line in sass.splitlines():
+            if "Function :" in line:
+                mangled = line.split("Function :")[1].strip()
+                func = next((n for n in sorted(names, key=len, reverse=True)
+                             if f"{n}_kernel" in mangled), mangled)
+                func = f"{func} ({mangled})"
+                counts[func] = {"HGMMA": 0, "HMMA": 0}
+            elif func is not None:
+                for op in ("HGMMA", "HMMA"):
+                    if f" {op}." in line:
+                        counts[func][op] += 1
+        return {"source": "cuobjdump -sass", "counts": counts}
+    with tempfile.TemporaryDirectory(prefix="vaenar_ptx_") as tmp:
+        for src in build.sources():
+            out = os.path.join(tmp, os.path.basename(src) + ".ptx")
+            subprocess.run([nvcc, *build.NVCC_FLAGS[:4], "-ptx", "-o", out, src], check=True)
+            with open(out) as f:
+                ptx = f.read()
+            counts[os.path.basename(src)] = {"wgmma.mma_async": ptx.count("wgmma.mma_async"),
+                                             "mma.sync": ptx.count("mma.sync")}
+    return {"source": "nvcc -ptx", "counts": counts}
+
+
+def main_path_sites(torch, cs, device, batch=None):
+    """(synthesis sites, the 1024 x 4104 check case, train-step sites) as
+    chip_smoke.py's ``synthesis_sites``, ``check_cases`` and ``train_sites``
+    give them, at the lengths the module docstring names; the package of
+    the root being run must be importable."""
     from vaenar_tts_torch.cli.inference import encode_lines
     from vaenar_tts_torch.configs.serialize import load_hparams
     from vaenar_tts_torch.data.loader import BucketedLoader, pad_to_multiple
     from vaenar_tts_torch.data.records import list_shards
-    from vaenar_tts_torch.ops import _build
-    from vaenar_tts_torch.ops import flash_attention as fa
-    cs = _chip_smoke()
-    device = torch.device("cuda")
-    _build.build()
-    lib = _build.load_library()
-    print(json.dumps({"root": root, "ptxas": [
-        line.strip() for line in (_build.ptxas_report() or "").splitlines()
-        if "registers" in line or "bytes stack" in line or "Compiling entry" in line],
-        "dynamic_shared_bytes_per_block": {
-            name: getattr(lib, f"{name}_shared_bytes")() for name, _ in _build.KERNELS}}),
-        flush=True)
-    if checks:
-        print(json.dumps({"root": root, "forward_checks": cs.check_kernels(torch, fa, device)}),
-              flush=True)
-        print(json.dumps({"root": root, "backward_checks": cs.check_backward(torch, fa, device)}),
-              flush=True)
-
     hp = load_hparams(cs.MODEL_DIR)
     ids = encode_lines(hp, cs.LINES)
     # the mel bucket of cli.inference.synthesize_batch
@@ -94,7 +116,34 @@ def run_one(root, checks, dtypes, batch=None):
         big = types.SimpleNamespace(texts=big.texts[keep], mels=big.mels[keep],
                                     text_lengths=big.text_lengths[keep],
                                     mel_lengths=big.mel_lengths[keep])
-    step_sites = cs.train_sites(torch, hp, big, device)
+    return sites, long_case, cs.train_sites(torch, hp, big, device)
+
+
+def run_one(root, checks, dtypes, batch=None):
+    """One run from ``root`` (train-step sites on the ``batch`` longest items
+    of the seeded batch, or all of them); prints JSON lines."""
+    sys.path.insert(0, os.path.abspath(root))
+    import torch
+    from vaenar_tts_torch.ops import _build
+    from vaenar_tts_torch.ops import flash_attention as fa
+    cs = _chip_smoke()
+    device = torch.device("cuda")
+    _build.build()
+    lib = _build.load_library()
+    print(json.dumps({"root": root, "ptxas": [
+        line.strip() for line in (_build.ptxas_report() or "").splitlines()
+        if "registers" in line or "bytes stack" in line or "Compiling entry" in line
+        or "arning" in line],
+        "dynamic_shared_bytes_per_block": {
+            name: getattr(lib, f"{name}_shared_bytes")() for name, _ in _build.KERNELS},
+        "tensor_core_instructions": tensor_core_counts(_build)}), flush=True)
+    if checks:
+        print(json.dumps({"root": root, "forward_checks": cs.check_kernels(torch, fa, device)}),
+              flush=True)
+        print(json.dumps({"root": root, "backward_checks": cs.check_backward(torch, fa, device)}),
+              flush=True)
+
+    sites, long_case, step_sites = main_path_sites(torch, cs, device, batch)
     for dtype_name in dtypes:
         print(json.dumps({"root": root, "dtype": dtype_name,
                           "forward_per_synthesis": cs.time_kernels(torch, fa, device, sites,

@@ -147,11 +147,19 @@ def cuda_device():
 def test_kernel_matches_plain_on_card(cuda_device, dtype, atol):
     """fp32: sums in another order (1e-4); bf16: o is rounded to bf16 (2e-2)."""
     rng = np.random.default_rng(0)
-    for tq, tk, causal in [(160, 160, False), (1681, 157, False), (300, 300, True)]:
+    cases = [(tq, tk, causal, [tq // 2, tq], [tk, tk // 3])
+             for tq, tk, causal in [(160, 160, False), (1681, 157, False), (300, 300, True)]]
+    # the bf16 kernel's narrowed key tiles and q-tile edges: 1, 15, 16, 17,
+    # 48, 63, 64, 65 and 97 valid rows or keys, in one and two warp groups
+    # (Tk > 512), and an item with no key
+    cases += [(97, 97, False, [1, 15], [16, 17]), (97, 97, True, [48, 63], [64, 65]),
+              (130, 130, True, [65, 97], [97, 1]), (130, 97, False, [64, 17], [48, 0]),
+              (600, 600, True, [97, 600], [63, 0]), (700, 600, False, [16, 65], [15, 97])]
+    for tq, tk, causal, q_lens, m_lens in cases:
         q, k, v = (torch.from_numpy(rng.standard_normal((2, 4, t, 64)).astype(np.float32))
                    .to(cuda_device, dtype) for t in (tq, tk, tk))
-        ql = torch.tensor([tq // 2, tq], dtype=torch.int32, device=cuda_device)
-        ml = torch.tensor([tk, tk // 3], dtype=torch.int32, device=cuda_device)
+        ql = torch.tensor(q_lens, dtype=torch.int32, device=cuda_device)
+        ml = torch.tensor(m_lens, dtype=torch.int32, device=cuda_device)
         got = fa.masked_flash_attention(q, k, v, ql, ml, 0.125, causal)
         want = fa.masked_attention_reference(q, k, v, ql, ml, 0.125, causal)
         torch.cuda.synchronize()

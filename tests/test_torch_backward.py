@@ -21,6 +21,7 @@ from vaenar_tts_tpu.ops import flash_attention as jax_fa
 from vaenar_tts_torch.ops import flash_attention as fa
 
 from test_torch_attention import B, CASES, D, _inputs, _jax, _torch
+from torch_threads import one_thread  # noqa: F401
 
 GRAD_ATOL = 5e-4
 
@@ -136,13 +137,20 @@ def test_backward_kernels_match_plain_on_card(cuda_device, dtype, atol, rtol, ke
     bf16 both sum in fp32 and round once, one bf16 ulp apart at most. Each
     backward launches the dtype's dQ and dK/dV kernel once."""
     rng = np.random.default_rng(0)
-    for tq, tk, causal in [(240, 240, True), (240, 32, False), (241, 33, False)]:
+    cases = [(tq, tk, causal, [tq // 2, tq], [tk, 0])
+             for tq, tk, causal in [(240, 240, True), (240, 32, False), (241, 33, False)]]
+    # the bf16 dK/dV kernel's narrowed q-tiles: 1, 15, 16, 17, 48, 63, 64,
+    # 65 and 97 valid rows, key counts at the same edges, an item with no key
+    cases += [(130, 97, False, [1, 15], [97, 48]), (130, 130, True, [16, 17], [63, 64]),
+              (130, 130, True, [48, 63], [65, 1]), (97, 130, False, [64, 65], [16, 0]),
+              (130, 97, False, [97, 97], [17, 15])]
+    for tq, tk, causal, q_lens, m_lens in cases:
         q, do = (torch.from_numpy(rng.standard_normal((2, 4, tq, 64)).astype(np.float32))
                  .to(cuda_device, dtype) for _ in range(2))
         k, v = (torch.from_numpy(rng.standard_normal((2, 4, tk, 64)).astype(np.float32))
                 .to(cuda_device, dtype) for _ in range(2))
-        ql = torch.tensor([tq // 2, tq], dtype=torch.int32, device=cuda_device)
-        ml = torch.tensor([tk, 0], dtype=torch.int32, device=cuda_device)
+        ql = torch.tensor(q_lens, dtype=torch.int32, device=cuda_device)
+        ml = torch.tensor(m_lens, dtype=torch.int32, device=cuda_device)
         o, m, s = fa.masked_attention_reference(q, k, v, ql, ml, 0.125, causal)
         fa.launch_counts.clear()
         got = fa.masked_flash_attention_backward(q, k, v, ql, ml, o, m, s, do, 0.125, causal)

@@ -15,6 +15,7 @@ from vaenar_tts_tpu.utils.export import save_npz
 from vaenar_tts_torch.cli import inference
 
 from test_torch_model import TINY_OVERRIDES
+from torch_threads import one_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -44,6 +44,7 @@ from test_torch_model import SHIPPED
 from test_torch_train_step import (B, KL_WEIGHT, MEL, R, batch, hparams_from_dict,
                                    hparams_to_dict, inject, port_model,
                                    random_variables, tiny_hparams)
+from torch_threads import one_thread  # noqa: F401
 
 BF16 = ["train.compute_dtype=bfloat16"]
 LOSS_RTOL = 5e-3

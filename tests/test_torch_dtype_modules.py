@@ -38,6 +38,7 @@ from vaenar_tts_torch.models import layers as tlay
 from vaenar_tts_torch.models import length_predictor as tlen
 
 from test_torch_modules import B, T, carry, lengths, x_of
+from torch_threads import one_thread  # noqa: F401
 
 BF16 = torch.bfloat16
 BLOCK_ULPS = 2

@@ -47,6 +47,7 @@ from vaenar_tts_torch.models.vaenar import VAENAR, load_model
 from vaenar_tts_torch.utils.checkpoint import CheckpointManager
 
 from test_torch_model import LINES, TINY_OVERRIDES, randomize, randomize_model
+from torch_threads import one_thread  # noqa: F401
 
 EPOCH = 3
 # the small audio config of tests/test_griffin_lim.py, so that the CLI's

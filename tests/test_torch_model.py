@@ -33,6 +33,7 @@ from vaenar_tts_torch.configs.serialize import hparams_from_dict
 from vaenar_tts_torch.models.vaenar import build_model
 
 from test_torch_modules import randomize
+from torch_threads import one_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHIPPED = os.path.join(REPO, "artifacts", "toyv2_q90", "ckpt")

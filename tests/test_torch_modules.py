@@ -30,6 +30,7 @@ from vaenar_tts_torch.models import flow as tflow
 from vaenar_tts_torch.models import layers as tlay
 from vaenar_tts_torch.models import length_predictor as tlen
 from vaenar_tts_torch.models import posterior as tpost
+from torch_threads import one_thread  # noqa: F401
 
 ATOL = 1e-4
 B = 2

@@ -27,6 +27,7 @@ from vaenar_tts_torch.utils.export import export_model_dir
 
 from test_torch_data import utterances
 from test_torch_model import SHIPPED, TINY_OVERRIDES
+from torch_threads import one_thread  # noqa: F401
 
 TRAIN_OVERRIDES = [o for o in TINY_OVERRIDES if not o.startswith("train.")] + [
     "train.train_batch_size=4"]

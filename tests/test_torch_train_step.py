@@ -41,6 +41,7 @@ from vaenar_tts_torch.training import steps
 
 from test_torch_model import TINY_OVERRIDES, randomize_model
 from test_torch_modules import randomize
+from torch_threads import one_thread  # noqa: F401
 
 NO_DROPOUT = ["encoder.pre_drop_rate=0", "encoder.pos_drop_rate=0",
               "decoder.post_drop_rate=0", "posterior.pre_drop_rate=0",

@@ -1,8 +1,8 @@
-// Masked multi-head attention, backward, the dK/dV kernel, bf16 on the
-// tensor cores, for sm_90a. Plain C interface, bound from Python with
-// ctypes (vaenar_tts_torch/ops/flash_attention.py,
+// Masked multi-head attention, backward, the dK/dV kernel, bf16 on Hopper's
+// tensor cores (wgmma), for sm_90a. Plain C interface, bound from Python
+// with ctypes (vaenar_tts_torch/ops/flash_attention.py,
 // masked_flash_attention_backward); bf16 inputs take this kernel, fp32 ones
-// masked_attention_bwd.cu's dK/dV kernel. At bf16 the dQ kernel,
+// masked_attention_bwd_dkv.cu. At bf16 the dQ kernel,
 // masked_attention_bwd_dq_tc.cu, launched before this one on the same
 // stream, forms delta = rowsum(dO * O) and writes it; this kernel reads it.
 //
@@ -17,24 +17,57 @@
 //   dK = dS^T . Q * scale
 // written in bf16; keys past Tk and rows past Tq do not exist.
 //
-// Design. A block of 4 warps owns 64 keys of one (b, h); each warp owns 16
-// of them, with fp32 accumulators for its 16 rows of dK and dV in
-// registers. K and V stay in shared memory; Q and dO stream through a
-// two-stage ring of 64-row tiles filled with cp.async (16 bytes a thread),
-// the next tile loading while the current one multiplies (a third stage
-// measured no faster). Per q-tile and
-// warp, on the tensor cores (mma.sync.m16n8k16, bf16 in, fp32 accumulate):
-//   S^T  = K . Q^T    (K A fragments by ldmatrix, Q B fragments by ldmatrix)
+// What bounds it on an H100 at the training path's bf16 shapes (batch 32,
+// H=4, D=64, text 32, reduced mel 240 at r = 2, of which 54-144 rows are
+// valid): not bytes or operations. By chip_smoke.py's count an unmasked
+// (row, key) pair costs 8*D operations, 4.3 GFLOP a train step at r = 2
+// (4.4 us at 989 TFLOP/s), and the rows read and the gradients written
+// whole (zero rows included) come to ~20 MB in bf16 (6 us at 3.35 TB/s),
+// 0.112 ms a step over 36 launches. A launch lasts as long as its heaviest
+// block's chain (scripts/torch_attention_blocks.py times every block): the
+// lengths, the loads of K, V and the first q-tile, then per q-tile two
+// rounds of products with the exponentials between them, then the sum over
+// the padding rows of dO / s and the store. With one warp group a block,
+// each scheduler of the SM has one warp of the chain to issue, so the
+// elementwise work (P, dS, their hi/lo splits) weighs as much as the
+// products; and a block's bytes move through one SM's share of the memory
+// system, so the padding rows' ~100-190 rows of dO cost as much as the
+// loads of K, V and the first q-tile together.
+//
+// Design for that chain. A block of one warp group (4 warps, 128 threads)
+// owns 64 keys of one (b, h), with fp32 accumulators for their 64 rows of
+// dK and dV in registers (wgmma's D fragments: each warp 16 keys). K and V
+// stay in shared memory; Q and dO stream through a two-stage ring of 64-row
+// tiles, the next tile loading while the current one multiplies. All tiles
+// land in wgmma's 128-byte-swizzled layout straight from cp.async (16 bytes
+// a thread; chunk c of row r at c ^ (r & 7)). Per q-tile, wgmma.mma_async
+// over the warp group (m64nNk16, bf16 in, fp32 accumulate):
+//   S^T  = K . Q^T    (K and Q from shared memory, both K-major)
 //   dP^T = V . dO^T   (the same, with V and dO)
-//   dV  += P^T . dO   (P^T from registers, dO by ldmatrix.trans)
-//   dK  += dS^T . Q   (dS^T from registers, Q by ldmatrix.trans)
-// P^T and dS^T are formed in fp32 registers from S^T and dP^T with the q-tile's
-// m, 1/s and delta, which sit in shared memory.
+//   dV  += P^T . dO   (P^T from registers, dO an MN-major B)
+//   dK  += dS^T . Q   (dS^T from registers, Q an MN-major B)
+// P^T and dS^T are formed in fp32 registers from S^T and dP^T with the
+// q-tile's m log2(e), 1/s and delta, which sit in shared memory; the D
+// fragment of the first two products is the A fragment of the last two.
+//   * The q-tile is narrowed to its valid rows, rounded up to 16: N of the
+//     first two products and the k-steps of the last two are 16, 32, 48 or
+//     64 rows, each width its own instantiation, so that rows 64-97 of an
+//     item cost 48 rows, not 64.
+//   * Fewer instructions on the chain: each key's mask against the tile is
+//     a bound on the column, skipped by a warp whose keys see every row;
+//     P is one fma and ex2; a column's stats are read as float2.
+//   * The padding rows of dO (the first 192, and their s) are copied into
+//     shared memory with the first q-tile's prefetch, so they land while
+//     the products run, and are summed after the loop.
+//   * A programmatic dependent launch: the dQ kernel lets this grid start
+//     while it runs, and a block loads its tiles and starts the padding
+//     rows' copy before it waits for the dQ grid (griddepcontrol.wait)
+//     and reads delta.
 //
 // P's and dS's precision: the plain version keeps them fp32. Here P^T and
 // dS^T are each split into a bf16 high and low part, and each of the last two
-// products is two mma (about 16 bits kept, relative error <= 2^-17). Rounded
-// once to bf16 they exceeded chip_smoke.py's bf16 tolerance,
+// products is two products (about 16 bits kept, relative error <= 2^-17).
+// Rounded once to bf16 they exceeded chip_smoke.py's bf16 tolerance,
 // 1e-3 + 2^-7 |g| (unchanged), at every checked shape; with the split, the
 // measured worst share of that tolerance is in PERF.md §6.
 //
@@ -42,40 +75,143 @@
 //   * a row with nothing unmasked (row >= q_len, or every row when
 //     m_len == 0) has m = NEG and s = Tk, so P = 1/s on all Tk keys and
 //     dS = 0: it adds dO_row / s_row to every dV row and nothing to dK. The
-//     block sums those rows' dO / s once (one pass over dO, fp32) and starts
-//     its dV accumulators from that sum;
+//     block sums those rows' dO / s once (one pass over dO, fp32) and adds
+//     that sum to its dV accumulators;
 //   * the q-tile loop covers only the rows with an unmasked key, stops at
 //     q_len, skips key blocks at or past m_len and, when causal, starts at
 //     the key block's first row: every skipped term is exp(NEG - m) = 0.
 //
-// What bounds it on an H100 at the training path's bf16 shapes (batch 32,
-// H=4, D=64, text 32, reduced mel 240 at r = 2, of which 54-144 rows are
-// valid): bytes. An unmasked (row, key) pair costs 8*D operations, 4.3
-// GFLOP a train step at r = 2 (4.4 us at 989 TFLOP/s), while the rows read
-// and the gradients written whole (zero rows included) come to ~20 MB in
-// bf16 (6 us at 3.35 TB/s). The design reads each Q/dO tile once per key
-// block through the ring, keeps every intermediate in registers, and writes
-// each gradient row once, 16 bytes a thread, staged through shared memory.
-//
-// Shared memory: K, V and a two-stage Q/dO ring, 6 tiles of 64 x 72 bf16,
-// and two stages of the q-tile's m, 1/s, delta: 56,832 bytes a block.
+// Resources (ptxas -v, CUDA 12.8; chip_smoke.py and
+// scripts/torch_attention_sites.py print them): 223 registers a thread, no
+// spills, so two blocks fit on an SM (capped at 168 to fit three, it
+// spilled and ran slower). Shared memory: K, V and a two-stage Q/dO ring,
+// 6 tiles of 64 x 64 bf16, the padding rows' copy (192 x 64 bf16 and 192
+// floats), two stages of the q-tile's stats, the padding sum's 2 * 64 +
+// 128 * 8 floats and 1 KB for alignment: 81,664 bytes a block.
 
-#include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
 using tc::bf16;
 using tc::HD;
-using tc::LDS;
 using tc::NEG;
-using tc::TILE_ELEMS;
+using wg::TILE_ELEMS;
 
 constexpr int BQ = 64;  // query rows per tile
 constexpr int BK = 64;  // keys per block
 constexpr int THREADS = 128;
 constexpr int STAGES = 2;  // Q/dO tiles in the ring: one loads while one multiplies
-constexpr size_t SMEM_BYTES =
-    sizeof(bf16) * (2 + 2 * STAGES) * TILE_ELEMS + sizeof(float) * STAGES * 3 * BQ;
+constexpr int PAD_DEPTH = 16;  // loads in flight a thread, padding rows past PAD_ROWS
+// padding rows of dO (and their s) prefetched into shared memory during the
+// q-tile loop; the train step's sites have at most 186
+constexpr int PAD_ROWS = 192;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr size_t SMEM_BYTES = sizeof(bf16) * ((2 + 2 * STAGES) * TILE_ELEMS + PAD_ROWS * HD) +
+                              sizeof(float) * (STAGES * 3 * BQ + 2 * HD + THREADS * 8 + PAD_ROWS) +
+                              wg::ALIGN;
+
+// The block's dK and dV accumulators (wgmma's D fragments, 64 keys x 64).
+struct KeyState {
+  float dk[8][4], dv[8][4];
+};
+
+// One q-tile of NQ rows (16, 32, 48 or 64) starting at row qt: S^T and dP^T,
+// then P^T and dS^T, then dV += P^T . dO and dK += dS^T . Q. `stat` holds
+// the tile's rows' m * log2(e), 1/s and delta; P = 2^(S * scale_log2 - m
+// log2(e)) / s with scale_log2 = scale * log2(e).
+template <int NQ>
+__device__ __forceinline__ void dkv_tile(KeyState& st, uint64_t dk_desc, uint64_t dv_desc,
+                                         const bf16* tQ, const bf16* tDO, const float* stat,
+                                         int qt, int key_lo, int key_hi, int col_in, int r_end,
+                                         int mlen, float scale_log2, int causal) {
+  constexpr int J = NQ / 8;
+  float sT[J][4], dpT[J][4];
+  wg::zero(sT);
+  wg::zero(dpT);
+  wg::fence_acc(sT);
+  wg::fence_acc(dpT);
+  wg::fence();
+  const uint64_t dq = wg::desc(tQ), ddo = wg::desc(tDO);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wg::mma_ss<NQ>(sT, dk_desc + 2 * kk, dq + 2 * kk);
+    wg::mma_ss<NQ>(dpT, dv_desc + 2 * kk, ddo + 2 * kk);
+  }
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_acc(sT);
+  wg::fence_acc(dpT);
+
+  // P^T into sT, dS^T into dpT, in fp32. Rows at or past r_end and keys
+  // past Tk take no part; a masked key of a valid row has P = exp(NEG - m)
+  // = 0 exactly and dS = 0. Column c of the tile (row qt + col_in + c, c
+  // constant) is tested against scalars; a warp whose keys see every row of
+  // the tile skips the test.
+  auto p_ds = [&](int j, int e, const float2& m, const float2& is, const float2& dl) {
+    const float mj = e & 1 ? m.y : m.x, isj = e & 1 ? is.y : is.x, dlj = e & 1 ? dl.y : dl.x;
+    const float p = wg::ex2(fmaf(sT[j][e], scale_log2, -mj)) * isj;
+    sT[j][e] = p;
+    dpT[j][e] = p * (dpT[j][e] - dlj);
+  };
+  if (__all_sync(0xffffffffu, qt + NQ <= r_end && key_hi < mlen && (!causal || key_hi <= qt))) {
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int rl = j * 8 + col_in;
+      const float2 m = *reinterpret_cast<const float2*>(stat + rl);
+      const float2 is = *reinterpret_cast<const float2*>(stat + BQ + rl);
+      const float2 dl = *reinterpret_cast<const float2*>(stat + 2 * BQ + rl);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) p_ds(j, e, m, is, dl);
+    }
+  } else {
+    const int base = qt + col_in;
+    const int rows = r_end - base;  // c < rows: a valid row
+    const bool key_in[2] = {key_lo < mlen, key_hi < mlen};
+    // c >= first: the row is at or past the key (always, when not causal)
+    const int first[2] = {causal ? key_lo - base : -BQ, causal ? key_hi - base : -BQ};
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int rl = j * 8 + col_in;
+      const float2 m = *reinterpret_cast<const float2*>(stat + rl);
+      const float2 is = *reinterpret_cast<const float2*>(stat + BQ + rl);
+      const float2 dl = *reinterpret_cast<const float2*>(stat + 2 * BQ + rl);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + (e & 1);
+        if (key_in[e >> 1] && c < rows && c >= first[e >> 1]) {
+          p_ds(j, e, m, is, dl);
+        } else {
+          sT[j][e] = 0.f;
+          dpT[j][e] = 0.f;
+        }
+      }
+    }
+  }
+
+  // dV += P^T . dO and dK += dS^T . Q, each as hi and lo parts: A from
+  // registers, dO and Q MN-major B operands, k-step s = rows 16 s .. 16 s + 15
+  uint32_t p_hi[NQ / 16][4], p_lo[NQ / 16][4], ds_hi[NQ / 16][4], ds_lo[NQ / 16][4];
+#pragma unroll
+  for (int s = 0; s < NQ / 16; ++s) {
+    wg::a_split(p_hi[s], p_lo[s], sT, s);
+    wg::a_split(ds_hi[s], ds_lo[s], dpT, s);
+  }
+  wg::fence_acc(st.dv);
+  wg::fence_acc(st.dk);
+  wg::fence();
+#pragma unroll
+  for (int s = 0; s < NQ / 16; ++s) {
+    wg::mma_rs64_mn(st.dv, p_hi[s], ddo + 128 * s);
+    wg::mma_rs64_mn(st.dv, p_lo[s], ddo + 128 * s);
+    wg::mma_rs64_mn(st.dk, ds_hi[s], dq + 128 * s);
+    wg::mma_rs64_mn(st.dk, ds_lo[s], dq + 128 * s);
+  }
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_acc(st.dv);
+  wg::fence_acc(st.dk);
+}
 
 __global__ void __launch_bounds__(THREADS)
 masked_attention_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -87,12 +223,16 @@ masked_attention_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __res
                                    bf16* __restrict__ dv, int H, int Tq, int Tk, float scale,
                                    int causal) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(smem_raw);  // [64][LDS], this block's keys
-  bf16* sV = sK + TILE_ELEMS;                    // [64][LDS]
-  bf16* sQ = sV + TILE_ELEMS;                    // [STAGES][64][LDS], the q-tile ring
-  bf16* sDO = sQ + STAGES * TILE_ELEMS;          // [STAGES][64][LDS]
+  bf16* sK = reinterpret_cast<bf16*>(wg::aligned_smem(smem_raw));  // [64][64] swizzled
+  bf16* sV = sK + TILE_ELEMS;                                       // [64][64]
+  bf16* sQ = sV + TILE_ELEMS;                 // [STAGES][64][64], the q-tile ring
+  bf16* sDO = sQ + STAGES * TILE_ELEMS;       // [STAGES][64][64]
   float* sStat = reinterpret_cast<float*>(sDO + STAGES * TILE_ELEMS);  // [STAGES][3][BQ]:
                                                                         // m, 1/s, delta
+  float* usum = sStat + STAGES * 3 * BQ;  // [HD] twice, then [THREADS * 8] scratch
+  float* scratch = usum + 2 * HD;
+  bf16* sPad = reinterpret_cast<bf16*>(scratch + THREADS * 8);  // [PAD_ROWS][64], plain rows
+  float* sPadS = reinterpret_cast<float*>(sPad + PAD_ROWS * HD);  // [PAD_ROWS]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.x;
@@ -106,22 +246,6 @@ masked_attention_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __res
   const size_t k_base = (size_t)bh * Tk * HD;
   const size_t stat_base = (size_t)bh * Tq;
 
-  // Rows in [valid_end, Tq) are uniform over the Tk keys: each adds
-  // dO_row / s_row to every dV row. Summed once, in fp32, from one pass over
-  // those rows of dO; every dV accumulator starts from the sum.
-  float* usum = reinterpret_cast<float*>(smem_raw);  // [HD], then scratch
-  tc::column_sums<THREADS>(usum, usum + HD, dout + q_base, valid_end, Tq, s_in + stat_base);
-  const int col_in = (lane & 3) * 2;
-  float acc_dk[8][4], acc_dv[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      acc_dk[j][e] = 0.f;
-      acc_dv[j][e] = usum[j * 8 + col_in + (e & 1)];
-    }
-  __syncthreads();  // shared memory is reused below
-
   // Rows below valid_end see no key of this block when the block starts at
   // or past m_len; when causal, rows before the block's first key see none.
   const int r_begin = causal ? k0 : 0;
@@ -131,14 +255,14 @@ masked_attention_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __res
   // one commit group per q-tile: K and V with the first, then STAGES - 2
   // more ahead
   if (n_tiles > 0) {
-    tc::load_tile_async<THREADS>(sK, k + k_base, k0, Tk, tid);
-    tc::load_tile_async<THREADS>(sV, v + k_base, k0, Tk, tid);
+    wg::load_tile_async<THREADS>(sK, k + k_base, k0, Tk, tid);
+    wg::load_tile_async<THREADS>(sV, v + k_base, k0, Tk, tid);
   }
 #pragma unroll
   for (int p = 0; p < STAGES - 1; ++p) {
     if (p < n_tiles) {
-      tc::load_tile_async<THREADS>(sQ + p * TILE_ELEMS, q + q_base, r_begin + p * BQ, r_end, tid);
-      tc::load_tile_async<THREADS>(sDO + p * TILE_ELEMS, dout + q_base, r_begin + p * BQ, r_end,
+      wg::load_tile_async<THREADS>(sQ + p * TILE_ELEMS, q + q_base, r_begin + p * BQ, r_end, tid);
+      wg::load_tile_async<THREADS>(sDO + p * TILE_ELEMS, dout + q_base, r_begin + p * BQ, r_end,
                                    tid);
     }
     tc::cp_async_commit();
@@ -155,115 +279,129 @@ masked_attention_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __res
     next_stat[1] = in ? s_in[stat_base + row] : 1.f;
     next_stat[2] = in ? delta_in[stat_base + row] : 0.f;
   };
+  // Launched right after the dQ kernel as a programmatic dependent launch:
+  // everything above overlaps that kernel's tail; delta, which it writes,
+  // is read only after its grid has completed (a no-op otherwise).
+  asm volatile("griddepcontrol.wait;" ::: "memory");
   if (n_tiles > 0) fetch_stats(r_begin);
+
+  // Rows in [valid_end, Tq) are uniform over the Tk keys: each adds
+  // dO_row / s_row to every dV row. The first PAD_ROWS of them and their s
+  // are copied into shared memory with the q-tile loop's first loads (after
+  // the prologue: with K, V and q-tile 0 alone on the way, the first
+  // products start sooner), summed in fp32 after the loop and added to dV;
+  // rows past those are summed from device memory then.
+  const int n_pad = Tq - valid_end, n_pre = min(n_pad, PAD_ROWS);
+  auto load_pad = [&]() {
+    for (int chunk = tid; chunk < n_pre * 8; chunk += THREADS) {
+      const int r = chunk >> 3, c = (chunk & 7) * 8;
+      tc::cp_async16(sPad + r * HD + c, dout + q_base + (size_t)(valid_end + r) * HD + c, true);
+    }
+    for (int r = tid; r < n_pre; r += THREADS) {
+      wg::cp_async4(sPadS + r, s_in + stat_base + valid_end + r);
+    }
+  };
+  if (n_tiles == 0) {
+    load_pad();
+    tc::cp_async_commit();
+  }
+  const int col_in = (lane & 3) * 2;
+  KeyState st;
+  wg::zero(st.dk);
+  wg::zero(st.dv);
+  const float scale_log2 = scale * LOG2E;
 
   // this lane's two keys (g and g + 8 of the warp's 16)
   const int key_lo = k0 + warp * 16 + (lane >> 2), key_hi = key_lo + 8;
+  const uint64_t dk_desc = wg::desc(sK), dv_desc = wg::desc(sV);
   for (int t = 0; t < n_tiles; ++t) {
     const int buf = t % STAGES;
     const int qt = r_begin + t * BQ;
     const int ahead = t + STAGES - 1;  // into the stage that tile t - 1 used
+    if (t == 0) load_pad();
     if (ahead < n_tiles) {
       const int row0 = r_begin + ahead * BQ;
-      tc::load_tile_async<THREADS>(sQ + (ahead % STAGES) * TILE_ELEMS, q + q_base, row0, r_end,
+      wg::load_tile_async<THREADS>(sQ + (ahead % STAGES) * TILE_ELEMS, q + q_base, row0, r_end,
                                    tid);
-      tc::load_tile_async<THREADS>(sDO + (ahead % STAGES) * TILE_ELEMS, dout + q_base, row0,
+      wg::load_tile_async<THREADS>(sDO + (ahead % STAGES) * TILE_ELEMS, dout + q_base, row0,
                                    r_end, tid);
     }
     tc::cp_async_commit();
     float* stat = sStat + buf * 3 * BQ;
     if (tid < BQ) {
-      stat[tid] = next_stat[0];
+      stat[tid] = next_stat[0] * LOG2E;
       stat[BQ + tid] = 1.f / next_stat[1];
       stat[2 * BQ + tid] = next_stat[2];
     }
     if (t + 1 < n_tiles) fetch_stats(qt + BQ);
     tc::cp_async_wait<STAGES - 1>();  // q-tile t (and K, V) have landed
+    wg::fence_async_smem();
     __syncthreads();
     const bf16* tQ = sQ + buf * TILE_ELEMS;
     const bf16* tDO = sDO + buf * TILE_ELEMS;
-
-    // S^T = K . Q^T and dP^T = V . dO^T: 16 keys x 64 rows a warp
-    float st[8][4], dpt[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) st[j][e] = dpt[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      uint32_t ka[4], va[4];
-      const int a_off = (warp * 16 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8;
-      tc::ldmatrix_x4(ka, sK + a_off);
-      tc::ldmatrix_x4(va, sV + a_off);
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        const int b_off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS + kk * 16 +
-                          ((lane >> 3) & 1) * 8;
-        uint32_t qb[4], ob[4];
-        tc::ldmatrix_x4(qb, tQ + b_off);
-        tc::ldmatrix_x4(ob, tDO + b_off);
-        tc::mma(st[2 * np], ka, qb[0], qb[1]);
-        tc::mma(st[2 * np + 1], ka, qb[2], qb[3]);
-        tc::mma(dpt[2 * np], va, ob[0], ob[1]);
-        tc::mma(dpt[2 * np + 1], va, ob[2], ob[3]);
-      }
-    }
-
-    // P^T into st, dS^T into dpt, in fp32
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = e < 2 ? key_lo : key_hi;
-        const int rl = j * 8 + col_in + (e & 1);
-        const int row = qt + rl;
-        // rows at or past r_end and keys past Tk take no part; a masked key
-        // of a valid row has P = exp(NEG - m) = 0 exactly and dS = 0
-        const bool unmasked = row < r_end && key < mlen && (!causal || key <= row);
-        float p = 0.f, ds = 0.f;
-        if (unmasked) {
-          p = __expf(st[j][e] * scale - stat[rl]) * stat[BQ + rl];
-          ds = p * (dpt[j][e] - stat[2 * BQ + rl]);
-        }
-        st[j][e] = p;
-        dpt[j][e] = ds;
-      }
-    }
-
-    // dV += P^T . dO and dK += dS^T . Q, each as hi and lo parts: the A
-    // operands from registers, dO and Q through ldmatrix.trans
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {  // rows 16 s .. 16 s + 15 of the q-tile
-      uint32_t p_hi[4], p_lo[4], ds_hi[4], ds_lo[4];
-      tc::a_split_from_acc(p_hi, p_lo, st, s);
-      tc::a_split_from_acc(ds_hi, ds_lo, dpt, s);
-#pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {  // head-width columns 16 dp .. 16 dp + 15
-        const int off = (s * 16 + (lane & 15)) * LDS + dp * 16 + (lane >> 4) * 8;
-        uint32_t ob[4], qb[4];
-        tc::ldmatrix_x4_trans(ob, tDO + off);
-        tc::ldmatrix_x4_trans(qb, tQ + off);
-        tc::mma(acc_dv[2 * dp], p_hi, ob[0], ob[1]);
-        tc::mma(acc_dv[2 * dp + 1], p_hi, ob[2], ob[3]);
-        tc::mma(acc_dv[2 * dp], p_lo, ob[0], ob[1]);
-        tc::mma(acc_dv[2 * dp + 1], p_lo, ob[2], ob[3]);
-        tc::mma(acc_dk[2 * dp], ds_hi, qb[0], qb[1]);
-        tc::mma(acc_dk[2 * dp + 1], ds_hi, qb[2], qb[3]);
-        tc::mma(acc_dk[2 * dp], ds_lo, qb[0], qb[1]);
-        tc::mma(acc_dk[2 * dp + 1], ds_lo, qb[2], qb[3]);
-      }
+    const int nq = min(BQ, r_end - qt);  // rows this tile needs
+    if (nq > 48) {
+      dkv_tile<64>(st, dk_desc, dv_desc, tQ, tDO, stat, qt, key_lo, key_hi, col_in, r_end, mlen,
+                   scale_log2, causal);
+    } else if (nq > 32) {
+      dkv_tile<48>(st, dk_desc, dv_desc, tQ, tDO, stat, qt, key_lo, key_hi, col_in, r_end, mlen,
+                   scale_log2, causal);
+    } else if (nq > 16) {
+      dkv_tile<32>(st, dk_desc, dv_desc, tQ, tDO, stat, qt, key_lo, key_hi, col_in, r_end, mlen,
+                   scale_log2, causal);
+    } else {
+      dkv_tile<16>(st, dk_desc, dv_desc, tQ, tDO, stat, qt, key_lo, key_hi, col_in, r_end, mlen,
+                   scale_log2, causal);
     }
     __syncthreads();  // the next iteration refills the stage of this tile
   }
   tc::cp_async_wait<0>();
   __syncthreads();
 
+  // the padding rows' sum: the prefetched rows from shared memory, 8 threads
+  // a row, then any others from device memory; each dV row gets it
+  {
+    const int c8 = (tid & 7) * 8;
+    float part[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int r = tid >> 3; r < n_pre; r += THREADS / 8) {
+      const uint4 raw = *reinterpret_cast<const uint4*>(sPad + r * HD + c8);
+      const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
+      const float inv = 1.f / sPadS[r];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float2 f = __bfloat1622float2(h[i]);
+        part[2 * i] += f.x * inv;
+        part[2 * i + 1] += f.y * inv;
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 8; ++i) scratch[(tid >> 3) * HD + c8 + i] = part[i];
+    __syncthreads();
+    if (tid < HD) {
+      float total = 0.f;
+      for (int g = 0; g < THREADS / 8; ++g) total += scratch[g * HD + tid];
+      usum[tid] = total;
+    }
+    __syncthreads();
+    if (n_pad > n_pre) {
+      wg::column_sums<THREADS, PAD_DEPTH>(usum + HD, scratch, dout + q_base, valid_end + n_pre,
+                                          Tq, s_in + stat_base);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + col_in + (e & 1);
+        st.dv[j][e] += n_pad > n_pre ? usum[c] + usum[HD + c] : usum[c];
+      }
+  }
+
   // dK * scale and dV, staged through the first stage of the ring
-  tc::stage_acc(sQ, acc_dk, warp * 16, scale, scale);
-  tc::stage_acc(sDO, acc_dv, warp * 16, 1.f, 1.f);
+  wg::stage_acc(sQ, st.dk, scale, scale);
+  wg::stage_acc(sDO, st.dv, 1.f, 1.f);
   __syncthreads();
-  tc::store_tile<THREADS>(dk + k_base, sQ, k0, k_rows);
-  tc::store_tile<THREADS>(dv + k_base, sDO, k0, k_rows);
+  wg::store_tile<THREADS>(dk + k_base, sQ, k0, k_rows);
+  wg::store_tile<THREADS>(dv + k_base, sDO, k0, k_rows);
 }
 
 }  // namespace
@@ -289,15 +427,26 @@ extern "C" int masked_attention_bwd_dkv_tc(const void* q, const void* k, const v
     if (err != cudaSuccess) return (int)err;
     smem_set = true;
   }
-  const dim3 grid(B * H, (Tk + BK - 1) / BK);
-  masked_attention_bwd_dkv_tc_kernel<<<grid, THREADS, SMEM_BYTES,
-                                       static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<const bf16*>(dout), static_cast<const int*>(q_len),
-      static_cast<const int*>(m_len), static_cast<const float*>(m),
-      static_cast<const float*>(s), static_cast<const float*>(delta), static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), H, Tq, Tk, scale, causal);
-  return (int)cudaGetLastError();
+  // a programmatic dependent launch: its blocks may start while the kernel
+  // before it on the stream (the dQ kernel) still runs
+  cudaLaunchConfig_t config = {};
+  config.gridDim = dim3(B * H, (Tk + BK - 1) / BK);
+  config.blockDim = dim3(THREADS);
+  config.dynamicSmemBytes = SMEM_BYTES;
+  config.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attribute[1];
+  attribute[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attribute[0].val.programmaticStreamSerializationAllowed = 1;
+  config.attrs = attribute;
+  config.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &config, masked_attention_bwd_dkv_tc_kernel, static_cast<const bf16*>(q),
+      static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
+      static_cast<const int*>(q_len), static_cast<const int*>(m_len),
+      static_cast<const float*>(m), static_cast<const float*>(s),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Tq,
+      Tk, scale, causal);
+  return (int)(err != cudaSuccess ? err : cudaGetLastError());
 }
 
 // Dynamic shared memory each block asks for, in bytes.

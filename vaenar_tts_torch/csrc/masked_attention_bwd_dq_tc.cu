@@ -101,6 +101,12 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
   bf16* sK = sDO + TILE_ELEMS;                   // [STAGES][64][LDS], the key-tile ring
   bf16* sV = sK + STAGES * TILE_ELEMS;           // [STAGES][64][LDS]
 
+  // The dK/dV kernel, launched next on the same stream as a programmatic
+  // dependent launch, may start now: it loads what this kernel does not
+  // write while this one runs, and waits for this whole grid before it
+  // reads delta.
+  asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.x;
   const int b = bh / H;

@@ -1,5 +1,5 @@
-// Masked multi-head attention, forward, bf16 on the tensor cores, for
-// sm_90a. Plain C interface, bound from Python with ctypes
+// Masked multi-head attention, forward, bf16 on Hopper's tensor cores
+// (wgmma), for sm_90a. Plain C interface, bound from Python with ctypes
 // (vaenar_tts_torch/ops/flash_attention.py); bf16 q, k, v take this kernel,
 // fp32 ones masked_attention_fwd.cu.
 //
@@ -18,23 +18,50 @@
 // written in bf16, m and s as fp32 [B, H, Tq]. Null length pointers mean
 // full lengths.
 //
-// Design. A block takes one (b, h) and 64 query rows with a group of 4
-// warps, each warp owning 16 of the rows; when Tk > 512 it takes two such
-// groups, which split the key tiles (even and odd) so that a block's chain
-// of tiles is half as long, and at the end group 1 hands its (row max, row
-// sum, accumulator) to group 0 through shared memory, which merges them as
-// the online softmax merges two tiles. Q is loaded once into registers as mma A
-// fragments (one ldmatrix.x4 per 16 head-width columns). Each group streams
-// its K and V tiles (64 keys) through its own two-stage shared-memory ring
-// filled with cp.async (16 bytes a thread), the next tile loading while the
-// current one multiplies, and waits on its own named barrier (a third stage
-// measured no faster: the tile's products and softmax, not its load, set
-// the pace). S = Q.K^T (K read with ldmatrix) and O += P.V (V read with
-// ldmatrix.trans) are mma.sync.m16n8k16 bf16 products with fp32
-// accumulators; P never leaves registers (the C fragment of S is the A
-// fragment of P.V). The online softmax runs in fp32 registers; the row max
-// and row sum of a row are reduced over the 4 lanes (a quad) that hold it.
-// o is staged through shared memory for 16-byte stores.
+// What bounds it on an H100 at the main path's bf16 shapes (B=4, H=4, D=64;
+// synthesis: text 160, reduced mel 1680 of which ~460-580 rows are valid;
+// train step: batch 32, text 32, reduced mel 240 with 54-144 valid): not
+// bytes or operations. By chip_smoke.py's count a synthesis call's sites
+// need 0.062 ms (bytes) and a train step's 0.082 ms; the kernel takes
+// several times that, because a launch lasts as long as its heaviest
+// block's chain of dependent steps (scripts/torch_attention_blocks.py
+// times every block): the lengths, the loads of Q and the first K/V tile,
+// then per key tile the product S = Q.K^T, the mask and the softmax's
+// exponentials and reductions, the split of P and the product O += P.V,
+// then the store. With one warp group a block, each scheduler of the SM
+// has one warp of the chain to issue, so a tile's elementwise work, not
+// its products, is most of its time. At the synthesis causal site the last
+// valid q-tile walks ~9 key tiles, and the rows past q_len (~1,100 at that
+// site) need a pass over all 1,680 rows of V.
+//
+// Design for that chain. A block takes one (b, h) and 64 query rows with
+// one warp group, or with two when Tk > 512, which split the key tiles
+// (even and odd; a group with no tile drops out of the merge) and merge
+// (row max, row sum, accumulator) through shared memory at the end, as the
+// online softmax merges two tiles.
+//   * Products are wgmma.mma_async over the whole warp group (m64nNk16):
+//     S = Q.K^T with Q and K from shared memory, N = the tile's keys;
+//     O += P.V with P from registers (the D fragment of S is the A
+//     fragment of P.V) and V from shared memory as an MN-major B.
+//   * Tiles land in wgmma's 128-byte-swizzled layout straight from
+//     cp.async (chunk c of row r at c ^ (r & 7)), so no copy or ldmatrix
+//     sits between a load and a product; each group streams its K and V
+//     tiles through its own two-stage ring, the next tile loading while
+//     the current one multiplies.
+//   * The last key tile is narrowed to the keys it needs (at m_len, or at
+//     the q-tile's last valid row when causal), rounded up to 16:
+//     N = 16, 32, 48 or 64, each width its own instantiation.
+//   * Fewer instructions on the chain: each row's mask is one bound, and a
+//     warp whose rows see the whole tile skips it; the row max and sum are
+//     trees; exp is one fma and ex2; the accumulator is rescaled only
+//     when a row max of the warp moved.
+//   * The padding rows are shared out over up to 4 blocks (a single
+//     writer ran as long as the heaviest key loop), and a block that also
+//     has valid rows issues its Q and K/V loads before its share, which
+//     then runs while they land.
+// The online softmax runs in fp32 registers; a row's max and sum are
+// reduced over the 4 lanes (a quad) that hold it, as in the D layout of
+// wgmma_bf16.cuh. o is staged through shared memory for 16-byte stores.
 //
 // P's precision: the plain version keeps P fp32 for P.V. Here P is split
 // into a bf16 high part and a bf16 low part, and P.V = P_hi.V + P_lo.V, two
@@ -45,38 +72,26 @@
 // tolerance is in PERF.md §6.
 //
 // Work skipped without changing the result:
-//   * rows at or past q_len (all rows when m_len == 0) are fully masked; one
-//     block of the (b, h) writes mean(v), NEG and Tk for all of them from one
-//     pass over V (masked_attention_fwd.cu makes that pass in every block
-//     that holds such rows);
+//   * rows at or past q_len (all rows when m_len == 0) are fully masked;
+//     the writers above give them mean(v), NEG and Tk (masked_attention_fwd.cu
+//     makes that pass in every block that holds such rows);
 //   * the key loop stops at m_len and, when causal, at the tile's last
 //     valid row: each skipped term is exp(NEG - m) = 0 exactly in fp32.
 //
-// What bounds it on an H100 at the synthesis path's bf16 shapes (B=4, H=4,
-// D=64, text 160, reduced mel 1680): bytes. A causal 1680 x 1680 site needs
-// about 4*D*Tq*Tk/2*B*H = 5.8 GFLOP, 5.9 us at the 989 TFLOP/s bf16 tensor
-// peak, against ~14 MB of q, k, v and o in bf16, 4.2 us at 3.35 TB/s, with
-// the valid lengths cutting both; the cross and encoder sites are byte-bound
-// by more. The design keeps every byte single-read from device memory per
-// block (Q once; each K/V tile once; o written once) and hides the loads
-// behind the products with the cp.async ring; the per-(b,h) K/V re-reads of
-// the 27 q-tiles of a site hit the 50 MB L2. At these lengths a block's
-// chain of dependent tiles (products, then the softmax's reductions, then
-// products), not bytes or operations, sets the time; hence the two groups.
-//
-// Resources (ptxas -v; chip_smoke.py prints them): see
-// PERF.md §6. Shared memory: Q and a two-stage K/V ring for each group, 5
-// or 9 tiles of 64 x 72 bf16 = 46,080 or 82,944 bytes a block.
+// Resources (ptxas -v, CUDA 12.8; chip_smoke.py and
+// scripts/torch_attention_sites.py print them): 128 registers a thread with
+// one group, 127 with two, no spills, so four blocks (two) fit on an SM.
+// Shared memory: Q and a two-stage K/V ring for each group, 5 or 9 tiles of
+// 64 x 64 bf16 and 1 KB for alignment = 41,984 or 74,752 bytes a block.
 
-#include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
 using tc::bf16;
 using tc::HD;
-using tc::LDS;
 using tc::NEG;
-using tc::TILE_ELEMS;
+using wg::TILE_ELEMS;
 
 constexpr int BQ = 64;  // query rows per block
 constexpr int BK = 64;  // keys per tile
@@ -84,13 +99,140 @@ constexpr int GROUP_THREADS = 128;  // a warp group: 4 warps, 16 query rows each
 constexpr int STAGES = 2;  // K/V tiles in a group's ring: one loads while one multiplies
 // Keys above which a block takes two warp groups: measured on an H100, two
 // groups shorten the long sites (Tk 1680 and 4104) and slow the short ones
-// (Tk <= 240: a second group mostly idles and the bigger block fits fewer
-// times on an SM)
+// (at Tk > 128 the train step's causal 240 site no longer fits its blocks on
+// the SMs at once)
 constexpr int TWO_GROUPS_MIN_TK = 512;
+constexpr int PAD_DEPTH = 16;  // loads in flight a thread in the padding rows' pass
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr int WRITERS = 4;       // blocks of a (b, h) that share the padding rows,
+constexpr int WRITER_ROWS = 256;  // each taking this many rows at least
 
 template <int GROUPS>
 constexpr size_t smem_bytes() {
-  return sizeof(bf16) * (1 + GROUPS * 2 * STAGES) * TILE_ELEMS;
+  return sizeof(bf16) * (1 + GROUPS * 2 * STAGES) * TILE_ELEMS + wg::ALIGN;
+}
+
+// Per-thread state of one warp group's online softmax over its rows.
+struct RowState {
+  float acc[8][4];  // O accumulator, wgmma's D fragment
+  float row_max[2], row_sum[2];  // rows g and g + 8 of the warp's 16
+};
+
+// op(t[0], ..., t[N - 1]) as a tree: pairs at distance 1, then 2, 4, ...
+template <int N, typename Op>
+__device__ __forceinline__ float tree(float (&t)[N], Op op) {
+#pragma unroll
+  for (int step = 1; step < N; step *= 2)
+#pragma unroll
+    for (int i = 0; i + step < N; i += 2 * step) t[i] = op(t[i], t[i + step]);
+  return t[0];
+}
+
+// One key tile of NK keys (16, 32, 48 or 64) starting at key kt: S = Q.K^T,
+// the mask, the online softmax, O += P_hi.V + P_lo.V. Of this thread's two
+// rows, columns below lim_lo (lim_hi) are unmasked; the others are masked
+// (NEG), or have no term at all at or past Tk (-inf).
+template <int NK>
+__device__ __forceinline__ void fwd_tile(RowState& st, uint64_t dq, const bf16* tK,
+                                         const bf16* tV, int kt, int col_in, int lim_lo,
+                                         int lim_hi, int Tk, float scale) {
+  constexpr int J = NK / 8;
+  float sc[J][4];
+  wg::zero(sc);
+  wg::fence_acc(sc);
+  wg::fence();
+  const uint64_t dk = wg::desc(tK);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wg::mma_ss<NK>(sc, dq + 2 * kk, dk + 2 * kk);
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_acc(sc);
+
+  // mask, online softmax in fp32; a warp whose rows see every column of
+  // the tile skips the mask
+  if (__all_sync(0xffffffffu, kt + NK <= min(lim_lo, lim_hi))) {
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] *= scale;
+  } else {
+    // column kt + col_in + c of the tile against the bounds, c constant
+    const int base = kt + col_in;
+    const int bound[2] = {lim_lo - base, lim_hi - base};
+    const int keys = Tk - base;
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int c = j * 8 + (e & 1);
+        sc[j][e] = c < bound[e >> 1] ? sc[j][e] * scale : (c < keys ? NEG : -INFINITY);
+      }
+  }
+  // each row's max over its 8 J / 4 columns, as a tree (short dependency
+  // chains: one warp a scheduler has little else to issue meanwhile)
+  float tile_max[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float t[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) t[j] = fmaxf(sc[j][2 * h], sc[j][2 * h + 1]);
+    tile_max[h] = tree<J>(t, [](float a, float b) { return fmaxf(a, b); });
+  }
+  float alpha[2], part[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    tile_max[h] = fmaxf(tile_max[h], __shfl_xor_sync(0xffffffffu, tile_max[h], 1));
+    tile_max[h] = fmaxf(tile_max[h], __shfl_xor_sync(0xffffffffu, tile_max[h], 2));
+    const float m_new = fmaxf(st.row_max[h], tile_max[h]);
+    alpha[h] = __expf(st.row_max[h] - m_new);
+    st.row_max[h] = m_new;
+  }
+  // exp(x - m) as 2^(x log2(e) - m log2(e)), one fma; a row whose max is
+  // still NEG (every key so far masked) takes m log2(e) = 0, so its terms
+  // are 0 and not exp(0) = 1: such a row is past q_len (never written) or a
+  // second group's partial, which the merge weighs by exp(NEG - m) = 0
+  float m_log2[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) m_log2[h] = st.row_max[h] == NEG ? 0.f : st.row_max[h] * LOG2E;
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) sc[j][e] = wg::ex2(fmaf(sc[j][e], LOG2E, -m_log2[e >> 1]));
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float t[J];
+#pragma unroll
+    for (int j = 0; j < J; ++j) t[j] = sc[j][2 * h] + sc[j][2 * h + 1];
+    part[h] = tree<J>(t, [](float a, float b) { return a + b; });
+  }
+  if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {  // a row max moved
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st.acc[j][e] *= alpha[e >> 1];
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    part[h] += __shfl_xor_sync(0xffffffffu, part[h], 1);
+    part[h] += __shfl_xor_sync(0xffffffffu, part[h], 2);
+    st.row_sum[h] = st.row_sum[h] * alpha[h] + part[h];
+  }
+
+  // O += P_hi . V + P_lo . V: P from registers, V an MN-major B
+  uint32_t p_hi[NK / 16][4], p_lo[NK / 16][4];
+#pragma unroll
+  for (int s = 0; s < NK / 16; ++s) wg::a_split(p_hi[s], p_lo[s], sc, s);
+  wg::fence_acc(st.acc);
+  wg::fence();
+  const uint64_t dv = wg::desc(tV);
+#pragma unroll
+  for (int s = 0; s < NK / 16; ++s) {  // keys 16 s .. 16 s + 15
+    wg::mma_rs64_mn(st.acc, p_hi[s], dv + 128 * s);
+    wg::mma_rs64_mn(st.acc, p_lo[s], dv + 128 * s);
+  }
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_acc(st.acc);
 }
 
 template <int GROUPS>
@@ -102,9 +244,10 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
                                int Tq, int Tk, float scale, int causal) {
   constexpr int THREADS = GROUPS * GROUP_THREADS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [64][LDS]; stages o at the end
+  unsigned char* smem = wg::aligned_smem(smem_raw);
+  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [64][64] swizzled; stages o at the end
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int tid = threadIdx.x, lane = tid & 31;
   const int bh = blockIdx.x;  // b * H + h
   const int b = bh / H;
   const int q0 = blockIdx.y * BQ;
@@ -117,169 +260,120 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
 
   // Rows at or past pad0 (q_len; every row when m_len <= 0) are fully
   // masked: uniform attention over the Tk keys, o = mean(v), m = NEG,
-  // s = Tk. One block of the (b, h) writes all of them, 16 bytes a thread,
-  // from one pass over V in fp32: the first block whose tile starts at or
-  // past pad0, else the last block.
+  // s = Tk. Up to WRITERS blocks of the (b, h) whose tiles start at or past
+  // pad0 write them, each a share of the rows, 16 bytes a thread, after its
+  // own pass over V in fp32; without such a block the last block writes
+  // them all. (A block's bytes move through one SM's share of the memory
+  // system: a single writer of the synthesis causal site's ~1,100 rows,
+  // after its pass over 1,680 rows of V, ran as long as the longest key
+  // loop.)
   const int pad0 = mlen > 0 ? max(0, min(qlen, Tq)) : 0;
-  const int writer = min((pad0 + BQ - 1) / BQ, (int)gridDim.y - 1);
-  if (pad0 < Tq && (int)blockIdx.y == writer) {
-    float* sum = reinterpret_cast<float*>(smem_raw);  // [HD], then scratch
-    tc::column_sums<THREADS>(sum, sum + HD, v + k_base, 0, Tk, nullptr);
-    const int c8 = (tid & 7) * 8;
-    uint4 mean;
-    __nv_bfloat162* mean2 = reinterpret_cast<__nv_bfloat162*>(&mean);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      mean2[i] = __floats2bfloat162_rn(sum[c8 + 2 * i] / (float)Tk, sum[c8 + 2 * i + 1] / (float)Tk);
-    for (int r = pad0 + (tid >> 3); r < Tq; r += THREADS / 8) {
-      *reinterpret_cast<uint4*>(o + q_base + (size_t)r * HD + c8) = mean;
-    }
-    for (int r = pad0 + tid; r < Tq; r += THREADS) {
-      m_out[stat_base + r] = NEG;
-      s_out[stat_base + r] = (float)Tk;
-    }
-    __syncthreads();  // shared memory is reused below
-  }
-  if (q0 >= pad0) return;  // no valid row in this tile
+  const int first_pad = (pad0 + BQ - 1) / BQ;  // the first block whose tile starts there
+  const int pad_blocks = (int)gridDim.y - first_pad;
+  const int writers =
+      pad0 >= Tq ? 0
+                 : (pad_blocks > 0
+                        ? max(1, min(min(WRITERS, pad_blocks), (Tq - pad0) / WRITER_ROWS))
+                        : 1);
+  const int writer = (int)blockIdx.y - (pad_blocks > 0 ? first_pad : (int)gridDim.y - 1);
+  const bool computes = q0 < pad0;
 
   // Valid rows see no key at or past m_len, nor past the diagonal when
   // causal: those terms are exp(NEG - m) = 0 exactly, so the loop stops there.
   const int rows_end = min(q0 + q_rows, pad0);
   int k_end = min(Tk, mlen);
   if (causal) k_end = min(k_end, rows_end);
-  const int n_tiles = (k_end + BK - 1) / BK;
+  const int n_tiles = computes ? (k_end + BK - 1) / BK : 0;
 
+  // Each group's ring holds stage s's K tile at 2 s and V tile at 2 s + 1.
+  const int group = tid / GROUP_THREADS, gtid = tid % GROUP_THREADS, gwarp = gtid / 32;
+  bf16* ring = sQ + TILE_ELEMS + group * 2 * STAGES * TILE_ELEMS;
+  auto load_kv = [&](int stage, int t) {
+    wg::load_tile_async<GROUP_THREADS>(ring + 2 * stage * TILE_ELEMS, k + k_base, t * BK, Tk, gtid);
+    wg::load_tile_async<GROUP_THREADS>(ring + (2 * stage + 1) * TILE_ELEMS, v + k_base, t * BK, Tk,
+                                       gtid);
+  };
   // Q, loaded by every thread; then each group's first STAGES - 1 tiles, one
-  // commit group a tile
-  const int group = tid / GROUP_THREADS, gtid = tid % GROUP_THREADS, gwarp = warp % 4;
-  bf16* sK = sQ + TILE_ELEMS + group * 2 * STAGES * TILE_ELEMS;  // [STAGES][64][LDS]
-  bf16* sV = sK + STAGES * TILE_ELEMS;                            // [STAGES][64][LDS]
-  tc::load_tile_async<THREADS>(sQ, q + q_base, q0, q0 + q_rows, tid);
-  tc::cp_async_commit();
-#pragma unroll
-  for (int p = 0; p < STAGES - 1; ++p) {
-    const int t = group + p * GROUPS;
-    if (t < n_tiles) {
-      tc::load_tile_async<GROUP_THREADS>(sK + p * TILE_ELEMS, k + k_base, t * BK, Tk, gtid);
-      tc::load_tile_async<GROUP_THREADS>(sV + p * TILE_ELEMS, v + k_base, t * BK, Tk, gtid);
-    }
+  // commit group a tile; issued before the padding rows' pass, which a block
+  // with valid rows runs while they land
+  if (computes) {
+    wg::load_tile_async<THREADS>(sQ, q + q_base, q0, q0 + q_rows, tid);
     tc::cp_async_commit();
-  }
-  tc::cp_async_wait<STAGES - 1>();  // this thread's part of Q has landed
-  __syncthreads();
-  uint32_t qf[4][4];  // Q's A fragments, one per 16 head-width columns
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk)
-    tc::ldmatrix_x4(qf[kk], sQ + (gwarp * 16 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8);
+    for (int p = 0; p < STAGES - 1; ++p) {
+      const int t = group + p * GROUPS;
+      if (t < n_tiles) load_kv(p, t);
+      tc::cp_async_commit();
+    }
+  }
+
+  if (writer >= 0 && writer < writers) {
+    // scratch: group 0's last stage, which no load fills before the loop
+    float* sum = reinterpret_cast<float*>(sQ + (1 + 2 * (STAGES - 1)) * TILE_ELEMS);
+    wg::column_sums<THREADS, PAD_DEPTH>(sum, sum + HD, v + k_base, 0, Tk, nullptr);
+    const int c8 = (tid & 7) * 8;
+    uint4 mean;
+    __nv_bfloat162* mean2 = reinterpret_cast<__nv_bfloat162*>(&mean);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      mean2[i] = __floats2bfloat162_rn(sum[c8 + 2 * i] / (float)Tk, sum[c8 + 2 * i + 1] / (float)Tk);
+    const int share = (Tq - pad0 + writers - 1) / writers;
+    const int r0 = pad0 + writer * share, r1 = min(Tq, r0 + share);
+    for (int r = r0 + (tid >> 3); r < r1; r += THREADS / 8) {
+      *reinterpret_cast<uint4*>(o + q_base + (size_t)r * HD + c8) = mean;
+    }
+    for (int r = r0 + tid; r < r1; r += THREADS) {
+      m_out[stat_base + r] = NEG;
+      s_out[stat_base + r] = (float)Tk;
+    }
+    __syncthreads();  // the scratch is a stage of the ring
+  }
+  if (!computes) return;  // no valid row in this tile
+  tc::cp_async_wait<STAGES - 1>();  // this thread's part of Q has landed
+  wg::fence_async_smem();
+  __syncthreads();  // Q is read by both groups' products
 
   // this lane's two rows (g and g + 8 of the warp's 16) and column pair
   const int row_lo = q0 + gwarp * 16 + (lane >> 2), row_hi = row_lo + 8;
   const int col_in = (lane & 3) * 2;
-  float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float row_max[2] = {NEG, NEG}, row_sum[2] = {0.f, 0.f};
+  // each row's unmasked columns: [0, lim), none for a row past q_len
+  auto row_lim = [&](int row) {
+    const int lim = row < qlen ? min(mlen, Tk) : 0;
+    return causal ? min(lim, row + 1) : lim;
+  };
+  const int lim_lo = row_lim(row_lo), lim_hi = row_lim(row_hi);
+  RowState st;
+  wg::zero(st.acc);
+  st.row_max[0] = st.row_max[1] = NEG;
+  st.row_sum[0] = st.row_sum[1] = 0.f;
+  const uint64_t dq = wg::desc(sQ);
 
   // this group's key tiles: group, group + GROUPS, ...
   for (int i = 0, t = group; t < n_tiles; ++i, t += GROUPS) {
     const int buf = i % STAGES;
     const int ahead = t + (STAGES - 1) * GROUPS;  // into the stage of this group's last tile
-    if (ahead < n_tiles) {
-      const int stage = (i + STAGES - 1) % STAGES;
-      tc::load_tile_async<GROUP_THREADS>(sK + stage * TILE_ELEMS, k + k_base, ahead * BK, Tk, gtid);
-      tc::load_tile_async<GROUP_THREADS>(sV + stage * TILE_ELEMS, v + k_base, ahead * BK, Tk, gtid);
-    }
+    if (ahead < n_tiles) load_kv((i + STAGES - 1) % STAGES, ahead);
     tc::cp_async_commit();
     tc::cp_async_wait<STAGES - 1>();  // tile t has landed
+    wg::fence_async_smem();
     tc::group_sync(1 + group, GROUP_THREADS);
-    const bf16* tK = sK + buf * TILE_ELEMS;
-    const bf16* tV = sV + buf * TILE_ELEMS;
-
-    // S = Q . K^T: 16 rows x 64 keys a warp, 8 tiles of 16 x 8
-    float sc[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bfr[4];  // B fragments of key tiles 2np and 2np+1
-        tc::ldmatrix_x4(bfr, tK + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS + kk * 16 +
-                                 ((lane >> 3) & 1) * 8);
-        tc::mma(sc[2 * np], qf[kk], bfr[0], bfr[1]);
-        tc::mma(sc[2 * np + 1], qf[kk], bfr[2], bfr[3]);
-      }
-    }
-
-    // mask, online softmax in fp32
+    const bf16* tK = ring + 2 * buf * TILE_ELEMS;
+    const bf16* tV = ring + (2 * buf + 1) * TILE_ELEMS;
     const int kt = t * BK;
-    float tile_max[2] = {NEG, NEG};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? row_lo : row_hi;
-        const int col = kt + j * 8 + col_in + (e & 1);
-        float x;
-        if (col >= Tk) {
-          x = -INFINITY;  // past the keys: no term at all
-        } else if (row < qlen && col < mlen && (!causal || col <= row)) {
-          x = sc[j][e] * scale;
-        } else {
-          x = NEG;
-        }
-        sc[j][e] = x;
-        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], x);
-      }
-    }
-    float alpha[2], part[2] = {0.f, 0.f};
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      tile_max[h] = fmaxf(tile_max[h], __shfl_xor_sync(0xffffffffu, tile_max[h], 1));
-      tile_max[h] = fmaxf(tile_max[h], __shfl_xor_sync(0xffffffffu, tile_max[h], 2));
-      const float m_new = fmaxf(row_max[h], tile_max[h]);
-      alpha[h] = __expf(row_max[h] - m_new);
-      row_max[h] = m_new;
-    }
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[j][e] = __expf(sc[j][e] - row_max[e >> 1]);
-        part[e >> 1] += sc[j][e];
-        acc[j][e] *= alpha[e >> 1];
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      part[h] += __shfl_xor_sync(0xffffffffu, part[h], 1);
-      part[h] += __shfl_xor_sync(0xffffffffu, part[h], 2);
-      row_sum[h] = row_sum[h] * alpha[h] + part[h];
-    }
-
-    // O += P_hi . V + P_lo . V: P from registers, V through ldmatrix.trans
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {  // keys 16 s .. 16 s + 15
-      uint32_t p_hi[4], p_lo[4];
-      tc::a_split_from_acc(p_hi, p_lo, sc, s);
-#pragma unroll
-      for (int dp = 0; dp < 4; ++dp) {  // head-width columns 16 dp .. 16 dp + 15
-        uint32_t bfr[4];
-        tc::ldmatrix_x4_trans(bfr, tV + (s * 16 + (lane & 15)) * LDS + dp * 16 + (lane >> 4) * 8);
-        tc::mma(acc[2 * dp], p_hi, bfr[0], bfr[1]);
-        tc::mma(acc[2 * dp + 1], p_hi, bfr[2], bfr[3]);
-        tc::mma(acc[2 * dp], p_lo, bfr[0], bfr[1]);
-        tc::mma(acc[2 * dp + 1], p_lo, bfr[2], bfr[3]);
-      }
+    const int kn = min(BK, k_end - kt);  // keys this tile needs
+    if (kn > 48) {
+      fwd_tile<64>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
+    } else if (kn > 32) {
+      fwd_tile<48>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
+    } else if (kn > 16) {
+      fwd_tile<32>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
+    } else {
+      fwd_tile<16>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
     }
     tc::group_sync(1 + group, GROUP_THREADS);  // the next tile refills this stage
   }
   tc::cp_async_wait<0>();
-  __syncthreads();  // every group is done with its ring
+  __syncthreads();  // every group is done with its ring and with Q
 
   // With two groups, group 1 hands its partial (row max, row sum, o
   // accumulator) to group 0 through shared memory, element-major so that
@@ -291,13 +385,13 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
     if (group == 1) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        xch[h * GROUP_THREADS + gtid] = row_max[h];
-        xch[(2 + h) * GROUP_THREADS + gtid] = row_sum[h];
+        xch[h * GROUP_THREADS + gtid] = st.row_max[h];
+        xch[(2 + h) * GROUP_THREADS + gtid] = st.row_sum[h];
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) xch[(4 + j * 4 + e) * GROUP_THREADS + gtid] = acc[j][e];
+        for (int e = 0; e < 4; ++e) xch[(4 + j * 4 + e) * GROUP_THREADS + gtid] = st.acc[j][e];
     }
     __syncthreads();
     if (group == 0) {
@@ -305,38 +399,37 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const float m1 = xch[h * GROUP_THREADS + gtid];
-        const float m_new = fmaxf(row_max[h], m1);
-        a0[h] = __expf(row_max[h] - m_new);
+        const float m_new = fmaxf(st.row_max[h], m1);
+        a0[h] = __expf(st.row_max[h] - m_new);
         a1[h] = __expf(m1 - m_new);
-        row_sum[h] = row_sum[h] * a0[h] + xch[(2 + h) * GROUP_THREADS + gtid] * a1[h];
-        row_max[h] = m_new;
+        st.row_sum[h] = st.row_sum[h] * a0[h] + xch[(2 + h) * GROUP_THREADS + gtid] * a1[h];
+        st.row_max[h] = m_new;
       }
 #pragma unroll
       for (int j = 0; j < 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
-          acc[j][e] = acc[j][e] * a0[e >> 1] +
-                      xch[(4 + j * 4 + e) * GROUP_THREADS + gtid] * a1[e >> 1];
+          st.acc[j][e] = st.acc[j][e] * a0[e >> 1] +
+                         xch[(4 + j * 4 + e) * GROUP_THREADS + gtid] * a1[e >> 1];
     }
   }
 
   if (group == 0) {
-    // o = acc / s for the rows below rows_end, staged through sQ (Q is in
-    // registers)
-    tc::stage_acc(sQ, acc, gwarp * 16, 1.f / row_sum[0], 1.f / row_sum[1]);
+    // o = acc / s for the rows below rows_end, staged through sQ
+    wg::stage_acc(sQ, st.acc, 1.f / st.row_sum[0], 1.f / st.row_sum[1]);
     if ((lane & 3) == 0) {
       if (row_lo < rows_end) {
-        m_out[stat_base + row_lo] = row_max[0];
-        s_out[stat_base + row_lo] = row_sum[0];
+        m_out[stat_base + row_lo] = st.row_max[0];
+        s_out[stat_base + row_lo] = st.row_sum[0];
       }
       if (row_hi < rows_end) {
-        m_out[stat_base + row_hi] = row_max[1];
-        s_out[stat_base + row_hi] = row_sum[1];
+        m_out[stat_base + row_hi] = st.row_max[1];
+        s_out[stat_base + row_hi] = st.row_sum[1];
       }
     }
   }
   __syncthreads();
-  tc::store_tile<THREADS>(o + q_base, sQ, q0, rows_end - q0);
+  wg::store_tile<THREADS>(o + q_base, sQ, q0, rows_end - q0);
 }
 
 template <int GROUPS>
@@ -379,5 +472,5 @@ extern "C" int masked_attention_fwd_tc(const void* q, const void* k, const void*
 }
 
 // Dynamic shared memory a block of two warp groups asks for, in bytes (a
-// block of one group asks for 46,080).
+// block of one group asks for 41,984).
 extern "C" int masked_attention_fwd_tc_shared_bytes(void) { return (int)smem_bytes<2>(); }

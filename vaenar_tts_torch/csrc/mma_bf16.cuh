@@ -1,7 +1,9 @@
-// Building blocks of the bf16 tensor-core attention kernels
-// (masked_attention_fwd_tc.cu, masked_attention_bwd_dkv_tc.cu): 64 x 64 bf16
+// Building blocks of the bf16 tensor-core attention kernels: 64 x 64 bf16
 // tiles in shared memory, filled with cp.async, read with ldmatrix, and
-// multiplied with mma.sync.m16n8k16 into fp32 accumulators.
+// multiplied with mma.sync.m16n8k16 into fp32 accumulators, as the dQ kernel
+// (masked_attention_bwd_dq_tc.cu) does; the forward and dK/dV kernels
+// multiply with wgmma (wgmma_bf16.cuh) and take NEG, split_bf16 and the
+// cp.async helpers from here.
 //
 // Fragment layouts (PTX ISA, "mma.m16n8k16" for .bf16), for lane l of a warp,
 // g = l / 4 and c = 2 * (l % 4):

@@ -136,16 +136,32 @@ dK/dV kernel reads: a backward launches those two kernels and nothing else.
    fp32, temperature 0 and 0.667: lengths equal to one process's call,
    mels within TOL_SHARDED_MEL; and which gloo collectives take CUDA
    tensors. The fleets' launches, read from each process's
-   logs/process_<i>.json, join the kernels' counts.
+   logs/process_<i>.json, join the kernels' counts;
+21. the mesh's model axis: two processes (`--model-axis-worker`) on the
+   card as one model group (data 1 x model 2, gloo), with a pair that
+   probes gloo's point-to-point ops on CUDA tensors beside them
+   (`--p2p-probe`): ring_attention, the ring against the fp32 forward
+   kernel at the synthesis path's self-attention shapes (ms a call both
+   ways); tensor_parallel_synthesis, the shipped model with its wide
+   kernels sharded and VAENAR(seq_mesh=) in fp32 and bf16 over the 4
+   lines against one process, with 18 forward launches a call; and
+   tensor_parallel_training, an fp32 step (ring_min_seq 0, batch 32, r = 2)
+   against one process's losses and gradients, then bf16 steps, the walls
+   beside one process's and the launches of each process;
+22. reference_checkpoint_import: the shipped export written as a
+   reference TensorBundle by interop/importer.py, read back (checksums
+   verified) and synthesized from: the mels equal the export's bit for bit.
 
 Each phase prints a JSON line {"phase": ..., "seconds": ...} first. A failed
 check raises; the script then exits non-zero without printing the final
-line. With `--synthesis-worker RANK PORT OUT` it is one process of 20. Without a CUDA device, or without the rest of the repository beside
-it, it exits non-zero at once. It writes the kernel build directory
+line. With `--synthesis-worker RANK PORT OUT` it is one process of 20, with
+`--model-axis-worker` or `--p2p-probe` one of 21. Without a CUDA device, or
+without the rest of the repository beside it, it exits non-zero at once. It writes the kernel build directory
 (vaenar_tts_torch/_build/, ignored by git) and a temporary directory that it
 deletes.
 """
 
+import contextlib
 import itertools
 import json
 import math
@@ -332,6 +348,38 @@ FLEET_SHARDS, FLEET_PER_SHARD, FLEET_STEPS = 4, 40, 2
 TOL_FLEET_REL = 2e-3
 TOL_SHARDED_MEL = 1e-4
 FLEET_TIMEOUT_S = 300
+# the mesh's model axis: two processes share the card over gloo as one
+# model group (data 1 x model 2). The ring (parallel/ring_attention.py) at
+# the synthesis path's self-attention shapes, B 4, H 4, D 64, causal at
+# 1680 and not at 3360, random lengths with item 3 of length 0 (every row
+# masked), against the fp32 forward kernel on the same inputs within
+# TOL_O["float32"] (its own tolerance against its plain version: the ring
+# sums in another order), RING_REPS timed calls. Tensor-parallel synthesis
+# with the ring (VAENAR(seq_mesh=)): fp32 within TOL_SHARDED_MEL of one
+# process with equal lengths; bf16 lengths within TOL_LEN_BF16 of one bf16
+# process and the mean |mel difference| over the frames both keep within
+# TOL_TP_BF16_MEL (the ring and the kernel round differently: about three
+# times the measured bf16-against-fp32 gap of 0.003, two bf16 runs that
+# round differently each being that far from exact). The train step (fp32,
+# ring_min_seq 0, batch 32, r = 2, dropout on from one generator seed):
+# the losses within TOL_TP_LOSS_REL relative and every gradient element
+# within TOL_TP_GRAD (atol, rtol) of one process's, and the two processes'
+# gradients within it of each other: the JAX package's tolerance for its
+# ring step (tests/test_parallel.py:117-119). Not relative to a leaf's
+# largest gradient: at the shipped weights some leaves' gradients are
+# 1e-14-1e-9 of the largest, rounding noise that moves by 1-5 % of the leaf
+# between the attention kernels and their plain versions in one process on
+# the card (PERF.md §6). Then TP_BF16_STEPS bf16 steps with finite
+# losses.
+# traces of one backward taken at most, where the profiler's device trace
+# comes back without the marker kernel (check_backward_launches)
+PROFILE_TRIES = 3
+RING_CASES = (("causal_1680", 1680, True), ("self_3360", 3360, False))
+RING_REPS = 5
+TOL_TP_BF16_MEL = 0.01
+TOL_TP_LOSS_REL = 1e-4
+TOL_TP_GRAD = (5e-5, 5e-3)
+TP_BF16_STEPS = 3
 T0 = time.perf_counter()
 
 
@@ -677,9 +725,17 @@ def check_backward_launches(torch, fa, device):
     """The kernels that one backward runs on the card, at the train step's
     causal site (r = 2, batch 4), in each dtype, by torch.profiler: the
     dtype's dQ and dK/dV kernel once each and nothing else (no delta pass).
-    Returns {dtype: [[kernel, launches], ...]}."""
+
+    The profiler's device trace can come back empty (it did once on an
+    H100 under torch 2.11, for a backward that ran). So a marker kernel
+    (bitwise_not, which no backward runs) is launched on the same stream
+    after the backward: a trace that holds it has recorded every kernel
+    before it and is held to the check; one without it traced nothing
+    trustworthy and is taken again, at most PROFILE_TRIES times in all.
+    Returns {dtype: {"kernels": [[kernel, launches], ...], "traces": n}}."""
     from torch.profiler import ProfilerActivity, profile
     ql = length_sampler(torch, device, 13)(240, 60, (0, 240))
+    marker = torch.zeros(1, dtype=torch.int32, device=device)
     found = {}
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
@@ -687,13 +743,23 @@ def check_backward_launches(torch, fa, device):
         do = random_qkv(torch, device, dtype, 4, 4, 240, 240, 64, seed=601)[0]
         o, m, s = fa.masked_flash_attention(q, k, v, ql, ql, 0.125, True)
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            fa.masked_flash_attention_backward(q, k, v, ql, ql, o, m, s, do, 0.125, True)
-            torch.cuda.synchronize()
-        ran = sorted([e.key, e.count] for e in prof.key_averages()
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and e.self_device_time_total > 0 and not e.is_user_annotation)
-        found[dtype_name] = ran
+        for traces in range(1, PROFILE_TRIES + 1):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fa.masked_flash_attention_backward(q, k, v, ql, ql, o, m, s, do, 0.125, True)
+                torch.bitwise_not(marker)
+                torch.cuda.synchronize()
+            device_rows = [[e.key, e.count] for e in prof.key_averages()
+                           if e.device_type == torch.autograd.DeviceType.CUDA
+                           and e.self_device_time_total > 0 and not e.is_user_annotation]
+            marked = [n for key, n in device_rows if "bitwise_not" in key]
+            if marked == [1]:
+                break
+            print(json.dumps({"backward_trace_without_marker": dtype_name, "trace": traces,
+                              "device_rows": device_rows}), flush=True)
+        check(marked == [1], f"{dtype_name}: the profiler traced no marker kernel in "
+              f"{PROFILE_TRIES} tries ({device_rows}): it records no device kernels here")
+        ran = sorted(row for row in device_rows if "bitwise_not" not in row[0])
+        found[dtype_name] = {"kernels": ran, "traces": traces}
         want = [f"{fa.kernel_name(kind, dtype)}_kernel" for kind in ("dq", "dkv")]
         check(len(ran) == 2 and all(n == 1 for _, n in ran)
               and all(any(w in key for key, _ in ran) for w in want),
@@ -2351,28 +2417,13 @@ def synthesis_worker(rank, port, out_dir):
 def sharded_synthesis_phase(torch, tmp, smi, model32, hp, n_attn):
     """Two processes of ``synthesis_worker`` against one process's
     synthesis of the same lines at fp32 on the card."""
-    import socket
     from vaenar_tts_torch.cli.inference import encode_lines, pad_lines, resolve_length_source
     from vaenar_tts_torch.cli.inference import synthesize
     phase("sharded_synthesis")
     out = os.path.join(tmp, "sharded")
     os.makedirs(out)
-    with socket.socket() as s:
-        s.bind(("localhost", 0))
-        port = s.getsockname()[1]
-    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"),
-                               "--synthesis-worker", str(r), str(port), out], cwd=HERE,
-                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-             for r in range(2)]
-    texts = []
-    try:
-        for p in procs:
-            texts.append(p.communicate(timeout=FLEET_TIMEOUT_S)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
+    procs = spawn_pair("--synthesis-worker", out)
+    texts = finish_pair(procs, FLEET_TIMEOUT_S)
     for r, (p, text) in enumerate(zip(procs, texts)):
         check(p.returncode == 0, f"synthesis process {r} exited {p.returncode}: {text[-3000:]}")
     got = [torch.load(os.path.join(out, f"synthesis_{r}.pt"), weights_only=False)
@@ -2404,6 +2455,402 @@ def sharded_synthesis_phase(torch, tmp, smi, model32, hp, n_attn):
     check(counts == {"masked_attention_fwd": 2 * n_attn * 2},
           f"sharded synthesis launches {counts}")
     return {"sharded_synthesis": counts}
+
+
+def ring_case_inputs(torch, device, T, seed):
+    """q, k, v fp32 [4, 4, T, 64] and lengths (random, item 3 of length 0)
+    of one ring case, the same in every process."""
+    q, k, v = random_qkv(torch, device, torch.float32, 4, 4, T, T, 64, seed)
+    lens = length_sampler(torch, device, seed)(T, T // 4, (3, 0))
+    return q, k, v, lens
+
+
+def shipped_model(torch, state, device, dtype_name, seq_mesh=None, **train):
+    """(hparams, VAENAR) of the shipped configuration at ``dtype_name`` with
+    ``train`` fields replaced, on ``device``, holding the export's weights
+    (``state``: its load_npz), ringed over ``seq_mesh`` when given."""
+    import dataclasses
+    from vaenar_tts_torch.configs.serialize import load_hparams
+    from vaenar_tts_torch.interop.weights import load_jax_weights
+    from vaenar_tts_torch.models.vaenar import VAENAR, resolve_device
+    hp = load_hparams(MODEL_DIR)
+    hp = dataclasses.replace(hp, train=dataclasses.replace(hp.train, compute_dtype=dtype_name,
+                                                           **train))
+    model = VAENAR(hp, seq_mesh=seq_mesh)
+    load_jax_weights(model, state["params"], state["batch_stats"])
+    return hp, model.to(resolve_device(device))
+
+
+def timed(torch, fn):
+    """(fn's result, wall seconds up to the card's idle)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def p2p_probe_worker(rank, port, out_dir):
+    """``chip_smoke.py --p2p-probe RANK PORT OUT``: one of two processes that
+    try gloo's point-to-point ops (batch_isend_irecv) on a CUDA tensor; what
+    happened goes to OUT/p2p_<rank>.json. It may die in gloo."""
+    import torch
+    import torch.distributed as tdist
+    torch.cuda.set_device(0)
+    tdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                             rank=rank)
+    sent = torch.full((4,), float(rank + 1), device=DEVICE)
+    got = torch.zeros_like(sent)
+    try:
+        for req in tdist.batch_isend_irecv([tdist.P2POp(tdist.isend, sent, 1 - rank),
+                                            tdist.P2POp(tdist.irecv, got, 1 - rank)]):
+            req.wait()
+        torch.cuda.synchronize()
+        outcome = {"takes_cuda": True, "received": got.tolist()}
+    except RuntimeError as e:  # what gloo says is the finding
+        outcome = {"takes_cuda": False, "error": str(e)[:300]}
+    with open(os.path.join(out_dir, f"p2p_{rank}.json"), "w") as f:
+        json.dump(outcome, f)
+    os._exit(0)  # gloo's pairs may be broken: no teardown
+
+
+def model_axis_worker(rank, port, out_dir):
+    """``chip_smoke.py --model-axis-worker RANK PORT OUT``: one of the two
+    processes of a model group (mesh data 1 x model 2) on the card: the
+    ring at RING cases, tensor-parallel synthesis with the ring over the 4
+    shipped lines in fp32 and bf16 at temperature 0 and 0.667 (generator
+    seeded 1234; temperature 0 again, warm), an fp32 train step and
+    TP_BF16_STEPS bf16 steps with the ring (ring_min_seq 0) on the batch of
+    OUT/batch.pt; results, walls and launch counts to OUT/axis_<rank>.pt."""
+    import torch
+    import torch.distributed as tdist
+    sys.path.insert(0, HERE)
+    from vaenar_tts_torch.cli.inference import encode_lines, pad_lines
+    from vaenar_tts_torch.ops import flash_attention as fa
+    from vaenar_tts_torch.parallel.distributed import DistContext
+    from vaenar_tts_torch.parallel.mesh import make_mesh, shard_params, unshard_params
+    from vaenar_tts_torch.parallel.ring_attention import ring_self_attention
+    from vaenar_tts_torch.parallel.synthesis import ShardedSynthesizer
+    from vaenar_tts_torch.training import steps
+    from vaenar_tts_torch.utils.export import load_npz
+    device = torch.device(DEVICE, 0)
+    torch.cuda.set_device(device)
+    tdist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=2,
+                             rank=rank)
+    dist = DistContext(device, make_mesh(data=1, model=2, processes=2))
+    result = {"ring": {}, "synthesis": {}}
+    with torch.no_grad():
+        for i, (name, T, causal) in enumerate(RING_CASES):
+            q, k, v, lens = ring_case_inputs(torch, device, T, 300 + i)
+            o, _ = timed(torch, lambda: ring_self_attention(q, k, v, lens, dist, 0.125, causal))
+            walls = []
+            for _ in range(RING_REPS):
+                dist.barrier()
+                walls.append(timed(torch, lambda: ring_self_attention(q, k, v, lens, dist,
+                                                                      0.125, causal))[1])
+            result["ring"][name] = {"o": o.cpu(), "wall_ms": [1e3 * w for w in walls]}
+
+    state = load_npz(os.path.join(MODEL_DIR, "export.npz"))
+    for dtype_name in ("float32", "bfloat16"):
+        hp, model = shipped_model(torch, state, device, dtype_name, seq_mesh=dist)
+        batch, text_lens, max_mel = pad_lines(hp, encode_lines(hp, LINES))
+        synth = ShardedSynthesizer(hp, model.eval(), dist)
+        for tag, temp in (("t0", 0.0), ("t0667", 0.667), ("t0_warm", 0.0)):
+            gen = torch.Generator(device=device).manual_seed(1234)
+            fa.launch_counts.clear()
+            (mels, lens), wall = timed(torch, lambda: synth.synthesize(batch, text_lens, max_mel,
+                                                                       temp, gen))
+            result["synthesis"][f"{dtype_name}_{tag}"] = {
+                "mels": mels.cpu(), "lens": lens.cpu(), "wall_s": wall,
+                "launches": dict(fa.launch_counts)}
+        del model, synth
+
+    b = [t.to(device) for t in torch.load(os.path.join(out_dir, "batch.pt"))]
+    hp, model = shipped_model(torch, state, device, "float32", seq_mesh=dist, ring_min_seq=0)
+    shard_params(model, dist.mesh, dist)
+    optimizer = steps.make_optimizer(hp, model)
+    gen = torch.Generator(device=device).manual_seed(5)
+    fa.launch_counts.clear()
+    m, wall = timed(torch, lambda: steps.train_step(model, optimizer, hp, *b,
+                                                    hp.train.kl_weight_end, 2, gen, dist=dist))
+    grads = unshard_params(model, dist.mesh, dist, {n: p.grad for n, p in model.named_parameters()})
+    result["train_float32"] = {"metrics": steps.metric_floats(m), "wall_s": wall,
+                               "launches": dict(fa.launch_counts),
+                               "grads": {n: g.cpu() for n, g in grads.items()}}
+    del model, grads
+    hp, model = shipped_model(torch, state, device, "bfloat16", seq_mesh=dist, ring_min_seq=0)
+    shard_params(model, dist.mesh, dist)
+    optimizer = steps.make_optimizer(hp, model)
+    gen = torch.Generator(device=device).manual_seed(6)
+    result["train_bfloat16"] = []
+    for _ in range(TP_BF16_STEPS):
+        fa.launch_counts.clear()
+        m, wall = timed(torch, lambda: steps.train_step(model, optimizer, hp, *b,
+                                                        hp.train.kl_weight_end, 2, gen,
+                                                        dist=dist))
+        result["train_bfloat16"].append({"metrics": steps.metric_floats(m), "wall_s": wall,
+                                         "launches": dict(fa.launch_counts)})
+    torch.save(result, os.path.join(out_dir, f"axis_{rank}.pt"))
+    dist.close()
+    return 0
+
+
+def spawn_pair(flag, out):
+    """Two processes of ``chip_smoke.py FLAG RANK PORT OUT`` on a free
+    port."""
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, os.path.join(HERE, "chip_smoke.py"), flag,
+                               str(r), str(port), out], cwd=HERE, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    return procs
+
+
+def finish_pair(procs, timeout_s):
+    """The processes' outputs once they ended; those still running at
+    ``timeout_s`` are killed."""
+    texts = []
+    try:
+        for p in procs:
+            texts.append(p.communicate(timeout=timeout_s)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return texts
+
+
+def tp_grads_share(got, want):
+    """(the largest share of TOL_TP_GRAD that an element's error takes,
+    its leaf, the largest error over the largest |want| of all leaves)."""
+    atol, rtol = TOL_TP_GRAD
+    worst, err_max = (0.0, None), 0.0
+    for n, g in want.items():
+        d = (got[n] - g).abs()
+        worst = max(worst, ((d / (atol + rtol * g.abs())).max().item(), n), key=lambda x: x[0])
+        err_max = max(err_max, d.max().item())
+    return worst[0], worst[1], err_max / max(g.abs().max().item() for g in want.values())
+
+
+def model_axis_phases(torch, fa, tmp, smi, hp, model, model32, token_ids, use_q, big, n_attn):
+    """Two ``model_axis_worker`` processes (and a point-to-point probe pair
+    beside them) against one process on the card: phases ring_attention,
+    tensor_parallel_synthesis and tensor_parallel_training."""
+    import numpy as np
+    from vaenar_tts_torch.cli.inference import pad_lines, synthesize
+    from vaenar_tts_torch.training import steps
+    from vaenar_tts_torch.utils.export import load_npz
+    out = os.path.join(tmp, "model_axis")
+    os.makedirs(out)
+    torch.save([torch.from_numpy(np.ascontiguousarray(a)) for a in
+                (big.texts.astype("int64"), big.mels, big.text_lengths, big.mel_lengths)],
+               os.path.join(out, "batch.pt"))
+    t_fleet = time.perf_counter()
+    probes = spawn_pair("--p2p-probe", out)
+    procs = spawn_pair("--model-axis-worker", out)
+    texts = finish_pair(procs, FLEET_TIMEOUT_S)
+    fleet_s = time.perf_counter() - t_fleet
+    probe_texts = finish_pair(probes, 60)
+    for r, (p, text) in enumerate(zip(procs, texts)):
+        check(p.returncode == 0, f"model-axis process {r} exited {p.returncode}: {text[-3000:]}")
+    got = [torch.load(os.path.join(out, f"axis_{r}.pt"), weights_only=False) for r in range(2)]
+    p2p = {}
+    for r, (p, text) in enumerate(zip(probes, probe_texts)):
+        path = os.path.join(out, f"p2p_{r}.json")
+        with open(path) if os.path.exists(path) else contextlib.nullcontext() as f:
+            p2p[r] = json.load(f) if f else {"died_in_gloo_exit_code": p.returncode,
+                                             "output": text[-300:]}
+    device = torch.device(DEVICE)
+
+    phase("ring_attention")
+    ring_report, ok = {}, True
+    for i, (name, T, causal) in enumerate(RING_CASES):
+        q, k, v, lens = ring_case_inputs(torch, device, T, 300 + i)
+        o_kernel = fa.masked_flash_attention(q, k, v, lens, lens, 0.125, causal)[0]
+        kernel_ms = time_ms(torch, lambda: fa.masked_flash_attention(q, k, v, lens, lens,
+                                                                     0.125, causal), reps=10)
+        kernel_wall = [1e3 * timed(torch, lambda: fa.masked_flash_attention(
+            q, k, v, lens, lens, 0.125, causal))[1] for _ in range(RING_REPS)]
+        errs = [(g["ring"][name]["o"] - o_kernel.cpu()).abs().max().item() for g in got]
+        ring_report[name] = {
+            "shape": [4, 4, T, 64], "causal": causal, "lengths": lens.tolist(),
+            "max_abs_err_vs_fp32_kernel": errs,
+            "ranks_equal": torch.equal(got[0]["ring"][name]["o"], got[1]["ring"][name]["o"]),
+            "ring_wall_ms_per_call": [g["ring"][name]["wall_ms"] for g in got],
+            "kernel_device_ms_per_call": kernel_ms, "kernel_wall_ms_per_call": kernel_wall}
+        ok = ok and max(errs) <= TOL_O["float32"][0] and ring_report[name]["ranks_equal"]
+    print(json.dumps({"card": smi, "model_group": "data 1 x model 2, gloo, one card",
+                      "gloo_point_to_point_cuda_probe": p2p, "fleet_seconds": fleet_s,
+                      **ring_report}), flush=True)
+    check(ok, f"ring against the fp32 forward kernel: {ring_report}")
+
+    phase("tensor_parallel_synthesis")
+    batch, text_lens, max_mel = pad_lines(hp, token_ids)
+    r_final = hp.common.final_reduction_factor
+    t_red = -(-max_mel // r_final)
+    check(t_red >= hp.train.ring_min_seq and t_red % 2 == 0
+          and batch.shape[1] < hp.train.ring_min_seq, f"ring eligibility at {t_red}")
+    ringed = hp.decoder.nblk + hp.prior.n_blk * hp.prior.n_transformer_blk
+    want_calls = n_attn - ringed
+    synth_report, ok, counts = {}, True, {}
+    for dtype_name, m_ in (("float32", model32), ("bfloat16", model)):
+        kname = fa.kernel_name("fwd", getattr(torch, dtype_name))
+        for tag, temp in (("t0", 0.0), ("t0667", 0.667), ("t0_warm", 0.0)):
+            gen = torch.Generator(device=device).manual_seed(1234)
+            (mels, lens), wall = timed(torch, lambda: synthesize(m_, hp, batch, text_lens,
+                                                                 max_mel, temp, use_q,
+                                                                 generator=gen))
+            mels, lens = mels.cpu(), lens.cpu()
+            fleet = [g["synthesis"][f"{dtype_name}_{tag}"] for g in got]
+            row = {"lengths_one_process": lens.tolist(),
+                   "lengths_fleet": [f["lens"].tolist() for f in fleet],
+                   "wall_s_one_process": wall, "wall_s_fleet": [f["wall_s"] for f in fleet],
+                   "launches_per_process": [f["launches"] for f in fleet]}
+            ok = ok and all(f["launches"] == {kname: want_calls} for f in fleet)
+            for f in fleet:
+                counts[kname] = counts.get(kname, 0) + f["launches"].get(kname, 0)
+            if dtype_name == "float32":
+                row["max_abs_err_mel"] = [(f["mels"] - mels).abs().max().item() for f in fleet]
+                ok = ok and all(torch.equal(f["lens"], lens) for f in fleet) and max(
+                    row["max_abs_err_mel"]) <= TOL_SHARDED_MEL
+            else:
+                shared = [int(torch.minimum(f["lens"], lens).min()) for f in fleet]
+                row["mean_abs_mel_diff_shared_frames"] = [
+                    (f["mels"][:, :n] - mels[:, :n]).abs().mean().item()
+                    for f, n in zip(fleet, shared)]
+                len_share = max(((f["lens"] - lens).abs().float()
+                                 / (TOL_LEN_BF16[0] * lens.float() + TOL_LEN_BF16[1])).max().item()
+                                for f in fleet)
+                row["max_share_of_tol_length"] = len_share
+                ok = ok and len_share <= 1.0 and max(
+                    row["mean_abs_mel_diff_shared_frames"]) <= TOL_TP_BF16_MEL
+            for f in fleet:
+                ok = ok and bool(torch.isfinite(f["mels"]).all())
+            synth_report[f"{dtype_name}_{tag}"] = row
+    print(json.dumps({"card": smi, "ringed_self_attention_sites": ringed,
+                      "forward_launches_per_call_predicted": want_calls, **synth_report}),
+          flush=True)
+    check(ok, f"tensor-parallel synthesis against one process: {synth_report}")
+    paths = {"tensor_parallel_synthesis": counts}
+
+    phase("tensor_parallel_training")
+    state = load_npz(os.path.join(MODEL_DIR, "export.npz"))
+    b = [t.to(device) for t in torch.load(os.path.join(out, "batch.pt"))]
+    hp32, one = shipped_model(torch, state, device, "float32")
+    optimizer = steps.make_optimizer(hp32, one)
+    gen = torch.Generator(device=device).manual_seed(5)
+    m, wall32 = timed(torch, lambda: steps.train_step(one, optimizer, hp32, *b,
+                                                      hp32.train.kl_weight_end, 2, gen))
+    ref_m = steps.metric_floats(m)
+    ref_g = {n: p.grad.cpu() for n, p in one.named_parameters()}
+    del one
+    cross = hp.posterior.nblk + hp.decoder.nblk + hp.prior.n_blk * hp.prior.n_transformer_blk
+    train_counts, ok = {}, True
+    loss_err = {}
+    for r, g in enumerate(got):
+        f = g["train_float32"]
+        loss_err[r] = {k: abs(f["metrics"][k] - v) / max(abs(v), 1e-30) for k, v in ref_m.items()}
+        ok = ok and max(loss_err[r].values()) <= TOL_TP_LOSS_REL
+        ok = ok and f["launches"] == {fa.kernel_name(kind, torch.float32): cross
+                                      for kind in ("fwd", "dq", "dkv")}
+        for k_, n_ in f["launches"].items():
+            train_counts[k_] = train_counts.get(k_, 0) + n_
+    fleet_g = [g["train_float32"]["grads"] for g in got]
+    share, leaf, err_global = tp_grads_share(fleet_g[0], ref_g)
+    share_ranks, leaf_ranks, _ = tp_grads_share(fleet_g[1], fleet_g[0])
+    # bit-unequal between the two processes: cuDNN's weight gradients of a
+    # convolution are not reproducible run to run on the card
+    unequal = sorted(n for n in ref_g if not torch.equal(fleet_g[0][n], fleet_g[1][n]))
+    ok = ok and share <= 1.0 and share_ranks <= 1.0
+    hp16, one = shipped_model(torch, state, device, "bfloat16")
+    optimizer = steps.make_optimizer(hp16, one)
+    gen = torch.Generator(device=device).manual_seed(6)
+    walls16, losses16 = [], []
+    for _ in range(TP_BF16_STEPS):
+        m, w = timed(torch, lambda: steps.train_step(one, optimizer, hp16, *b,
+                                                     hp16.train.kl_weight_end, 2, gen))
+        walls16.append(w)
+        losses16.append(steps.metric_floats(m)["total"])
+    del one
+    want16 = {fa.kernel_name(kind, torch.bfloat16): cross for kind in ("fwd", "dq", "dkv")}
+    for g in got:
+        for s_ in g["train_bfloat16"]:
+            ok = ok and s_["launches"] == want16 and all(
+                math.isfinite(v) for v in s_["metrics"].values())
+            for k_, n_ in s_["launches"].items():
+                train_counts[k_] = train_counts.get(k_, 0) + n_
+    print(json.dumps({
+        "card": smi, "batch": list(big.mels.shape), "reduction_factor": 2,
+        "launches_per_step_per_process_predicted": cross,
+        "float32": {"metrics_one_process": ref_m,
+                    "metrics_fleet": [g["train_float32"]["metrics"] for g in got],
+                    "loss_rel_err": loss_err, "worst_grad_share_of_tol": share,
+                    "worst_grad_leaf": leaf, "max_abs_grad_err_over_max_grad": err_global,
+                    "ranks_worst_share_of_tol": share_ranks, "ranks_worst_leaf": leaf_ranks,
+                    "ranks_bit_unequal_leaves": unequal,
+                    "wall_s_one_process": wall32,
+                    "wall_s_fleet": [g["train_float32"]["wall_s"] for g in got],
+                    "launches_per_process": [g["train_float32"]["launches"] for g in got]},
+        "bfloat16": {"total_one_process": losses16, "wall_s_one_process": walls16,
+                     "total_fleet": [[s_["metrics"]["total"] for s_ in g["train_bfloat16"]]
+                                     for g in got],
+                     "wall_s_fleet": [[s_["wall_s"] for s_ in g["train_bfloat16"]]
+                                      for g in got],
+                     "launches_per_step_per_process": [
+                         [s_["launches"] for s_ in g["train_bfloat16"]] for g in got]}}),
+          flush=True)
+    check(ok, f"tensor-parallel train step against one process: share {share} at {leaf}, "
+              f"losses {loss_err}, ranks {share_ranks} at {leaf_ranks}")
+    paths["tensor_parallel_training"] = train_counts
+    return paths
+
+
+def reference_import_phase(torch, fa, tmp, smi, token_ids):
+    """The shipped export written as a reference TensorBundle by the port's
+    exporter, read back by its importer and synthesized from: the mels and
+    lengths equal those of the export's own weights bit for bit. The
+    reference has no quantile length head, so both sides drop it and run
+    the configuration without one (the mean head)."""
+    import dataclasses
+    from vaenar_tts_torch.cli.inference import resolve_length_source, synthesize_batch
+    from vaenar_tts_torch.configs.serialize import load_hparams
+    from vaenar_tts_torch.interop.importer import (export_reference_checkpoint,
+                                                   load_reference_checkpoint)
+    from vaenar_tts_torch.models.vaenar import build_model
+    from vaenar_tts_torch.utils.export import load_npz
+    phase("reference_checkpoint_import")
+    hp = load_hparams(MODEL_DIR)
+    hp = dataclasses.replace(hp, length_predictor=dataclasses.replace(hp.length_predictor,
+                                                                      quantile=0.0))
+    state = load_npz(os.path.join(MODEL_DIR, "export.npz"))
+    params = dict(state["params"])
+    params["length_predictor"] = {k: v for k, v in params["length_predictor"].items()
+                                  if k != "q_projection"}
+    prefix = os.path.join(tmp, "reference", "ckpt-1700")
+    _, export_s = timed(torch, lambda: export_reference_checkpoint(prefix, hp, params,
+                                                                   state["batch_stats"]))
+    (params2, stats2), import_s = timed(torch, lambda: load_reference_checkpoint(
+        prefix, hp, verify_crc=True))
+    use_q = resolve_length_source("auto", hp)
+    fa.launch_counts.clear()
+    outs = []
+    for p_, s_ in ((params2, stats2), (params, state["batch_stats"])):
+        outs.append(synthesize_batch(build_model(hp, p_, s_, DEVICE), hp, token_ids, 0.0, use_q))
+    torch.cuda.synchronize()
+    counts = dict(fa.launch_counts)
+    (mels_b, lens_b), (mels_e, lens_e) = outs
+    size = sum(os.path.getsize(os.path.join(os.path.dirname(prefix), f))
+               for f in os.listdir(os.path.dirname(prefix)))
+    equal = torch.equal(mels_b, mels_e) and torch.equal(lens_b, lens_e)
+    print(json.dumps({"card": smi, "bundle_bytes": size, "export_s": export_s,
+                      "import_s_with_crc": import_s, "use_length_quantile": use_q,
+                      "lengths": lens_b.tolist(), "mels_equal_bit_for_bit": equal,
+                      "launches": counts}), flush=True)
+    check(not use_q and equal, "the reference bundle's synthesis differs from the export's")
+    return {"reference_checkpoint_import": counts}
 
 
 def load_trained(VAENAR, CheckpointManager, hp, model_dir, device):
@@ -2923,6 +3370,9 @@ def main():
         native_packer_phase(toy_records, tmp, smi)
         new_paths.update(distributed_phases(torch, tmp, smi, init_pass, per_step))
         new_paths.update(sharded_synthesis_phase(torch, tmp, smi, model32, hp, n_attn))
+        new_paths.update(model_axis_phases(torch, fa, tmp, smi, hp, model, model32, token_ids,
+                                           use_q, big, n_attn))
+        new_paths.update(reference_import_phase(torch, fa, tmp, smi, token_ids))
 
     phase("done")
     print(smi)
@@ -3032,6 +3482,8 @@ def main():
 
 
 if __name__ == "__main__":
-    if sys.argv[1:2] == ["--synthesis-worker"]:
-        sys.exit(synthesis_worker(int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
+    WORKERS = {"--synthesis-worker": synthesis_worker, "--model-axis-worker": model_axis_worker,
+               "--p2p-probe": p2p_probe_worker}
+    if sys.argv[1:2] and sys.argv[1] in WORKERS:
+        sys.exit(WORKERS[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

@@ -61,6 +61,10 @@ def test_cli_imports_with_jax_blocked():
             "import vaenar_tts_torch.parallel.distributed\n"
             "import vaenar_tts_torch.parallel.mesh\n"
             "import vaenar_tts_torch.parallel.synthesis\n"
+            "import vaenar_tts_torch.parallel.ring_attention\n"
+            "import vaenar_tts_torch.interop.tensorbundle\n"
+            "import vaenar_tts_torch.interop.weight_map\n"
+            "import vaenar_tts_torch.interop.importer\n"
             "assert 'jax' not in [m for m in sys.modules if sys.modules[m] is not None]\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                           capture_output=True, text=True, timeout=120)

@@ -40,7 +40,11 @@ worker), against one process on the concatenated global batch:
 
 Outside the spawn: ``param_sharding_rules`` picks the parameters that the
 JAX rule picks on the shipped export's shapes (names mapped through
-``interop.weights``), and ``model > 1`` raises.
+``interop.weights``); ``shard_params`` at ``model = 2`` on a one-process
+stub of the model group cuts exactly those to the process's columns and
+``unshard_params`` puts the rest back bit for bit; ``train.ring_min_seq``
+loads from a JAX ``hparams.json``. The model axis on a real group is
+``tests/test_torch_model_axis.py``.
 """
 
 import os
@@ -63,7 +67,8 @@ from vaenar_tts_torch.models.flow import actnorm_init_stats  # noqa: E402
 from vaenar_tts_torch.models.layers import BatchNorm  # noqa: E402
 from vaenar_tts_torch.parallel.data_group import data_group  # noqa: E402
 from vaenar_tts_torch.parallel.mesh import (make_mesh, param_sharding_rules,  # noqa: E402
-                                            shard_params)
+                                            shard_params, sharded_parameters,
+                                            unshard_params)
 from vaenar_tts_torch.training import steps  # noqa: E402
 
 # the tiny override set (tests/test_torch_model.py) with dropout left on
@@ -78,6 +83,8 @@ TINY = [
     "prior.ffn_hidden=32", "common.latent_dim=8", "length_predictor.quantile=0.9",
     "train.compute_dtype=float32", "train.train_batch_size=4",
 ]
+# the tiny set with the FFNs widened to 512, which the sharding rule picks
+WIDE = ["encoder.ffn_hidden=512", "decoder.ffn_hidden=512", "posterior.ffn_hidden=512"]
 GLOBAL_B, TEXT, MEL, R = 4, 32, 120, 2
 TOL_STATS = 1e-6
 TOL_STEP = 1e-5
@@ -525,11 +532,75 @@ def test_mesh_data_axis_orders_processes():
     assert make_mesh() == make_mesh(data=1, processes=1)  # no process group: one process
 
 
-def test_model_axis_is_refused():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 5"):
-        shard_params(torch.nn.Linear(2, 2), make_mesh(data=1, model=2, processes=2))
+class _GroupOfOne:
+    """The model group as one process sees it, stubbed: its partner's
+    columns are taken to equal this process's (a gather repeats the local
+    block), which is all a one-process test can hold ``shard_params``'s
+    cutting and ``unshard_params``' layout against."""
+
+    def __init__(self, mesh, model_index):
+        self.mesh, self.model_index, self.model_count = mesh, model_index, mesh.model
+
+    def model_gather(self, x, dim):
+        return torch.cat([x] * self.model_count, dim=dim)
+
+    def model_sum(self, x):
+        return x * self.model_count
+
+
+def test_model_axis_shards_on_a_stub():
+    from vaenar_tts_torch.models.vaenar import VAENAR
+    hp = tiny_hp(*WIDE)
+    mesh = make_mesh(data=1, model=2, processes=2)
+    whole = VAENAR(hp)
+    rules = {n: d for n, d in param_sharding_rules(whole, mesh).items() if d is not None}
+    assert len(rules) == 3
+    for index in range(2):
+        model = VAENAR(hp)
+        model.load_state_dict(whole.state_dict())
+        stub = _GroupOfOne(mesh, index)
+        assert shard_params(model, mesh, stub) is model
+        assert sharded_parameters(model) == rules
+        params = dict(model.named_parameters())
+        for name, dim in rules.items():
+            want = whole.state_dict()[name]
+            size = want.shape[dim] // 2
+            assert torch.equal(params[name], want.narrow(dim, index * size, size))
+        state = unshard_params(model, mesh, stub)
+        assert set(state) == set(whole.state_dict())
+        for name, want in whole.state_dict().items():
+            if name not in rules:
+                assert torch.equal(state[name], want)
+            else:  # the stub's gather repeats this process's block
+                assert torch.equal(state[name].narrow(rules[name], index * want.shape[
+                    rules[name]] // 2, want.shape[rules[name]] // 2), params[name])
+    with pytest.raises(ValueError, match="DistContext"):
+        shard_params(VAENAR(hp), mesh)
+    assert shard_params(whole, make_mesh(processes=1)) is whole  # model = 1: whole
     with pytest.raises(ValueError):
         make_mesh(data=3, model=2, processes=8)
+
+
+@pytest.mark.parametrize("source", ["shipped", "jax_zero"])
+def test_ring_min_seq_loads_from_hparams_json(tmp_path, source):
+    """``train.ring_min_seq`` is read from a JAX ``hparams.json``, not
+    dropped: the shipped file's 1024, and 0 from a file the JAX package
+    writes with it set to 0; and written back."""
+    import dataclasses
+    from vaenar_tts_torch.configs.serialize import load_hparams, save_hparams
+    if source == "shipped":
+        model_dir, want = os.path.join(REPO, "artifacts", "toyv2_q90", "ckpt"), 1024
+    else:
+        from vaenar_tts_tpu.configs import get_config
+        from vaenar_tts_tpu.configs.serialize import save_hparams as jax_save
+        jax_hp = get_config("ljspeech")
+        jax_save(jax_hp.replace(train=dataclasses.replace(jax_hp.train, ring_min_seq=0)),
+                 str(tmp_path))
+        model_dir, want = str(tmp_path), 0
+    hp = load_hparams(model_dir)
+    assert hp.train.ring_min_seq == want
+    save_hparams(hp, str(tmp_path / "again"))
+    assert load_hparams(str(tmp_path / "again")).train.ring_min_seq == want
 
 
 if __name__ == "__main__":

@@ -52,6 +52,11 @@ class TrainConfig:
     # (recompute the whole block in the backward) or "dots" (keep the
     # matmul outputs, recompute the rest); models/attention.maybe_remat
     remat: str = "off"
+    # the shortest self-attention that rings over the mesh's sequence axis
+    # when the model is built with ``VAENAR(seq_mesh=)``
+    # (parallel/ring_attention.py); 0 rings every one whose length divides
+    # the axis
+    ring_min_seq: int = 1024
     # > 0: when the train split (and the dev split, counted here too) fits
     # in this many MB and every train batch has one shape, the loop keeps
     # the batches on the device for the whole run (training/loop.py)

@@ -19,6 +19,15 @@ package forms them, with the finite NEG, so a row with no key stays
 uniform. The contexts still come from the kernel, so the outputs are the
 same with and without them.
 
+Sequence parallelism: built with ``ring`` (a
+``parallel.ring_attention.SequenceParallel``, from ``VAENAR(seq_mesh=)``),
+a self-attention call (``inputs is memory``, one lengths tensor for queries
+and keys, or none) whose length divides the ring's axis and reaches its
+``min_seq`` runs on the ring (``ring_self_attention``) instead of the
+kernel, exactly where the JAX package's ``MultiHeadAttention`` rings
+(``vaenar_tts_tpu/models/attention.py:156-167``). Cross-attention and the
+alignments stay on the kernel path.
+
 ``maybe_remat`` (``train.remat``) wraps a block's call in activation
 checkpointing, at the sites where the JAX package's ``maybe_remat`` wraps
 the block class: "on" keeps only the block's inputs and recomputes the
@@ -43,6 +52,7 @@ from torch import nn
 from torch.utils import checkpoint as _checkpoint
 
 from ..ops.flash_attention import NEG, MaskedFlashAttention, attention_mask
+from ..parallel.ring_attention import SequenceParallel, ring_self_attention
 from .layers import FFN, Dense, LayerNorm
 
 __all__ = ["attention_mask", "maybe_remat", "MultiHeadAttention",
@@ -90,8 +100,10 @@ class MultiHeadAttention(nn.Module):
 
     def __init__(self, query_dim: int, memory_dim: int, attention_dim: int,
                  num_heads: int, temperature: float = 1.0,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 ring: Optional[SequenceParallel] = None):
         super().__init__()
+        self.ring = ring
         if attention_dim % num_heads:
             raise ValueError(f"attention_dim {attention_dim} is not a "
                              f"multiple of num_heads {num_heads}")
@@ -115,9 +127,18 @@ class MultiHeadAttention(nn.Module):
         q = self._split(self.query_layer(inputs))
         k = self._split(self.key_layer(memory))
         v = self._split(self.value_layer(memory))
-        o = MaskedFlashAttention.apply(q, k, v, query_lengths, memory_lengths,
-                                       self.scale, causal)
-        b, _, tq, _ = o.shape
+        b, tq = q.shape[0], q.shape[2]
+        if (self.ring is not None and inputs is memory and self.ring.eligible(tq, k.shape[2])
+                and (query_lengths is None or memory_lengths is None
+                     or query_lengths is memory_lengths)):
+            lengths = query_lengths if query_lengths is not None else memory_lengths
+            if lengths is None:
+                lengths = torch.full((b,), tq, dtype=torch.int32, device=q.device)
+            o = ring_self_attention(q, k, v, lengths, self.ring.dist, self.scale, causal,
+                                    self.ring.axis)
+        else:
+            o = MaskedFlashAttention.apply(q, k, v, query_lengths, memory_lengths,
+                                           self.scale, causal)
         out = o.transpose(1, 2).reshape(b, tq, self.num_heads * self.head_dim)
         if not return_weights:
             return out
@@ -132,11 +153,12 @@ class SelfAttentionBlock(nn.Module):
 
     def __init__(self, input_dim: int, attention_dim: int, attention_heads: int,
                  attention_temperature: float = 1.0, ffn_hidden: int = 1024,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 ring: Optional[SequenceParallel] = None):
         super().__init__()
         self.attention = MultiHeadAttention(input_dim, input_dim, attention_dim,
                                             attention_heads, attention_temperature,
-                                            dtype)
+                                            dtype, ring)
         self.att_proj = Dense(input_dim + attention_dim, input_dim, dtype=dtype)
         self.layer_norm = LayerNorm(input_dim, dtype)
         self.ffn = FFN(input_dim, ffn_hidden, dtype)
@@ -156,11 +178,12 @@ class CrossAttentionBlock(nn.Module):
 
     def __init__(self, input_dim: int, memory_dim: int, attention_dim: int,
                  attention_heads: int, attention_temperature: float = 1.0,
-                 ffn_hidden: int = 1024, dtype: torch.dtype = torch.float32):
+                 ffn_hidden: int = 1024, dtype: torch.dtype = torch.float32,
+                 ring: Optional[SequenceParallel] = None):
         super().__init__()
         self.self_attention = MultiHeadAttention(
             input_dim, input_dim, attention_dim, attention_heads,
-            attention_temperature, dtype)
+            attention_temperature, dtype, ring)
         self.att_proj1 = Dense(input_dim + attention_dim, input_dim, dtype=dtype)
         self.layer_norm1 = LayerNorm(input_dim, dtype)
         self.cross_attention = MultiHeadAttention(

@@ -25,7 +25,7 @@ class TransformerDecoder(nn.Module):
                  ffn_hidden: int, post_n_conv: int, post_conv_filters: int,
                  post_conv_kernel: int, out_dim: int,
                  max_reduction_factor: int, post_drop_rate: float = 0.0,
-                 dtype: torch.dtype = torch.float32, remat="off"):
+                 dtype: torch.dtype = torch.float32, remat="off", ring=None):
         super().__init__()
         self.remat = remat
         self.out_dim = out_dim
@@ -34,7 +34,7 @@ class TransformerDecoder(nn.Module):
         for name in self.names:
             self.add_module(name, CrossAttentionBlock(
                 attention_dim, memory_dim, attention_dim, attention_heads,
-                temperature, ffn_hidden, dtype))
+                temperature, ffn_hidden, dtype, ring))
         self.linear_outputs = Dense(attention_dim, out_dim * max_reduction_factor,
                                     dtype=dtype)
         self.postnet = PostNet(out_dim, post_n_conv, post_conv_filters,

@@ -1,7 +1,8 @@
 """Transformer text encoder (counterpart of
 ``vaenar_tts_tpu/models/encoder.py``): Embedding -> ConvPreNet -> positional
 encoding scaled by a trained ``pos_weight`` at a fractional step -> dropout
--> N SelfAttentionBlocks, each under ``maybe_remat``. In the compute dtype,
+-> N SelfAttentionBlocks, each under ``maybe_remat`` (``ring``: their
+self-attentions' sequence parallelism, ``models/attention.py``). In the compute dtype,
 with the positional sum in fp32 as the JAX package's promotion makes it."""
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ class TransformerEncoder(nn.Module):
                  attention_heads: int, attention_temperature: float,
                  ffn_hidden: int, prenet_drop_rate: float = 0.0,
                  pos_drop_rate: float = 0.0, dtype: torch.dtype = torch.float32,
-                 remat="off"):
+                 remat="off", ring=None):
         super().__init__()
         self.remat = remat
         self.pos_drop_rate = pos_drop_rate
@@ -36,7 +37,7 @@ class TransformerEncoder(nn.Module):
         for name in self.names:
             self.add_module(name, SelfAttentionBlock(
                 pre_hidden, attention_dim, attention_heads,
-                attention_temperature, ffn_hidden, dtype))
+                attention_temperature, ffn_hidden, dtype, ring))
 
     def forward(self, inputs: torch.Tensor, input_lengths=None,
                 pos_step: float = 1.0, train: bool = False,

@@ -134,7 +134,7 @@ class TransformerTransform(nn.Module):
     def __init__(self, in_dim: int, memory_dim: int, nblk: int,
                  attention_dim: int, attention_heads: int, temperature: float,
                  ffn_hidden: int, out_dim: int, dtype: torch.dtype = torch.float32,
-                 remat="off"):
+                 remat="off", ring=None):
         super().__init__()
         self.remat = remat
         self.compute_dtype = dtype
@@ -144,7 +144,7 @@ class TransformerTransform(nn.Module):
         for name in self.names:
             self.add_module(name, CrossAttentionBlock(
                 attention_dim, memory_dim, attention_dim, attention_heads,
-                temperature, ffn_hidden, dtype))
+                temperature, ffn_hidden, dtype, ring))
         self.log_scale_projection = Dense(attention_dim, out_dim, dtype=dtype)
         self.shift_projection = Dense(attention_dim, out_dim, dtype=dtype)
 
@@ -168,14 +168,14 @@ class TransformerCoupling(nn.Module):
     def __init__(self, channels: int, memory_dim: int, nblk: int,
                  attention_dim: int, attention_heads: int, temperature: float,
                  ffn_hidden: int, order: str = "upper",
-                 dtype: torch.dtype = torch.float32, remat="off"):
+                 dtype: torch.dtype = torch.float32, remat="off", ring=None):
         super().__init__()
         if order not in ("upper", "lower"):
             raise ValueError(f"order must be 'upper' or 'lower', got {order!r}")
         self.order = order
         self.net = TransformerTransform(
             channels // 2, memory_dim, nblk, attention_dim, attention_heads,
-            temperature, ffn_hidden, channels // 2, dtype, remat)
+            temperature, ffn_hidden, channels // 2, dtype, remat, ring)
 
     def forward(self, inputs, condition_inputs, inputs_lengths=None,
                 condition_lengths=None, reverse: bool = False,

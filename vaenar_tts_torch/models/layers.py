@@ -70,7 +70,11 @@ def dropout(x: torch.Tensor, rate: float, train: bool,
 class Dense(nn.Linear):
     """flax ``nn.Dense(dtype=dtype)``. In fp32 one ``F.linear``; in bf16 the
     input, weight and bias are cast, the product rounded to bf16 and the
-    bias added in bf16."""
+    bias added in bf16. With ``tp`` (``parallel/mesh.shard_params``) the
+    weight holds this process's output columns: the product of the columns
+    is gathered over the model group, then the bias is added."""
+
+    tp = None  # a parallel.mesh.ColumnShard once sharded
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True,
                  dtype: torch.dtype = torch.float32):
@@ -79,6 +83,9 @@ class Dense(nn.Linear):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.tp is not None:
+            y = self.tp.gather(F.linear(self.tp.enter(x).to(dt), self.weight.to(dt)), -1)
+            return y if self.bias is None else y + self.bias.to(dt)
         if dt == torch.float32:
             return F.linear(x.float(), self.weight, self.bias)
         y = F.linear(x.to(dt), self.weight.to(dt))
@@ -89,7 +96,10 @@ class Conv(nn.Conv1d):
     """flax ``nn.Conv(dtype=dtype)`` on [batch, channels, time] that the
     caller has padded: in bf16 the input and weight are cast, the product
     rounded to bf16 and the bias added in bf16. ``groups`` is flax's
-    ``feature_group_count`` (``groups=channels``: depthwise)."""
+    ``feature_group_count`` (``groups=channels``: depthwise). With ``tp``
+    the weight holds this process's output channels (as ``Dense``)."""
+
+    tp = None
 
     def __init__(self, in_channels: int, out_channels: int, kernel_size: int,
                  dtype: torch.dtype = torch.float32, groups: int = 1):
@@ -98,6 +108,9 @@ class Conv(nn.Conv1d):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
+        if self.tp is not None:
+            y = self.tp.gather(F.conv1d(self.tp.enter(x).to(dt), self.weight.to(dt)), 1)
+            return y + self.bias.to(dt)[None, :, None]
         if dt == torch.float32:
             return super().forward(x.float())
         return (F.conv1d(x.to(dt), self.weight.to(dt), groups=self.groups)
@@ -105,7 +118,10 @@ class Conv(nn.Conv1d):
 
 
 class Embedding(nn.Embedding):
-    """flax ``nn.Embed(dtype=dtype)``: rows of the fp32 table, in dtype."""
+    """flax ``nn.Embed(dtype=dtype)``: rows of the fp32 table, in dtype.
+    With ``tp`` the table holds this process's columns of each row."""
+
+    tp = None
 
     def __init__(self, num_embeddings: int, embedding_dim: int,
                  dtype: torch.dtype = torch.float32):
@@ -113,6 +129,8 @@ class Embedding(nn.Embedding):
         self.compute_dtype = dtype
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp.gather(F.embedding(ids, self.weight), -1).to(self.compute_dtype)
         return super().forward(ids).to(self.compute_dtype)
 
 

@@ -65,7 +65,7 @@ class TransformerPosterior(nn.Module):
                  attention_heads: int, temperature: float, ffn_hidden: int,
                  latent_dim: int, pre_drop_rate: float = 0.0,
                  pos_drop_rate: float = 0.0, dtype: torch.dtype = torch.float32,
-                 remat="off"):
+                 remat="off", ring=None):
         super().__init__()
         self.remat = remat
         self.pos_drop_rate = pos_drop_rate
@@ -77,7 +77,7 @@ class TransformerPosterior(nn.Module):
         for name in self.names:
             self.add_module(name, CrossAttentionBlock(
                 pre_hidden, memory_dim, attention_dim, attention_heads,
-                temperature, ffn_hidden, dtype))
+                temperature, ffn_hidden, dtype, ring))
         self.mu_projection = Dense(attention_dim, latent_dim)
         self.logvar_projection = Dense(attention_dim, latent_dim)
 

@@ -38,7 +38,7 @@ class TransformerPrior(nn.Module):
                  n_transformer_blk: int, attention_dim: int,
                  attention_heads: int, temperature: float, ffn_hidden: int,
                  dtype: torch.dtype = torch.float32, batched_lu: bool = False,
-                 remat="off"):
+                 remat="off", ring=None):
         super().__init__()
         self.channels = channels
         self.n_blk = n_blk
@@ -49,7 +49,7 @@ class TransformerPrior(nn.Module):
             self.add_module(f"transformerCoupling{i}", TransformerCoupling(
                 channels, memory_dim, n_transformer_blk, attention_dim,
                 attention_heads, temperature, ffn_hidden,
-                order=("upper", "lower")[i % 2], dtype=dtype, remat=remat))
+                order=("upper", "lower")[i % 2], dtype=dtype, remat=remat, ring=ring))
 
     def _linear_precompute(self, reverse: bool) -> list:
         """Each layer's ``precomputed`` for InvertibleLinear: one batched LU

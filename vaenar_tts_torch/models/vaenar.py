@@ -34,6 +34,7 @@ from torch import nn
 
 from ..configs.hparams import HParams
 from ..configs.serialize import load_hparams
+from ..parallel.ring_attention import SequenceParallel
 from ..utils.export import EXPORT_NAME, load_npz
 from .decoder import TransformerDecoder
 from .encoder import TransformerEncoder
@@ -65,9 +66,19 @@ def resolve_device(device="cuda") -> torch.device:
 
 class VAENAR(nn.Module):
     """Submodule names follow the flax tree, so ``interop.weights`` maps an
-    export onto it key for key."""
+    export onto it key for key.
 
-    def __init__(self, hp: HParams):
+    ``seq_mesh`` (a ``parallel.distributed.DistContext``, the port's
+    counterpart of the JAX package's device mesh) turns on sequence
+    parallelism, as ``VAENAR(hp, seq_mesh=, seq_axis=)`` does in the JAX
+    package (``vaenar_tts_tpu/models/vaenar.py:46-72``): every
+    self-attention whose length divides the mesh's ``seq_axis`` and
+    reaches ``hp.train.ring_min_seq`` runs on the ring
+    (``parallel/ring_attention.py``), over the processes of one model
+    group, which all run this model on the same rows. Cross-attention and
+    everything else stay as they are."""
+
+    def __init__(self, hp: HParams, seq_mesh=None, seq_axis: str = "model"):
         super().__init__()
         self.hp = hp
         enc, dec, pri = hp.encoder, hp.decoder, hp.prior
@@ -78,17 +89,22 @@ class VAENAR(nn.Module):
         self.length_quantile = float(hp.length_predictor.quantile)
         dtype = COMPUTE_DTYPES[hp.train.compute_dtype]
         remat = remat_mode(hp.train.remat)
+        ring = None
+        if seq_mesh is not None:
+            if seq_axis != "model":
+                raise ValueError(f"the ring runs over the mesh's model axis, not {seq_axis!r}")
+            ring = SequenceParallel(seq_mesh, seq_axis, hp.train.ring_min_seq)
         self.text_encoder = TransformerEncoder(
             enc.vocab_size, enc.embd_dim, enc.n_conv, enc.pre_hidden,
             enc.conv_kernel, enc.pre_activation, enc.bn_before_act, enc.n_blk,
             enc.attention_dim, enc.attention_heads, enc.attention_temperature,
-            enc.ffn_hidden, enc.pre_drop_rate, enc.pos_drop_rate, dtype, remat)
+            enc.ffn_hidden, enc.pre_drop_rate, enc.pos_drop_rate, dtype, remat, ring)
         self.decoder = TransformerDecoder(
             hp.common.latent_dim, text_dim, dec.nblk, dec.attention_dim,
             dec.attention_heads, dec.attention_temperature, dec.ffn_hidden,
             dec.post_n_conv, dec.post_conv_filters, dec.post_conv_kernel,
             hp.common.output_dim, hp.common.max_reduction_factor,
-            dec.post_drop_rate, dtype, remat)
+            dec.post_drop_rate, dtype, remat, ring)
         self.length_predictor = DenseLengthPredictor(
             text_dim, hp.length_predictor.activation, self.length_quantile, dtype)
         post = hp.posterior
@@ -96,11 +112,11 @@ class VAENAR(nn.Module):
             hp.audio.num_mels, text_dim, post.pre_hidden, post.pre_activation,
             post.nblk, post.attention_dim, post.attention_heads,
             post.temperature, post.ffn_hidden, hp.common.latent_dim,
-            post.pre_drop_rate, post.pos_drop_rate, dtype, remat)
+            post.pre_drop_rate, post.pos_drop_rate, dtype, remat, ring)
         self.prior = TransformerPrior(
             pri.n_blk, hp.common.latent_dim, text_dim, pri.n_transformer_blk,
             pri.attention_dim, pri.attention_heads, pri.temperature,
-            pri.ffn_hidden, dtype, pri.batched_lu, remat)
+            pri.ffn_hidden, dtype, pri.batched_lu, remat, ring)
 
     def _encode(self, inputs, text_lengths, reduction_factor: int,
                 train: bool = False, generator: Optional[torch.Generator] = None):

@@ -18,7 +18,21 @@ fleet computes what one process computes on the global batch.
   process's device under either backend. gloo takes CUDA tensors in every
   collective used here (all_reduce, broadcast, all_gather; checked on the
   card by ``chip_smoke.py``'s sharded-synthesis processes, torch 2.11) and
-  stages them through the host itself.
+  stages them through the host itself; its point-to-point send and recv do
+  not (they write from the tensor's address: "writev ... Bad address",
+  ``chip_smoke.py``'s point-to-point probe), so ``model_shift`` stages a
+  CUDA tensor through the host itself under gloo.
+* The mesh (``parallel/mesh.py``): a ``(data, model)`` layout of the
+  processes, process-major, as ``Mesh.data_index`` says. The processes of
+  one model group (``model`` consecutive ranks) hold the same rows of a
+  global batch and run one model together: tensor-parallel weights
+  (``mesh.shard_params``) and the ring self-attention
+  (``parallel/ring_attention.py``) talk over it. The data group (the
+  processes with one model coordinate) is what the data-parallel half
+  spans: the row statistics (``rows``), ``fetch`` and the gradient average
+  act over it only, since a sum over every process would count each row
+  ``model`` times. The default mesh is ``model = 1``: one data group of
+  every process, as before.
 
 Contract, as the JAX package's: every process runs the same number of steps
 an epoch (``sync_min`` of the local counts); step i is padded to one shape
@@ -38,6 +52,7 @@ import torch
 import torch.distributed as tdist
 
 from .data_group import DataGroup
+from .mesh import Mesh, make_mesh
 
 
 def _backend(device: torch.device) -> str:
@@ -98,13 +113,46 @@ def partition_shards(paths: Sequence[str], index: Optional[int] = None,
 
 
 class DistContext:
-    """The process group of a run, seen from one process on ``device``."""
+    """The process group of a run, seen from one process on ``device``, laid
+    out as ``mesh`` (by default ``make_mesh(model=1)``: every process on the
+    data axis)."""
 
-    def __init__(self, device):
+    def __init__(self, device, mesh: Optional[Mesh] = None):
         self.device = torch.device(device)
         self.process_index = tdist.get_rank()
         self.process_count = tdist.get_world_size()
         self.backend = tdist.get_backend()
+        self.mesh = mesh if mesh is not None else make_mesh(model=1,
+                                                            processes=self.process_count)
+        if self.mesh.data * self.mesh.model != self.process_count:
+            raise ValueError(f"mesh {self.mesh.shape} does not cover {self.process_count} "
+                             f"processes")
+        n_data, n_model = self.mesh.data, self.mesh.model
+        self.data_index = self.mesh.data_index(self.process_index)
+        self.model_index = self.process_index % n_model
+        # every process creates every subgroup, in the same order
+        # (tdist.new_group's contract); a group of one process is not made
+        self._data_group = self._model_group = None
+        self._model_ranks = [self.data_index * n_model + m for m in range(n_model)]
+        if n_model > 1:
+            for d in range(n_data):
+                ranks = [d * n_model + m for m in range(n_model)]
+                group = tdist.new_group(ranks)
+                if d == self.data_index:
+                    self._model_group = group
+            if n_data > 1:
+                for m in range(n_model):
+                    group = tdist.new_group([d * n_model + m for d in range(n_data)])
+                    if m == self.model_index:
+                        self._data_group = group
+
+    @property
+    def data_count(self) -> int:
+        return self.mesh.data
+
+    @property
+    def model_count(self) -> int:
+        return self.mesh.model
 
     @property
     def is_main(self) -> bool:
@@ -117,9 +165,10 @@ class DistContext:
     # -- the collectives, each on a copy of its input -------------------------
 
     def all_reduce_sum(self, x: torch.Tensor) -> torch.Tensor:
-        """The sum of ``x`` over the processes."""
+        """The sum of ``x`` over the data group."""
         t = x.detach().clone(memory_format=torch.contiguous_format)
-        tdist.all_reduce(t, op=tdist.ReduceOp.SUM)
+        if self.data_count > 1:
+            tdist.all_reduce(t, op=tdist.ReduceOp.SUM, group=self._data_group)
         return t
 
     def _reduce_host(self, values, dtype, op) -> np.ndarray:
@@ -128,12 +177,50 @@ class DistContext:
         return t.cpu().numpy()
 
     def fetch(self, x: torch.Tensor) -> torch.Tensor:
-        """The full batch of a tensor of which each process holds its rows
-        (equal shapes), in process order."""
+        """The full batch of a tensor of which each data group member holds
+        its rows (equal shapes), in data order."""
         t = x.detach().contiguous()
-        parts = [torch.empty_like(t) for _ in range(self.process_count)]
-        tdist.all_gather(parts, t)
+        if self.data_count == 1:
+            return t.clone()
+        parts = [torch.empty_like(t) for _ in range(self.data_count)]
+        tdist.all_gather(parts, t, group=self._data_group)
         return torch.cat(parts)
+
+    # -- the model group: tensor-parallel weights and the ring ----------------
+
+    def model_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The model group's parts of a tensor (equal shapes), concatenated
+        along ``dim`` in model order."""
+        t = x.detach().contiguous()
+        parts = [torch.empty_like(t) for _ in range(self.model_count)]
+        tdist.all_gather(parts, t, group=self._model_group)
+        return torch.cat(parts, dim=dim)
+
+    def model_sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum of ``x`` over the model group, formed in fp32 (a bf16 or
+        fp16 ``x`` is rounded once, after the sum) and returned in x's
+        dtype."""
+        t = x.detach().to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+        tdist.all_reduce(t, op=tdist.ReduceOp.SUM, group=self._model_group)
+        return t.to(x.dtype)
+
+    def model_shift(self, x: torch.Tensor, step: int = 1) -> torch.Tensor:
+        """Send ``x`` to the model group's member ``step`` places on (mod the
+        group's size) and return what the member ``step`` places back sent:
+        ``ppermute`` over the model axis. gloo's point-to-point ops read
+        and write host memory only, so a CUDA tensor goes through a host
+        copy under gloo."""
+        n = self.model_count
+        dst = self._model_ranks[(self.model_index + step) % n]
+        src = self._model_ranks[(self.model_index - step) % n]
+        staged = x.is_cuda and self.backend == "gloo"
+        send = (x.detach().cpu() if staged else x.detach()).contiguous()
+        recv = torch.empty_like(send)
+        for req in tdist.batch_isend_irecv([
+                tdist.P2POp(tdist.isend, send, dst, group=self._model_group),
+                tdist.P2POp(tdist.irecv, recv, src, group=self._model_group)]):
+            req.wait()
+        return recv.to(x.device) if staged else recv
 
     def replicate(self, module: torch.nn.Module) -> torch.nn.Module:
         """Process 0's parameters and buffers in every process's ``module``."""
@@ -161,23 +248,26 @@ class DistContext:
         return tuple(out)
 
     def rows(self, local_rows: int) -> DataGroup:
-        """The data group of a forward on ``local_rows`` rows a process."""
-        i = self.process_index
+        """The data group of a forward on ``local_rows`` rows a process (the
+        rows of this process's data coordinate)."""
+        i = self.data_index
         return DataGroup(i * local_rows, (i + 1) * local_rows,
-                         local_rows * self.process_count, self.process_count,
+                         local_rows * self.data_count, self.data_count,
                          self.all_reduce_sum)
 
     def average_gradients(self, params: Sequence[torch.nn.Parameter],
                           extra: Optional[Dict[str, torch.Tensor]] = None
                           ) -> Dict[str, torch.Tensor]:
         """Average the gradients of ``params`` (those that have one; every
-        process has the same set) and the scalars ``extra`` over the
-        processes, in one collective; return the averaged ``extra``."""
+        process has the same set) and the scalars ``extra`` over the data
+        group, in one collective; return the averaged ``extra``. A
+        tensor-parallel shard is averaged with the shards of its model
+        coordinate, which hold the same columns."""
         grads = [p.grad for p in params if p.grad is not None]
         names = sorted(extra or {})
         flat = torch.cat([g.reshape(-1).float() for g in grads]
                          + [extra[k].reshape(1).float() for k in names])
-        flat = self.all_reduce_sum(flat) / self.process_count
+        flat = self.all_reduce_sum(flat) / self.data_count
         offset = 0
         with torch.no_grad():
             for g in grads:

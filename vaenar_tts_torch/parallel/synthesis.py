@@ -1,12 +1,17 @@
 """Batch-sharded synthesis over a process group (the port of
 ``vaenar_tts_tpu/parallel/synthesis.py``).
 
-Each process holds the whole model and synthesizes its contiguous rows of
-a batch through the synthesis path (``cli.inference.synthesize``: the
-length head, the flow prior and the decoder, with the attention kernels on
-the card); at a temperature above 0 its noise is its rows of the global
-batch's draw, so the fleet's rows equal one process's call on the whole
-batch. The mels and lengths are gathered to every process.
+Each data-group member synthesizes its contiguous rows of a batch through
+the synthesis path (``cli.inference.synthesize``: the length head, the
+flow prior and the decoder, with the attention kernels on the card); at a
+temperature above 0 its noise is its rows of the global batch's draw, so
+the fleet's rows equal one process's call on the whole batch. The mels and
+lengths are gathered to every process. On a mesh with ``model > 1`` the
+processes of a model group synthesize the same rows together: the wide
+kernels are cut to tensor-parallel shards (``mesh.shard_params``, as the
+JAX package's ``ShardedSynthesizer`` honours the mesh's rules), and a model
+built with ``VAENAR(hp, seq_mesh=dist)`` rings its long self-attentions
+over the group; their generators must be seeded alike.
 """
 
 from __future__ import annotations
@@ -26,15 +31,15 @@ from .mesh import make_mesh, shard_params
 
 
 class ShardedSynthesizer:
-    def __init__(self, hp: HParams, model: VAENAR, dist=None, mesh=None):
-        """``dist``: a ``DistContext`` (None: one process, the plain
-        synthesis). The lengths come from the head the synthesis CLI picks
-        by default (``resolve_length_source("auto")``), without headroom."""
+    def __init__(self, hp: HParams, model: VAENAR, dist=None):
+        """``dist``: a ``DistContext`` laid out as its ``mesh`` (None: one
+        process, the plain synthesis). The lengths come from the head the
+        synthesis CLI picks by default (``resolve_length_source("auto")``),
+        without headroom."""
         self.hp = hp
         self.dist = dist
-        n = 1 if dist is None else dist.process_count
-        self.mesh = mesh if mesh is not None else make_mesh(model=1, processes=n)
-        self.model = shard_params(model, self.mesh)
+        self.mesh = make_mesh(model=1, processes=1) if dist is None else dist.mesh
+        self.model = shard_params(model, self.mesh, dist)
         self.n_data = self.mesh.shape["data"]
         self.use_q = resolve_length_source("auto", hp)
 
@@ -49,8 +54,8 @@ class ShardedSynthesizer:
             raise ValueError(f"batch {B} does not split over {self.n_data} processes")
         k, group, rows = B // self.n_data, None, slice(None)
         if self.n_data > 1:
-            i = self.mesh.data_index(self.dist.process_index)
-            rows, group = slice(i * k, (i + 1) * k), self.dist.rows(k)
+            group = self.dist.rows(k)
+            rows = slice(group.start, group.stop)
         with data_group(group):
             mels, lens = synthesize(self.model, self.hp, texts[rows], text_lengths[rows],
                                     max_mel_length, temperature, self.use_q,

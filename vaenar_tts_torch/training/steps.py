@@ -21,6 +21,14 @@ BatchNorm and the ActNorm init take the global batch's statistics); the
 gradients and the metrics are averaged over the processes before Adam (each
 process's loss is a mean over an equal number of rows); and the dev step
 returns sums over the real rows, for ``DistContext.allsum``.
+
+On a ``(data, model)`` mesh (``DistContext(device, mesh)``) the rows,
+statistics and averages above are the data group's: the processes of a
+model group hold the same rows, run one model together (its
+tensor-parallel shards, ``parallel/mesh.shard_params``, and its ring
+self-attentions, ``VAENAR(seq_mesh=)``) and must draw from generators in
+the same state. A shard's gradient is averaged with the shards of its model
+coordinate, and Adam steps each process's shards.
 """
 
 from __future__ import annotations
@@ -115,10 +123,12 @@ def _metrics(mel_l2, kl, length_loss, pinball, total) -> Dict[str, torch.Tensor]
 
 
 def _world(dist) -> Tuple[int, int]:
-    """(process index, process count); (0, 1) without a fleet."""
-    if dist is None or dist.process_count == 1:
+    """(this process's data index, the data group's size); (0, 1) without a
+    fleet. The processes of one model group hold the same rows, so a mesh
+    of ``(data=1, model=n)`` is one data-parallel member."""
+    if dist is None or dist.data_count == 1:
         return 0, 1
-    return dist.process_index, dist.process_count
+    return dist.data_index, dist.data_count
 
 
 def train_step(model: VAENAR, optimizer: torch.optim.Optimizer, hp: HParams,

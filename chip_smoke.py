@@ -109,7 +109,9 @@ dK/dV kernel reads: a backward launches those two kernels and nothing else.
    (the prior's fp32 log-probability, and the bf16 step's time);
 16. the neural vocoder: `cli.train_vocoder --toy --toy_version 2` at the
    full VocoderConfig in fp32 and bf16 (the loss must fall), its fp32
-   forward card against CPU, `vocode` of the 4 synthesized lines beside
+   head's raw output card against CPU, and the frame math and iSTFT on the
+   card from the CPU head's output (vocoder_card_cpu_shares), `vocode` of
+   the 4 synthesized lines beside
    Griffin-Lim on the same mels (device ms), `cli.inference
    --neural_vocoder` over the test split (wavs of max(length - 1, 1) * hop
    samples) and `cli.train --neural_vocoder` (its test wavs);
@@ -146,16 +148,34 @@ dK/dV kernel reads: a backward launches those two kernels and nothing else.
    kernels sharded and VAENAR(seq_mesh=) in fp32 and bf16 over the 4
    lines against one process, with 18 forward launches a call; and
    tensor_parallel_training, an fp32 step (ring_min_seq 0, batch 32, r = 2)
-   against one process's losses and gradients, then bf16 steps, the walls
-   beside one process's and the launches of each process;
+   against one process's losses and gradients, every gradient and every
+   parameter after the step bit-equal across the two processes (the
+   group's average of the replicated gradients, timed alone), then bf16
+   steps, the walls beside one process's and the launches of each process;
 22. reference_checkpoint_import: the shipped export written as a
    reference TensorBundle by interop/importer.py, read back (checksums
-   verified) and synthesized from: the mels equal the export's bit for bit.
+   verified) and synthesized from: the mels equal the export's bit for bit;
+23. epoch_graph (run after 14.): `cli.train` with the device data cache
+   and train.device_cache_epoch_scan (a CUDA graph of the train step per
+   reduction factor, replayed once a step) at the shipped config with the
+   curriculum cut to r = 5 then 2, in fp32 and bf16, 3 epochs of 4 steps
+   at batch 32 from a cold start against 2 epochs without the flag (the
+   losses of every epoch), each run resumed for epoch 3 with the flag the
+   other way (against the uninterrupted run), the fp32 runs under
+   deterministic cuDNN; at fp32 with cuDNN's defaults, 2 epochs with the
+   flag against 2 without it, beside a second run without it (each run's
+   launches a path of its own); the kernels each captured
+   step launched and the replays; the epoch runner alone from the trained
+   state: wall an epoch and ms a step graphed and eager, the device busy
+   share of each under torch.profiler, the capture's seconds and its pool's
+   peak bytes; and in a process of its own (`--graph-failure-worker`) a
+   capture that fails raises with no step run eagerly.
 
 Each phase prints a JSON line {"phase": ..., "seconds": ...} first. A failed
 check raises; the script then exits non-zero without printing the final
 line. With `--synthesis-worker RANK PORT OUT` it is one process of 20, with
-`--model-axis-worker` or `--p2p-probe` one of 21. Without a CUDA device, or
+`--model-axis-worker` or `--p2p-probe` one of 21, with
+`--graph-failure-worker` the process of 23. Without a CUDA device, or
 without the rest of the repository beside it, it exits non-zero at once. It writes the kernel build directory
 (vaenar_tts_torch/_build/, ignored by git) and a temporary directory that it
 deletes.
@@ -318,16 +338,51 @@ TOL_RESUME_REL = 1e-2
 # whose line triggers the signal; the child is killed after this long
 N_SIGTERM_TRAIN = 128
 SIGTERM_TIMEOUT_S = 400
+# the graphed epoch (train.device_cache_epoch_scan with the device data
+# cache): GRAPH_TRAIN train utterances of one padded shape, so 4 steps of
+# 32 an epoch; the curriculum cut to r = 5 for epoch 1 and r = 2 from epoch
+# 2 (GRAPH_SCHEDULE: each factor's graph captured, the first freed), the
+# shipped config otherwise. The flag's per-epoch losses against the eager
+# cached loop's, and a resumed epoch against the uninterrupted one, within
+# TOL_GRAPH_FP32_REL at fp32 and TOL_CACHE_REL at bf16: the graph replays
+# the kernels that the eager step launches, on the same inputs, with the
+# same Adam (capturable on the card with the flag or without), so the two
+# agree exactly where the eager step is reproducible. At bf16 it is; at
+# fp32 cuDNN's default convolution algorithms are not (176 of the 487
+# gradient leaves differ between two eager steps from one state, PERF.md
+# §6, scripts/torch_graph_step_determinism.py), and Adam carries such a
+# difference over the steps to 1e-3 of the length losses: the fp32 runs
+# take cuDNN's deterministic algorithms (cudnn.deterministic, restored
+# after them), under which one eager and one graphed step agree to the
+# bit. At fp32 the phase also trains as users do, with cuDNN's default
+# algorithms, two epochs three times: the flag on, and off twice. The two
+# eager runs witness how far eager drifts from eager there (printed), and
+# the graphed run is held to the first eager one within
+# TOL_GRAPH_FP32_DEFAULT_REL: ten times the 1.0e-3 that a graphed run read
+# against an eager one over three epochs at these settings, and 16 times
+# the 6.4e-4 that two eager runs read apart over these two (PERF.md §6),
+# wide enough for that drift, and a bound still on a graph that replayed
+# the wrong batch, factor or weights. GRAPH_REPS timed epochs each way, at
+# the default settings.
+GRAPH_TRAIN, GRAPH_REPS = 128, 3
+GRAPH_SCHEDULE = ["train.reduction_factors=(5,2)", "train.reduce_interval=(0,2)"]
+TOL_GRAPH_FP32_REL = 1e-5
+TOL_GRAPH_FP32_DEFAULT_REL = 1e-2
 # remat and batched_lu: timed steps per mode; the prior's log-probability
 # with one batched LU against per-layer slogdet and inverse, fp32, relative
 REMAT_REPS = 5
 TOL_LU_REL = 1e-5
 # the neural vocoder: toy-v2 utterances and steps of each training run, the
 # last logged loss at most VOC_LOSS_DROP of the first (the PERF.md
-# prediction), and the fp32 forward on the card against the CPU's within
-# TOL_VOC_CARD_CPU of the largest element, over the first
-# VOC_CARD_CPU_FRAMES frames of the shipped lines' mels (fp32 convolutions
-# and GEMMs summed in another order; TF32 is off)
+# prediction), and the fp32 forward on the card against the CPU's over the
+# first VOC_CARD_CPU_FRAMES frames of the shipped lines' mels: the head's
+# raw output (log magnitude, re, im) within TOL_VOC_CARD_CPU of its largest
+# element (fp32 convolutions and GEMMs summed in another order; TF32 is
+# off), and the frame math and iSTFT run on the card from the CPU head's
+# output within it of the CPU's. The frames and wavs of the card's own head
+# are printed, not gated: a frame is mag * (re, im) / |(re, im)|, whose
+# direction turns with any rounding where |(re, im)| is near 0
+# (vocoder_card_cpu_shares)
 VOC_UTTS, VOC_STEPS, VOC_LOG_EVERY = 32, 300, 50
 VOC_LOSS_DROP = 0.9
 VOC_CARD_CPU_FRAMES = 480
@@ -1700,6 +1755,262 @@ def sigterm_phase(torch, fa, tmp, device, smi, init_pass, per_step):
     return paths
 
 
+def rel_diffs(a, b):
+    """{metric: |a - b| / |b|} over two loss dicts."""
+    return {k: abs(a[k] - b[k]) / max(abs(b[k]), 1e-30) for k in b}
+
+
+def epoch_graph_phase(torch, np, fa, tmp, device, smi, init_pass, per_step):
+    """``cli.train`` with the device data cache and
+    ``train.device_cache_epoch_scan`` at the shipped config (GRAPH_SCHEDULE
+    aside), in fp32 and bf16: from a cold start to epoch 3 with the flag,
+    and to epoch 2 without it, the per-epoch train and dev losses against
+    each other; the flag's run resumed from epoch 2 without the flag, and
+    the run without it resumed with the flag, each epoch 3 against the
+    uninterrupted one; the kernels each captured step launched, the graph's
+    replays, and the wrappers' launches (warm-up and capture steps only:
+    a replay launches through no wrapper). The fp32 runs above take
+    deterministic cuDNN; at fp32 with cuDNN's defaults, 2 epochs with the
+    flag and twice 2 without it, the graphed losses against the first
+    eager run's beside the second's. Each ``cli.train`` run is a path of
+    its own, its launches counted from 0. Then the epoch runner alone on
+    the trained state: GRAPH_REPS epochs graphed and eager (wall, ms a
+    step), one of each under torch.profiler (device busy share), the
+    capture's seconds and pool bytes. Returns ({path: launches}, {dtype:
+    {kernel: launches replayed in graphs}})."""
+    from vaenar_tts_torch.cli import train as cli_train
+    from vaenar_tts_torch.configs.overrides import apply_overrides
+    from vaenar_tts_torch.configs.serialize import load_hparams
+    from vaenar_tts_torch.models.vaenar import VAENAR
+    from vaenar_tts_torch.training import loop, steps
+    from vaenar_tts_torch.utils.checkpoint import CheckpointManager
+    from torch.profiler import ProfilerActivity, profile
+
+    from vaenar_tts_torch.utils.profiling import device_summary
+    phase("epoch_graph")
+    records = os.path.join(tmp, "graph_records")
+    os.makedirs(records)
+    write_records(records, seed=2032, splits=(("train", GRAPH_TRAIN), ("dev", N_DEV)))
+    n_steps = GRAPH_TRAIN // 32
+    n_dev = -(-N_DEV // 32)
+    paths, replayed, report, ok = {}, {}, {}, True
+    for dtype in ("float32", "bfloat16"):
+        tol = TOL_GRAPH_FP32_REL if dtype == "float32" else TOL_CACHE_REL
+        want = {fa.kernel_name(kind, getattr(torch, dtype)): per_step
+                for kind in ("fwd", "dq", "dkv")}
+        fwd = fa.kernel_name("fwd", getattr(torch, dtype))
+        root = os.path.join(tmp, f"graph_{dtype}")
+        overrides = [f"train.compute_dtype={dtype}", f"train.device_data_cache_mb={LOOP_CACHE_MB}",
+                     "train.checkpoint_every_n_epochs=2", *GRAPH_SCHEDULE]
+        run_walls = {}
+
+        def train(run, ckpt, scan, max_epochs, cold):
+            """``cli.train`` into the model directory ``ckpt``; its launches
+            are path ``run``'s, counted from 0."""
+            argv = ["--dataset", "ljspeech", "--data_dir", records,
+                    "--model_dir", os.path.join(root, ckpt), "--log_dir",
+                    os.path.join(root, run + "_logs"), "--device", device,
+                    "--max_epochs", str(max_epochs), "--no-draw_plots"]
+            if cold:
+                argv += ["--hparams", os.path.join(MODEL_DIR, "hparams.json")]
+            for o in overrides + [f"train.device_cache_epoch_scan={str(scan).lower()}"]:
+                argv += ["--override", o]
+            fa.launch_counts.clear()
+            start = time.perf_counter()
+            history, text = run_cli(cli_train.main, argv)
+            torch.cuda.synchronize()
+            run_walls[f"{run}_to_epoch_{max_epochs}"] = time.perf_counter() - start
+            paths[f"epoch_graph_{dtype}_{run}"] = dict(fa.launch_counts)
+            line = [l for l in text.splitlines() if l.startswith("device data cache")]
+            return history, line, dict(fa.launch_counts)
+
+        deterministic = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = dtype == "float32"
+        try:
+            on, on_line, on_counts = train("on", "on", True, 3, True)
+            off, off_line, _ = train("off", "off", False, 2, True)
+            shutil.rmtree(os.path.join(root, "on", "3"))
+            on_then_off, _, _ = train("on_then_off", "on", False, 3, False)
+            off_then_on, _, _ = train("off_then_on", "off", True, 3, False)
+        finally:
+            torch.backends.cudnn.deterministic = deterministic
+        default_replays = 0
+        if dtype == "float32":
+            # cuDNN's default algorithms, as users train: two eager runs
+            # witness how far fp32 eager drifts from eager, beside the
+            # graphed run against the first
+            on_d, _, _ = train("on_default", "on_default", True, 2, True)
+            eager_a, _, _ = train("off_default_a", "off_default_a", False, 2, True)
+            eager_b, _, _ = train("off_default_b", "off_default_b", False, 2, True)
+            gaps = {name: {f"epoch{e}_{split}": rel_diffs(h[split][e], eager_a[split][e])
+                           for e in (1, 2) for split in ("train", "dev")}
+                    for name, h in (("eager_vs_eager", eager_b), ("graphed_vs_eager", on_d))}
+            worst_d = {k: max(v for d in g.values() for v in d.values()) for k, g in gaps.items()}
+            default_replays = on_d["runner"]["replays"]
+            report["cudnn_default_float32"] = {
+                "rel_diff": gaps, "worst": worst_d, "tolerance": TOL_GRAPH_FP32_DEFAULT_REL,
+                "replays": default_replays}
+            ok = (ok and worst_d["graphed_vs_eager"] <= TOL_GRAPH_FP32_DEFAULT_REL
+                  and default_replays == 2 * n_steps and eager_a["runner"] is None)
+        runner = on["runner"]
+        captures = len(runner["captured_launches"])
+        want_counts = {k: per_step * (1 + (steps.WARMUP_STEPS + 1) * captures
+                                      + (3 * n_dev if k == fwd else 0))
+                       + (init_pass if k == fwd else 0) for k in want}
+        rel = {f"epoch{e}_{split}": rel_diffs(on[split][e], off[split][e])
+               for e in (1, 2) for split in ("train", "dev")}
+        rel["initial"] = rel_diffs(on["initial"], off["initial"])
+        rel_resume = {f"{name}_{split}": rel_diffs(h[split][3], on[split][3])
+                      for name, h in (("on_then_off", on_then_off), ("off_then_on", off_then_on))
+                      for split in ("train", "dev")}
+        worst = max(v for d in list(rel.values()) + list(rel_resume.values()) for v in d.values())
+        report[dtype] = {"cudnn_deterministic": dtype == "float32",
+                         "cache_line_on": on_line, "cache_line_off": off_line,
+                         "rel_diff_flag_on_vs_off": rel, "rel_diff_resumed_vs_uninterrupted":
+                         rel_resume, "worst_rel_diff": worst, "tolerance": tol,
+                         "runner": runner, "resumed_runner": off_then_on["runner"],
+                         "wrapper_launches_on": on_counts,
+                         "wrapper_launches_expected": want_counts,
+                         "cli_wall_s": run_walls}
+        ok_dtype = (worst <= tol and on["cache"] and off["runner"] is None
+                    and runner["graphed"] and runner["replays"] == 3 * n_steps
+                    and sorted(runner["captured_launches"]) == [2, 5]
+                    and all(c == want for c in runner["captured_launches"].values())
+                    and off_then_on["runner"]["replays"] == n_steps
+                    and on_then_off["runner"] is None and on_counts == want_counts
+                    and sorted(on["train"]) == [1, 2, 3] and sorted(on_then_off["train"]) == [3])
+        ok = ok and ok_dtype
+
+        # the runner alone, from the trained state: epochs both ways
+        t_alone = time.perf_counter()
+        hp = apply_overrides(load_hparams(os.path.join(root, "on")),
+                             ["train.device_cache_epoch_scan=true"])
+        train_loader, dev_loader, _ = loop.make_loaders(hp, records)
+        cache, _ = loop.device_cache(hp, train_loader, dev_loader, torch.device(device))
+        model = VAENAR(hp).to(device)
+        graphed_opt = steps.make_optimizer(hp, model)
+        CheckpointManager(os.path.join(root, "on")).restore(model, graphed_opt)
+        eager_opt = steps.make_optimizer(hp, model)
+        CheckpointManager(os.path.join(root, "on")).restore(model, eager_opt)
+        run = steps.make_epoch_runner(model, graphed_opt, hp, cache)
+        order = train_loader.batch_order(4)[:n_steps]
+        r, kl = hp.train.reduction_factor_at(4), hp.train.kl_weight_at(4)
+        gen = torch.Generator(device=device).manual_seed(4)
+
+        def graphed():
+            run(order, kl, r, gen)
+
+        def eager():
+            for i in order:
+                steps.train_step(model, eager_opt, hp, *(x[i] for x in cache), kl, r, gen)
+
+        graphed()  # the capture
+        walls = {}
+        for name, fn in (("graphed", graphed), ("eager", eager)):
+            walls[name] = [timed(torch, fn)[1] for _ in range(GRAPH_REPS)]
+        busy = {}
+        for name, fn in (("graphed", graphed), ("eager", eager)):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                _, wall = timed(torch, fn)
+            summary = device_summary(prof, top=5)
+            busy[name] = {"device_ms_per_epoch": summary["device_ms"],
+                          "kernels_per_epoch": summary["launches"],
+                          "busy_share": summary["device_ms"] / (1e3 * wall) if wall else None,
+                          "profiled_wall_s": wall, "top": summary["top"]}
+        rep = run.report()
+        report[dtype]["runner_alone"] = {
+            "steps_per_epoch": n_steps, "reduction_factor": r,
+            "epoch_wall_s": walls,
+            "ms_per_step": {k: [1e3 * w / n_steps for w in v] for k, v in walls.items()},
+            "profiled": busy, "capture_s": rep["capture_s"], "capture_pool_peak_bytes":
+            rep["capture_bytes"], "captured_launches": rep["captured_launches"]}
+        ok = ok and rep["captured_launches"] == {r: want}
+        replayed[dtype] = {k: v * (runner["replays"] + off_then_on["runner"]["replays"]
+                                   + default_replays + rep["replays"]) for k, v in want.items()}
+        report[dtype]["runner_alone"]["seconds"] = time.perf_counter() - t_alone
+        del run, model, graphed_opt, eager_opt, cache
+        print(json.dumps({"card": smi, "compute_dtype": dtype, **report[dtype]}), flush=True)
+    print(json.dumps({"card": smi, "cudnn_default_float32": report["cudnn_default_float32"]}),
+          flush=True)
+    failure_dir = os.path.join(tmp, "graph_failure")
+    os.makedirs(failure_dir)
+    t_failure = time.perf_counter()
+    proc = subprocess.run([sys.executable, os.path.join(HERE, "chip_smoke.py"),
+                           "--graph-failure-worker", "0", "0", failure_dir], cwd=HERE,
+                          capture_output=True, text=True, timeout=FLEET_TIMEOUT_S)
+    path = os.path.join(failure_dir, "graph_failure.json")
+    failure = {"exit_code": proc.returncode, "output": proc.stdout[-2000:] + proc.stderr[-2000:]}
+    if os.path.isfile(path):
+        with open(path) as f:
+            failure = json.load(f)
+    print(json.dumps({"card": smi, "fails_closed": failure,
+                      "seconds": time.perf_counter() - t_failure}), flush=True)
+    check(bool(failure.get("non_capturable_raised")) and bool(failure.get("capture_raised"))
+          and failure.get("params_unchanged") is True and failure.get("replays") == 0,
+          f"the epoch runner on a failed capture: {failure}")
+    gated = {d: {k: v for k, v in r_.items() if k != "runner_alone"} if d in ("float32", "bfloat16")
+             else r_ for d, r_ in report.items()}
+    check(ok, f"graphed epochs against eager ones: {gated}")
+    return paths, replayed
+
+
+def graph_failure_worker(_rank, _port, out_dir):
+    """``chip_smoke.py --graph-failure-worker 0 0 OUT``: the epoch runner on
+    the card fails closed. A runner given a non-capturable Adam raises; a
+    step that reads a loss on the host (a sync, which stream capture
+    refuses) makes the capture raise, after which no step has run eagerly:
+    the parameters are those from before the call and nothing was
+    replayed. The shipped config cut to one block a stack, batch 8, in a
+    process of its own (a failed capture may leave the process's CUDA state
+    unusable). Writes OUT/graph_failure.json."""
+    import numpy as np
+    import torch
+    sys.path.insert(0, HERE)
+    from vaenar_tts_torch.configs.overrides import apply_overrides
+    from vaenar_tts_torch.configs.serialize import load_hparams
+    from vaenar_tts_torch.training import loop, steps
+    records = os.path.join(out_dir, "records")
+    os.makedirs(records)
+    write_records(records, seed=2033, splits=(("train", 16), ("dev", 8)))
+    hp = apply_overrides(load_hparams(MODEL_DIR), [
+        "encoder.n_blk=1", "decoder.nblk=1", "posterior.nblk=1", "prior.n_blk=1",
+        "prior.n_transformer_blk=1", "train.train_batch_size=8",
+        "train.device_data_cache_mb=64", "train.device_cache_epoch_scan=true"])
+    device = torch.device(DEVICE)
+    train_loader, dev_loader, _ = loop.make_loaders(hp, records)
+    cache, _ = loop.device_cache(hp, train_loader, dev_loader, device)
+    model = steps.init_model(hp, 1, device)
+    out = {}
+    try:
+        steps.make_epoch_runner(model, torch.optim.Adam(model.parameters()), hp, cache)
+        out["non_capturable_raised"] = None
+    except ValueError as e:
+        out["non_capturable_raised"] = repr(e)
+    runner = steps.make_epoch_runner(model, steps.make_optimizer(hp, model), hp, cache)
+    before = {n: p.detach().clone() for n, p in model.named_parameters()}
+    real = steps.train_step
+
+    def syncing_step(*args, **kwargs):
+        metrics = real(*args, **kwargs)
+        float(metrics["total"])  # a host read of a device value
+        return metrics
+
+    steps.train_step = syncing_step
+    try:
+        runner(train_loader.batch_order(1), 1e-5, 2, torch.Generator(device=device).manual_seed(1))
+        out["capture_raised"] = None
+    except RuntimeError as e:
+        out["capture_raised"] = repr(e)[:300]
+    finally:
+        steps.train_step = real
+    out["params_unchanged"] = all(torch.equal(p.detach(), before[n])
+                                  for n, p in model.named_parameters())
+    out["replays"] = runner.replays
+    with open(os.path.join(out_dir, "graph_failure.json"), "w") as f:
+        json.dump(out, f)
+    return 0
+
+
 def grads_share(torch, got, want):
     """The largest share of TOL_GRAD_LEAF · max|want| that a leaf's error
     takes, over all leaves."""
@@ -1838,6 +2149,31 @@ def batched_lu_phase(torch, fa, steps, load, hp_train, data_dir, device, smi, pe
     return paths
 
 
+def vocoder_card_cpu_shares(torch, head_card, head_cpu, clip, audio, device):
+    """(gated, printed) errors of the vocoder's card run against its CPU
+    run, each a share of the CPU side's largest element. Gated: "head", the
+    head's raw output (log magnitude, re, im) card against CPU; "frames_math"
+    and "istft_math", the frame math (models/vocoder.head_to_frames) and
+    spec_to_wav run on ``device`` from the CPU head's output against the
+    same on the CPU. Printed: "frames" and "wavs" of the card's head against
+    the CPU's, which move by a large share wherever |(re, im)| is near 0."""
+    from vaenar_tts_torch.models.vocoder import head_to_frames, spec_to_wav
+
+    def share(got, want):
+        return ((got.cpu() - want.cpu()).abs().max() / want.abs().max()).item()
+
+    head_cpu = head_cpu.cpu()
+    frames_cpu = head_to_frames(head_cpu, clip)
+    wav_cpu = spec_to_wav(frames_cpu, audio)
+    frames_math = head_to_frames(head_cpu.to(device), clip)
+    frames_card = head_to_frames(head_card.to(device), clip)
+    gated = {"head": share(head_card, head_cpu), "frames_math": share(frames_math, frames_cpu),
+             "istft_math": share(spec_to_wav(frames_math, audio), wav_cpu)}
+    printed = {"frames": share(frames_card, frames_cpu),
+               "wavs": share(spec_to_wav(frames_card, audio), wav_cpu)}
+    return gated, printed
+
+
 def neural_vocoder_phase(torch, np, fa, wavfile, tmp, device, smi, hp, mels0, loop_recs,
                          test_records, init_pass, per_step, n_attn, n_test_calls):
     """The ISTFT-head vocoder: ``cli.train_vocoder --toy --toy_version 2``
@@ -1849,7 +2185,7 @@ def neural_vocoder_phase(torch, np, fa, wavfile, tmp, device, smi, hp, mels0, lo
     from vaenar_tts_torch.cli import inference as cli_inference
     from vaenar_tts_torch.cli import train as cli_train
     from vaenar_tts_torch.cli import train_vocoder as cli_vocoder
-    from vaenar_tts_torch.models.vocoder import load_vocoder, spec_to_wav, vocode
+    from vaenar_tts_torch.models.vocoder import load_vocoder, vocode
     from vaenar_tts_torch.ops import griffin_lim as gl
     phase("neural_vocoder")
     trained, vdirs = {}, {}
@@ -1870,10 +2206,9 @@ def neural_vocoder_phase(torch, np, fa, wavfile, tmp, device, smi, hp, mels0, lo
     cpu, _ = load_vocoder(vdirs["float32"], "cpu")
     crop = mels0[:, :VOC_CARD_CPU_FRAMES]
     with torch.no_grad():
-        spec_card, spec_cpu = card(crop), cpu(crop.cpu())
-        wav_card, wav_cpu = spec_to_wav(spec_card, card.audio), spec_to_wav(spec_cpu, cpu.audio)
-    errs = {"spec": ((spec_card.cpu() - spec_cpu).abs().max() / spec_cpu.abs().max()).item(),
-            "wav": ((wav_card.cpu() - wav_cpu).abs().max() / wav_cpu.abs().max()).item()}
+        errs, errs_printed = vocoder_card_cpu_shares(
+            torch, card.head_output(crop), cpu.head_output(crop.cpu()),
+            card.cfg.log_magnitude_clip, card.audio, device)
     bf16_model, _ = load_vocoder(vdirs["bfloat16"], device)
     gen = torch.Generator(device=device)
     ms = {"neural_fp32": time_ms(torch, lambda: vocode(card, mels0), reps=5, warmup=2),
@@ -1890,6 +2225,7 @@ def neural_vocoder_phase(torch, np, fa, wavfile, tmp, device, smi, hp, mels0, lo
         torch.cuda.synchronize()
         walls[name] = time.perf_counter() - t
     print(json.dumps({"card": smi, "card_vs_cpu_fp32_share_of_max": errs,
+                      "card_vs_cpu_fp32_share_of_max_not_gated": errs_printed,
                       "card_vs_cpu_frames": crop.shape[1], "vocode_batch": list(mels0.shape),
                       "device_ms": ms, "wall_s": walls}), flush=True)
     check(max(errs.values()) <= TOL_VOC_CARD_CPU, f"vocoder card against CPU: {errs}")
@@ -2574,10 +2910,19 @@ def model_axis_worker(rank, port, out_dir):
     m, wall = timed(torch, lambda: steps.train_step(model, optimizer, hp, *b,
                                                     hp.train.kl_weight_end, 2, gen, dist=dist))
     grads = unshard_params(model, dist.mesh, dist, {n: p.grad for n, p in model.named_parameters()})
+    params = unshard_params(model, dist.mesh, dist, dict(model.named_parameters()))
+    # the model group's average of the replicated gradients, the one
+    # collective a step adds, timed alone (on gradients already equal)
+    average_ms = []
+    for _ in range(5):
+        dist.barrier()
+        average_ms.append(1e3 * timed(torch, lambda: dist.average_replicas(model))[1])
     result["train_float32"] = {"metrics": steps.metric_floats(m), "wall_s": wall,
                                "launches": dict(fa.launch_counts),
-                               "grads": {n: g.cpu() for n, g in grads.items()}}
-    del model, grads
+                               "grads": {n: g.cpu() for n, g in grads.items()},
+                               "params": {n: t.cpu() for n, t in params.items()},
+                               "average_replicas_ms": average_ms}
+    del model, grads, params
     hp, model = shipped_model(torch, state, device, "bfloat16", seq_mesh=dist, ring_min_seq=0)
     shard_params(model, dist.mesh, dist)
     optimizer = steps.make_optimizer(hp, model)
@@ -2761,10 +3106,13 @@ def model_axis_phases(torch, fa, tmp, smi, hp, model, model32, token_ids, use_q,
     fleet_g = [g["train_float32"]["grads"] for g in got]
     share, leaf, err_global = tp_grads_share(fleet_g[0], ref_g)
     share_ranks, leaf_ranks, _ = tp_grads_share(fleet_g[1], fleet_g[0])
-    # bit-unequal between the two processes: cuDNN's weight gradients of a
-    # convolution are not reproducible run to run on the card
+    # the replicas stay bit-equal: the model group averages the replicated
+    # gradients (DistContext.average_replicas), which cuDNN's convolution
+    # weight gradients would otherwise leave unequal between the processes
     unequal = sorted(n for n in ref_g if not torch.equal(fleet_g[0][n], fleet_g[1][n]))
-    ok = ok and share <= 1.0 and share_ranks <= 1.0
+    fleet_p = [g["train_float32"]["params"] for g in got]
+    unequal_params = sorted(n for n in fleet_p[0] if not torch.equal(fleet_p[0][n], fleet_p[1][n]))
+    ok = ok and share <= 1.0 and share_ranks <= 1.0 and unequal == [] and unequal_params == []
     hp16, one = shipped_model(torch, state, device, "bfloat16")
     optimizer = steps.make_optimizer(hp16, one)
     gen = torch.Generator(device=device).manual_seed(6)
@@ -2791,6 +3139,9 @@ def model_axis_phases(torch, fa, tmp, smi, hp, model, model32, token_ids, use_q,
                     "worst_grad_leaf": leaf, "max_abs_grad_err_over_max_grad": err_global,
                     "ranks_worst_share_of_tol": share_ranks, "ranks_worst_leaf": leaf_ranks,
                     "ranks_bit_unequal_leaves": unequal,
+                    "ranks_bit_unequal_params_after_step": unequal_params,
+                    "average_replicas_ms_per_step": [g["train_float32"]["average_replicas_ms"]
+                                                     for g in got],
                     "wall_s_one_process": wall32,
                     "wall_s_fleet": [g["train_float32"]["wall_s"] for g in got],
                     "launches_per_process": [g["train_float32"]["launches"] for g in got]},
@@ -2803,7 +3154,8 @@ def model_axis_phases(torch, fa, tmp, smi, hp, model, model32, token_ids, use_q,
                          [s_["launches"] for s_ in g["train_bfloat16"]] for g in got]}}),
           flush=True)
     check(ok, f"tensor-parallel train step against one process: share {share} at {leaf}, "
-              f"losses {loss_err}, ranks {share_ranks} at {leaf_ranks}")
+              f"losses {loss_err}, ranks {share_ranks} at {leaf_ranks}, bit-unequal "
+              f"gradients {unequal}, parameters {unequal_params}")
     paths["tensor_parallel_training"] = train_counts
     return paths
 
@@ -3355,6 +3707,9 @@ def main():
         new_paths.update(loop_phase(torch, np, fa, wavfile, tmp, loop_recs, DEVICE, smi, hop,
                                     init_pass, per_step, n_attn))
         new_paths.update(sigterm_phase(torch, fa, tmp, DEVICE, smi, init_pass, per_step))
+        graph_paths, graph_replayed = epoch_graph_phase(torch, np, fa, tmp, DEVICE, smi,
+                                                        init_pass, per_step)
+        new_paths.update(graph_paths)
 
         def load(h):
             return load_trained(VAENAR, CheckpointManager, h, model_dir, device)
@@ -3475,6 +3830,10 @@ def main():
                 entry["launches"] += counts[entry["name"]]
                 entry["launches_by_path"][path] = counts[entry["name"]]
     for entry in kernels:
+        # the graphed epochs' replays, which launch through no wrapper
+        entry["launches_replayed_in_cuda_graphs"] = graph_replayed[entry["dtype"]].get(
+            entry["name"], 0)
+    for entry in kernels:
         check(entry["launches"] > 0, f"{entry['name']} was not launched on its path")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}}))
@@ -3483,7 +3842,7 @@ def main():
 
 if __name__ == "__main__":
     WORKERS = {"--synthesis-worker": synthesis_worker, "--model-axis-worker": model_axis_worker,
-               "--p2p-probe": p2p_probe_worker}
+               "--p2p-probe": p2p_probe_worker, "--graph-failure-worker": graph_failure_worker}
     if sys.argv[1:2] and sys.argv[1] in WORKERS:
         sys.exit(WORKERS[sys.argv[1]](int(sys.argv[2]), int(sys.argv[3]), sys.argv[4]))
     sys.exit(main())

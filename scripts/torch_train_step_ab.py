@@ -7,7 +7,14 @@ two checkouts in turns, on one CUDA card:
 ROOT_A and ROOT_B are directories that hold a `vaenar_tts_torch/` package
 (a parent commit unpacked with `git archive`, and this checkout). The runs go
 A, B, B, A, each in its own process that imports the package and builds its
-kernels from its root. Each run loads the shipped model
+kernels from its root.
+
+    python3 scripts/torch_train_step_ab.py --adam ROOT [--compute_dtype float32]
+
+compares Adam's two arithmetics on the eager step of one checkout instead:
+`make_optimizer(capturable=False)` (bias corrections from host doubles) as
+A and `capturable=True` (step counts and bias corrections on the card) as B,
+in the same order. Each run loads the shipped model
 (artifacts/toyv2_q90/ckpt of this checkout, at its compute dtype, bfloat16,
 or at the one `--compute_dtype` names), makes
 the training path's data from a seed with chip_smoke.py's `write_records`,
@@ -21,6 +28,7 @@ It loads chip_smoke.py by file path and calls its helpers `MODEL_DIR`,
 their signatures or return values there must be made here too.
 """
 
+import functools
 import importlib.util
 import json
 import os
@@ -39,9 +47,10 @@ def _chip_smoke():
     return mod
 
 
-def run_one(root, compute_dtype=None):
+def run_one(root, compute_dtype=None, capturable=None):
     """One run from ``root`` at ``compute_dtype`` (None: the shipped
-    config's); prints a JSON line for each reduction factor."""
+    config's) with Adam ``capturable`` (None: the package's own choice);
+    prints a JSON line for each reduction factor."""
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from vaenar_tts_torch.data.loader import BucketedLoader
@@ -51,6 +60,8 @@ def run_one(root, compute_dtype=None):
     from vaenar_tts_torch.training import steps
     from vaenar_tts_torch.training.loop import to_device
     cs = _chip_smoke()
+    if capturable is not None:  # chip_smoke's timers build their Adam through this name
+        steps.make_optimizer = functools.partial(steps.make_optimizer, capturable=capturable)
     hp, model, _ = load_model(cs.MODEL_DIR, "cuda", compute_dtype)
     with tempfile.TemporaryDirectory(prefix="vaenar_ab_") as tmp:
         cs.write_records(tmp, seed=2026)
@@ -62,6 +73,7 @@ def run_one(root, compute_dtype=None):
         walls, attention = cs.train_step_times(torch, fa, steps, model, hp, batch, r)
         device_ms, launches, _ = cs.profile_train_steps(torch, steps, model, hp, batch, r)
         print(json.dumps({"root": root, "compute_dtype": hp.train.compute_dtype,
+                          "adam_capturable": capturable,
                           "reduction_factor": r, "batch": list(big.mels.shape),
                           "wall_ms_median": 1e3 * statistics.median(walls),
                           "device_ms_per_step": device_ms,
@@ -73,14 +85,19 @@ def main(argv):
     dtype = []
     if len(argv) >= 2 and argv[-2] == "--compute_dtype":
         dtype, argv = argv[-2:], argv[:-2]
-    if len(argv) == 2 and argv[0] == "--one":
-        run_one(argv[1], dtype[1] if dtype else None)
+    if len(argv) in (2, 3) and argv[0] == "--one":
+        run_one(argv[1], dtype[1] if dtype else None,
+                {"host": False, "capturable": True}.get(argv[2]) if len(argv) == 3 else None)
         return 0
     if len(argv) != 2:
         print(__doc__, file=sys.stderr)
         return 2
-    for root in (argv[0], argv[1], argv[1], argv[0]):
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", root, *dtype],
+    if argv[0] == "--adam":
+        arms = [(argv[1], "host"), (argv[1], "capturable")]
+    else:
+        arms = [(argv[0],), (argv[1],)]
+    for arm in (arms[0], arms[1], arms[1], arms[0]):
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--one", *arm, *dtype],
                        check=True)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())

@@ -4,7 +4,11 @@ shards: the round-robin batch slice (``shard_index``/``shard_count``), the
 lockstep shape schedule (padded and truncated), ``epoch(shape_schedule=)``
 and its step cap, ``repad_batch``; the native packer's batches against the
 numpy path's, to the byte, at natural and scheduled shapes, and
-``packer``; ``partition_shards``.
+``packer``; ``partition_shards``. The static-shape pins (``mel_len_cap``,
+``fixed_text_max``, ``fixed_mel_max``) against the JAX loader's, in one
+process and in a round-robin slice: the kept utterances, ``max_text_len``,
+``max_mel_len``, ``shape_census`` and every batch; a stale pin raises the
+JAX loader's ``ValueError`` before packing.
 """
 
 import os
@@ -137,3 +141,39 @@ def test_partition_shards_matches_jax():
                lambda: jax_partition(["x.vrs"], index=1, count=2)):
         with pytest.raises(ValueError, match="no record shards to own"):
             fn()
+
+
+PINS = {"cap": dict(mel_len_cap=250),
+        "pinned": dict(fixed_text_max=48, fixed_mel_max=480),
+        "text_pin": dict(fixed_text_max=48),
+        "cap_and_mel_pin": dict(mel_len_cap=200, fixed_mel_max=240)}
+
+
+@pytest.mark.parametrize("shard_index", [None, 0, 1])
+@pytest.mark.parametrize("pins", sorted(PINS))
+def test_pins_match_jax(shards, pins, shard_index):
+    paths = list_shards(str(shards), "train")
+    kw = dict(PINS[pins])
+    if shard_index is not None:
+        kw.update(shard_index=shard_index, shard_count=2)
+    port, ref = loaders(paths, **kw)
+    assert (port.num_utterances, port.max_text_len, port.max_mel_len) == (
+        ref.num_utterances, ref.max_text_len, ref.max_mel_len)
+    assert len(port) == len(ref) and port.shape_census() == ref.shape_census()
+    if "mel_len_cap" in kw:
+        assert port.max_mel_len <= kw["mel_len_cap"] < loaders(paths)[0].max_mel_len
+    if "fixed_mel_max" in kw:
+        assert len(port.shape_census()) == 1
+    for epoch in (0, 1):
+        assert_batches_equal(list(port.epoch(epoch)), list(ref.epoch(epoch)))
+    assert_batches_equal(port.all_batches(), ref.all_batches())
+
+
+def test_a_stale_pin_raises_as_jax_does(shards):
+    paths = list_shards(str(shards), "train")
+    errors = []
+    for loader in loaders(paths, fixed_text_max=16, fixed_mel_max=480):
+        with pytest.raises(ValueError, match="re-sync fixed_text_max/fixed_mel_max") as e:
+            list(loader.epoch(0))
+        errors.append(str(e.value))
+    assert errors[0] == errors[1]

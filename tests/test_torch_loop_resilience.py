@@ -9,8 +9,8 @@ thread, on the CPU at tiny size:
   train and dev losses and the same weights, bit for bit;
 * the device data cache on gives the losses of the cache off, bit for bit;
 * the cache's three gates, each with its exact message: one train batch
-  shape (ON), several shapes (OFF), and over the cap only once the dev
-  split is counted (OFF); ``device_cache_epoch_scan`` raises;
+  shape (ON, with how the steps run over it), several shapes (OFF), and
+  over the cap only once the dev split is counted (OFF);
 * ``prefetch`` reaps its worker when the consumer abandons it.
 """
 
@@ -135,7 +135,8 @@ def test_cache_gates_and_their_messages(records, tmp_path, capsys):
     train_cache, dev_cache = loop.device_cache(hp, train, dev, CPU)
     assert capsys.readouterr().out == (
         f"device data cache ON: 2 train batches ({train_mb:.3f} MB) + 1 dev batches "
-        f"({dev_mb:.3f} MB), both counted against device_data_cache_mb=100, on cpu\n")
+        f"({dev_mb:.3f} MB), both counted against device_data_cache_mb=100, on cpu; "
+        f"per-step dispatch over device gathers\n")
     assert [tuple(x.shape) for x in train_cache] == [(2, 4, 32), (2, 4, 120, 80), (2, 4), (2, 4)]
     assert len(dev_cache) == 1 and dev_cache[0][5] == 3
 
@@ -160,13 +161,6 @@ def test_cache_gates_and_their_messages(records, tmp_path, capsys):
     assert capsys.readouterr().out == (
         f"device data cache OFF: {n_shapes} static train batch shapes "
         f"(the cache needs exactly 1)\n")
-
-
-def test_epoch_scan_raises(records, tmp_path):
-    with pytest.raises(ValueError, match="device_cache_epoch_scan"):
-        run(tiny("train.device_cache_epoch_scan=true"), records, tmp_path / "m", 1,
-            tmp_path / "logs")
-    assert not (tmp_path / "m").exists()
 
 
 def test_prefetch_reaps_an_abandoned_worker():

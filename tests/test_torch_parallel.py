@@ -38,6 +38,14 @@ worker), against one process on the concatenated global batch:
   of the one-process test. This ties the fleet to JAX directly, not only
   through the port's own single-process step.
 
+* the same two processes as one model group (mesh data 1 x model 2), the
+  wide tiny model's FFN layers sharded, one train step with process 1's
+  gradient of a replicated leaf moved by 1e-6 (as a gradient that is not
+  reproducible moves, cuDNN's on the card): every replicated parameter is
+  bit-equal across the two after Adam's step, and is not once the group's
+  average of the replicated gradients (``DistContext.average_replicas``)
+  is switched off.
+
 Outside the spawn: ``param_sharding_rules`` picks the parameters that the
 JAX rule picks on the shipped export's shapes (names mapped through
 ``interop.weights``); ``shard_params`` at ``model = 2`` on a one-process
@@ -205,6 +213,32 @@ def run_dataset_case(dist, records):
             in synth.run_dataset(loader, 240, temperature=0.5, seed=3)]
 
 
+# a replicated leaf whose gradient is 0 at the first step (the posterior's
+# heads start at 0), so that a perturbation of it shows through Adam
+PERTURBED_LEAF = "posterior.decoder_prenet.dense_1.bias"
+
+
+def replica_case(dist, averaged):
+    """One train step of the sharded wide model on the global batch, with
+    ``1e-6 * rank`` added to PERTURBED_LEAF's gradient: this process's
+    replicated parameters after the step, and the sharded names."""
+    hp = tiny_hp(*WIDE)
+    model = shard_params(steps.init_model(hp, 11, "cpu"), dist.mesh, dist)
+    opt = steps.make_optimizer(hp, model)
+    rank = dist.model_index
+    dict(model.named_parameters())[PERTURBED_LEAF].register_hook(lambda g: g + 1e-6 * rank)
+    if not averaged:
+        dist.average_replicas = lambda model: None
+    batch = [torch.from_numpy(a) for a in global_batch()]
+    steps.train_step(model, opt, hp, *batch, 1e-3, R, torch.Generator().manual_seed(5),
+                     dist=dist)
+    if not averaged:
+        del dist.average_replicas
+    sharded = sorted(sharded_parameters(model))
+    return ({n: p.detach().clone() for n, p in model.named_parameters() if n not in sharded},
+            sharded)
+
+
 def jax_step_inputs():
     """(the JAX package's hparams, the workers' inputs) of the step of
     ``test_torch_train_step.py``, with JAX's plain reference attention."""
@@ -327,6 +361,8 @@ def worker(rank, port, out_dir):
               rng.uniform(0, 1, (int(rng.integers(40, 120)), 80)).astype(np.float32))
     w.close()
     out["dataset"] = run_dataset_case(dist, records)
+    group = DistContext("cpu", make_mesh(data=1, model=2, processes=2))
+    out["replicas"] = {averaged: replica_case(group, averaged) for averaged in (True, False)}
     inputs = os.path.join(out_dir, "jax_step_inputs.pt")
     deadline = time.time() + 300
     while not os.path.exists(inputs):  # the test process renames it into place
@@ -490,6 +526,17 @@ def test_fleet_step_equals_the_jax_step(fleet):
         assert set(stats) == set(want_stats) and len(stats) > 0
         for key, want in want_stats.items():
             np.testing.assert_allclose(stats[key], want, rtol=1e-5, atol=1e-6, err_msg=key)
+
+
+@pytest.mark.parametrize("averaged", [True, False])
+def test_model_group_replicas_stay_bit_equal(fleet, averaged):
+    (params0, sharded), (params1, _) = (res["replicas"][averaged] for res in fleet)
+    assert len(sharded) == 3 and PERTURBED_LEAF in params0
+    unequal = sorted(n for n in params0 if not torch.equal(params0[n], params1[n]))
+    if averaged:
+        assert unequal == []
+    else:  # without the group's average, the perturbed replica steps apart
+        assert unequal == [PERTURBED_LEAF]
 
 
 def test_param_sharding_rules_match_jax():

@@ -14,6 +14,13 @@ padded shapes for an epoch, which the processes max element-wise into one
 lockstep schedule that ``epoch(shape_schedule=)`` pads to (and stops at);
 ``repad_batch`` re-pads a batch to another shape.
 
+Static shapes: ``mel_len_cap`` drops the utterances whose mel is longer;
+``fixed_text_max`` / ``fixed_mel_max`` pin every batch to one padded shape
+(the device data cache and its graphed epoch need one), and a batch that
+needs more than a pin raises before it is packed (the native packer has no
+bounds check). ``max_text_len`` and ``max_mel_len`` are the longest kept
+utterance's lengths.
+
 Batches are gathered out of the shards by the native packer
 (``vaenar_tts_torch/native``, one C++ call a batch) when it builds and
 every shard's mels are float32, else by numpy; both give the same bytes, and
@@ -68,9 +75,12 @@ class BucketedLoader:
     def __init__(self, shard_paths: Sequence[str], batch_size: int,
                  mel_bucket: int = 120, text_bucket: int = 32,
                  shuffle: bool = True, seed: int = 0, drop_last: bool = False,
-                 shard_index: int = 0, shard_count: int = 1, native: bool = True):
+                 shard_index: int = 0, shard_count: int = 1, native: bool = True,
+                 mel_len_cap: Optional[int] = None, fixed_text_max: Optional[int] = None,
+                 fixed_mel_max: Optional[int] = None):
         """``native=False`` gathers with numpy even where the native packer
-        builds."""
+        builds. ``mel_len_cap``, ``fixed_text_max`` and ``fixed_mel_max``:
+        see the module's docstring."""
         self.readers = [RecordShardReader(p) for p in shard_paths]
         self.batch_size = batch_size
         self.mel_bucket = mel_bucket
@@ -80,10 +90,13 @@ class BucketedLoader:
         self.drop_last = drop_last
         self.shard_index = shard_index
         self.shard_count = shard_count
+        self.fixed_text_max = fixed_text_max
+        self.fixed_mel_max = fixed_mel_max
         # (mel_len, text_len, reader, index), sorted by mel length
         self._entries = sorted(
             (int(r.mel_lens[i]), int(r.text_lens[i]), ri, i)
-            for ri, r in enumerate(self.readers) for i in range(len(r)))
+            for ri, r in enumerate(self.readers) for i in range(len(r))
+            if mel_len_cap is None or int(r.mel_lens[i]) <= mel_len_cap)
         self.num_mels = self.readers[0].num_mels if self.readers else 0
         self._pack = None
         if native and all(r._mel_blob.dtype == np.float32 for r in self.readers):
@@ -119,6 +132,14 @@ class BucketedLoader:
     def num_utterances(self) -> int:
         return len(self._entries)
 
+    @property
+    def max_text_len(self) -> int:
+        return max((t for (_, t, _, _) in self._entries), default=0)
+
+    @property
+    def max_mel_len(self) -> int:
+        return max((m for (m, _, _, _) in self._entries), default=0)
+
     def _natural_shape(self, entries) -> Tuple[int, int]:
         return (pad_to_multiple(max(t for (_, t, _, _) in entries), self.text_bucket),
                 pad_to_multiple(max(m for (m, _, _, _) in entries), self.mel_bucket))
@@ -127,13 +148,19 @@ class BucketedLoader:
                     target_shape: Optional[Tuple[int, int]] = None) -> Batch:
         n_valid = len(entries)
         entries = list(entries) + [entries[-1]] * (self.batch_size - n_valid)
-        text_max, mel_max = natural = self._natural_shape(entries)
+        need_t = max(t for (_, t, _, _) in entries)
+        need_m = max(m for (m, _, _, _) in entries)
         if target_shape is not None:
             text_max, mel_max = int(target_shape[0]), int(target_shape[1])
-            if natural[0] > text_max or natural[1] > mel_max:
-                # before packing: the native memcpy has no bounds check
-                raise ValueError(f"batch needs {natural} but the schedule gives "
-                                 f"({text_max}, {mel_max})")
+        else:
+            natural = self._natural_shape(entries)
+            text_max = self.fixed_text_max if self.fixed_text_max is not None else natural[0]
+            mel_max = self.fixed_mel_max if self.fixed_mel_max is not None else natural[1]
+        if need_t > text_max or need_m > mel_max:
+            # before packing: the native memcpy has no bounds check
+            raise ValueError(f"batch needs (text {need_t}, mel {need_m}) but the loader is "
+                             f"pinned to ({text_max}, {mel_max}); re-sync "
+                             f"fixed_text_max/fixed_mel_max with the data")
         B = len(entries)
         texts = np.zeros((B, text_max), np.int32)
         mels = np.zeros((B, mel_max, self.num_mels), np.float32)
@@ -192,8 +219,9 @@ class BucketedLoader:
     def epoch_shape_schedule(self, epoch_index: int = 0,
                              n_steps: Optional[int] = None) -> np.ndarray:
         """This process's natural padded shapes for the epoch in iteration
-        order, int64 [n, 2] of (text_max, mel_max). ``n_steps`` pads by repeating the last row (a process whose
-        slice runs dry re-feeds its last batch) or truncates, so that every
+        order, int64 [n, 2] of (text_max, mel_max), whatever the pins.
+        ``n_steps`` pads by repeating the last row (a process whose slice
+        runs dry re-feeds its last batch) or truncates, so that every
         process's array has one shape for the element-wise max."""
         groups, order = self._epoch_order(epoch_index)
         shapes = [self._natural_shape(groups[gi]) for gi in order]
@@ -207,7 +235,14 @@ class BucketedLoader:
         return self.epoch(0)
 
     def shape_census(self) -> dict:
-        """The distinct padded (text_max, mel_max) shapes and their counts."""
+        """The distinct padded (text_max, mel_max) shapes and their counts (a
+        pinned loader's one shape: each pin, or the bucketed longest
+        utterance where only the other dimension is pinned)."""
+        if self.fixed_text_max is not None or self.fixed_mel_max is not None:
+            return {(self.fixed_text_max if self.fixed_text_max is not None
+                     else pad_to_multiple(self.max_text_len, self.text_bucket),
+                     self.fixed_mel_max if self.fixed_mel_max is not None
+                     else pad_to_multiple(self.max_mel_len, self.mel_bucket)): len(self._groups())}
         shapes: dict = {}
         for g in self._groups():
             key = self._natural_shape(g)

@@ -91,7 +91,9 @@ def precompute_invertible_stack(weights: torch.Tensor, reverse: bool
     reverse; and the unsigned log|det W| of each, [n], the sum of
     log|diag U|). The sign of the determinant does not enter the density."""
     weights = weights.float()
-    lu, pivots = torch.linalg.lu_factor(weights)
+    # the _ex forms skip the singularity check, a device-to-host sync that
+    # stream capture refuses (training.steps.make_epoch_runner)
+    lu, pivots, _ = torch.linalg.lu_factor_ex(weights, check_errors=False)
     logabsdets = torch.log(torch.abs(torch.diagonal(lu, dim1=-2, dim2=-1))).sum(-1)
     if not reverse:
         return weights, logabsdets
@@ -119,7 +121,7 @@ class InvertibleLinear(nn.Module):
             w = self.weight.float()
             _, logabsdet = torch.linalg.slogdet(w)
             if reverse:
-                w = torch.linalg.inv(w)
+                w = torch.linalg.inv_ex(w, check_errors=False)[0]
         if reverse:
             logabsdet = -logabsdet
         out = torch.matmul(x.float(), w)

@@ -121,15 +121,27 @@ class MelVocoder(nn.Module):
         self.head_norm = LayerNorm(cfg.hidden, dt, eps=VOCODER_LN_EPS)
         self.head = Dense(cfg.hidden, 3 * self.n_bins)  # fp32
 
-    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+    def head_output(self, mel: torch.Tensor) -> torch.Tensor:
+        """The head's raw output, fp32 [B, T, 3 · bins]: (log magnitude,
+        re, im) along the last dimension."""
         x = self.embed_norm(_same(self.embed, mel.to(self.cfg.dtype())))
         for name in self.names:
             x = getattr(self, name)(x)
-        log_mag, re, im = self.head(self.head_norm(x).float()).chunk(3, dim=-1)
-        clip = self.cfg.log_magnitude_clip
-        mag = torch.exp(torch.clamp(log_mag, -clip, clip))
-        norm = torch.sqrt(re * re + im * im + 1e-9)
-        return torch.cat([mag * re / norm, mag * im / norm], dim=-1).transpose(1, 2)
+        return self.head(self.head_norm(x).float())
+
+    def forward(self, mel: torch.Tensor) -> torch.Tensor:
+        return head_to_frames(self.head_output(mel), self.cfg.log_magnitude_clip)
+
+
+def head_to_frames(head: torch.Tensor, clip: float) -> torch.Tensor:
+    """The head's (log magnitude, re, im) [B, T, 3 · bins] -> STFT frames
+    [B, 2 · bins, T]: magnitude exp(clip(log magnitude)) along the
+    direction of (re, im). Where |(re, im)| is near 0 that direction turns
+    with any rounding of re and im."""
+    log_mag, re, im = head.chunk(3, dim=-1)
+    mag = torch.exp(torch.clamp(log_mag, -clip, clip))
+    norm = torch.sqrt(re * re + im * im + 1e-9)
+    return torch.cat([mag * re / norm, mag * im / norm], dim=-1).transpose(1, 2)
 
 
 def spec_to_wav(spec_ri: torch.Tensor, audio: AudioConfig) -> torch.Tensor:

@@ -52,7 +52,7 @@ import torch
 import torch.distributed as tdist
 
 from .data_group import DataGroup
-from .mesh import Mesh, make_mesh
+from .mesh import Mesh, make_mesh, sharded_parameters
 
 
 def _backend(device: torch.device) -> str:
@@ -274,6 +274,28 @@ class DistContext:
                 g.copy_(flat[offset:offset + g.numel()].view_as(g))
                 offset += g.numel()
         return {k: flat[offset + j] for j, k in enumerate(names)}
+
+    def average_replicas(self, model: torch.nn.Module) -> None:
+        """Average over the model group, in one collective, the gradients of
+        the parameters that ``mesh.shard_params`` left whole. Each process
+        of the group computes them from the same rows, but not to the same
+        bits where a library's gradient is not reproducible (cuDNN's
+        convolution weight gradients); Adam would then step the replicas
+        apart. An all-reduce hands every process the same sum, so the
+        replicas stay bit-equal."""
+        sharded = set(sharded_parameters(model))
+        grads = [p.grad for name, p in model.named_parameters()
+                 if name not in sharded and p.grad is not None]
+        if not grads:
+            return
+        flat = torch.cat([g.reshape(-1).float() for g in grads])
+        tdist.all_reduce(flat, op=tdist.ReduceOp.SUM, group=self._model_group)
+        flat /= self.model_count
+        offset = 0
+        with torch.no_grad():
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
 
     # -- host values ---------------------------------------------------------
 

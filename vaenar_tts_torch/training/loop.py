@@ -12,9 +12,15 @@
 * the device data cache (``train.device_data_cache_mb`` > 0): when every
   train batch has one shape and the train and dev splits together fit in
   the cap (the JAX package counts the train split alone), both are copied to
-  the device once, and each step takes its batch by index. The JAX
-  package's one-dispatch epoch (``device_cache_epoch_scan``) has no
-  counterpart yet: asking for it raises at the start;
+  the device once, and each step takes its batch by index. With
+  ``train.device_cache_epoch_scan`` as well, each epoch's train steps run
+  through ``steps.make_epoch_runner`` (the JAX package's one ``lax.scan``
+  dispatch an epoch): on the card a CUDA graph of one step, captured per
+  reduction factor and replayed once a step (Adam is capturable on the card
+  whatever the flag, so both paths run one arithmetic); on the CPU the same
+  eager steps. The init pass, the priming step, dev, the test
+  artifacts, probes and checkpoints stay eager, as in the JAX package. The
+  flag with ``train.remat`` other than "off" raises at the start;
 * the dev loss after each epoch, weighted by real utterances;
 * a checkpoint every ``checkpoint_every_n_epochs`` and after the last epoch;
 * an optional product-metric probe (``training/probe.py``) every
@@ -71,9 +77,9 @@ DistContext`` of several processes), as the JAX package's ``dist`` path:
 * each process writes ``log_dir/process_<i>.json``: its device, backend,
   batch packer, kernel launch counts and the checkpoints it wrote.
 
-Left out under ``dist``, as in the JAX package: the device data cache and
-the probes (each prints that it is off). ``device_cache_epoch_scan`` has no
-counterpart in either mode.
+Left out under ``dist``, as in the JAX package: the device data cache (so
+``device_cache_epoch_scan`` does nothing) and the probes (each prints that
+it is off).
 """
 
 from __future__ import annotations
@@ -94,6 +100,7 @@ from ..configs.hparams import HParams
 from ..configs.serialize import save_hparams
 from ..data.loader import Batch, BucketedLoader, repad_batch
 from ..data.records import list_shards
+from ..models.attention import remat_mode
 from ..models.vaenar import resolve_device
 from ..ops.flash_attention import launch_counts
 from ..parallel.data_group import data_group
@@ -101,7 +108,7 @@ from ..utils.checkpoint import CheckpointManager, checkpoint_epochs
 from ..utils.logging import MetricsWriter
 from ..utils.metrics import batch_summary
 from ..utils.prefetch import prefetch
-from .steps import (dev_step, init_model, make_optimizer, metric_floats,
+from .steps import (dev_step, init_model, make_epoch_runner, make_optimizer, metric_floats,
                     run_data_dependent_init, test_step, train_step)
 
 
@@ -187,7 +194,8 @@ def device_cache(hp: HParams, train_loader: BucketedLoader, dev_loader: Bucketed
     The train cache is the train batches stacked in their base order, a
     tuple of [n_batches, ...] tensors on ``device``; the dev cache is a list
     of (texts, mels, text lengths, mel lengths, valid mask, n_valid), one a
-    dev batch. Both splits count against ``device_data_cache_mb``."""
+    dev batch. Both splits count against ``device_data_cache_mb``. The ON
+    line ends with how the train steps will run over the cache."""
     cap = hp.train.device_data_cache_mb
     if not cap or cap <= 0 or len(train_loader) == 0:
         return None, None
@@ -206,9 +214,15 @@ def device_cache(hp: HParams, train_loader: BucketedLoader, dev_loader: Bucketed
                         zip(*(to_device(b, device) for b in batches)))
     dev_cache = [(*to_device(b, device), valid_mask(b, device), b.n_valid)
                  for b in dev_loader.all_batches()]
+    if not hp.train.device_cache_epoch_scan:
+        mode = "per-step dispatch over device gathers"
+    elif device.type == "cuda":
+        mode = "one CUDA graph of a train step per reduction factor, replayed once a step"
+    else:
+        mode = "the epoch runner's eager steps (no CUDA graph off the card)"
     print(f"device data cache ON: {len(batches)} train batches ({train_mb:.3f} MB) + "
           f"{len(dev_cache)} dev batches ({dev_mb:.3f} MB), both counted against "
-          f"device_data_cache_mb={cap}, on {device}")
+          f"device_data_cache_mb={cap}, on {device}; {mode}")
     return train_cache, dev_cache
 
 
@@ -243,14 +257,17 @@ def train(hp: HParams, data_dir: str, model_dir: str, log_dir: str,
     "initial": the priming step's metrics or None, "train", "dev", "probe",
     "test": {epoch: metrics}, "stopped": None, "sigterm" or "probe",
     "cache": whether the device data cache was on, "packer": the train
-    loader's batch packer}."""
+    loader's batch packer, "runner": the epoch runner's ``report()`` or
+    None}."""
     checkpoint_epochs(model_dir)  # a foreign directory raises before any write
-    if hp.train.device_cache_epoch_scan:
-        raise ValueError("train.device_cache_epoch_scan=True (the JAX package's one "
-                         "lax.scan dispatch an epoch) has no counterpart in the port yet; "
-                         "set it to false (the cache then runs a step per batch)")
     if dist is not None and dist.process_count == 1:
         dist = None
+    if (dist is None and hp.train.device_cache_epoch_scan
+            and remat_mode(hp.train.remat) != "off"):
+        raise ValueError(f"train.device_cache_epoch_scan=True with train.remat="
+                         f"{hp.train.remat!r} is not supported: activation checkpointing "
+                         f"has not been checked inside a CUDA graph of the step; set "
+                         f"train.remat=off or train.device_cache_epoch_scan=false")
     is_main = dist is None or dist.is_main
     dev = resolve_device(dist.device if dist is not None else device)
     train_loader, dev_loader, test_loader = make_loaders(hp, data_dir, dist)
@@ -313,7 +330,7 @@ def train(hp: HParams, data_dir: str, model_dir: str, log_dir: str,
     history: Dict[str, object] = {"initial": None, "train": {}, "dev": {}, "probe": {},
                                   "test": {}, "stopped": None,
                                   "cache": train_cache is not None,
-                                  "packer": train_loader.packer}
+                                  "packer": train_loader.packer, "runner": None}
     if start is not None:
         print(f"Restored from epoch {start}")
     else:
@@ -331,6 +348,8 @@ def train(hp: HParams, data_dir: str, model_dir: str, log_dir: str,
         print("Initial step:", initial)
         history["initial"] = initial
 
+    runner = (make_epoch_runner(model, optimizer, hp, train_cache)
+              if train_cache is not None and hp.train.device_cache_epoch_scan else None)
     stop = {"sigterm": False}
 
     def on_sigterm(_sig, _frame):
@@ -357,33 +376,41 @@ def train(hp: HParams, data_dir: str, model_dir: str, log_dir: str,
             epoch_start = time.time()
             sums: Dict[str, torch.Tensor] = {}
             n_steps = 0
-            if train_cache is not None:
-                order = train_loader.batch_order(epoch)[:steps_per_epoch or None]
-                batch_iter = (tuple(x[i] for x in train_cache) for i in order)
-            else:
-                # in the main thread: under dist it is a collective
-                schedule = train_schedule(epoch)
-
-                def device_batches():
-                    for i, b in enumerate(train_loader.epoch(epoch, shape_schedule=schedule)):
-                        if steps_per_epoch and i >= steps_per_epoch:
-                            return  # the prefetch worker drains and exits
-                        yield to_device(b, dev)
-                batch_iter = prefetch(device_batches())
             interrupted = False
-            with contextlib.closing(batch_iter):
-                for batch in batch_iter:
-                    if stop["sigterm"] and dist is None:
-                        interrupted = True
-                        break
-                    step_start = time.time()
-                    m = train_step(model, optimizer, hp, *batch, kl_weight, r, gen, dist=dist)
-                    n_steps += 1
-                    if n_steps % log_every == 0 or n_steps == 1:
-                        print(f"  step {n_steps}: " + ", ".join(
-                            f"{k} {v:.6f}" for k, v in metric_floats(m).items())
-                            + f", time {time.time() - step_start:.3f}s", flush=True)
-                    sums = {k: sums[k] + v if k in sums else v for k, v in m.items()}
+            if runner is not None:
+                if stop["sigterm"]:  # before the epoch: none of it runs
+                    interrupted = True
+                else:
+                    order = train_loader.batch_order(epoch)[:steps_per_epoch or None]
+                    sums, n_steps = runner(order, kl_weight, r, gen)
+            else:
+                if train_cache is not None:
+                    order = train_loader.batch_order(epoch)[:steps_per_epoch or None]
+                    batch_iter = (tuple(x[i] for x in train_cache) for i in order)
+                else:
+                    # in the main thread: under dist it is a collective
+                    schedule = train_schedule(epoch)
+
+                    def device_batches():
+                        for i, b in enumerate(train_loader.epoch(epoch, shape_schedule=schedule)):
+                            if steps_per_epoch and i >= steps_per_epoch:
+                                return  # the prefetch worker drains and exits
+                            yield to_device(b, dev)
+                    batch_iter = prefetch(device_batches())
+                with contextlib.closing(batch_iter):
+                    for batch in batch_iter:
+                        if stop["sigterm"] and dist is None:
+                            interrupted = True
+                            break
+                        step_start = time.time()
+                        m = train_step(model, optimizer, hp, *batch, kl_weight, r, gen,
+                                       dist=dist)
+                        n_steps += 1
+                        if n_steps % log_every == 0 or n_steps == 1:
+                            print(f"  step {n_steps}: " + ", ".join(
+                                f"{k} {v:.6f}" for k, v in metric_floats(m).items())
+                                + f", time {time.time() - step_start:.3f}s", flush=True)
+                        sums = {k: sums[k] + v if k in sums else v for k, v in m.items()}
             if interrupted:
                 if last_saved != epoch - 1:
                     ckpt.save_state(epoch - 1, *snapshot)
@@ -451,6 +478,8 @@ def train(hp: HParams, data_dir: str, model_dir: str, log_dir: str,
             signal.signal(signal.SIGTERM, prev_handler)
         metrics_train.close()
         metrics_dev.close()
+    if runner is not None:
+        history["runner"] = runner.report()
     if dist is not None:
         report = {"process_index": dist.process_index, "process_count": dist.process_count,
                   "backend": dist.backend, "device": str(dev), "packer": train_loader.packer,

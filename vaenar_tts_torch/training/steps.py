@@ -28,14 +28,24 @@ model group hold the same rows, run one model together (its
 tensor-parallel shards, ``parallel/mesh.shard_params``, and its ring
 self-attentions, ``VAENAR(seq_mesh=)``) and must draw from generators in
 the same state. A shard's gradient is averaged with the shards of its model
-coordinate, and Adam steps each process's shards.
+coordinate, and Adam steps each process's shards; the gradients of the
+parameters left whole are then averaged over the model group
+(``DistContext.average_replicas``), so that every process of the group
+applies the same update to its replica.
+
+``make_epoch_runner`` runs an epoch of steps over the device data cache:
+on the card as replays of a CUDA graph of one step, on the CPU as the
+eager steps.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional, Tuple
+import time
+from collections import Counter
+from typing import Dict, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -44,6 +54,7 @@ from ..models.flow import ActNorm, InvertibleLinear, TransformerTransform
 from ..models.layers import BatchNorm
 from ..models.posterior import TransformerPosterior
 from ..models.vaenar import VAENAR, resolve_device
+from ..ops.flash_attention import launch_counts
 from ..parallel.data_group import data_group
 
 # flax's truncated normal: N(0, 1) cut at +-2, rescaled to unit variance
@@ -104,12 +115,20 @@ def init_model(hp: HParams, seed: int, device="cuda") -> VAENAR:
     return init_parameters(VAENAR(hp), seed).to(dev)
 
 
-def make_optimizer(hp: HParams, model: nn.Module) -> torch.optim.Adam:
+def make_optimizer(hp: HParams, model: nn.Module,
+                   capturable: Optional[bool] = None) -> torch.optim.Adam:
     """Adam(learning_rate, b1, b2, eps) as the JAX package's optax.adam:
-    both apply lr * m̂ / (sqrt(v̂) + eps)."""
+    both apply lr * m̂ / (sqrt(v̂) + eps). ``capturable`` (None: whether the
+    parameters are on the card) keeps the step counts on the card and makes
+    the bias corrections fp32 tensors, as optax computes them, which a CUDA
+    graph of the step needs (``make_epoch_runner``). Every step on the card
+    then runs one arithmetic, graphed or not; on the CPU Adam rounds its
+    bias corrections from host doubles."""
+    if capturable is None:
+        capturable = next(model.parameters()).is_cuda
     return torch.optim.Adam(model.parameters(), lr=hp.train.learning_rate,
                             betas=(hp.train.adam_beta1, hp.train.adam_beta2),
-                            eps=hp.train.adam_eps)
+                            eps=hp.train.adam_eps, capturable=capturable)
 
 
 def _metrics(mel_l2, kl, length_loss, pinball, total) -> Dict[str, torch.Tensor]:
@@ -133,7 +152,7 @@ def _world(dist) -> Tuple[int, int]:
 
 def train_step(model: VAENAR, optimizer: torch.optim.Optimizer, hp: HParams,
                texts: torch.Tensor, mels: torch.Tensor, t_lens: torch.Tensor,
-               m_lens: torch.Tensor, kl_weight: float, reduction_factor: int,
+               m_lens: torch.Tensor, kl_weight, reduction_factor: int,
                generator: Optional[torch.Generator] = None,
                epsilon: Optional[torch.Tensor] = None,
                dist=None) -> Dict[str, torch.Tensor]:
@@ -143,7 +162,9 @@ def train_step(model: VAENAR, optimizer: torch.optim.Optimizer, hp: HParams,
     from one micro-batch to the next. Returns the metrics (device scalars,
     averaged over the micro-batches). ``epsilon``: the posterior noise of
     the whole batch, [B, n, T_reduced, latent], in place of draws from
-    ``generator``.
+    ``generator``. ``kl_weight``: a float, or a 0-d fp32 tensor on the
+    batch's device that the step reads when it runs (a CUDA graph of the
+    step reads it at each replay).
 
     With ``dist`` (W processes) the tensors are this process's rows of the
     global batch and ``epsilon``, if given, the global batch's noise. The
@@ -191,8 +212,169 @@ def train_step(model: VAENAR, optimizer: torch.optim.Optimizer, hp: HParams,
             sums[k] = sums[k] + v if k in sums else v
     if world > 1:
         sums = dist.average_gradients(list(model.parameters()), sums)
+    if dist is not None and dist.model_count > 1:
+        dist.average_replicas(model)
     optimizer.step()
     return {k: v / accum for k, v in sums.items()}
+
+
+# warm-up steps before a capture: the first launch of each attention kernel
+# sets its shared-memory attribute, cuBLAS and cuDNN pick their algorithms
+# and workspaces, and Adam makes its state, none of which may happen while
+# the stream is captured
+WARMUP_STEPS = 2
+
+
+class EpochRunner:
+    """``run_epoch(order, kl_weight, reduction_factor, generator)`` (call the
+    runner): ``train_step`` on the cached batches ``cache[order[i]]`` in
+    order, with ``kl_weight`` and the draws of ``generator``; returns (the
+    metric sums, device scalars; the number of steps). The draws, batches
+    and resulting state are those of the eager loop's steps over the same
+    cache (``training/loop.py``), and ``generator`` ends in the state those
+    steps leave it in, for the dev steps that follow. The counterpart of
+    the JAX package's ``make_epoch_runner`` (one ``lax.scan`` an epoch).
+
+    On the CPU it runs those eager steps. On the card it captures one step
+    in a ``torch.cuda.CUDAGraph`` for each reduction factor (the previous
+    factor's graph is freed) and replays it once a step: the graph takes the
+    batch ``cache[order[pos]]`` by a device index ``pos`` that it advances
+    itself, reads ``kl_weight`` from a device scalar, adds the metrics to
+    device sums, and draws from a generator of its own, registered with the
+    graph and set to ``generator``'s state before the replays (``generator``
+    takes the state it ends in). The host does nothing a step but the
+    replay. One step, not the epoch, is captured: the capture then costs
+    the time of one step whatever ``steps_per_epoch``, the graph serves any
+    order and length of epoch, and the pool holds one step's buffers. The
+    optimizer must be capturable (``make_optimizer`` makes it so on the
+    card).
+    Before a capture the runner takes ``WARMUP_STEPS`` steps on a side
+    stream and then puts the parameters, buffers and Adam's state back to
+    the values they had, in place. A capture or replay that fails raises:
+    nothing falls back to the eager steps.
+
+    ``captured_launches`` {reduction factor: {kernel: launches in one
+    captured step}}, ``replays`` (steps replayed, all factors),
+    ``capture_s`` and ``capture_bytes`` {reduction factor: seconds to
+    capture, bytes the capture allocated at most in the graph's pool} are
+    there to read. A replay adds nothing to ``launch_counts``, which counts
+    the wrappers' launches: the warm-up steps' and the capture's."""
+
+    def __init__(self, model: VAENAR, optimizer: torch.optim.Optimizer, hp: HParams,
+                 cache: Sequence[torch.Tensor]):
+        self.model, self.optimizer, self.hp = model, optimizer, hp
+        self.cache = tuple(cache)
+        self.device = self.cache[0].device
+        self.n_batches = self.cache[0].shape[0]
+        self.graphed = self.device.type == "cuda"
+        self.captured_launches: Dict[int, Dict[str, int]] = {}
+        self.capture_s: Dict[int, float] = {}
+        self.capture_bytes: Dict[int, int] = {}
+        self.replays = 0
+        self._graph = self._sums = self._r = None
+        if self.graphed:
+            if not all(g.get("capturable") for g in optimizer.param_groups):
+                raise ValueError("a graphed epoch needs a capturable optimizer "
+                                 "(make_optimizer's on the card)")
+            self._order = torch.zeros(self.n_batches, dtype=torch.int64, device=self.device)
+            self._pos = torch.zeros(1, dtype=torch.int64, device=self.device)
+            self._kl = torch.zeros((), dtype=torch.float32, device=self.device)
+            self._gen = torch.Generator(device=self.device)
+
+    def __call__(self, order, kl_weight: float, reduction_factor: int,
+                 generator: torch.Generator) -> Tuple[Dict[str, torch.Tensor], int]:
+        order = np.asarray(order, np.int64).reshape(-1)
+        if len(order) and (order.min() < 0 or order.max() >= self.n_batches):
+            raise ValueError(f"batch order {order} outside the cache's {self.n_batches} batches")
+        if not self.graphed:
+            sums: Dict[str, torch.Tensor] = {}
+            for i in order:
+                m = train_step(self.model, self.optimizer, self.hp, *(x[i] for x in self.cache),
+                               kl_weight, reduction_factor, generator)
+                sums = {k: sums[k] + v if k in sums else v for k, v in m.items()}
+            return sums, len(order)
+        if not len(order):
+            return {}, 0
+        if reduction_factor != self._r:
+            self._capture(reduction_factor)
+        self._order[:len(order)].copy_(torch.from_numpy(order))
+        self._pos.zero_()
+        self._kl.fill_(kl_weight)
+        for v in self._sums.values():
+            v.zero_()
+        self._gen.set_state(generator.get_state())
+        for _ in range(len(order)):
+            self._graph.replay()
+        self.replays += len(order)
+        generator.set_state(self._gen.get_state())
+        return {k: v.clone() for k, v in self._sums.items()}, len(order)
+
+    def _step(self, reduction_factor: int) -> Dict[str, torch.Tensor]:
+        """The step a graph holds: the batch at ``order[pos]``, then ``pos``
+        advanced."""
+        idx = self._order.index_select(0, self._pos)
+        batch = [x.index_select(0, idx).squeeze(0) for x in self.cache]
+        m = train_step(self.model, self.optimizer, self.hp, *batch, self._kl,
+                       reduction_factor, self._gen)
+        self._pos.add_(1)
+        return m
+
+    def _capture(self, reduction_factor: int) -> None:
+        self._graph = self._sums = self._r = None  # the previous factor's graph goes
+        model, opt, dev = self.model, self.optimizer, self.device
+        params = list(model.state_dict().values())
+        saved = [t.clone() for t in params]
+        opt_saved = {p: {k: v.clone() for k, v in st.items() if torch.is_tensor(v)}
+                     for p, st in opt.state.items()}
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_STEPS):
+                self._pos.zero_()  # a cache of one batch has one index to read
+                m = self._step(reduction_factor)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        with torch.no_grad():
+            for t, v in zip(params, saved):
+                t.copy_(v)
+            for p, st in opt.state.items():
+                for k, v in st.items():
+                    if not torch.is_tensor(v):
+                        continue
+                    if k in opt_saved.get(p, {}):
+                        v.copy_(opt_saved[p][k])
+                    else:  # made by the warm-up: Adam starts it at 0
+                        v.zero_()
+        del saved, opt_saved
+        opt.zero_grad(set_to_none=True)
+        sums = {k: torch.zeros((), dtype=v.dtype, device=dev) for k, v in m.items()}
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self._gen)
+        before = Counter(launch_counts)
+        torch.cuda.synchronize(dev)
+        base = torch.cuda.memory_allocated(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        start = time.perf_counter()
+        with torch.cuda.graph(graph):
+            for k, v in self._step(reduction_factor).items():
+                sums[k].add_(v)
+        torch.cuda.synchronize(dev)
+        self.capture_s[reduction_factor] = time.perf_counter() - start
+        self.capture_bytes[reduction_factor] = torch.cuda.max_memory_allocated(dev) - base
+        self.captured_launches[reduction_factor] = dict(Counter(launch_counts) - before)
+        self._graph, self._sums, self._r = graph, sums, reduction_factor
+
+    def report(self) -> Dict[str, object]:
+        return {"graphed": self.graphed, "replays": self.replays,
+                "captured_launches": self.captured_launches, "capture_s": self.capture_s,
+                "capture_bytes": self.capture_bytes}
+
+
+def make_epoch_runner(model: VAENAR, optimizer: torch.optim.Optimizer, hp: HParams,
+                      cache: Sequence[torch.Tensor]) -> EpochRunner:
+    """The runner of epochs over ``cache``, the stacked train batches of
+    ``training.loop.device_cache`` (texts, mels, text and mel lengths, each
+    [n_batches, ...] on one device); see ``EpochRunner``."""
+    return EpochRunner(model, optimizer, hp, cache)
 
 
 @torch.no_grad()

@@ -133,5 +133,25 @@ class CheckpointManager:
                            weights_only=True)
         model.load_state_dict(state["model"], strict=True)
         if optimizer is not None and state["optimizer"] is not None:
+            capturable = [g.get("capturable") for g in optimizer.param_groups]
             optimizer.load_state_dict(state["optimizer"])
+            _keep_capturable(optimizer, capturable)
         return int(state["epoch"])
+
+
+def _keep_capturable(optimizer: torch.optim.Optimizer, flags) -> None:
+    """A checkpoint's param groups carry the ``capturable`` flag of the
+    optimizer that saved them (Adam: step counts on the card, for a CUDA
+    graph). Put back the restoring optimizer's own ``flags`` and move each
+    step count to where torch keeps it for that flag: fp32 on the
+    parameter's device when capturable, on the host otherwise. A checkpoint
+    then resumes across ``train.device_cache_epoch_scan`` either way."""
+    for group, flag in zip(optimizer.param_groups, flags):
+        if flag is None:  # an optimizer without the flag
+            continue
+        group["capturable"] = flag
+        for p in group["params"]:
+            state = optimizer.state.get(p, {})
+            if "step" in state:
+                state["step"] = (state["step"].to(device=p.device, dtype=torch.float32) if flag
+                                 else state["step"].cpu())

@@ -168,8 +168,14 @@ dK/dV kernel reads: a backward launches those two kernels and nothing else.
    step launched and the replays; the epoch runner alone from the trained
    state: wall an epoch and ms a step graphed and eager, the device busy
    share of each under torch.profiler, the capture's seconds and its pool's
-   peak bytes; and in a process of its own (`--graph-failure-worker`) a
-   capture that fails raises with no step run eagerly.
+   peak bytes; train.remat inside the graph (bf16 "on" and "dots", fp32
+   "on" under deterministic cuDNN): 2 epochs with the flag against 2
+   without it under the same remat, losses and weights equal to the bit,
+   the forward kernel launched twice for each attention of the captured
+   step, each run a path of its own, then ms a step graphed and eager, the
+   capture's seconds and its pool's peak beside the no-remat run's; and in
+   a process of its own (`--graph-failure-worker`) a capture that fails
+   raises with no step run eagerly.
 
 Each phase prints a JSON line {"phase": ..., "seconds": ...} first. A failed
 check raises; the script then exits non-zero without printing the final
@@ -366,6 +372,14 @@ SIGTERM_TIMEOUT_S = 400
 # the default settings.
 GRAPH_TRAIN, GRAPH_REPS = 128, 3
 GRAPH_SCHEDULE = ["train.reduction_factors=(5,2)", "train.reduce_interval=(0,2)"]
+# train.remat inside the graphed epoch: per dtype, the modes run 2 epochs
+# with the flag against 2 without it (both under the same remat; fp32 under
+# deterministic cuDNN), losses and epoch-2 weights equal to the bit, the
+# captured step launching the forward kernel twice for each attention; then
+# GRAPH_REMAT_REPS epochs each way from the trained state (one: an eager
+# remat epoch takes 1-3 s of host time)
+GRAPH_REMAT_MODES = {"float32": ("on",), "bfloat16": ("on", "dots")}
+GRAPH_REMAT_REPS = 1
 TOL_GRAPH_FP32_REL = 1e-5
 TOL_GRAPH_FP32_DEFAULT_REL = 1e-2
 # remat and batched_lu: timed steps per mode; the prior's log-probability
@@ -427,7 +441,7 @@ FLEET_TIMEOUT_S = 300
 # the card (PERF.md §6). Then TP_BF16_STEPS bf16 steps with finite
 # losses.
 # traces of one backward taken at most, where the profiler's device trace
-# comes back without the marker kernel (check_backward_launches)
+# comes back without both marker kernels (check_backward_launches)
 PROFILE_TRIES = 3
 RING_CASES = (("causal_1680", 1680, True), ("self_3360", 3360, False))
 RING_REPS = 5
@@ -704,6 +718,11 @@ def backward_cases(torch, device):
          fixed_len(torch, device, 130, 97, 17, 1)),
         ("row_edges_97x130", 97, 130, False, fixed_len(torch, device, 97, 65, 63, 48),
          fixed_len(torch, device, 65, 0, 16, 15)),
+        # edges of the bf16 dQ kernel's narrowed key tiles (16, 32, 48 or 64
+        # keys): 15, 16, 49 and 81 keys below m_len (a last tile of 17), at
+        # q lengths that fill two q-tiles, one, part of one and one row
+        ("key_edges_bwd_130x81", 130, 81, False, fixed_len(torch, device, 130, 64, 17, 1),
+         fixed_len(torch, device, 15, 16, 49, 81)),
     ]
 
 
@@ -782,12 +801,15 @@ def check_backward_launches(torch, fa, device):
     dtype's dQ and dK/dV kernel once each and nothing else (no delta pass).
 
     The profiler's device trace can come back empty (it did once on an
-    H100 under torch 2.11, for a backward that ran). So a marker kernel
-    (bitwise_not, which no backward runs) is launched on the same stream
-    after the backward: a trace that holds it has recorded every kernel
-    before it and is held to the check; one without it traced nothing
-    trustworthy and is taken again, at most PROFILE_TRIES times in all.
-    Returns {dtype: {"kernels": [[kernel, launches], ...], "traces": n}}."""
+    H100 under torch 2.11, for a backward that ran), or without the first
+    kernels of the session (a trace of the fp32 backward held its dK/dV
+    kernel and not the dQ kernel launched just before it). So a marker
+    kernel (bitwise_not, which no backward runs) is launched on the same
+    stream before the backward and again after it: a trace that holds both
+    has recorded every kernel between them and is held to the check; one
+    without both traced nothing trustworthy and is taken again, at most
+    PROFILE_TRIES times in all. Returns {dtype: {"kernels": [[kernel,
+    launches], ...], "traces": n}}."""
     from torch.profiler import ProfilerActivity, profile
     ql = length_sampler(torch, device, 13)(240, 60, (0, 240))
     marker = torch.zeros(1, dtype=torch.int32, device=device)
@@ -800,6 +822,8 @@ def check_backward_launches(torch, fa, device):
         torch.cuda.synchronize()
         for traces in range(1, PROFILE_TRIES + 1):
             with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                torch.bitwise_not(marker)
+                torch.cuda.synchronize()
                 fa.masked_flash_attention_backward(q, k, v, ql, ql, o, m, s, do, 0.125, True)
                 torch.bitwise_not(marker)
                 torch.cuda.synchronize()
@@ -807,12 +831,12 @@ def check_backward_launches(torch, fa, device):
                            if e.device_type == torch.autograd.DeviceType.CUDA
                            and e.self_device_time_total > 0 and not e.is_user_annotation]
             marked = [n for key, n in device_rows if "bitwise_not" in key]
-            if marked == [1]:
+            if marked == [2]:
                 break
             print(json.dumps({"backward_trace_without_marker": dtype_name, "trace": traces,
                               "device_rows": device_rows}), flush=True)
-        check(marked == [1], f"{dtype_name}: the profiler traced no marker kernel in "
-              f"{PROFILE_TRIES} tries ({device_rows}): it records no device kernels here")
+        check(marked == [2], f"{dtype_name}: the profiler traced the two marker kernels in "
+              f"none of {PROFILE_TRIES} tries ({device_rows}): it records no whole trace here")
         ran = sorted(row for row in device_rows if "bitwise_not" not in row[0])
         found[dtype_name] = {"kernels": ran, "traces": traces}
         want = [f"{fa.kernel_name(kind, dtype)}_kernel" for kind in ("dq", "dkv")]
@@ -1776,14 +1800,18 @@ def epoch_graph_phase(torch, np, fa, tmp, device, smi, init_pass, per_step):
     its own, its launches counted from 0. Then the epoch runner alone on
     the trained state: GRAPH_REPS epochs graphed and eager (wall, ms a
     step), one of each under torch.profiler (device busy share), the
-    capture's seconds and pool bytes. Returns ({path: launches}, {dtype:
-    {kernel: launches replayed in graphs}})."""
+    capture's seconds and pool bytes. Then, per GRAPH_REMAT_MODES, 2 epochs
+    with the flag against 2 without it under that ``train.remat`` (each run
+    a path), losses and epoch-2 weights equal to the bit, and the runner
+    alone from the flag's state: GRAPH_REMAT_REPS epochs graphed and eager,
+    the capture's seconds and pool bytes beside the no-remat run's. Returns
+    ({path: launches}, {dtype: {kernel: launches replayed in graphs}})."""
     from vaenar_tts_torch.cli import train as cli_train
     from vaenar_tts_torch.configs.overrides import apply_overrides
     from vaenar_tts_torch.configs.serialize import load_hparams
     from vaenar_tts_torch.models.vaenar import VAENAR
     from vaenar_tts_torch.training import loop, steps
-    from vaenar_tts_torch.utils.checkpoint import CheckpointManager
+    from vaenar_tts_torch.utils.checkpoint import STATE_NAME, CheckpointManager
     from torch.profiler import ProfilerActivity, profile
 
     from vaenar_tts_torch.utils.profiling import device_summary
@@ -1804,16 +1832,17 @@ def epoch_graph_phase(torch, np, fa, tmp, device, smi, init_pass, per_step):
                      "train.checkpoint_every_n_epochs=2", *GRAPH_SCHEDULE]
         run_walls = {}
 
-        def train(run, ckpt, scan, max_epochs, cold):
-            """``cli.train`` into the model directory ``ckpt``; its launches
-            are path ``run``'s, counted from 0."""
+        def train(run, ckpt, scan, max_epochs, cold, extra=()):
+            """``cli.train`` into the model directory ``ckpt``, with the
+            overrides ``extra`` as well; its launches are path ``run``'s,
+            counted from 0."""
             argv = ["--dataset", "ljspeech", "--data_dir", records,
                     "--model_dir", os.path.join(root, ckpt), "--log_dir",
                     os.path.join(root, run + "_logs"), "--device", device,
                     "--max_epochs", str(max_epochs), "--no-draw_plots"]
             if cold:
                 argv += ["--hparams", os.path.join(MODEL_DIR, "hparams.json")]
-            for o in overrides + [f"train.device_cache_epoch_scan={str(scan).lower()}"]:
+            for o in [*overrides, *extra, f"train.device_cache_epoch_scan={str(scan).lower()}"]:
                 argv += ["--override", o]
             fa.launch_counts.clear()
             start = time.perf_counter()
@@ -1887,24 +1916,33 @@ def epoch_graph_phase(torch, np, fa, tmp, device, smi, init_pass, per_step):
                              ["train.device_cache_epoch_scan=true"])
         train_loader, dev_loader, _ = loop.make_loaders(hp, records)
         cache, _ = loop.device_cache(hp, train_loader, dev_loader, torch.device(device))
-        model = VAENAR(hp).to(device)
-        graphed_opt = steps.make_optimizer(hp, model)
-        CheckpointManager(os.path.join(root, "on")).restore(model, graphed_opt)
-        eager_opt = steps.make_optimizer(hp, model)
-        CheckpointManager(os.path.join(root, "on")).restore(model, eager_opt)
-        run = steps.make_epoch_runner(model, graphed_opt, hp, cache)
-        order = train_loader.batch_order(4)[:n_steps]
-        r, kl = hp.train.reduction_factor_at(4), hp.train.kl_weight_at(4)
-        gen = torch.Generator(device=device).manual_seed(4)
 
-        def graphed():
-            run(order, kl, r, gen)
+        def epochs_alone(ckpt, epoch):
+            """(runner, r, graphed, eager) from the checkpoint in ``ckpt``:
+            one epoch of ``epoch``'s order through the runner (captured
+            here), or through eager steps on a second Adam restored alike."""
+            hp_c = apply_overrides(load_hparams(os.path.join(root, ckpt)),
+                                   ["train.device_cache_epoch_scan=true"])
+            model_c = VAENAR(hp_c).to(device)
+            opts = [steps.make_optimizer(hp_c, model_c) for _ in range(2)]
+            for opt in opts:
+                CheckpointManager(os.path.join(root, ckpt)).restore(model_c, opt)
+            run_c = steps.make_epoch_runner(model_c, opts[0], hp_c, cache)
+            order = train_loader.batch_order(epoch)[:n_steps]
+            r_c, kl = hp_c.train.reduction_factor_at(epoch), hp_c.train.kl_weight_at(epoch)
+            gen = torch.Generator(device=device).manual_seed(epoch)
 
-        def eager():
-            for i in order:
-                steps.train_step(model, eager_opt, hp, *(x[i] for x in cache), kl, r, gen)
+            def graphed():
+                run_c(order, kl, r_c, gen)
 
-        graphed()  # the capture
+            def eager():
+                for i in order:
+                    steps.train_step(model_c, opts[1], hp_c, *(x[i] for x in cache), kl, r_c, gen)
+
+            graphed()  # the capture
+            return run_c, r_c, graphed, eager
+
+        run, r, graphed, eager = epochs_alone("on", 4)
         walls = {}
         for name, fn in (("graphed", graphed), ("eager", eager)):
             walls[name] = [timed(torch, fn)[1] for _ in range(GRAPH_REPS)]
@@ -1928,8 +1966,71 @@ def epoch_graph_phase(torch, np, fa, tmp, device, smi, init_pass, per_step):
         replayed[dtype] = {k: v * (runner["replays"] + off_then_on["runner"]["replays"]
                                    + default_replays + rep["replays"]) for k, v in want.items()}
         report[dtype]["runner_alone"]["seconds"] = time.perf_counter() - t_alone
-        del run, model, graphed_opt, eager_opt, cache
+        del run, graphed, eager
         print(json.dumps({"card": smi, "compute_dtype": dtype, **report[dtype]}), flush=True)
+
+        # train.remat inside the graph: the flag on against off under the
+        # same remat, then the runner alone from the flag's trained state
+        want_remat = {k: v * (2 if k == fwd else 1) for k, v in want.items()}
+        for mode in GRAPH_REMAT_MODES[dtype]:
+            t_mode = time.perf_counter()
+            extra = [f"train.remat={mode}"]
+            torch.backends.cudnn.deterministic = dtype == "float32"
+            try:
+                m_on, _, m_on_counts = train(f"remat_{mode}_flag_on", f"remat_{mode}_on", True, 2,
+                                             True, extra)
+                m_off, _, _ = train(f"remat_{mode}_flag_off", f"remat_{mode}_off", False, 2,
+                                    True, extra)
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+            m_runner = m_on["runner"]
+            m_want_counts = {k: per_step * ((2 if k == fwd else 1)
+                                            * (1 + (steps.WARMUP_STEPS + 1)
+                                               * len(m_runner["captured_launches"]))
+                                            + (2 * n_dev if k == fwd else 0))
+                             + (init_pass if k == fwd else 0) for k in want}
+            losses_equal = m_on["initial"] == m_off["initial"] and all(
+                m_on[split][e] == m_off[split][e] for e in (1, 2) for split in ("train", "dev"))
+            on_w, off_w = (torch.load(os.path.join(root, f"remat_{mode}_{flag}", "2", STATE_NAME),
+                                      map_location="cpu", weights_only=True)["model"]
+                           for flag in ("on", "off"))
+            weights_equal = on_w.keys() == off_w.keys() and all(
+                torch.equal(v, off_w[k]) for k, v in on_w.items())
+            del on_w, off_w
+            run, r, graphed, eager = epochs_alone(f"remat_{mode}_on", 3)
+            walls = {name: [timed(torch, fn)[1] for _ in range(GRAPH_REMAT_REPS)]
+                     for name, fn in (("graphed", graphed), ("eager", eager))}
+            m_rep = run.report()
+            del run, graphed, eager
+            pool, pool_off = m_runner["capture_bytes"], runner["capture_bytes"]
+            m_report = {
+                "remat": mode, "cudnn_deterministic": dtype == "float32",
+                "losses_bit_equal": losses_equal, "weights_bit_equal": weights_equal,
+                "ms_per_step": {k: [1e3 * w / n_steps for w in v] for k, v in walls.items()},
+                "reduction_factor": r, "capture_s": m_runner["capture_s"],
+                "capture_s_alone": m_rep["capture_s"],
+                "capture_pool_peak_bytes": pool, "no_remat_capture_pool_peak_bytes": pool_off,
+                "pool_peak_vs_no_remat": {f: pool[f] / pool_off[f] for f in pool},
+                "captured_launches": m_runner["captured_launches"],
+                "captured_launches_expected": want_remat,
+                "wrapper_launches_on": m_on_counts, "wrapper_launches_expected": m_want_counts,
+                "replays": m_runner["replays"], "cli_wall_s": {k: v for k, v in run_walls.items()
+                                                               if k.startswith(f"remat_{mode}_")}}
+            ok_mode = (losses_equal and weights_equal and m_on["cache"]
+                       and m_off["runner"] is None and m_runner["graphed"]
+                       and m_runner["replays"] == 2 * n_steps
+                       and sorted(m_runner["captured_launches"]) == [2, 5]
+                       and all(c == want_remat for c in m_runner["captured_launches"].values())
+                       and m_on_counts == m_want_counts
+                       and m_rep["captured_launches"] == {r: want_remat})
+            ok = ok and ok_mode
+            for k, v in want_remat.items():
+                replayed[dtype][k] += v * (m_runner["replays"] + m_rep["replays"])
+            m_report["seconds"] = time.perf_counter() - t_mode
+            report[dtype][f"remat_{mode}"] = m_report
+            print(json.dumps({"card": smi, "compute_dtype": dtype, "remat_in_graph": m_report}),
+                  flush=True)
+        del cache
     print(json.dumps({"card": smi, "cudnn_default_float32": report["cudnn_default_float32"]}),
           flush=True)
     failure_dir = os.path.join(tmp, "graph_failure")

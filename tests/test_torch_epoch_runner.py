@@ -15,7 +15,9 @@ graphed epoch against the eager one there):
 * a SIGTERM that arrives before a runner epoch stops the run there, with
   the last completed epoch checkpointed, and the resumed run ends where an
   uninterrupted one does;
-* the flag with ``train.remat`` on raises before anything is written;
+* ``loop.train`` with the flag and ``train.remat`` "on" or "dots" gives the
+  flag's absence under the same remat bit for bit, the runner's steps
+  going through the checkpoint;
 * a checkpoint keeps the restoring optimizer's ``capturable`` flag and
   puts Adam's step counts where torch keeps them for it.
 """
@@ -150,10 +152,28 @@ def test_sigterm_before_a_runner_epoch(records, tmp_path, monkeypatch):
             assert resumed[split][epoch] == whole[split][epoch], (split, epoch)
 
 
-def test_flag_with_remat_raises_before_writing(records, tmp_path):
-    with pytest.raises(ValueError, match="device_cache_epoch_scan=True with train.remat='on'"):
-        run(tiny(CACHE, SCAN, "train.remat=on"), records, tmp_path / "m", 1)
-    assert not (tmp_path / "m").exists()
+@pytest.mark.parametrize("mode", ["on", "dots"])
+def test_flag_with_remat_matches_eager(records, tmp_path, monkeypatch, mode):
+    real, calls = torch.utils.checkpoint.checkpoint, []
+
+    def counted(*args, **kwargs):
+        calls.append(kwargs.get("context_fn") is torch.utils.checkpoint.noop_context_fn)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(torch.utils.checkpoint, "checkpoint", counted)
+    remat = f"train.remat={mode}"
+    off = run(tiny(CACHE, SCHEDULE, remat), records, tmp_path / "off", 2, steps_per_epoch=1)
+    n_off = len(calls)
+    on = run(tiny(CACHE, SCHEDULE, remat, SCAN), records, tmp_path / "on", 2, steps_per_epoch=1)
+    monkeypatch.setattr(torch.utils.checkpoint, "checkpoint", real)
+    # the runner's steps checkpoint the blocks as often as the eager ones
+    assert n_off > 0 and len(calls) == 2 * n_off
+    assert all(noop == (mode == "on") for noop in calls)
+    assert on["runner"]["graphed"] is False and off["runner"] is None
+    assert_same_runs(on, off)
+    hp = tiny()
+    a, b = weights(hp, tmp_path / "on", 2), weights(hp, tmp_path / "off", 2)
+    assert all(torch.equal(a[k], b[k]) for k in a)
 
 
 def test_checkpoint_keeps_the_restoring_optimizers_capturable(tmp_path):

@@ -1,6 +1,6 @@
 // Asynchronous global-to-shared copies (cp.async) and named barriers, shared
 // by the attention kernels of both dtypes: the bf16 tensor-core kernels
-// (mma_bf16.cuh) and the fp32 ones (tile_f32.cuh).
+// (wgmma_bf16.cuh) and the fp32 ones (tile_f32.cuh).
 
 #pragma once
 

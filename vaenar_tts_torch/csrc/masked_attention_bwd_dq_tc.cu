@@ -1,6 +1,6 @@
-// Masked multi-head attention, backward, the dQ kernel, bf16 on the tensor
-// cores, for sm_90a. Plain C interface, bound from Python with ctypes
-// (vaenar_tts_torch/ops/flash_attention.py,
+// Masked multi-head attention, backward, the dQ kernel, bf16 on Hopper's
+// tensor cores (wgmma), for sm_90a. Plain C interface, bound from Python
+// with ctypes (vaenar_tts_torch/ops/flash_attention.py,
 // masked_flash_attention_backward); bf16 inputs take this kernel, fp32 ones
 // masked_attention_bwd.cu's dQ kernel. It also forms delta = rowsum(dO * O),
 // which the dK/dV kernel (masked_attention_bwd_dkv_tc.cu), launched after it
@@ -21,28 +21,60 @@
 // A row with no unmasked key (row >= q_len, or every row when m_len == 0)
 // has dQ = 0. Null length pointers mean full lengths.
 //
-// Design (masked_attention_bwd_dkv_tc.cu turned around). A block of 4 warps
-// owns 64 query rows of one (b, h); each warp owns 16 of them, with its
-// 16 x 64 fp32 dQ accumulator in registers. The block loads its Q and dO
-// tiles once by cp.async (16 bytes a thread) and each warp keeps its Q and
-// dO A fragments in registers for the whole key loop. K and V stream
-// through a two-stage ring of 64-key tiles filled with cp.async, the next
-// tile loading while the current one multiplies. Per key tile and warp, on
-// the tensor cores (mma.sync.m16n8k16, bf16 in, fp32 accumulate):
-//   S  = Q . K^T    (K B fragments by ldmatrix)
-//   dP = dO . V^T   (V B fragments by ldmatrix)
-//   dQ += dS . K    (dS from registers, K by ldmatrix.trans)
-// with P and dS formed in fp32 registers from the row's m, 1/s and delta.
-// dS is split into a bf16 high and low part, so the last product is two mma
-// (about 16 bits kept, relative error <= 2^-17): rounded once to bf16, P and
-// dS failed chip_smoke.py's bf16 tolerance, 1e-3 + 2^-7 |g| (unchanged), at
-// every checked shape of the dK/dV kernel (PERF.md §6).
+// What bounds it on an H100 at the training path's bf16 shapes (batch 32,
+// H=4, D=64, text 32, reduced mel 240 at r = 2, of which 54-144 rows are
+// valid): by chip_smoke.py's count (q, dO and O of the valid rows, the K
+// and V rows they see, dQ written whole in bf16 and delta whole in fp32;
+// an unmasked (row, key) pair costs 6*D operations) bytes, 0.092 ms a step
+// over 36 launches; the kernel takes several times that, because a launch
+// lasts as long as its heaviest block's chain of dependent steps
+// (scripts/torch_attention_blocks.py times every block): the lengths, the
+// loads of Q, dO and the first K/V tile, delta, then per key tile two
+// rounds of products with the exponentials between them, then the store.
 //
-// delta is formed at the start of the block, while key tile 0 is in flight:
-// two threads a row, each reading 32 columns of O from device memory (16
-// bytes a load, the rows with a key only) and of dO from the shared tile;
-// the warp's lanes pass the sums to the lanes whose rows they are by
-// shuffles. It is written once, before any product needs it.
+// Design for that chain (masked_attention_bwd_dkv_tc.cu turned around). A
+// block of one warp group (4 warps, 128 threads) owns 64 query rows of one
+// (b, h), with its 64 x 64 fp32 dQ accumulator in registers (wgmma's D
+// fragment: each warp 16 rows). Q and dO stay in shared memory; K and V
+// stream through a two-stage ring of 64-key tiles, the next tile loading
+// while the current one multiplies. All tiles land in wgmma's
+// 128-byte-swizzled layout straight from cp.async (16 bytes a thread), so
+// no copy or ldmatrix sits between a load and a product. Per key tile,
+// wgmma.mma_async over the warp group (m64nNk16, bf16 in, fp32 accumulate):
+//   S   = Q . K^T    (Q and K from shared memory, both K-major)
+//   dP  = dO . V^T   (the same, with dO and V)
+//   dQ += dS . K     (dS from registers, K an MN-major B)
+// P and dS are formed in fp32 registers from S and dP with the row's
+// m log2(e), 1/s and delta; the D fragment of the first two products is
+// the A fragment of the last.
+//   * The last key tile is narrowed to the keys it needs (at m_len, or at
+//     the q-tile's last valid row when causal), rounded up to 16: N of the
+//     first two products and the k-steps of the last are 16, 32, 48 or 64
+//     keys, each width its own instantiation, so that the 32-key encoder
+//     and cross sites multiply 32 keys, not 64.
+//   * Fewer instructions on the chain: each row's mask is one bound, and a
+//     warp whose rows see the whole tile skips it; P is one fma and ex2.
+//   * delta is formed while key tile 0 is in flight: two threads a row,
+//     each reading 32 columns of O from device memory (16 bytes a load, the
+//     rows with a key only) and of dO from the shared tile; the warp's
+//     lanes pass the sums to the lanes whose rows they are by shuffles. It
+//     is written once, before any product needs it.
+//   * The dK/dV kernel is its programmatic dependent: the first instruction
+//     lets that grid start while this one runs.
+// One warp group a block: at the training sites Tk <= 240, so a block runs
+// 1-4 key tiles; two groups split the forward's key tiles to its gain only
+// at Tk > 512 (PERF.md §6), and 64 rows and 127 registers a block keep the
+// causal 240 site's 512 blocks on the SMs at once (four a SM). Measured
+// and rejected on an H100 (PERF.md §6): forming delta while key tile 0's
+// first products run (157 registers: three blocks a SM, later starts),
+// the same capped at 128 registers (spills), and dQ stored from registers
+// in 4-byte pieces (slower wherever many blocks write at once).
+//
+// dS's precision: the plain version keeps it fp32. Here dS is split into a
+// bf16 high and low part, and dQ += dS . K is two products (about 16 bits
+// kept, relative error <= 2^-17): rounded once to bf16, P and dS failed
+// chip_smoke.py's bf16 tolerance, 1e-3 + 2^-7 |g| (unchanged), at every
+// checked shape of the dK/dV kernel (PERF.md §6).
 //
 // Work skipped without changing the result (as masked_attention_bwd.cu):
 //   * the key loop stops at m_len and, when causal, at the tile's last row
@@ -52,40 +84,106 @@
 //     rows with 16-byte stores and its zero delta with 4-byte stores, one
 //     float a thread, coalesced (a block's delta need not start at a 16-byte
 //     boundary).
-// One warp group a block: at the training sites Tk <= 240, so a block runs
-// 1-4 key tiles, and the forward's two-groups split paid only at Tk > 512
-// (PERF.md §6).
 //
-// What bounds it on an H100 at the training path's bf16 shapes (batch 32,
-// H=4, D=64, text 32, reduced mel 240 at r = 2, of which 54-144 rows are
-// valid): bytes, by chip_smoke.py's count (q, dO and O of the valid rows,
-// the K and V rows they see, dQ written whole in bf16 and delta whole in
-// fp32); an unmasked (row, key) pair costs 6*D operations on the tensor
-// cores. The design reads each input row once, keeps every intermediate in
-// registers, and writes each dQ row once, 16 bytes a thread, staged through
-// shared memory; what remains is a block's chain of 1-4 dependent key tiles,
-// each two rounds of products with the exp between them (PERF.md §6).
-//
-// Registers: the Q and dO A fragments (32), the dQ accumulator (32) and a
-// tile's S and dP (64) per thread; ptxas (CUDA 12.8) gives 162, no spills,
-// so three blocks fit on an SM.
-// Shared memory: Q, dO, and a two-stage K/V ring, 6 tiles of 64 x 72 bf16:
-// 55,296 bytes a block.
+// Resources: the dQ accumulator (32 floats), a tile's S and dP (up to 64)
+// and dS's hi and lo fragments (up to 32) a thread; ptxas -v gives 127
+// registers, no spills (chip_smoke.py and scripts/torch_attention_sites.py
+// print it). Shared memory: Q, dO and a two-stage K/V ring, 6 tiles of
+// 64 x 64 bf16, and 1 KB for alignment: 50,176 bytes a block.
 
-#include "mma_bf16.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
 using tc::bf16;
 using tc::HD;
-using tc::LDS;
-using tc::TILE_ELEMS;
+using wg::TILE_ELEMS;
 
 constexpr int BQ = 64;  // query rows per block
 constexpr int BK = 64;  // keys per tile
 constexpr int THREADS = 128;
 constexpr int STAGES = 2;  // K/V tiles in the ring: one loads while one multiplies
-constexpr size_t SMEM_BYTES = sizeof(bf16) * (2 + 2 * STAGES) * TILE_ELEMS;
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr size_t SMEM_BYTES = sizeof(bf16) * (2 + 2 * STAGES) * TILE_ELEMS + wg::ALIGN;
+
+// This thread's two rows (g and g + 8 of its warp's 16): the unmasked keys
+// [0, lim), m log2(e), 1/s and delta.
+struct RowStats {
+  int lim[2];
+  float m_log2[2], inv_s[2], delta[2];
+};
+
+// One key tile of NK keys (16, 32, 48 or 64) starting at key kt: S and dP,
+// then P and dS, then dQ += dS_hi . K + dS_lo . K. P = 2^(S * scale_log2 -
+// m log2(e)) / s with scale_log2 = scale * log2(e).
+template <int NK>
+__device__ __forceinline__ void dq_tile(float (&acc)[8][4], uint64_t dq_desc, uint64_t ddo_desc,
+                                        const bf16* tK, const bf16* tV, const RowStats& rs,
+                                        int kt, int col_in, float scale_log2) {
+  constexpr int J = NK / 8;
+  float sc[J][4], dp[J][4];
+  wg::zero(sc);
+  wg::zero(dp);
+  wg::fence_acc(sc);
+  wg::fence_acc(dp);
+  wg::fence();
+  const uint64_t dk = wg::desc(tK), dv = wg::desc(tV);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    wg::mma_ss<NK>(sc, dq_desc + 2 * kk, dk + 2 * kk);
+    wg::mma_ss<NK>(dp, ddo_desc + 2 * kk, dv + 2 * kk);
+  }
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_acc(sc);
+  wg::fence_acc(dp);
+
+  // dS into dp, in fp32. A masked key of a row with a key has P =
+  // exp(NEG - m) = 0 exactly and dS = 0; rows without a key (lim 0) take
+  // no part. Column kt + col_in + c of the tile (c constant) is tested
+  // against each row's bound; a warp whose rows see every key of the tile
+  // skips the test.
+  auto ds = [&](int j, int e) {
+    const int h = e >> 1;
+    const float p = wg::ex2(fmaf(sc[j][e], scale_log2, -rs.m_log2[h])) * rs.inv_s[h];
+    dp[j][e] = p * (dp[j][e] - rs.delta[h]);
+  };
+  if (__all_sync(0xffffffffu, kt + NK <= min(rs.lim[0], rs.lim[1]))) {
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) ds(j, e);
+  } else {
+    const int base = kt + col_in;
+    const int bound[2] = {rs.lim[0] - base, rs.lim[1] - base};
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (j * 8 + (e & 1) < bound[e >> 1]) {
+          ds(j, e);
+        } else {
+          dp[j][e] = 0.f;
+        }
+      }
+  }
+
+  // dQ += dS . K as hi and lo parts: dS from registers, K an MN-major B,
+  // k-step s = keys 16 s .. 16 s + 15
+  uint32_t ds_hi[NK / 16][4], ds_lo[NK / 16][4];
+#pragma unroll
+  for (int s = 0; s < NK / 16; ++s) wg::a_split(ds_hi[s], ds_lo[s], dp, s);
+  wg::fence_acc(acc);
+  wg::fence();
+#pragma unroll
+  for (int s = 0; s < NK / 16; ++s) {
+    wg::mma_rs64_mn(acc, ds_hi[s], dk + 128 * s);
+    wg::mma_rs64_mn(acc, ds_lo[s], dk + 128 * s);
+  }
+  wg::commit();
+  wg::wait<0>();
+  wg::fence_acc(acc);
+}
 
 __global__ void __launch_bounds__(THREADS)
 masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
@@ -95,17 +193,17 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
                                   const float* __restrict__ s_in, float* __restrict__ delta_out,
                                   bf16* __restrict__ dq, int H, int Tq, int Tk, float scale,
                                   int causal) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);  // [64][LDS], this block's rows
-  bf16* sDO = sQ + TILE_ELEMS;                   // [64][LDS]
-  bf16* sK = sDO + TILE_ELEMS;                   // [STAGES][64][LDS], the key-tile ring
-  bf16* sV = sK + STAGES * TILE_ELEMS;           // [STAGES][64][LDS]
-
   // The dK/dV kernel, launched next on the same stream as a programmatic
   // dependent launch, may start now: it loads what this kernel does not
   // write while this one runs, and waits for this whole grid before it
   // reads delta.
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
+
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* sQ = reinterpret_cast<bf16*>(wg::aligned_smem(smem_raw));  // [64][64] swizzled
+  bf16* sDO = sQ + TILE_ELEMS;                                      // [64][64]
+  bf16* sK = sDO + TILE_ELEMS;          // [STAGES][64][64], the key-tile ring
+  bf16* sV = sK + STAGES * TILE_ELEMS;  // [STAGES][64][64]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.x;
@@ -134,15 +232,16 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
 
   // commit groups: Q and dO, then key tiles 0 .. STAGES - 2, then one per
   // key tile in the loop
-  tc::load_tile_async<THREADS>(sQ, q + q_base, q0, rows_end, tid);
-  tc::load_tile_async<THREADS>(sDO, dout + q_base, q0, rows_end, tid);
+  wg::load_tile_async<THREADS>(sQ, q + q_base, q0, rows_end, tid);
+  wg::load_tile_async<THREADS>(sDO, dout + q_base, q0, rows_end, tid);
   tc::cp_async_commit();
+  auto load_kv = [&](int stage, int t) {
+    wg::load_tile_async<THREADS>(sK + stage * TILE_ELEMS, k + k_base, t * BK, k_end, tid);
+    wg::load_tile_async<THREADS>(sV + stage * TILE_ELEMS, v + k_base, t * BK, k_end, tid);
+  };
 #pragma unroll
   for (int p = 0; p < STAGES - 1; ++p) {
-    if (p < n_tiles) {
-      tc::load_tile_async<THREADS>(sK + p * TILE_ELEMS, k + k_base, p * BK, k_end, tid);
-      tc::load_tile_async<THREADS>(sV + p * TILE_ELEMS, v + k_base, p * BK, k_end, tid);
-    }
+    if (p < n_tiles) load_kv(p, p);
     tc::cp_async_commit();
   }
 
@@ -155,20 +254,25 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
     o_raw[i] = d_in ? *reinterpret_cast<const uint4*>(o + q_base + (size_t)(q0 + d_row) * HD +
                                                       d_half * 32 + i * 8)
                     : make_uint4(0u, 0u, 0u, 0u);
-  // this lane's two rows (g and g + 8 of the warp's 16): m and 1/s
-  const int row_lo = q0 + warp * 16 + (lane >> 2), row_hi = row_lo + 8;
-  const float m_lo = row_lo < rows_end ? m_in[stat_base + row_lo] : 0.f;
-  const float m_hi = row_hi < rows_end ? m_in[stat_base + row_hi] : 0.f;
-  const float inv_s_lo = row_lo < rows_end ? 1.f / s_in[stat_base + row_lo] : 0.f;
-  const float inv_s_hi = row_hi < rows_end ? 1.f / s_in[stat_base + row_hi] : 0.f;
+  // this lane's two rows: their unmasked keys, m log2(e) and 1/s
+  RowStats rs;
+  const int row_lo = q0 + warp * 16 + (lane >> 2);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row_lo + 8 * h;
+    const bool in = row < rows_end;
+    rs.lim[h] = in ? (causal ? min(mlen, row + 1) : mlen) : 0;
+    rs.m_log2[h] = in ? m_in[stat_base + row] * LOG2E : 0.f;
+    rs.inv_s[h] = in ? 1.f / s_in[stat_base + row] : 0.f;
+  }
 
   tc::cp_async_wait<STAGES - 1>();  // Q and dO have landed
+  wg::fence_async_smem();
   __syncthreads();
   float dsum = 0.f;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
-    const uint4 g_raw =
-        *reinterpret_cast<const uint4*>(sDO + d_row * LDS + d_half * 32 + i * 8);
+    const uint4 g_raw = *reinterpret_cast<const uint4*>(sDO + wg::swz(d_row, d_half * 4 + i));
     const __nv_bfloat162* gh = reinterpret_cast<const __nv_bfloat162*>(&g_raw);
     const __nv_bfloat162* oh = reinterpret_cast<const __nv_bfloat162*>(&o_raw[i]);
 #pragma unroll
@@ -182,110 +286,45 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
   // rows without a key read zeros (dO tile rows and o_raw): their delta is 0
   if (d_half == 0 && d_row < q_rows) delta_out[stat_base + q0 + d_row] = dsum;
   // row warp * 16 + j sits in lanes 2 j and 2 j + 1 of its own warp
-  const float delta_lo = __shfl_sync(0xffffffffu, dsum, 2 * (lane >> 2));
-  const float delta_hi = __shfl_sync(0xffffffffu, dsum, 2 * (lane >> 2) + 16);
-
-  // this warp's Q and dO A fragments, 16 rows x 64 head-width columns
-  uint32_t qa[4][4], oa[4][4];
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const int a_off = (warp * 16 + (lane & 15)) * LDS + kk * 16 + (lane >> 4) * 8;
-    tc::ldmatrix_x4(qa[kk], sQ + a_off);
-    tc::ldmatrix_x4(oa[kk], sDO + a_off);
-  }
+  rs.delta[0] = __shfl_sync(0xffffffffu, dsum, 2 * (lane >> 2));
+  rs.delta[1] = __shfl_sync(0xffffffffu, dsum, 2 * (lane >> 2) + 16);
 
   const int col_in = (lane & 3) * 2;
+  const float scale_log2 = scale * LOG2E;
+  const uint64_t dq_desc = wg::desc(sQ), ddo_desc = wg::desc(sDO);
   float acc[8][4];
-#pragma unroll
-  for (int j = 0; j < 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  wg::zero(acc);
 
   for (int t = 0; t < n_tiles; ++t) {
     const int buf = t % STAGES;
     const int kt = t * BK;
     const int ahead = t + STAGES - 1;  // into the stage that tile t - 1 used
-    if (ahead < n_tiles) {
-      tc::load_tile_async<THREADS>(sK + (ahead % STAGES) * TILE_ELEMS, k + k_base, ahead * BK,
-                                   k_end, tid);
-      tc::load_tile_async<THREADS>(sV + (ahead % STAGES) * TILE_ELEMS, v + k_base, ahead * BK,
-                                   k_end, tid);
-    }
+    if (ahead < n_tiles) load_kv(ahead % STAGES, ahead);
     tc::cp_async_commit();
     tc::cp_async_wait<STAGES - 1>();  // key tile t has landed
+    wg::fence_async_smem();
     __syncthreads();
     const bf16* tK = sK + buf * TILE_ELEMS;
     const bf16* tV = sV + buf * TILE_ELEMS;
-
-    // S = Q . K^T and dP = dO . V^T: 16 rows x 64 keys a warp
-    float sc[8][4], dp[8][4];
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        const int b_off = (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LDS + kk * 16 +
-                          ((lane >> 3) & 1) * 8;
-        uint32_t kb[4], vb[4];
-        tc::ldmatrix_x4(kb, tK + b_off);
-        tc::ldmatrix_x4(vb, tV + b_off);
-        tc::mma(sc[2 * np], qa[kk], kb[0], kb[1]);
-        tc::mma(sc[2 * np + 1], qa[kk], kb[2], kb[3]);
-        tc::mma(dp[2 * np], oa[kk], vb[0], vb[1]);
-        tc::mma(dp[2 * np + 1], oa[kk], vb[2], vb[3]);
-      }
-    }
-
-    // dS into dp, in fp32
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const bool hi = e >= 2;
-        const int row = hi ? row_hi : row_lo;
-        const int key = kt + j * 8 + col_in + (e & 1);
-        // a masked key of a row with a key has P = exp(NEG - m) = 0 exactly
-        // and dS = 0; rows without a key take no part
-        const bool unmasked = row < rows_end && key < mlen && (!causal || key <= row);
-        float ds = 0.f;
-        if (unmasked) {
-          const float p = __expf(sc[j][e] * scale - (hi ? m_hi : m_lo)) *
-                          (hi ? inv_s_hi : inv_s_lo);
-          ds = p * (dp[j][e] - (hi ? delta_hi : delta_lo));
-        }
-        dp[j][e] = ds;
-      }
-    }
-
-    // dQ += dS . K as hi and lo parts: dS from registers, K through
-    // ldmatrix.trans
-#pragma unroll
-    for (int s = 0; s < 4; ++s) {  // keys 16 s .. 16 s + 15 of the tile
-      uint32_t ds_hi[4], ds_lo[4];
-      tc::a_split_from_acc(ds_hi, ds_lo, dp, s);
-#pragma unroll
-      for (int dc = 0; dc < 4; ++dc) {  // head-width columns 16 dc .. 16 dc + 15
-        const int off = (s * 16 + (lane & 15)) * LDS + dc * 16 + (lane >> 4) * 8;
-        uint32_t kb[4];
-        tc::ldmatrix_x4_trans(kb, tK + off);
-        tc::mma(acc[2 * dc], ds_hi, kb[0], kb[1]);
-        tc::mma(acc[2 * dc + 1], ds_hi, kb[2], kb[3]);
-        tc::mma(acc[2 * dc], ds_lo, kb[0], kb[1]);
-        tc::mma(acc[2 * dc + 1], ds_lo, kb[2], kb[3]);
-      }
+    const int kn = min(BK, k_end - kt);  // keys this tile needs
+    if (kn > 48) {
+      dq_tile<64>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2);
+    } else if (kn > 32) {
+      dq_tile<48>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2);
+    } else if (kn > 16) {
+      dq_tile<32>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2);
+    } else {
+      dq_tile<16>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2);
     }
     __syncthreads();  // the next iteration refills the stage of this tile
   }
   tc::cp_async_wait<0>();
 
-  // dQ * scale, staged through the Q tile (every warp read its fragments
-  // before the loop's first barrier); rows without a key are zeros
-  tc::stage_acc(sQ, acc, warp * 16, scale, scale);
+  // dQ * scale, staged through the Q tile (the loop's last barrier follows
+  // every product that read it); rows without a key are zeros
+  wg::stage_acc(sQ, acc, scale, scale);
   __syncthreads();
-  tc::store_tile<THREADS>(dq + q_base, sQ, q0, q_rows);
+  wg::store_tile<THREADS>(dq + q_base, sQ, q0, q_rows);
 }
 
 }  // namespace

@@ -1,11 +1,12 @@
-// Building blocks of the bf16 attention kernels that multiply with Hopper's
-// warp-group instructions (masked_attention_fwd_tc.cu,
-// masked_attention_bwd_dkv_tc.cu): 64 x 64 bf16 tiles in shared memory in
-// wgmma's 128-byte-swizzled layout, filled with cp.async (16 bytes a
-// thread), read by wgmma.mma_async m64nNk16 (bf16 in, fp32 accumulate)
-// through matrix descriptors, with the A operand from shared memory or from
-// registers. A warp group is 4 warps (128 threads) whose first warp is a
-// multiple of 4; all of its threads issue each product together.
+// Building blocks of the bf16 attention kernels, which multiply with
+// Hopper's warp-group instructions (masked_attention_fwd_tc.cu,
+// masked_attention_bwd_dq_tc.cu, masked_attention_bwd_dkv_tc.cu): 64 x 64
+// bf16 tiles in shared memory in wgmma's 128-byte-swizzled layout, filled
+// with cp.async (16 bytes a thread), read by wgmma.mma_async m64nNk16 (bf16
+// in, fp32 accumulate) through matrix descriptors, with the A operand from
+// shared memory or from registers. A warp group is 4 warps (128 threads)
+// whose first warp is a multiple of 4; all of its threads issue each
+// product together.
 //
 // Tile layout: a tile holds 64 rows of 64 bf16 (128 bytes, 8 chunks of 16
 // bytes), rows one after the other, and stores chunk c of row r at chunk
@@ -20,15 +21,47 @@
 //   D (64 x N, fp32), d[j][e] for j < N / 8:
 //     d[j][0..1] = D[16 w + g][8 j + c, +1],
 //     d[j][2..3] = D[16 w + g + 8][8 j + c, +1];
-//   A from registers (64 x 16, bf16): warp w's rows 16 w .. 16 w + 15 in
-//     mma.sync.m16n8k16's A layout (mma_bf16.cuh).
-// Each warp's 16 rows of D are mma.sync's C fragments, so columns
-// [16 s, 16 s + 16) of one product's D are the A operand of the next
-// product's k-step s, split into bf16 hi + lo parts (a_split).
+//   A from registers (64 x 16, bf16): warp w holds rows 16 w .. 16 w + 15,
+//     a0 = A[g][c, c+1], a1 = A[g+8][c, c+1], a2 = A[g][c+8, c+9],
+//     a3 = A[g+8][c+8, c+9] (each a bf16 pair, the first value in the low
+//     half).
+// So columns [16 s, 16 s + 16) of one product's D are the A operand of the
+// next product's k-step s, split into bf16 hi + lo parts (a_split).
 
 #pragma once
 
-#include "mma_bf16.cuh"
+#include <stdint.h>
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include "cp_async.cuh"
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int HD = 64;  // head width: the columns of a tile
+constexpr float NEG = -4294967295.0f;  // -2^32+1, rounds to -2^32 as in fp32 JAX
+
+using cpa::cp_async16;
+using cpa::cp_async_commit;
+using cpa::cp_async_wait;
+using cpa::group_sync;
+using cpa::smem_addr;
+
+// Two fp32 values split into bf16 pairs hi + lo, each packed with the first
+// value in the low half: hi = bf16(x), lo = bf16(x - hi). hi + lo keeps
+// about 16 bits of x (relative error <= 2^-17), where hi alone keeps 8.
+__device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x, y);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(x - hf.x, y - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+}  // namespace tc
 
 namespace wg {
 
@@ -248,9 +281,9 @@ __device__ __forceinline__ void store_tile(bf16* __restrict__ dst, const bf16* t
 // Column sums of rows [row0, row1) of a [T, 64] bf16 matrix, in fp32, each
 // row divided by div[r] when `div` is not null, into sum[0..64) in shared
 // memory; `scratch` is shared memory for THREADS * 8 floats. 8 threads a
-// row, 16 bytes a load, DEPTH loads in flight a thread (tc::column_sums
-// keeps 4): the pass is bound by its rounds of loads. Ends with a barrier,
-// so `sum` is ready for every thread.
+// row, 16 bytes a load, DEPTH loads in flight a thread: the pass is bound
+// by its rounds of loads. Ends with a barrier, so `sum` is ready for every
+// thread.
 template <int THREADS, int DEPTH>
 __device__ __forceinline__ void column_sums(float* sum, float* scratch,
                                             const bf16* __restrict__ src, int row0, int row1,

@@ -17,10 +17,11 @@
   through ``steps.make_epoch_runner`` (the JAX package's one ``lax.scan``
   dispatch an epoch): on the card a CUDA graph of one step, captured per
   reduction factor and replayed once a step (Adam is capturable on the card
-  whatever the flag, so both paths run one arithmetic); on the CPU the same
-  eager steps. The init pass, the priming step, dev, the test
-  artifacts, probes and checkpoints stay eager, as in the JAX package. The
-  flag with ``train.remat`` other than "off" raises at the start;
+  whatever the flag, so both paths run one arithmetic), with ``train.remat``
+  as the eager step runs it (the captured backward recomputes the
+  checkpointed blocks); on the CPU the same eager steps. The init pass, the
+  priming step, dev, the test artifacts, probes and checkpoints stay eager,
+  as in the JAX package;
 * the dev loss after each epoch, weighted by real utterances;
 * a checkpoint every ``checkpoint_every_n_epochs`` and after the last epoch;
 * an optional product-metric probe (``training/probe.py``) every
@@ -100,7 +101,6 @@ from ..configs.hparams import HParams
 from ..configs.serialize import save_hparams
 from ..data.loader import Batch, BucketedLoader, repad_batch
 from ..data.records import list_shards
-from ..models.attention import remat_mode
 from ..models.vaenar import resolve_device
 from ..ops.flash_attention import launch_counts
 from ..parallel.data_group import data_group
@@ -262,12 +262,6 @@ def train(hp: HParams, data_dir: str, model_dir: str, log_dir: str,
     checkpoint_epochs(model_dir)  # a foreign directory raises before any write
     if dist is not None and dist.process_count == 1:
         dist = None
-    if (dist is None and hp.train.device_cache_epoch_scan
-            and remat_mode(hp.train.remat) != "off"):
-        raise ValueError(f"train.device_cache_epoch_scan=True with train.remat="
-                         f"{hp.train.remat!r} is not supported: activation checkpointing "
-                         f"has not been checked inside a CUDA graph of the step; set "
-                         f"train.remat=off or train.device_cache_epoch_scan=false")
     is_main = dist is None or dist.is_main
     dev = resolve_device(dist.device if dist is not None else device)
     train_loader, dev_loader, test_loader = make_loaders(hp, data_dir, dist)

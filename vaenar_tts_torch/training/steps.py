@@ -253,6 +253,16 @@ class EpochRunner:
     the values they had, in place. A capture or replay that fails raises:
     nothing falls back to the eager steps.
 
+    ``train.remat`` "on" or "dots" is captured as the eager step runs it:
+    the checkpointed blocks' recompute (``models.attention.maybe_remat``:
+    non-reentrant ``torch.utils.checkpoint``, no RNG state stashed, "dots"
+    through a selective-checkpoint dispatch mode) runs inside the captured
+    backward, so a captured step launches the forward kernel twice for each
+    attention, and the warm-up steps run the recompute too. Neither the
+    checkpoint's check of the recomputed tensors (shapes, dtypes and devices
+    only) nor the dispatch mode's version checks (host counters) read the
+    card, and the blocks draw no random numbers.
+
     ``captured_launches`` {reduction factor: {kernel: launches in one
     captured step}}, ``replays`` (steps replayed, all factors),
     ``capture_s`` and ``capture_bytes`` {reduction factor: seconds to

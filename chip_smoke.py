@@ -17,7 +17,10 @@ dK/dV kernel reads: a backward launches those two kernels and nothing else.
 2. build: every csrc/*.cu with nvcc for sm_90a (one nvcc for each source,
    all started together), and ptxas's register and shared-memory report;
 3. kernels against their plain PyTorch versions on the card, in fp32 and
-   bf16, each check asserting which kernel it launched: the forward at the
+   bf16, at head widths 64 and 128 (the kernels' two instantiations) on
+   every case and at 8, 32 and 96 (zero-padded to the next of those) on a
+   subset (PADDED_FWD_CASES, PADDED_BWD_CASES), all under one tolerance a
+   dtype, each check asserting which kernel it launched: the forward at the
    synthesis path's shapes, on ragged shapes, fully masked rows and
    Tk > 4096; the dQ and dK/dV backward kernels at the training path's
    shapes (r = 2 and r = 5), with fully masked rows, an item with no key, a
@@ -97,7 +100,7 @@ dK/dV kernel reads: a backward launches those two kernels and nothing else.
    data cache on and then off: test wavs from the card's Griffin-Lim of
    mel length * hop samples, finite test_mel_l1/l2/mcd_db in
    logs/dev/metrics.jsonl, train.log, the predicted launches, and the two
-   runs' losses against each other; each run resumed for 2 epochs under
+   runs' losses against each other; each run resumed for 1 epoch under
    torch.profiler, for its host-to-device copies; then SIGTERM: cli.train
    in a subprocess, signalled after epoch 2's first step line, must exit
    0 with the checkpoints of epochs 0 and 1 only, and resumed to epoch 3
@@ -158,7 +161,7 @@ dK/dV kernel reads: a backward launches those two kernels and nothing else.
 23. epoch_graph (run after 14.): `cli.train` with the device data cache
    and train.device_cache_epoch_scan (a CUDA graph of the train step per
    reduction factor, replayed once a step) at the shipped config with the
-   curriculum cut to r = 5 then 2, in fp32 and bf16, 3 epochs of 4 steps
+   curriculum cut to r = 5 then 2, in fp32 and bf16, 3 epochs of 2 steps
    at batch 32 from a cold start against 2 epochs without the flag (the
    losses of every epoch), each run resumed for epoch 3 with the flag the
    other way (against the uninterrupted run), the fp32 runs under
@@ -175,7 +178,16 @@ dK/dV kernel reads: a backward launches those two kernels and nothing else.
    step, each run a path of its own, then ms a step graphed and eager, the
    capture's seconds and its pool's peak beside the no-remat run's; and in
    a process of its own (`--graph-failure-worker`) a capture that fails
-   raises with no step run eagerly.
+   raises with no step run eagerly;
+24. head_widths (run after 10.): the shipped config's attention width
+   in 2 heads (D = 128) and in 8 (D = 32, zero padded to the D = 64
+   kernels) in every stack, fresh weights from `cli.train`'s seeded cold
+   start at batch 32, r = 2 (head_widths_phase): at D = 128 a bf16 epoch
+   eager and graphed, equal to the bit, bf16 synthesis, fp32 synthesis and
+   an fp32 step against the CPU, synthesis and train-step walls beside the
+   shipped model's, and the D = 128 kernels timed at this model's sites;
+   at D = 32 a bf16 step, bf16 synthesis and fp32 synthesis against the
+   CPU; every run's kernel launches, by instantiation.
 
 Each phase prints a JSON line {"phase": ..., "seconds": ...} first. A failed
 check raises; the script then exits non-zero without printing the final
@@ -345,7 +357,7 @@ TOL_RESUME_REL = 1e-2
 N_SIGTERM_TRAIN = 128
 SIGTERM_TIMEOUT_S = 400
 # the graphed epoch (train.device_cache_epoch_scan with the device data
-# cache): GRAPH_TRAIN train utterances of one padded shape, so 4 steps of
+# cache): GRAPH_TRAIN train utterances of one padded shape, so 2 steps of
 # 32 an epoch; the curriculum cut to r = 5 for epoch 1 and r = 2 from epoch
 # 2 (GRAPH_SCHEDULE: each factor's graph captured, the first freed), the
 # shipped config otherwise. The flag's per-epoch losses against the eager
@@ -370,7 +382,7 @@ SIGTERM_TIMEOUT_S = 400
 # wide enough for that drift, and a bound still on a graph that replayed
 # the wrong batch, factor or weights. GRAPH_REPS timed epochs each way, at
 # the default settings.
-GRAPH_TRAIN, GRAPH_REPS = 128, 3
+GRAPH_TRAIN, GRAPH_REPS = 64, 2
 GRAPH_SCHEDULE = ["train.reduction_factors=(5,2)", "train.reduce_interval=(0,2)"]
 # train.remat inside the graphed epoch: per dtype, the modes run 2 epochs
 # with the flag against 2 without it (both under the same remat; fp32 under
@@ -446,6 +458,18 @@ PROFILE_TRIES = 3
 RING_CASES = (("causal_1680", 1680, True), ("self_3360", 3360, False))
 RING_REPS = 5
 TOL_TP_BF16_MEL = 0.01
+# head widths: the kernels are compiled for D = 64 (the shipped model's 4
+# heads of 64) and D = 128; every other width up to 128 is padded with zero
+# columns to the next of those. The kernel checks run every case at
+# D = 128 and these subsets at the padded widths, under the D = 64
+# tolerances; the head_widths phase runs the shipped attention width (256)
+# in 2 heads (D = 128) and in 8 (D = 32, the padded route) in every stack
+HEAD_STACKS = ("encoder", "decoder", "posterior", "prior")
+PADDED_WIDTHS = (8, 32, 96)
+PADDED_FWD_CASES = ("self_160", "causal_1680", "tile_edges_97", "row_edges_causal_130",
+                    "no_key_causal_700")
+PADDED_BWD_CASES = ("encoder_self_32", "causal_self_240", "cross_240x32", "tile_edges_causal_97",
+                    "row_edges_causal_130", "key_edges_bwd_130x81")
 TOL_TP_LOSS_REL = 1e-4
 TOL_TP_GRAD = (5e-5, 5e-3)
 TP_BF16_STEPS = 3
@@ -528,21 +552,38 @@ def check_cases(torch, device):
     ]
 
 
-def check_kernels(torch, fa, device):
+def kernel_key(fa, kind, dtype, D=64):
+    """fa.kernel_name of ``kind`` at head width D; at D = 64 without the
+    width argument, so that scripts/torch_attention_sites.py can time a
+    tree from before the kernels took other widths with these helpers."""
+    return fa.kernel_name(kind, dtype) if D == 64 else fa.kernel_name(kind, dtype, D)
+
+
+def check_kernels(torch, fa, device, D=64, names=None):
     """Forward kernel against plain version, fp32 (masked_attention_fwd) and
-    bf16 (masked_attention_fwd_tc); returns {kernel: {dtype: largest |o|
-    error}} and {dtype: the worst share of that dtype's o tolerance}."""
-    worst, worst_share = {}, {"float32": 0.0, "bfloat16": 0.0}
+    bf16 (masked_attention_fwd_tc), at head width D (128: the kernels'
+    D = 128 instantiation; a width that is not native goes through the
+    wrapper's zero padding to the kernel of fa.kernel_width(D)), on the
+    check_cases named in ``names`` (all when None), at scale D^-1/2;
+    returns {kernel: {dtype: largest |o| error}} and {kernel: {key: the
+    worst share of the o tolerance}}, key ``max_share_of_tol`` at a native
+    width and ``max_share_of_tol_padded`` at a padded one."""
+    worst, worst_share = {}, {}
+    key = "max_share_of_tol" if D in (64, 128) else "max_share_of_tol_padded"
+    scale = D ** -0.5
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
-        kernel = fa.kernel_name("fwd", dtype)
+        kernel = kernel_key(fa, "fwd", dtype, D)
         for i, (name, tq, tk, causal, ql, ml) in enumerate(check_cases(torch, device)):
-            q, k, v = random_qkv(torch, device, dtype, 4, 4, tq, tk, 64, seed=i)
+            if names is not None and name not in names:
+                continue
+            q, k, v = random_qkv(torch, device, dtype, 4, 4, tq, tk, D, seed=i)
             fa.launch_counts.clear()
-            o, m, s = fa.masked_flash_attention(q, k, v, ql, ml, 0.125, causal)
-            check(dict(fa.launch_counts) == {kernel: 1}, f"{name}/{dtype_name}: launched "
+            o, m, s = fa.masked_flash_attention(q, k, v, ql, ml, scale, causal)
+            check(dict(fa.launch_counts) == {kernel: 1}, f"{name}/{dtype_name}/D={D}: launched "
                   f"{dict(fa.launch_counts)}, expected {kernel}")
-            o_ref, m_ref, s_ref = fa.masked_attention_reference(q, k, v, ql, ml, 0.125, causal)
+            check(o.shape == q.shape, f"{name}/{dtype_name}/D={D}: o {tuple(o.shape)}")
+            o_ref, m_ref, s_ref = fa.masked_attention_reference(q, k, v, ql, ml, scale, causal)
             torch.cuda.synchronize()
             atol, rtol = TOL_O[dtype_name]
             diff_o = (o.float() - o_ref.float()).abs()
@@ -552,18 +593,20 @@ def check_kernels(torch, fa, device):
             err_s = ((s - s_ref).abs() / s_ref).max().item()
             masked_rows = 0 if ql is None else int((tq - ql.clamp(max=tq)).sum().item())
             print(json.dumps({"check": name, "dtype": dtype_name, "kernel": kernel,
-                              "max_abs_err_o": err_o,
+                              "head_dim": D, "max_abs_err_o": err_o,
                               "max_share_of_tol_o": tol_share_o,
                               "max_abs_err_m": err_m, "max_rel_err_s": err_s,
                               "fully_masked_rows_per_head": masked_rows}), flush=True)
-            check(torch.isfinite(o.float()).all().item(), f"{name}/{dtype_name}: non-finite o")
-            check(tol_share_o <= 1.0, f"{name}/{dtype_name}: |o| error {err_o} "
+            tag = f"{name}/{dtype_name}/D={D}"
+            check(torch.isfinite(o.float()).all().item(), f"{tag}: non-finite o")
+            check(tol_share_o <= 1.0, f"{tag}: |o| error {err_o} "
                   f"({tol_share_o} of atol {atol} + rtol {rtol} * |o|)")
-            check(err_m <= TOL_M, f"{name}/{dtype_name}: |m| error {err_m}")
-            check(err_s <= TOL_S_REL, f"{name}/{dtype_name}: s rel error {err_s}")
+            check(err_m <= TOL_M, f"{tag}: |m| error {err_m}")
+            check(err_s <= TOL_S_REL, f"{tag}: s rel error {err_s}")
             by_dtype = worst.setdefault(kernel, {})
             by_dtype[dtype_name] = max(by_dtype.get(dtype_name, 0.0), err_o)
-            worst_share[dtype_name] = max(worst_share[dtype_name], tol_share_o)
+            by_key = worst_share.setdefault(kernel, {})
+            by_key[key] = max(by_key.get(key, 0.0), tol_share_o)
     return worst, worst_share
 
 
@@ -615,34 +658,36 @@ def time_ms(torch, fn, reps=20, warmup=3):
     return start.elapsed_time(end) / reps
 
 
-def forward_bound(torch, tq, tk, causal, ql, ml, B, dtype_name):
+def forward_bound(torch, tq, tk, causal, ql, ml, B, dtype_name, H=4, D=64):
     """(flop_ms, byte_ms, gflop, mbytes) of ``attention_work`` at the
     dtype's element size and peak: the bound is the larger of the two ms."""
-    flops, e_in, e_out, other_bytes = attention_work(torch, tq, tk, causal, ql, ml, 64, B, 4)
+    flops, e_in, e_out, other_bytes = attention_work(torch, tq, tk, causal, ql, ml, D, B, H)
     n_bytes = (e_in + e_out) * ELEMENT_BYTES[dtype_name] + other_bytes
     return (1e3 * flops / PEAK_FLOPS[dtype_name], 1e3 * n_bytes / PEAK_BYTES,
             flops / 1e9, n_bytes / 1e6)
 
 
-def time_kernels(torch, fa, device, sites, dtype_name):
+def time_kernels(torch, fa, device, sites, dtype_name, H=4, D=64):
     """Kernel, plain and SDPA times and the bound at each attention site of
-    the main path, with the main path's lengths, in ``dtype_name``; returns
-    the sums over one synthesis call. ``sites``: (name, calls, Tq, Tk,
-    causal, q_len, m_len)."""
+    the main path, with the main path's lengths, in ``dtype_name``, at H
+    heads of width D (the shipped model: 4 of 64); returns the sums over one
+    synthesis call. ``sites``: (name, calls, Tq, Tk, causal, q_len,
+    m_len)."""
     import torch.nn.functional as F
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
               "flop_ms": 0.0, "byte_ms": 0.0}
     dtype = getattr(torch, dtype_name)
     for i, (name, calls, tq, tk, causal, ql, ml) in enumerate(sites):
-        q, k, v = random_qkv(torch, device, dtype, len(ql), 4, tq, tk, 64, seed=100 + i)
+        q, k, v = random_qkv(torch, device, dtype, len(ql), H, tq, tk, D, seed=100 + i)
         mask = fa.attention_mask(ql, ml, len(ql), tq, tk, causal, device)
-        ms = time_ms(torch, lambda: fa.masked_flash_attention(q, k, v, ql, ml, 0.125, causal))
-        plain_ms = time_ms(torch, lambda: fa.masked_attention_reference(q, k, v, ql, ml, 0.125, causal))
-        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=0.125))
+        scale = D ** -0.5
+        ms = time_ms(torch, lambda: fa.masked_flash_attention(q, k, v, ql, ml, scale, causal))
+        plain_ms = time_ms(torch, lambda: fa.masked_attention_reference(q, k, v, ql, ml, scale, causal))
+        library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale))
         flop_ms, byte_ms, gflop, mbytes = forward_bound(torch, tq, tk, causal, ql, ml, len(ql),
-                                                        dtype_name)
-        row = {"site": name, "dtype": dtype_name, "kernel": fa.kernel_name("fwd", dtype),
-               "shape": [len(ql), 4, tq, tk, 64], "causal": causal,
+                                                        dtype_name, H, D)
+        row = {"site": name, "dtype": dtype_name, "kernel": kernel_key(fa, "fwd", dtype, D),
+               "shape": [len(ql), H, tq, tk, D], "causal": causal,
                "calls_per_synthesis": calls, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": max(flop_ms, byte_ms),
                "flop_ms": flop_ms, "byte_ms": byte_ms, "gflop": gflop,
@@ -726,34 +771,51 @@ def backward_cases(torch, device):
     ]
 
 
-def check_backward(torch, fa, device):
+def check_backward(torch, fa, device, D=64, names=None):
     """dQ and dK/dV kernels against the plain backward, fp32
     (masked_attention_bwd_dq, masked_attention_bwd_dkv) and bf16
-    (masked_attention_bwd_dq_tc, masked_attention_bwd_dkv_tc), and each dQ
-    kernel of the package's DELTA_FORMING_KERNELS alone, dq and delta,
-    against masked_attention_dq_reference; returns {kernel: {dtype: largest
-    error}} and the kernels' worst shares of their tolerances {dtype:
-    {"dq": ..., "dkv": ..., "delta": ...}} ("delta" 0 for a dQ kernel that
-    forms none)."""
-    worst = {}
-    worst_share = {d: {"dq": 0.0, "dkv": 0.0, "delta": 0.0} for d in ("float32", "bfloat16")}
+    (masked_attention_bwd_dq_tc, masked_attention_bwd_dkv_tc), at head width
+    D as check_kernels takes it, on the backward_cases named in ``names``
+    (all when None), and each dQ kernel of the package's
+    DELTA_FORMING_KERNELS alone, dq and delta, against
+    masked_attention_dq_reference (at a padded width on inputs padded as
+    the wrapper pads them, dq's first D columns and delta at the true
+    width, dq's padded columns zero); returns {kernel: {dtype: largest
+    error}} and each kernel's worst shares of its tolerances {kernel:
+    {key: share}}, keys ``max_share_of_tol`` (the gradients it wrote, and
+    dq alone) and ``max_share_of_tol_delta`` (a dQ kernel that forms delta),
+    each ending in ``_padded`` at a padded width."""
+    worst, worst_share = {}, {}
+    native = D in (64, 128)
+    suffix = "" if native else "_padded"
+
+    def fold(kernel, kind, share):
+        by_key = worst_share.setdefault(kernel, {})
+        key = f"max_share_of_tol{kind}{suffix}"
+        by_key[key] = max(by_key.get(key, 0.0), share)
+
+    scale = D ** -0.5
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
         atol, rtol = TOL_GRAD[dtype_name]
-        kernels = {"dq": fa.kernel_name("dq", dtype), "dkv": fa.kernel_name("dkv", dtype)}
+        kernels = {"dq": kernel_key(fa, "dq", dtype, D), "dkv": kernel_key(fa, "dkv", dtype, D)}
         for i, (name, tq, tk, causal, ql, ml) in enumerate(backward_cases(torch, device)):
-            q, k, v = random_qkv(torch, device, dtype, 4, 4, tq, tk, 64, seed=200 + i)
-            do = random_qkv(torch, device, dtype, 4, 4, tq, tq, 64, seed=300 + i)[0]
-            o, m, s = fa.masked_flash_attention(q, k, v, ql, ml, 0.125, causal)
+            if names is not None and name not in names:
+                continue
+            q, k, v = random_qkv(torch, device, dtype, 4, 4, tq, tk, D, seed=200 + i)
+            do = random_qkv(torch, device, dtype, 4, 4, tq, tq, D, seed=300 + i)[0]
+            o, m, s = fa.masked_flash_attention(q, k, v, ql, ml, scale, causal)
             fa.launch_counts.clear()
-            got = fa.masked_flash_attention_backward(q, k, v, ql, ml, o, m, s, do, 0.125, causal)
+            got = fa.masked_flash_attention_backward(q, k, v, ql, ml, o, m, s, do, scale, causal)
             check(dict(fa.launch_counts) == {kernels["dq"]: 1, kernels["dkv"]: 1},
-                  f"{name}/{dtype_name}: launched {dict(fa.launch_counts)}")
+                  f"{name}/{dtype_name}/D={D}: launched {dict(fa.launch_counts)}")
+            check(all(g.shape == t.shape for g, t in zip(got, (q, k, v))),
+                  f"{name}/{dtype_name}/D={D}: gradient shapes {[tuple(g.shape) for g in got]}")
             want = fa.masked_attention_backward_reference(q, k, v, ql, ml, o, m, s, do,
-                                                          0.125, causal)
+                                                          scale, causal)
             torch.cuda.synchronize()
             row = {"check": name, "dtype": dtype_name, "kernels": list(kernels.values()),
-                   "atol": atol, "rtol": rtol,
+                   "head_dim": D, "atol": atol, "rtol": rtol,
                    "fully_masked_rows": int((tq - ql.clamp(max=tq)).sum().item())
                    + tq * int((ml == 0).sum().item())}
             for g_name, a, b in zip(("dq", "dk", "dv"), got, want):
@@ -761,36 +823,45 @@ def check_backward(torch, fa, device):
                 share = (diff / (atol + rtol * b.float().abs())).max().item()
                 row[f"max_abs_err_{g_name}"] = diff.max().item()
                 row[f"max_share_of_tol_{g_name}"] = share
-                check(torch.isfinite(a.float()).all().item(), f"{name}/{dtype_name}: non-finite {g_name}")
-                check(share <= 1.0, f"{name}/{dtype_name}: {g_name} error {diff.max().item()} "
-                      f"({share} of atol {atol} + rtol {rtol} * |g|)")
+                check(torch.isfinite(a.float()).all().item(),
+                      f"{name}/{dtype_name}/D={D}: non-finite {g_name}")
+                check(share <= 1.0, f"{name}/{dtype_name}/D={D}: {g_name} error "
+                      f"{diff.max().item()} ({share} of atol {atol} + rtol {rtol} * |g|)")
                 kern = "dq" if g_name == "dq" else "dkv"
                 by_dtype = worst.setdefault(kernels[kern], {})
                 by_dtype[dtype_name] = max(by_dtype.get(dtype_name, 0.0), diff.max().item())
-                worst_share[dtype_name][kern] = max(worst_share[dtype_name][kern], share)
+                fold(kernels[kern], "", share)
             if kernels["dq"] in fa.DELTA_FORMING_KERNELS:
                 # the dQ kernel alone, into a delta of NaNs: every element
-                # must be written, zeros on the rows without a key
+                # must be written, zeros on the rows without a key; a padded
+                # width launches on zero columns, as the wrapper does
+                padded = (q, k, v, do, o) if native else fa.pad_head_width(
+                    fa.kernel_width(D), q, k, v, do, o)
                 delta = torch.full_like(m, float("nan"))
-                dq = torch.empty_like(q)
-                fa.launch_backward_kernel("dq", q, k, v, do, ql, ml, m, s, delta, (dq,),
-                                          0.125, causal, o=o)
+                dq_full = torch.empty_like(padded[0])
+                fa.launch_backward_kernel("dq", *padded[:4], ql, ml, m, s, delta, (dq_full,),
+                                          scale, causal, o=padded[4])
+                dq = dq_full[..., :D]
                 dq_want, delta_want = fa.masked_attention_dq_reference(
-                    q, k, v, do, o, ql, ml, m, s, 0.125, causal)
+                    q, k, v, do, o, ql, ml, m, s, scale, causal)
                 torch.cuda.synchronize()
+                check(bool((dq_full[..., D:] == 0).all()),
+                      f"{name}/{dtype_name}/D={D}: dq alone, a padded column is not zero")
                 diff = (dq.float() - dq_want.float()).abs()
                 share = (diff / (atol + rtol * dq_want.float().abs())).max().item()
                 row["max_share_of_tol_dq_alone"] = share
-                check(share <= 1.0, f"{name}/{dtype_name}: dq alone, {share} of the tolerance")
-                worst_share[dtype_name]["dq"] = max(worst_share[dtype_name]["dq"], share)
+                check(share <= 1.0, f"{name}/{dtype_name}/D={D}: dq alone, {share} of the "
+                      f"tolerance")
+                fold(kernels["dq"], "", share)
                 diff = (delta - delta_want).abs()
                 share = (diff / (TOL_DELTA[0] + TOL_DELTA[1] * delta_want.abs())).max().item()
                 row.update({"max_abs_err_delta": diff.max().item(),
                             "max_share_of_tol_delta": share,
                             "delta_tol": list(TOL_DELTA)})
-                check(share <= 1.0, f"{name}/{dtype_name}: delta error {diff.max().item()} "
-                      f"({share} of atol {TOL_DELTA[0]} + rtol {TOL_DELTA[1]} * |delta|)")
-                worst_share[dtype_name]["delta"] = max(worst_share[dtype_name]["delta"], share)
+                check(share <= 1.0, f"{name}/{dtype_name}/D={D}: delta error "
+                      f"{diff.max().item()} ({share} of atol {TOL_DELTA[0]} + rtol "
+                      f"{TOL_DELTA[1]} * |delta|)")
+                fold(kernels["dq"], "_delta", share)
             print(json.dumps(row), flush=True)
     return worst, worst_share
 
@@ -885,7 +956,7 @@ def backward_work(torch, tq, tk, causal, ql, ml, D, B, H, dq_forms_delta):
             "dkv": (dkv_flops, dkv_in + 2 * B * H * tk * D, dkv_stats)}
 
 
-def time_backward(torch, fa, device, sites, dtype_name):
+def time_backward(torch, fa, device, sites, dtype_name, H=4, D=64):
     """Per attention site of a train step, in ``dtype_name``: the forward
     kernel, the dQ and the dK/dV kernel each alone and back to back (the
     pair, as a backward launches them), the whole plain backward
@@ -894,7 +965,8 @@ def time_backward(torch, fa, device, sites, dtype_name):
     (``attention_delta``, the pass that a dQ kernel of the package's
     DELTA_FORMING_KERNELS makes needless; a tree whose dQ kernel forms no
     delta runs it before that kernel); returns the sums over one train
-    step. ``sites``: (name, calls, Tq, Tk, causal, q_len, m_len)."""
+    step, at H heads of width D as time_kernels takes them. ``sites``:
+    (name, calls, Tq, Tk, causal, q_len, m_len)."""
     import torch.nn.functional as F
     totals = {k: 0.0 for k in ("fwd_ms", "dq_ms", "dkv_ms", "pair_ms", "delta_pass_ms",
                                "plain_ms", "library_ms", "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms",
@@ -905,52 +977,59 @@ def time_backward(torch, fa, device, sites, dtype_name):
     atol, rtol = TOL_GRAD[dtype_name]
     for i, (name, calls, tq, tk, causal, ql, ml) in enumerate(sites):
         B = len(ql)
-        q, k, v = random_qkv(torch, device, dtype, B, 4, tq, tk, 64, seed=400 + i)
-        do = random_qkv(torch, device, dtype, B, 4, tq, tq, 64, seed=500 + i)[0]
-        o, m, s = fa.masked_flash_attention(q, k, v, ql, ml, 0.125, causal)
+        q, k, v = random_qkv(torch, device, dtype, B, H, tq, tk, D, seed=400 + i)
+        do = random_qkv(torch, device, dtype, B, H, tq, tq, D, seed=500 + i)[0]
+        scale = D ** -0.5
+        o, m, s = fa.masked_flash_attention(q, k, v, ql, ml, scale, causal)
         # a dQ kernel that forms delta overwrites this one with its own (the
         # same values on the rows the dK/dV kernel reads)
         delta = fa.attention_delta(o, do).contiguous()
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
 
-        def launch(kernel, *outs):
-            reads_o = fa.kernel_name(kernel, dtype) in fa.DELTA_FORMING_KERNELS
-            fa.launch_backward_kernel(kernel, q, k, v, do, ql, ml, m, s, delta, outs,
-                                      0.125, causal, o=o if reads_o else None)
+        # one kernel alone takes a native width: others pad as the wrapper does
+        native = (q, k, v, do, o) if D in (64, 128) else fa.pad_head_width(
+            fa.kernel_width(D), q, k, v, do, o)
+        outs_native = {"dq": (torch.empty_like(native[0]),),
+                       "dkv": (torch.empty_like(native[1]), torch.empty_like(native[2]))}
+
+        def launch(kernel):
+            reads_o = kernel_key(fa, kernel, dtype, D) in fa.DELTA_FORMING_KERNELS
+            fa.launch_backward_kernel(kernel, *native[:4], ql, ml, m, s, delta,
+                                      outs_native[kernel], scale, causal,
+                                      o=native[4] if reads_o else None)
 
         mask = fa.attention_mask(ql, ml, B, tq, tk, causal, device)
         fwd_flop_ms, fwd_byte_ms, _, _ = forward_bound(torch, tq, tk, causal, ql, ml, B,
-                                                       dtype_name)
-        row = {"site": name, "dtype": dtype_name, "shape": [B, 4, tq, tk, 64], "causal": causal,
-               "kernels": [fa.kernel_name(kind, dtype) for kind in ("fwd", "dq", "dkv")],
+                                                       dtype_name, H, D)
+        row = {"site": name, "dtype": dtype_name, "shape": [B, H, tq, tk, D], "causal": causal,
+               "kernels": [kernel_key(fa, kind, dtype, D) for kind in ("fwd", "dq", "dkv")],
                "calls_per_train_step": calls,
                "fwd_ms": time_ms(torch, lambda: fa.masked_flash_attention(
-                   q, k, v, ql, ml, 0.125, causal)),
+                   q, k, v, ql, ml, scale, causal)),
                "fwd_plain_ms": time_ms(torch, lambda: fa.masked_attention_reference(
-                   q, k, v, ql, ml, 0.125, causal)),
+                   q, k, v, ql, ml, scale, causal)),
                "fwd_library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
-                   q, k, v, attn_mask=mask, scale=0.125)),
+                   q, k, v, attn_mask=mask, scale=scale)),
                "fwd_flop_ms": fwd_flop_ms, "fwd_byte_ms": fwd_byte_ms,
                "fwd_bound_ms": max(fwd_flop_ms, fwd_byte_ms),
-               "dq_ms": time_ms(torch, lambda: launch("dq", dq)),
-               "dkv_ms": time_ms(torch, lambda: launch("dkv", dk, dv)),
-               "pair_ms": time_ms(torch, lambda: (launch("dq", dq), launch("dkv", dk, dv))),
+               "dq_ms": time_ms(torch, lambda: launch("dq")),
+               "dkv_ms": time_ms(torch, lambda: launch("dkv")),
+               "pair_ms": time_ms(torch, lambda: (launch("dq"), launch("dkv"))),
                "delta_pass_ms": time_ms(torch, lambda: fa.attention_delta(o, do)),
                "plain_ms": time_ms(torch, lambda: fa.masked_attention_backward_reference(
-                   q, k, v, ql, ml, o, m, s, do, 0.125, causal))}
-        got = fa.masked_flash_attention_backward(q, k, v, ql, ml, o, m, s, do, 0.125, causal)
-        want = fa.masked_attention_backward_reference(q, k, v, ql, ml, o, m, s, do, 0.125, causal)
+                   q, k, v, ql, ml, o, m, s, do, scale, causal))}
+        got = fa.masked_flash_attention_backward(q, k, v, ql, ml, o, m, s, do, scale, causal)
+        want = fa.masked_attention_backward_reference(q, k, v, ql, ml, o, m, s, do, scale, causal)
         for g_name, a, b in zip(("dq", "dk", "dv"), got, want):
             diff = (a.float() - b.float()).abs()
             share = (diff / (atol + rtol * b.float().abs())).max().item()
             check(share <= 1.0, f"{name}/{dtype_name}: {g_name} error at the timed shape, "
                   f"{share} of tolerance")
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=0.125)
+        out = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask, scale=scale)
         row["library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
             out, (qg, kg, vg), do, retain_graph=True))
-        work = backward_work(torch, tq, tk, causal, ql, ml, 64, B, 4,
-                             fa.kernel_name("dq", dtype) in fa.DELTA_FORMING_KERNELS)
+        work = backward_work(torch, tq, tk, causal, ql, ml, D, B, H,
+                             kernel_key(fa, "dq", dtype, D) in fa.DELTA_FORMING_KERNELS)
         for kern, (flops, elems, stats) in work.items():
             flop_ms = 1e3 * flops / PEAK_FLOPS[dtype_name]
             n_bytes = elems * ELEMENT_BYTES[dtype_name] + stats * 4 + 2 * B * 4
@@ -1360,7 +1439,7 @@ def train_step_times(torch, fa, steps, model, hp, batch, r, reps=10, warmup=2):
     return walls, {k: v / reps for k, v in fa.launch_counts.items()}
 
 
-def profile_train_steps(torch, steps, model, hp, batch, r, reps=3):
+def profile_train_steps(torch, steps, model, hp, batch, r, reps=2):
     """torch.profiler over ``reps`` train steps at reduction factor ``r``:
     device time per step (the sum of the kernels' own device time; one
     stream, so kernels do not overlap), kernel launches per step, and the
@@ -1625,7 +1704,7 @@ def loop_phase(torch, np, fa, wavfile, tmp, records, device, smi, hop, init_pass
     every epoch and the device data cache on, then off: 1 epoch of 2 steps
     from a cold start each; test wavs from the device Griffin-Lim, finite
     test metrics in dev/metrics.jsonl, the predicted launches, and the two
-    runs' losses against each other. Then each run resumed for 2 more epochs
+    runs' losses against each other. Then each run resumed for 1 more epoch
     under torch.profiler: its host-to-device copies. Returns {path:
     launches}."""
     from torch.profiler import ProfilerActivity, profile
@@ -1637,9 +1716,9 @@ def loop_phase(torch, np, fa, wavfile, tmp, records, device, smi, hop, init_pass
     expected = {"masked_attention_fwd_tc": init_pass + per_step * (3 + n_dev) + n_attn,
                 "masked_attention_bwd_dq_tc": per_step * 3,
                 "masked_attention_bwd_dkv_tc": per_step * 3}
-    expected_resume = {"masked_attention_fwd_tc": per_step * 2 * (2 + n_dev),
-                       "masked_attention_bwd_dq_tc": per_step * 4,
-                       "masked_attention_bwd_dkv_tc": per_step * 4}
+    expected_resume = {"masked_attention_fwd_tc": per_step * (2 + n_dev),
+                       "masked_attention_bwd_dq_tc": per_step * 2,
+                       "masked_attention_bwd_dkv_tc": per_step * 2}
     for name, cache_mb in (("cache", LOOP_CACHE_MB), ("no_cache", 0)):
         root = os.path.join(tmp, f"loop_{name}")
         common = ["--dataset", "ljspeech", "--data_dir", records,
@@ -1669,10 +1748,10 @@ def loop_phase(torch, np, fa, wavfile, tmp, records, device, smi, hop, init_pass
               f"{name}: dev metrics {dev_rows}")
         check(os.path.isfile(os.path.join(root, "logs", "train.log")), "no train.log")
         paths[f"loop_{name}"] = counts
-        # two more epochs, resumed, under the profiler: the copies an epoch
+        # one more epoch, resumed, under the profiler: the copies an epoch
         fa.launch_counts.clear()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            run_cli(cli_train.main, common + ["--max_epochs", "3",
+            run_cli(cli_train.main, common + ["--max_epochs", "2",
                                               "--override", "train.test_interval=1000"])
             torch.cuda.synchronize()
         resume_counts = dict(fa.launch_counts)
@@ -1685,10 +1764,10 @@ def loop_phase(torch, np, fa, wavfile, tmp, records, device, smi, hop, init_pass
     rel = max(abs(x[k] - y[k]) / max(abs(y[k]), 1e-30) for x, y in pairs for k in y)
     print(json.dumps({"card": smi, "runs": runs, "losses_equal_exactly": rel == 0.0,
                       "max_rel_diff_cache_vs_no_cache": rel,
-                      "h2d_copies_two_resumed_epochs": {
+                      "h2d_copies_one_resumed_epoch": {
                           k: {"copies": c, "device_ms": ms} for k, (c, ms) in copies.items()},
-                      "h2d_copies_saved_per_epoch": (copies["no_cache"][0]
-                                                     - copies["cache"][0]) / 2}), flush=True)
+                      "h2d_copies_saved_per_epoch": copies["no_cache"][0] - copies["cache"][0]}),
+          flush=True)
     check(rel <= TOL_CACHE_REL, f"cache on against off: losses differ by {rel} relative")
     return paths
 
@@ -3306,6 +3385,280 @@ def reference_import_phase(torch, fa, tmp, smi, token_ids):
     return {"reference_checkpoint_import": counts}
 
 
+def card_vs_cpu_train_step(torch, np, fa, hp0, model_dir, data_dir, device, want_launches):
+    """One fp32 train step of the newest checkpoint in ``model_dir`` under
+    ``hp0`` (compute dtype float32, dropout off), on the card and on the
+    CPU, from one state: r = 2, the first train batch of 4 in ``data_dir``,
+    injected posterior noise, and the ReLU inputs that round to the other
+    side of 0 on the CPU put on the card's side. Checks the card's kernel
+    launches against ``want_launches`` and the losses, every gradient
+    element and the BatchNorm statistics against the CPU's; returns the
+    card's launches."""
+    from vaenar_tts_torch.data.loader import BucketedLoader
+    from vaenar_tts_torch.data.records import list_shards
+    from vaenar_tts_torch.models.vaenar import VAENAR
+    from vaenar_tts_torch.training import steps
+    from vaenar_tts_torch.training.loop import to_device
+    from vaenar_tts_torch.utils.checkpoint import CheckpointManager
+    small = next(iter(BucketedLoader(list_shards(data_dir, "train"), 4,
+                                     hp0.dataset.mel_bucket, hp0.dataset.text_bucket,
+                                     shuffle=False).epoch(0)))
+    eps = torch.from_numpy(np.random.default_rng(3).standard_normal(
+        (4, 1, small.mels.shape[1] // 2, hp0.common.latent_dim)).astype(np.float32))
+    result, signs, ties = [], {}, []
+    for dev in (device, torch.device("cpu")):
+        m0 = load_trained(VAENAR, CheckpointManager, hp0, model_dir, dev)
+        hooks = relu_sign_hooks(torch, m0, signs, None if dev.type == "cuda" else ties)
+        fa.launch_counts.clear()
+        metrics = steps.train_step(m0, steps.make_optimizer(hp0, m0), hp0,
+                                   *to_device(small, dev), 1e-5, 2, epsilon=eps.to(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+            fp32_step_counts = dict(fa.launch_counts)
+        for h in hooks:
+            h.remove()
+        result.append((steps.metric_floats(metrics),
+                       {n: p.grad.cpu() for n, p in m0.named_parameters()},
+                       {n: b.cpu() for n, b in m0.named_buffers()}))
+    (card_m, card_g, card_b), (cpu_m, cpu_g, cpu_b) = result
+    loss_share = {k: abs(card_m[k] - cpu_m[k])
+                  / ((TOL_KL_REL if k == "kl" else TOL_LOSS_REL) * abs(cpu_m[k]))
+                  for k in cpu_m}
+    zero_grad = bn_fed_conv_biases(torch, m0)
+    grad_share = {}
+    for n, g in cpu_g.items():
+        if n in zero_grad:
+            grad_share[n] = (max(card_g[n].abs().max().item(), g.abs().max().item())
+                             / (TOL_ZERO_GRAD * cpu_g[zero_grad[n]].abs().max().item()))
+        else:
+            err, tol = (card_g[n] - g).abs().max().item(), TOL_GRAD_LEAF * g.abs().max().item()
+            grad_share[n] = err / tol if tol > 0 else (0.0 if err == 0 else float("inf"))
+    worst_grads = sorted(grad_share, key=grad_share.get)[-5:]
+    tie_share = max((t[2] for t in ties), default=0.0) / TOL_RELU_TIE
+    bn_share = max(((card_b[n].double() - b.double()).abs()
+                    / (TOL_BN[1] + TOL_BN[0] * b.double().abs())).max().item()
+                   for n, b in cpu_b.items())
+    print(json.dumps({"batch": list(small.mels.shape), "launches_card": fp32_step_counts,
+                      "loss_card": card_m, "loss_cpu": cpu_m,
+                      "share_of_tol_loss": loss_share,
+                      "worst_grads_share_of_tol": {n: grad_share[n] for n in worst_grads},
+                      "zero_grad_biases_share_of_tol": {n: grad_share[n] for n in zero_grad},
+                      "relu_ties": ties, "relu_inputs_per_step": sum(len(v) for v in signs.values()),
+                      "max_share_of_tol_relu_tie": tie_share,
+                      "max_share_of_tol_batch_stats": bn_share}), flush=True)
+    check(fp32_step_counts == want_launches,
+          f"fp32 train step launched {fp32_step_counts}, expected {want_launches}")
+    check(max(loss_share.values()) <= 1.0, f"card vs CPU loss error {loss_share}")
+    check(max(grad_share.values()) <= 1.0, "card vs CPU gradient error")
+    check(tie_share <= 1.0, f"a ReLU input on another side of 0 by more than rounding: {ties}")
+    check(bn_share <= 1.0, f"card vs CPU BatchNorm statistics, {bn_share} of tolerance")
+    return fp32_step_counts
+
+
+def merge_worst(into, *found):
+    """Fold a check's nested {kernel: {key: value}} dicts (its errors, its
+    shares of the tolerance) into the dicts of ``into``, keeping the larger
+    value of each."""
+    for merged, nested in zip(into, found):
+        for kernel, by_key in nested.items():
+            for key, value in by_key.items():
+                merged.setdefault(kernel, {})[key] = max(
+                    merged.get(kernel, {}).get(key, 0.0), value)
+
+
+def head_widths_phase(torch, np, fa, tmp, data_dir, device, token_ids, use_q, n_attn,
+                      init_pass, per_step, shipped_walls):
+    """The shipped LJSpeech config at its attention width, 256, in 2 heads
+    (D = 128, the kernels' second instantiation) and in 8 (D = 32, zero
+    padded to the D = 64 kernels) in every stack, from fresh weights of
+    ``cli.train``'s seeded cold start on the 64 train and 32 dev records of
+    ``data_dir`` at batch 32, r = 2. D = 128: bf16 ``cli.train`` through the
+    device data cache for one epoch, eagerly and as a CUDA graph
+    (``train.device_cache_epoch_scan``), the two equal to the bit; the
+    eager run's state synthesizes the 4 lines at temperature 0 in bf16 and
+    in fp32 (the fp32 mels against the CPU's, lengths equal); an fp32 train
+    step at batch 4 against the CPU's (card_vs_cpu_train_step); bf16 and
+    fp32 train steps at batch 32 and synthesis timed beside the shipped
+    D = 64 walls ``shipped_walls``; then the D = 128 kernels at this
+    model's sites (card, bound, plain and SDPA ms). D = 32: the same two
+    bf16 epochs, equal to the bit (the graph captures the wrapper's pad
+    and slice copies), bf16 synthesis and fp32 synthesis against the CPU.
+    Every run checks which kernels it launched, and how often. Returns
+    ({path: launches}, {kernel: launches replayed in the graphs, at both
+    widths}, {"fwd": synthesis timing totals, "long": the 1024 x 4104
+    case's, "bwd": train step timing totals, each by dtype}) at D = 128."""
+    from vaenar_tts_torch.cli import train as cli_train
+    from vaenar_tts_torch.cli.inference import synthesize_batch
+    from vaenar_tts_torch.configs.overrides import apply_overrides
+    from vaenar_tts_torch.configs.serialize import load_hparams
+    from vaenar_tts_torch.data.loader import BucketedLoader
+    from vaenar_tts_torch.data.records import list_shards
+    from vaenar_tts_torch.models.vaenar import VAENAR
+    from vaenar_tts_torch.training import steps
+    from vaenar_tts_torch.training.loop import to_device
+    from vaenar_tts_torch.utils.checkpoint import CheckpointManager
+    phase("head_widths")
+    paths, report = {}, {}
+    n_train = N_TRAIN // 32  # steps an epoch at batch 32
+    n_dev = -(-N_DEV // 32)
+
+    def train(heads, tag, extra, argv_extra=()):
+        """``cli.train`` from a cold start at ``heads`` heads a stack, one
+        epoch at r = 2 with the overrides ``extra``; its launches are path
+        head_widths_d<D>_<tag>'s. Returns (history, model directory)."""
+        model_dir = os.path.join(tmp, f"heads{heads}_{tag}")
+        argv = ["--dataset", "ljspeech", "--data_dir", data_dir, "--model_dir", model_dir,
+                "--log_dir", model_dir + "_logs", "--device", str(device), "--max_epochs", "1",
+                "--hparams", os.path.join(MODEL_DIR, "hparams.json"), "--no-draw_plots",
+                *argv_extra]
+        for o in [f"{stack}.attention_heads={heads}" for stack in HEAD_STACKS] + [
+                "train.reduction_factors=(2,)", "train.reduce_interval=(0,)", *extra]:
+            argv += ["--override", o]
+        fa.launch_counts.clear()
+        history, _ = run_cli(cli_train.main, argv)
+        torch.cuda.synchronize()
+        paths[f"head_widths_d{256 // heads}_{tag}"] = dict(fa.launch_counts)
+        check(all(np.isfinite(v) for split in ("train", "dev") for m in history[split].values()
+                  for v in m.values()), f"{heads} heads, {tag}: a non-finite loss")
+        return history, model_dir
+
+    def synthesize(model, hp, tag, want):
+        """Synthesis of the 4 lines at temperature 0: (mels, lengths); its
+        launches are a path of their own and must be ``want``."""
+        fa.launch_counts.clear()
+        mels, lens = synthesize_batch(model, hp, token_ids, 0.0, use_q)
+        torch.cuda.synchronize()
+        paths[tag] = dict(fa.launch_counts)
+        check(paths[tag] == want, f"{tag}: launched {paths[tag]}, expected {want}")
+        check(bool(torch.isfinite(mels).all()), f"{tag}: non-finite mel")
+        return mels, lens
+
+    def card_vs_cpu_synthesis(hp, model_dir, tag, want):
+        """fp32 synthesis of the 4 lines on the card and on the CPU from the
+        state in ``model_dir``: equal lengths, mels within TOL_MEL_CARD_CPU."""
+        hp32 = apply_overrides(hp, ["train.compute_dtype=float32"])
+        mels, lens = synthesize(load_trained(VAENAR, CheckpointManager, hp32, model_dir, device),
+                                hp32, tag, want)
+        cpu = load_trained(VAENAR, CheckpointManager, hp32, model_dir, torch.device("cpu"))
+        mels_cpu, lens_cpu = synthesize_batch(cpu, hp32, token_ids, 0.0, use_q)
+        err = (mels.cpu() - mels_cpu).abs().max().item()
+        report[tag] = {"lengths_card": lens.tolist(), "lengths_cpu": lens_cpu.tolist(),
+                       "max_abs_err_mel": err, "tolerance": TOL_MEL_CARD_CPU}
+        check(torch.equal(lens.cpu(), lens_cpu), f"{tag}: card lengths {lens} != CPU {lens_cpu}")
+        check(err <= TOL_MEL_CARD_CPU, f"{tag}: card vs CPU mel error {err}")
+
+    def epochs(heads):
+        """One bf16 epoch at ``heads`` heads through the device data cache,
+        eagerly and as a CUDA graph (``train.device_cache_epoch_scan``),
+        from the same cold start: each run's launches of the kernels of
+        this width, the runner's replays and captured launches, the losses
+        equal to the bit. Returns (the eager run's model directory, the
+        kernels' names by kind, {kernel: launches replayed})."""
+        D = 256 // heads
+        cache = [f"train.device_data_cache_mb={LOOP_CACHE_MB}"]
+        eager, eager_dir = train(heads, "bf16_eager", cache + ["train.device_cache_epoch_scan=false"])
+        graphed, _ = train(heads, "bf16_graphed", cache + ["train.device_cache_epoch_scan=true"])
+        names = {kind: fa.kernel_name(kind, torch.bfloat16, D) for kind in ("fwd", "dq", "dkv")}
+        want_eager = {names["fwd"]: init_pass + per_step * (1 + n_train + n_dev),
+                      names["dq"]: per_step * (1 + n_train), names["dkv"]: per_step * (1 + n_train)}
+        want_graphed = {names["fwd"]: init_pass + per_step * (1 + steps.WARMUP_STEPS + 1 + n_dev),
+                        names["dq"]: per_step * (steps.WARMUP_STEPS + 2),
+                        names["dkv"]: per_step * (steps.WARMUP_STEPS + 2)}
+        runner = graphed["runner"]
+        equal = all(graphed[split][1] == eager[split][1] for split in ("train", "dev")) and (
+            graphed["initial"] == eager["initial"])
+        got_eager = paths[f"head_widths_d{D}_bf16_eager"]
+        got_graphed = paths[f"head_widths_d{D}_bf16_graphed"]
+        report[f"d{D}_bf16_epoch"] = {"eager": {s: eager[s][1] for s in ("train", "dev")},
+                                      "graphed": {s: graphed[s][1] for s in ("train", "dev")},
+                                      "equal_to_the_bit": equal, "runner": runner,
+                                      "launches_eager": got_eager,
+                                      "launches_graphed": got_graphed}
+        print(json.dumps({f"head_widths_d{D}": report[f"d{D}_bf16_epoch"]}), flush=True)
+        check(eager["cache"] and eager["runner"] is None, f"the eager run's cache {eager['cache']}")
+        check(got_eager == want_eager,
+              f"D = {D} eager epoch launched {got_eager}, expected {want_eager}")
+        check(got_graphed == want_graphed,
+              f"D = {D} graphed epoch launched {got_graphed}, expected {want_graphed}")
+        check(runner is not None and runner["graphed"] and runner["replays"] == n_train
+              and sorted(runner["captured_launches"]) == [2]
+              and runner["captured_launches"][2] == {n: per_step for n in names.values()},
+              f"D = {D} epoch runner: {runner}")
+        check(equal, f"D = {D}: the graphed bf16 epoch's losses differ from the eager epoch's")
+        return eager_dir, names, {n: per_step * runner["replays"] for n in names.values()}
+
+    # D = 128: one epoch eagerly and as a graph, from the same cold start
+    eager_dir, names, replayed = epochs(2)
+
+    # its state: synthesis in both dtypes, the fp32 step against the CPU
+    hp = load_hparams(eager_dir)
+    check(hp.encoder.attention_dim // hp.encoder.attention_heads == 128,
+          f"{hp.encoder.attention_heads} heads of {hp.encoder.attention_dim}")
+    hp32 = apply_overrides(hp, ["train.compute_dtype=float32"])
+    model = load_trained(VAENAR, CheckpointManager, hp, eager_dir, device)
+    mels, lens = synthesize(model, hp, "head_widths_d128_bf16_synthesis", {names["fwd"]: n_attn})
+    card_vs_cpu_synthesis(hp, eager_dir, "head_widths_d128_fp32_synthesis",
+                          {fa.kernel_name("fwd", torch.float32, 128): n_attn})
+    fp32_names = {kind: fa.kernel_name(kind, torch.float32, 128) for kind in ("fwd", "dq", "dkv")}
+    paths["head_widths_d128_fp32_step_card_vs_cpu"] = card_vs_cpu_train_step(
+        torch, np, fa, apply_overrides(hp32, NO_DROPOUT), eager_dir, data_dir, device,
+        {n: per_step for n in fp32_names.values()})
+
+    # walls beside the shipped model's, and the kernels at this model's sites
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        synthesize_batch(model, hp, token_ids, 0.0, use_q)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+    big = next(iter(BucketedLoader(list_shards(data_dir, "train"), 32, hp.dataset.mel_bucket,
+                                   hp.dataset.text_bucket, shuffle=False).epoch(0)))
+    batch = to_device(big, device)
+    step_walls = {}
+    for dtype_name, h_, want in (("bfloat16", hp, names), ("float32", hp32, fp32_names)):
+        m_ = load_trained(VAENAR, CheckpointManager, h_, eager_dir, device)
+        walls_t, counts = train_step_times(torch, fa, steps, m_, h_, batch, 2, reps=5)
+        # the 5 timed steps, whose launches were counted (not the warm-up's)
+        paths[f"head_widths_d128_{dtype_name}_timed_steps"] = {
+            n: int(round(c * 5)) for n, c in counts.items()}
+        step_walls[dtype_name] = statistics.median(walls_t)
+        check(counts == {n: float(per_step) for n in want.values()},
+              f"launches per D = 128 {dtype_name} train step: {counts}")
+    print(json.dumps({"head_widths_walls": {
+        "synthesis_s": {"d128_bfloat16": walls, "d64_shipped_bfloat16": shipped_walls["synthesis"],
+                        "d128_mel_lengths": lens.tolist(),
+                        "d64_mel_lengths": shipped_walls["synthesis_lengths"]},
+        "train_step_median_s_r2_batch32": {
+            "d128": step_walls, "d64_shipped": shipped_walls["train_step"]}}}), flush=True)
+    max_mel = mels.shape[1]
+    sites = synthesis_sites(torch, hp, token_ids, lens, max_mel, device)
+    step_sites = train_sites(torch, hp, big, device)
+    long_case = [c for c in check_cases(torch, device) if c[0] == "long_1024x4104"][0]
+    timing = {"fwd": {}, "long": {}, "bwd": {}}
+    for dtype_name in ("bfloat16", "float32"):
+        timing["fwd"][dtype_name] = time_kernels(torch, fa, device, sites, dtype_name, 2, 128)
+        timing["long"][dtype_name] = time_kernels(
+            torch, fa, device, [(long_case[0], 1, *long_case[1:])], dtype_name, 2, 128)
+        timing["bwd"][dtype_name] = time_backward(torch, fa, device, step_sites, dtype_name,
+                                                  2, 128)
+
+    # D = 32, zero padded to the D = 64 kernels, the pad and slice copies
+    # captured in the graphed epoch
+    d32_dir, base, d32_replayed = epochs(8)
+    check(base == {kind: fa.kernel_name(kind, torch.bfloat16) for kind in ("fwd", "dq", "dkv")},
+          f"D = 32 takes {base}, expected the D = 64 kernels")
+    for n, c in d32_replayed.items():
+        replayed[n] = replayed.get(n, 0) + c
+    hp8 = load_hparams(d32_dir)
+    synthesize(load_trained(VAENAR, CheckpointManager, hp8, d32_dir, device), hp8,
+               "head_widths_d32_bf16_synthesis", {base["fwd"]: n_attn})
+    card_vs_cpu_synthesis(hp8, d32_dir, "head_widths_d32_fp32_synthesis",
+                          {fa.kernel_name("fwd", torch.float32): n_attn})
+    print(json.dumps({"head_widths": report, "launches": paths}), flush=True)
+    return paths, replayed, timing
+
+
 def load_trained(VAENAR, CheckpointManager, hp, model_dir, device):
     """The model of ``hp`` (its compute dtype) with the newest checkpoint of
     ``model_dir`` restored, on ``device``."""
@@ -3369,11 +3722,19 @@ def main():
                           for name, _ in _build.KERNELS}}), flush=True)
 
     phase("kernel_checks")
-    worst_fwd, share_fwd = check_kernels(torch, fa, device)
+    # D = 64 and D = 128 on every case; the padded widths on a subset, their
+    # errors folded into the D = 64 or D = 128 kernel that served them
+    # each kernel's largest errors by dtype, and its shares of the
+    # tolerances at the native and at the padded widths
+    worst, shares = {}, {}
+    for D in (64, 128, *PADDED_WIDTHS):
+        merge_worst((worst, shares), *check_kernels(torch, fa, device, D,
+                                                    None if D in (64, 128) else PADDED_FWD_CASES))
 
     phase("backward_checks")
-    worst_bwd, share_bwd = check_backward(torch, fa, device)
-    worst = {**worst_fwd, **worst_bwd}
+    for D in (64, 128, *PADDED_WIDTHS):
+        merge_worst((worst, shares), *check_backward(torch, fa, device, D,
+                                                     None if D in (64, 128) else PADDED_BWD_CASES))
     print(json.dumps({"backward_device_kernels": check_backward_launches(torch, fa, device)}),
           flush=True)
 
@@ -3529,61 +3890,10 @@ def main():
                   for p in trained.parameters()), "a parameter not finite fp32 after training")
 
         phase("train_step_fp32_card_vs_cpu")
-        hp0 = apply_overrides(hp32_train, NO_DROPOUT)
-        small = next(iter(BucketedLoader(list_shards(data_dir, "train"), 4,
-                                         hp0.dataset.mel_bucket, hp0.dataset.text_bucket,
-                                         shuffle=False).epoch(0)))
-        eps = torch.from_numpy(np.random.default_rng(3).standard_normal(
-            (4, 1, small.mels.shape[1] // 2, hp0.common.latent_dim)).astype(np.float32))
-        result, signs, ties = [], {}, []
-        for dev in (device, torch.device("cpu")):
-            m0 = load_trained(VAENAR, CheckpointManager, hp0, model_dir, dev)
-            hooks = relu_sign_hooks(torch, m0, signs, None if dev.type == "cuda" else ties)
-            fa.launch_counts.clear()
-            metrics = steps.train_step(m0, steps.make_optimizer(hp0, m0), hp0,
-                                       *to_device(small, dev), 1e-5, 2, epsilon=eps.to(dev))
-            if dev.type == "cuda":
-                torch.cuda.synchronize()
-                fp32_step_counts = dict(fa.launch_counts)
-            for h in hooks:
-                h.remove()
-            result.append((steps.metric_floats(metrics),
-                           {n: p.grad.cpu() for n, p in m0.named_parameters()},
-                           {n: b.cpu() for n, b in m0.named_buffers()}))
-        (card_m, card_g, card_b), (cpu_m, cpu_g, cpu_b) = result
-        loss_share = {k: abs(card_m[k] - cpu_m[k])
-                      / ((TOL_KL_REL if k == "kl" else TOL_LOSS_REL) * abs(cpu_m[k]))
-                      for k in cpu_m}
-        zero_grad = bn_fed_conv_biases(torch, m0)
-        grad_share = {}
-        for n, g in cpu_g.items():
-            if n in zero_grad:
-                grad_share[n] = (max(card_g[n].abs().max().item(), g.abs().max().item())
-                                 / (TOL_ZERO_GRAD * cpu_g[zero_grad[n]].abs().max().item()))
-            else:
-                err, tol = (card_g[n] - g).abs().max().item(), TOL_GRAD_LEAF * g.abs().max().item()
-                grad_share[n] = err / tol if tol > 0 else (0.0 if err == 0 else float("inf"))
-        worst_grads = sorted(grad_share, key=grad_share.get)[-5:]
-        tie_share = max((t[2] for t in ties), default=0.0) / TOL_RELU_TIE
-        bn_share = max(((card_b[n].double() - b.double()).abs()
-                        / (TOL_BN[1] + TOL_BN[0] * b.double().abs())).max().item()
-                       for n, b in cpu_b.items())
-        print(json.dumps({"batch": list(small.mels.shape), "launches_card": fp32_step_counts,
-                          "loss_card": card_m, "loss_cpu": cpu_m,
-                          "share_of_tol_loss": loss_share,
-                          "worst_grads_share_of_tol": {n: grad_share[n] for n in worst_grads},
-                          "zero_grad_biases_share_of_tol": {n: grad_share[n] for n in zero_grad},
-                          "relu_ties": ties, "relu_inputs_per_step": sum(len(v) for v in signs.values()),
-                          "max_share_of_tol_relu_tie": tie_share,
-                          "max_share_of_tol_batch_stats": bn_share}), flush=True)
-        check(fp32_step_counts == {"masked_attention_fwd": per_step,
-                                   "masked_attention_bwd_dq": per_step,
-                                   "masked_attention_bwd_dkv": per_step},
-              f"fp32 train step launched {fp32_step_counts}")
-        check(max(loss_share.values()) <= 1.0, f"card vs CPU loss error {loss_share}")
-        check(max(grad_share.values()) <= 1.0, "card vs CPU gradient error")
-        check(tie_share <= 1.0, f"a ReLU input on another side of 0 by more than rounding: {ties}")
-        check(bn_share <= 1.0, f"card vs CPU BatchNorm statistics, {bn_share} of tolerance")
+        fp32_step_counts = card_vs_cpu_train_step(
+            torch, np, fa, apply_overrides(hp32_train, NO_DROPOUT), model_dir, data_dir,
+            device, {"masked_attention_fwd": per_step, "masked_attention_bwd_dq": per_step,
+                     "masked_attention_bwd_dkv": per_step})
 
         # the JAX package's own bf16-against-fp32 thresholds, on the card
         phase("dev_step_bf16_vs_fp32")
@@ -3794,6 +4104,12 @@ def main():
                               "device_busy_share": device_ms / wall_ms if device_ms else None,
                               "top_kernels_ms_per_step": top}), flush=True)
 
+        width_paths, width_replayed, width_timing = head_widths_phase(
+            torch, np, fa, tmp, data_dir, device, token_ids, use_q, n_attn, init_pass, per_step,
+            {"synthesis": synthesis_walls["bfloat16"], "synthesis_lengths": lens0.tolist(),
+             "train_step": {d: step_times[f"{d}_r2"]["median_s"]
+                            for d in ("bfloat16", "float32")}})
+
         toy_records = preprocess_phase(torch, np, wavfile, tmp, DEVICE, smi)
         probe_counts, best_counts, in_probes = probe_phase(
             torch, fa, tmp, toy_records, os.path.join(MODEL_DIR, "hparams.json"), DEVICE, smi,
@@ -3839,10 +4155,12 @@ def main():
     synth_per = "ms: one synthesis call, its 32 launches at the synthesis path's shapes and lengths"
     fa_src = "vaenar_tts_tpu/ops/flash_attention.py"
 
-    def fwd_entry(name, dtype_name, launches, by_path, extra):
-        t_syn, t_step, t_long = totals[dtype_name], bwd[dtype_name], blocked[dtype_name]
+    def fwd_entry(name, dtype_name, launches, by_path, extra, timing=None):
+        timing = timing or {"fwd": totals, "bwd": bwd, "long": blocked}
+        t_syn, t_step = timing["fwd"][dtype_name], timing["bwd"][dtype_name]
+        t_long = timing["long"][dtype_name]
         return {"name": name, "route": "cuda", "dtype": dtype_name,
-                "source": f"vaenar_tts_torch/csrc/{name}.cu",
+                "source": f"vaenar_tts_torch/csrc/{fa.c_function(name)}.cu",
                 "replaces": f"{fa_src}:104", "also_replaces": f"{fa_src}:142",
                 "launches": launches, "launches_by_path": by_path,
                 "max_abs_err": worst[name][dtype_name],
@@ -3860,10 +4178,10 @@ def main():
                                          else "bytes")},
                 "per": synth_per, **extra}
 
-    def bwd_entry(name, kern, dtype_name, launches, by_path, extra):
-        t = bwd[dtype_name]
+    def bwd_entry(name, kern, dtype_name, launches, by_path, extra, timing=None):
+        t = (timing or {"bwd": bwd})["bwd"][dtype_name]
         return {"name": name, "route": "cuda", "dtype": dtype_name,
-                "source": f"vaenar_tts_torch/csrc/{BWD_SOURCES[name]}",
+                "source": f"vaenar_tts_torch/csrc/{BWD_SOURCES[fa.c_function(name)]}",
                 "replaces": f"{fa_src}:{320 if kern == 'dq' else 370}",
                 "launches": launches, "launches_by_path": by_path,
                 "max_abs_err": worst[name][dtype_name],
@@ -3894,37 +4212,49 @@ def main():
                    "probe_training_cli": probe_counts["masked_attention_fwd_tc"],
                    "export_best_synthesis": best_counts["masked_attention_fwd_tc"],
                    "shipped_ler_cli": ler_counts},
-                  {"max_share_of_tol": share_fwd["bfloat16"],
-                   "launches_inside_probes": in_probes}),
+                  {**shares["masked_attention_fwd_tc"], "launches_inside_probes": in_probes}),
         fwd_entry("masked_attention_fwd", "float32",
                   fp32_synthesis_counts["masked_attention_fwd"]
                   + fp32_step_counts["masked_attention_fwd"],
                   {"fp32_synthesis": fp32_synthesis_counts["masked_attention_fwd"],
                    "fp32_train_step": fp32_step_counts["masked_attention_fwd"]},
-                  {"max_share_of_tol": share_fwd["float32"]}),
+                  shares["masked_attention_fwd"]),
         bwd_entry("masked_attention_bwd_dq_tc", "dq", "bfloat16",
                   training_counts["masked_attention_bwd_dq_tc"]
                   + probe_counts["masked_attention_bwd_dq_tc"],
                   {"training": training_counts["masked_attention_bwd_dq_tc"],
                    "probe_training_cli": probe_counts["masked_attention_bwd_dq_tc"]},
-                  {"max_share_of_tol": share_bwd["bfloat16"]["dq"],
-                   "max_share_of_tol_delta": share_bwd["bfloat16"]["delta"]}),
+                  shares["masked_attention_bwd_dq_tc"]),
         bwd_entry("masked_attention_bwd_dq", "dq", "float32",
                   fp32_step_counts["masked_attention_bwd_dq"],
                   {"fp32_train_step": fp32_step_counts["masked_attention_bwd_dq"]},
-                  {"max_share_of_tol": share_bwd["float32"]["dq"],
-                   "max_share_of_tol_delta": share_bwd["float32"]["delta"]}),
+                  shares["masked_attention_bwd_dq"]),
         bwd_entry("masked_attention_bwd_dkv_tc", "dkv", "bfloat16",
                   training_counts["masked_attention_bwd_dkv_tc"]
                   + probe_counts["masked_attention_bwd_dkv_tc"],
                   {"training": training_counts["masked_attention_bwd_dkv_tc"],
                    "probe_training_cli": probe_counts["masked_attention_bwd_dkv_tc"]},
-                  {"max_share_of_tol": share_bwd["bfloat16"]["dkv"]}),
+                  shares["masked_attention_bwd_dkv_tc"]),
         bwd_entry("masked_attention_bwd_dkv", "dkv", "float32",
                   fp32_step_counts["masked_attention_bwd_dkv"],
                   {"fp32_train_step": fp32_step_counts["masked_attention_bwd_dkv"]},
-                  {"max_share_of_tol": share_bwd["float32"]["dkv"]}),
+                  shares["masked_attention_bwd_dkv"]),
     ]
+    # the D = 128 instantiations: launched on the head_widths paths only,
+    # timed at the D = 128 model's sites
+    d128 = "at D = 128, the shipped attention width in 2 heads (head_widths)"
+    for dtype_name in ("bfloat16", "float32"):
+        dt = getattr(torch, dtype_name)
+        name = fa.kernel_name("fwd", dt, 128)
+        kernels.append(fwd_entry(name, dtype_name, 0, {}, {
+            **shares[name], "per": f"{synth_per}, {d128}"}, width_timing))
+        for kern in ("dq", "dkv"):
+            name = fa.kernel_name(kern, dt, 128)
+            kernels.append(bwd_entry(name, kern, dtype_name, 0, {}, {
+                **shares[name], "per": f"{train_per}, {d128}"}, width_timing))
+    new_paths.update(width_paths)
+    for n, c in width_replayed.items():
+        graph_replayed["bfloat16"][n] = graph_replayed["bfloat16"].get(n, 0) + c
     for entry in kernels:
         for path, counts in new_paths.items():
             if counts.get(entry["name"]):

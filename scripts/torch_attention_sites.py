@@ -4,7 +4,7 @@
 model:
 
     python3 scripts/torch_attention_sites.py ROOT [ROOT ...] [--checks] [--dtype float32]
-        [--batch N]
+        [--batch N] [--heads N]
 
 Each ROOT is a directory that holds a `vaenar_tts_torch/` package (this
 checkout, or another tree unpacked with `git archive`); each runs in its own
@@ -21,7 +21,11 @@ ones chip_smoke.py's times phase uses: the shipped model's bf16 synthesis
 lengths of its four lines (1093, 1000, 1166 and 919 mel frames) and the
 seeded training batch at r = 2, or with `--batch N` its N items with the
 longest mels (N = 1: the latency of one item's blocks, the card otherwise
-idle). The last line is the card's name and power limit.
+idle). `--heads N` splits the shipped attention width (256) into N heads
+of 256 / N at every site (default 4 heads of 64; 2 heads run the D = 128
+kernels, 8 heads the zero-padded D = 32 route), with the checks at that
+width too; a tree from before the kernels took other widths runs only the
+default. The last line is the card's name and power limit.
 
 It loads chip_smoke.py by file path and calls its helpers `MODEL_DIR`,
 `LINES`, `check_cases`, `check_kernels`, `check_backward`, `write_records`,
@@ -119,9 +123,14 @@ def main_path_sites(torch, cs, device, batch=None):
     return sites, long_case, cs.train_sites(torch, hp, big, device)
 
 
-def run_one(root, checks, dtypes, batch=None):
+ATTENTION_DIM = 256  # the shipped model's attention width in every stack
+
+
+def run_one(root, checks, dtypes, batch=None, heads=4):
     """One run from ``root`` (train-step sites on the ``batch`` longest items
-    of the seeded batch, or all of them); prints JSON lines."""
+    of the seeded batch, or all of them), at ``heads`` heads of
+    ATTENTION_DIM / heads; prints JSON lines."""
+    width = ATTENTION_DIM // heads
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from vaenar_tts_torch.ops import _build
@@ -138,31 +147,36 @@ def run_one(root, checks, dtypes, batch=None):
             name: getattr(lib, f"{name}_shared_bytes")() for name, _ in _build.KERNELS},
         "tensor_core_instructions": tensor_core_counts(_build)}), flush=True)
     if checks:
-        print(json.dumps({"root": root, "forward_checks": cs.check_kernels(torch, fa, device)}),
+        print(json.dumps({"root": root, "head_dim": width,
+                          "forward_checks": cs.check_kernels(torch, fa, device, width)}),
               flush=True)
-        print(json.dumps({"root": root, "backward_checks": cs.check_backward(torch, fa, device)}),
+        print(json.dumps({"root": root, "head_dim": width,
+                          "backward_checks": cs.check_backward(torch, fa, device, width)}),
               flush=True)
 
     sites, long_case, step_sites = main_path_sites(torch, cs, device, batch)
     for dtype_name in dtypes:
-        print(json.dumps({"root": root, "dtype": dtype_name,
+        print(json.dumps({"root": root, "dtype": dtype_name, "heads": heads,
+                          "head_dim": width,
                           "forward_per_synthesis": cs.time_kernels(torch, fa, device, sites,
-                                                                   dtype_name),
+                                                                   dtype_name, heads, width),
                           "tk_4104": cs.time_kernels(torch, fa, device,
                                                      [(long_case[0], 1, *long_case[1:])],
-                                                     dtype_name),
+                                                     dtype_name, heads, width),
                           "per_train_step_r2": cs.time_backward(torch, fa, device, step_sites,
-                                                                dtype_name)}), flush=True)
+                                                                dtype_name, heads, width)}),
+              flush=True)
 
 
 def main(argv):
     if len(argv) >= 2 and argv[0] == "--one":
         run_one(argv[1], "--checks" in argv, argv[argv.index("--dtype") + 1:][:1]
                 if "--dtype" in argv else ["float32", "bfloat16"],
-                int(argv[argv.index("--batch") + 1]) if "--batch" in argv else None)
+                int(argv[argv.index("--batch") + 1]) if "--batch" in argv else None,
+                int(argv[argv.index("--heads") + 1]) if "--heads" in argv else 4)
         return 0
     flags = [a for a in argv if a == "--checks"]
-    for option in ("--dtype", "--batch"):
+    for option in ("--dtype", "--batch", "--heads"):
         if option in argv:
             flags += argv[argv.index(option):][:2]
     roots = [a for a in argv if a not in flags]

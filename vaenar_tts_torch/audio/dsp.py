@@ -335,6 +335,12 @@ class AudioProcessor:
         return (np.clip(S, 0, c.max_abs_value) * (-c.min_level_db)
                 / c.max_abs_value + c.min_level_db)
 
+    def spectrogram(self, y: np.ndarray, clip_norm: bool = True) -> np.ndarray:
+        """[num_freq, n_frames] normalized log-magnitude spectrogram."""
+        D = self._stft(y)
+        S = self.amp_to_db(np.abs(D)) - self.cfg.ref_level_db
+        return self.normalize(S) if clip_norm else S
+
     def melspectrogram(self, y: np.ndarray, clip_norm: bool = True) -> np.ndarray:
         """[num_mels, n_frames] normalized log-mel (reference audio.py:74-79)."""
         D = self._stft(y)
@@ -343,16 +349,46 @@ class AudioProcessor:
 
     # -- inversion / vocoding --------------------------------------------------
 
+    def griffin_lim(self, S: np.ndarray, rng: np.random.Generator | None = None
+                    ) -> np.ndarray:
+        """Griffin-Lim phase reconstruction of magnitudes S [num_freq, F]
+        (reference audio.py:95-102) in complex128, one STFT and one iSTFT an
+        iteration, from random phases drawn from ``rng``."""
+        rng = rng or np.random.default_rng()
+        angles = np.exp(2j * np.pi * rng.random(S.shape))
+        S_complex = np.abs(S).astype(np.complex128)
+        y = self._istft(S_complex * angles)
+        for _ in range(self.cfg.griffin_lim_iters):
+            angles = np.exp(1j * np.angle(self._stft(y)))
+            y = self._istft(S_complex * angles)
+        return y
+
+    def griffin_lim_fast(self, S: np.ndarray,
+                         rng: np.random.Generator | None = None) -> np.ndarray:
+        """float32 vectorized Griffin-Lim (``fast_griffin_lim``)."""
+        c = self.cfg
+        return fast_griffin_lim(S, c.n_fft, c.frame_shift_sample, c.frame_length_sample,
+                                c.griffin_lim_iters, c.center, rng)
+
+    def inv_spectrogram(self, spectrogram: np.ndarray,
+                        rng: np.random.Generator | None = None,
+                        fast: bool = True) -> np.ndarray:
+        """Normalized log-magnitude spectrogram [num_freq, F] -> wav, through
+        ``griffin_lim_fast`` or, with ``fast=False``, ``griffin_lim``."""
+        S = self.db_to_amp(self.denormalize(spectrogram) + self.cfg.ref_level_db)
+        gl = self.griffin_lim_fast if fast else self.griffin_lim
+        return gl(S ** self.cfg.power, rng)
+
     def inv_mel_spectrogram(self, mel_spectrogram: np.ndarray,
-                            rng: np.random.Generator | None = None) -> np.ndarray:
+                            rng: np.random.Generator | None = None,
+                            fast: bool = True) -> np.ndarray:
         """The host vocoder (reference audio.py:81-84): normalized log-mel
-        [num_mels, F] -> wav, through the float32 ``fast_griffin_lim``."""
+        [num_mels, F] -> wav, through the float32 ``fast_griffin_lim`` or,
+        with ``fast=False``, the complex128 ``griffin_lim``."""
         S = self.mel_to_linear(self.db_to_amp(
             self.denormalize(mel_spectrogram) + self.cfg.ref_level_db))
-        c = self.cfg
-        return fast_griffin_lim(S ** c.power, c.n_fft, c.frame_shift_sample,
-                                c.frame_length_sample, c.griffin_lim_iters,
-                                c.center, rng)
+        gl = self.griffin_lim_fast if fast else self.griffin_lim
+        return gl(S ** self.cfg.power, rng)
 
     # -- preemphasis -----------------------------------------------------------
 
@@ -369,3 +405,51 @@ class AudioProcessor:
             return x
         from scipy import signal as sp_signal  # slow to import: where used
         return sp_signal.lfilter([1], [1, -self.cfg.preemphasize], x)
+
+    # -- misc -------------------------------------------------------------------
+
+    def roundtrip_report(self, y: np.ndarray, clip_norm: bool = True) -> float:
+        """Diagnostic mel->linear round-trip error (reference audio.py:48-72,
+        Audio.test): returns mean |linear - mel_to_linear(mel)| and prints
+        the value ranges along the chain."""
+        src = np.abs(self._stft(y))
+        mel_db = self.amp_to_db(self.linear_to_mel(src)) - self.cfg.ref_level_db
+        S = self.normalize(mel_db) if clip_norm else mel_db
+        back = self.denormalize(S) if clip_norm else S
+        linear_re = self.mel_to_linear(self.db_to_amp(back + self.cfg.ref_level_db))
+        err = float(np.mean(np.abs(src - linear_re)))
+        print(f"linear range [{src.min():.4g}, {src.max():.4g}], "
+              f"mel-db range [{mel_db.min():.4g}, {mel_db.max():.4g}], "
+              f"roundtrip mean abs err {err:.4g}")
+        return err
+
+    def mfcc(self, y: np.ndarray) -> np.ndarray:
+        """MFCCs, their deltas and delta-deltas, [3 * n_mfcc, n_frames]
+        (reference audio.py:244-257; a delta is the central difference over
+        edge-padded frames, in place of librosa.feature.delta)."""
+        from scipy.fftpack import dct  # slow to import: where used
+        power = self.linear_to_mel(np.abs(self._stft(self.preemphasize(y))) ** 2)
+        power_db = 10.0 * np.log10(np.maximum(1e-10, power))
+        mfcc = dct(power_db, axis=0, type=2, norm="ortho")[: self.cfg.n_mfcc]
+        d1 = delta(mfcc)
+        return np.concatenate([mfcc, d1, delta(d1)], axis=0)
+
+    def find_endpoint(self, wav: np.ndarray, threshold_db: float = -40.0,
+                      min_silence_sec: float = 0.8) -> int:
+        """The sample after the first silent window (every sample below
+        ``threshold_db``, ``min_silence_sec`` long, hops of a quarter
+        window), or len(wav) (reference audio.py:86-93)."""
+        window_length = int(self.cfg.sample_rate * min_silence_sec)
+        hop_length = window_length // 4
+        threshold = self.db_to_amp(np.array(threshold_db))
+        for x in range(hop_length, len(wav) - window_length, hop_length):
+            if np.max(wav[x: x + window_length]) < threshold:
+                return x + hop_length
+        return len(wav)
+
+
+def delta(x: np.ndarray) -> np.ndarray:
+    """The central difference of x [n, F] along frames, edges padded by
+    repetition: (x[:, t + 1] - x[:, t - 1]) / 2."""
+    padded = np.pad(x, ((0, 0), (1, 1)), mode="edge")
+    return (padded[:, 2:] - padded[:, :-2]) / 2.0

@@ -20,12 +20,13 @@ from __future__ import annotations
 import os
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..configs.hparams import HParams
+from ..text.tokenizer import CharTokenizer
 from .dsp import AudioProcessor
 
 
@@ -51,6 +52,7 @@ class TestUtils:
         self.device = torch.device(device)
         os.makedirs(save_dir, exist_ok=True)
         self.audio = AudioProcessor(hps.audio)
+        self.tokenizer = CharTokenizer(hps.text)
         self.neural_vocoder = (self._load_neural_vocoder(neural_vocoder_dir)
                                if neural_vocoder_dir else None)
 
@@ -195,6 +197,11 @@ class TestUtils:
             plt.close(fig)
             paths.append(path)
         return paths
+
+    def ids_to_text(self, token_ids: Sequence[int]) -> str:
+        """The symbols of ``token_ids``, pad, BOS and EOS kept (reference
+        audio/utils.py:62-70)."""
+        return self.tokenizer.decode(token_ids, strip_specials=False)
 
     def multi_draw_attention_alignments(self, alignments: np.ndarray, text_lengths,
                                         mel_lengths, tag, ids, prefix: str = "",

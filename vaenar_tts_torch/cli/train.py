@@ -48,6 +48,10 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import random
+
+import numpy as np
+import torch
 
 from ..configs.hparams import get_config
 from ..configs.overrides import apply_overrides
@@ -55,6 +59,16 @@ from ..configs.serialize import hparams_from_dict, load_hparams
 from ..training.loop import train
 from ..utils.checkpoint import checkpoint_epochs
 from ..utils.logging import Logger
+
+
+def set_global_determinism(seed: int) -> None:
+    """Seed Python's, numpy's and torch's global generators (reference
+    train.py:17-32). The loop draws from its own seeded generators; this
+    covers whatever draws from the global ones."""
+    os.environ["PYTHONHASHSEED"] = str(seed)
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
 
 
 def main(argv=None):
@@ -126,6 +140,7 @@ def main(argv=None):
     if args.compute_dtype:
         hp = apply_overrides(hp, [f"train.compute_dtype={args.compute_dtype}"])
     hp = apply_overrides(hp, args.override)
+    set_global_determinism(hp.train.random_seed)
 
     probe = None
     if args.probe != "none":

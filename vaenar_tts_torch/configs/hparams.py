@@ -3,8 +3,8 @@
 Frozen dataclasses with the field names and defaults of the JAX package,
 holding only the fields that the port's synthesis, vocoder and training
 read: a ``hparams.json`` written by JAX training loads unchanged, and the
-rest of it (MFCC settings, the TPU-only knobs such as
-``use_pallas_attention``) is ignored. The two presets are ``LJSpeechConfig`` and ``DataBakerConfig``
+rest of it (the TPU-only knobs such as ``use_pallas_attention``) is
+ignored. The two presets are ``LJSpeechConfig`` and ``DataBakerConfig``
 (16 kHz Mandarin pinyin); ``get_config`` looks one up by its CLI name.
 ``train.compute_dtype`` ("bfloat16", the default, or "float32") is the
 transformer stacks' dtype, as in the JAX package; the flow stays fp32
@@ -118,6 +118,7 @@ class AudioConfig:
     sample_rate: int = 22050
     frame_length_sample: int = 1024
     frame_shift_sample: int = 256
+    n_mfcc: int = 13
     preemphasize: Optional[float] = 0.97
     min_level_db: float = -100.0
     ref_level_db: float = 20.0
@@ -221,6 +222,10 @@ class HParams:
     length_predictor: LengthPredictorConfig = field(
         default_factory=LengthPredictorConfig)
 
+    def replace(self, **kwargs) -> "HParams":
+        """A copy with the top-level fields in ``kwargs`` replaced."""
+        return dataclasses.replace(self, **kwargs)
+
 
 def LJSpeechConfig() -> HParams:
     """The LJSpeech preset: the defaults."""
@@ -250,4 +255,33 @@ def get_config(name: str, **overrides) -> HParams:
     if name not in _PRESETS:
         raise KeyError(f"unknown dataset preset {name!r}; choices: {sorted(_PRESETS)}")
     hp = _PRESETS[name]()
-    return dataclasses.replace(hp, **overrides) if overrides else hp
+    return hp.replace(**overrides) if overrides else hp
+
+
+def tiny_test_config(vocab_size: int = 43) -> HParams:
+    """A miniature config for fast tests: every stack 1-2 blocks deep and
+    16-32 wide, 2 heads of width 8, fp32 (the JAX package's
+    ``tiny_test_config`` without its TPU attention switch, which the port
+    has no counterpart of)."""
+    return HParams(
+        name="tiny",
+        train=TrainConfig(train_batch_size=2, test_batch_size=2, compute_dtype="float32"),
+        encoder=EncoderConfig(
+            vocab_size=vocab_size, embd_dim=32, n_conv=2, pre_hidden=32,
+            conv_kernel=3, n_blk=2, attention_dim=16, attention_heads=2,
+            ffn_hidden=32,
+        ),
+        decoder=DecoderConfig(
+            nblk=1, attention_dim=16, attention_heads=2, ffn_hidden=32,
+            post_n_conv=2, post_conv_filters=16, post_conv_kernel=3,
+        ),
+        posterior=PosteriorConfig(
+            pre_hidden=16, nblk=1, attention_dim=16, attention_heads=2,
+            ffn_hidden=32,
+        ),
+        prior=PriorConfig(
+            n_blk=2, n_transformer_blk=1, attention_dim=16, attention_heads=2,
+            ffn_hidden=32,
+        ),
+        common=CommonConfig(latent_dim=8, output_dim=80),
+    )

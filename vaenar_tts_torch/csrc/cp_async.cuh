@@ -1,6 +1,6 @@
-// Asynchronous global-to-shared copies (cp.async) and named barriers, shared
-// by the attention kernels of both dtypes: the bf16 tensor-core kernels
-// (wgmma_bf16.cuh) and the fp32 ones (tile_f32.cuh).
+// Asynchronous global-to-shared copies (cp.async), named barriers and index
+// arithmetic, shared by the attention kernels of both dtypes: the bf16
+// tensor-core kernels (wgmma_bf16.cuh) and the fp32 ones (tile_f32.cuh).
 
 #pragma once
 
@@ -22,6 +22,17 @@ __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commi
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// log2 of a power of two: index arithmetic by shifts and masks, as on signed
+// ints a division and a modulo take more instructions
+__host__ __device__ constexpr int log2i(int n) {
+  int k = 0;
+  while (n > 1) {
+    n >>= 1;
+    ++k;
+  }
+  return k;
 }
 
 // Barrier `id` (1..15; 0 is __syncthreads) over `threads` threads: one warp

@@ -91,13 +91,15 @@
 // Shared memory: Q, dO and a two-stage K/V ring, 6 tiles of 64 x 68 fp32,
 // 104,448 bytes a block (two blocks an SM).
 
+// Head widths. A template of the head width, compiled for D = 64 (the
+// design above) and D = 128; the C entry point runs the one its D names.
+// At D = 128 a thread owns 8 columns of dQ (64 h + 4 cg + c, h < 2) and of
+// its rows' O for delta; 6 tiles of 64 x 132 fp32, 202,752 bytes, leave
+// one block an SM. Registers in PERF.md §6.
+
 #include "tile_f32.cuh"
 
 namespace {
-
-using f32::HD;
-using f32::LDP;
-using f32::TILE;
 
 constexpr int BQ = 64;  // query rows per block
 constexpr int BK = 64;  // keys per tile
@@ -105,7 +107,10 @@ constexpr int RS = 16;  // row groups: thread t owns rows t / 16 + RS i
 constexpr int NR = BQ / RS;  // rows a thread
 constexpr int THREADS = 16 * RS;
 constexpr int STAGES = 2;  // K/V tiles in the ring: one loads while one multiplies
-constexpr size_t SMEM_BYTES = sizeof(float) * (2 + 2 * STAGES) * TILE;
+template <int HD>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(float) * (2 + 2 * STAGES) * f32::tile<HD>();
+}
 
 // Zeros into dst[0, n) by the block: 16-byte stores from dst's first 16-byte
 // boundary on, 4-byte ones before it and after the last.
@@ -135,12 +140,13 @@ struct Rows {
 // index) skips its masked triangle. dS goes over this thread's own rows of
 // Q on the block's last tile (a row of Q, dS and dQ is read and written by
 // one half-warp only), else over the V tile, once every warp is done with V.
-template <int NI, int NJ, bool TRI>
-__device__ __forceinline__ void dq_tile(float (&acc)[NR][4], const Rows& w, const float* tK,
+template <int HD, int NI, int NJ, bool TRI>
+__device__ __forceinline__ void dq_tile(float (&acc)[NR][HD / 16], const Rows& w, const float* tK,
                                         float* tV, int kt, int n_keys, bool last) {
+  constexpr int LDP = f32::ldp<HD>();
   float sc[NR][4], dp[NR][4];
-  f32::dots<NI, NJ, TRI, RS>(sc, w.sQ, tK, w.rg, w.cg);
-  f32::dots<NI, NJ, TRI, RS>(dp, w.sDO, tV, w.rg, w.cg);
+  f32::dots<NI, NJ, TRI, RS, HD>(sc, w.sQ, tK, w.rg, w.cg);
+  f32::dots<NI, NJ, TRI, RS, HD>(dp, w.sDO, tV, w.rg, w.cg);
   float* sDS = last ? w.sQ : tV;
   if (last) {
     __syncwarp();  // the half-warp is done reading its Q rows
@@ -162,48 +168,52 @@ __device__ __forceinline__ void dq_tile(float (&acc)[NR][4], const Rows& w, cons
   }
   __syncwarp();  // a half-warp reads the dS rows that it wrote
   if (TRI) {
-    f32::accumulate_tri<NI, RS>(acc, sDS, tK, w.rg, w.cg, n_keys);
+    f32::accumulate_tri<NI, RS, HD>(acc, sDS, tK, w.rg, w.cg, n_keys);
   } else {
-    f32::accumulate<NI, RS>(acc, sDS, tK, w.rg, w.cg, n_keys);
+    f32::accumulate<NI, RS, HD>(acc, sDS, tK, w.rg, w.cg, n_keys);
   }
 }
 
-template <int NI>
-__device__ __forceinline__ void dq_tile_keys(int nj, float (&acc)[NR][4], const Rows& w,
+template <int HD, int NI>
+__device__ __forceinline__ void dq_tile_keys(int nj, float (&acc)[NR][HD / 16], const Rows& w,
                                              const float* tK, float* tV, int kt, int n_keys,
                                              bool last) {
   switch (nj) {
-    case 1: dq_tile<NI, 1, false>(acc, w, tK, tV, kt, n_keys, last); break;
-    case 2: dq_tile<NI, 2, false>(acc, w, tK, tV, kt, n_keys, last); break;
-    case 3: dq_tile<NI, 3, false>(acc, w, tK, tV, kt, n_keys, last); break;
-    default: dq_tile<NI, 4, false>(acc, w, tK, tV, kt, n_keys, last);
+    case 1: dq_tile<HD, NI, 1, false>(acc, w, tK, tV, kt, n_keys, last); break;
+    case 2: dq_tile<HD, NI, 2, false>(acc, w, tK, tV, kt, n_keys, last); break;
+    case 3: dq_tile<HD, NI, 3, false>(acc, w, tK, tV, kt, n_keys, last); break;
+    default: dq_tile<HD, NI, 4, false>(acc, w, tK, tV, kt, n_keys, last);
   }
 }
 
 // dq_tile with NI = ceil(rows / 16) and NJ = ceil(keys / 16); on the
 // diagonal NJ <= NI (the keys stop at the last row), so it takes NJ = NI.
+template <int HD>
 __device__ __forceinline__ void dq_tile_sized(bool diagonal, int ni, int nj,
-                                              float (&acc)[NR][4], const Rows& w,
+                                              float (&acc)[NR][HD / 16], const Rows& w,
                                               const float* tK, float* tV, int kt, int n_keys,
                                               bool last) {
   if (diagonal) {
     switch (ni) {
-      case 1: dq_tile<1, 1, true>(acc, w, tK, tV, kt, n_keys, last); break;
-      case 2: dq_tile<2, 2, true>(acc, w, tK, tV, kt, n_keys, last); break;
-      case 3: dq_tile<3, 3, true>(acc, w, tK, tV, kt, n_keys, last); break;
-      default: dq_tile<4, 4, true>(acc, w, tK, tV, kt, n_keys, last);
+      case 1: dq_tile<HD, 1, 1, true>(acc, w, tK, tV, kt, n_keys, last); break;
+      case 2: dq_tile<HD, 2, 2, true>(acc, w, tK, tV, kt, n_keys, last); break;
+      case 3: dq_tile<HD, 3, 3, true>(acc, w, tK, tV, kt, n_keys, last); break;
+      default: dq_tile<HD, 4, 4, true>(acc, w, tK, tV, kt, n_keys, last);
     }
     return;
   }
   switch (ni) {
-    case 1: dq_tile_keys<1>(nj, acc, w, tK, tV, kt, n_keys, last); break;
-    case 2: dq_tile_keys<2>(nj, acc, w, tK, tV, kt, n_keys, last); break;
-    case 3: dq_tile_keys<3>(nj, acc, w, tK, tV, kt, n_keys, last); break;
-    default: dq_tile_keys<4>(nj, acc, w, tK, tV, kt, n_keys, last);
+    case 1: dq_tile_keys<HD, 1>(nj, acc, w, tK, tV, kt, n_keys, last); break;
+    case 2: dq_tile_keys<HD, 2>(nj, acc, w, tK, tV, kt, n_keys, last); break;
+    case 3: dq_tile_keys<HD, 3>(nj, acc, w, tK, tV, kt, n_keys, last); break;
+    default: dq_tile_keys<HD, 4>(nj, acc, w, tK, tV, kt, n_keys, last);
   }
 }
 
-__global__ void __launch_bounds__(THREADS, 2)
+// D = 64: two blocks an SM (104,448 bytes of shared memory each); D = 128:
+// one (202,752 bytes)
+template <int HD>
+__global__ void __launch_bounds__(THREADS, HD == 64 ? 2 : 1)
 masked_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                const float* __restrict__ v, const float* __restrict__ dout,
                                const float* __restrict__ o, const int* __restrict__ q_len,
@@ -211,6 +221,8 @@ masked_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restr
                                const float* __restrict__ s_in, float* __restrict__ delta_out,
                                float* __restrict__ dq, int H, int Tq, int Tk, float scale,
                                int causal) {
+  constexpr int LDP = f32::ldp<HD>(), TILE = f32::tile<HD>();
+  constexpr int CW = HD / 16;  // dQ columns a thread: 64 h + 4 cg + c
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;                // [64][LDP], this block's rows
   float* sDO = sQ + TILE;          // [64][LDP]
@@ -240,15 +252,15 @@ masked_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restr
   const int n_tiles = (k_end + BK - 1) / BK;
 
   // Q, dO and key tile 0, one commit group
-  f32::load_tile_async<THREADS>(sQ, q + q_base, q0, rows_end, tid);
-  f32::load_tile_async<THREADS>(sDO, dout + q_base, q0, rows_end, tid);
-  f32::load_tile_async<THREADS>(sK, k + k_base, 0, k_end, tid);
-  f32::load_tile_async<THREADS>(sV, v + k_base, 0, k_end, tid);
+  f32::load_tile_async<THREADS, HD>(sQ, q + q_base, q0, rows_end, tid);
+  f32::load_tile_async<THREADS, HD>(sDO, dout + q_base, q0, rows_end, tid);
+  f32::load_tile_async<THREADS, HD>(sK, k + k_base, 0, k_end, tid);
+  f32::load_tile_async<THREADS, HD>(sV, v + k_base, 0, k_end, tid);
   cpa::cp_async_commit();
 
-  // This thread's rows rg + RS i: their O columns 4 cg .. 4 cg + 3 (16 bytes
-  // a load, a half-warp a row), m * log2(e) and 1/s; rows without a key
-  // read nothing and take zeros.
+  // This thread's rows rg + RS i: their O columns 64 h + 4 cg .. + 3 (16
+  // bytes a load, a half-warp a row), m * log2(e) and 1/s; rows without a
+  // key read nothing and take zeros.
   Rows w;
   w.sQ = sQ;
   w.sDO = sDO;
@@ -260,27 +272,36 @@ masked_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restr
   w.causal = causal;
   w.scale2 = scale * f32::LOG2E;
   const int rg = w.rg, cg = w.cg;
-  float4 o_part[NR];
+  float4 o_part[NR][HD / 64];
 #pragma unroll
   for (int i = 0; i < NR; ++i) {
     const int row = q0 + rg + RS * i;
     const bool in = row < rows_end;
-    o_part[i] = in ? *reinterpret_cast<const float4*>(o + q_base + (size_t)row * HD + 4 * cg)
-                   : make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int h = 0; h < HD / 64; ++h)
+      o_part[i][h] = in ? *reinterpret_cast<const float4*>(o + q_base + (size_t)row * HD +
+                                                           64 * h + 4 * cg)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
     w.m2[i] = in ? m_in[stat_base + row] * f32::LOG2E : 0.f;
     w.inv_s[i] = in ? 1.f / s_in[stat_base + row] : 0.f;
   }
   cpa::cp_async_wait<0>();
   __syncthreads();  // Q, dO and key tile 0 have landed
 
-  // delta of rows rg + RS i: 4 columns a thread, summed over the half-warp;
+  // delta of rows rg + RS i: CW columns a thread, summed over the half-warp;
   // lane cg == i writes row rg + RS i (rows without a key come out 0: their
   // dO tile rows and O parts are zeros)
 #pragma unroll
   for (int i = 0; i < NR; ++i) {
-    const float4 g = *reinterpret_cast<const float4*>(sDO + (rg + RS * i) * LDP + 4 * cg);
-    float d = fmaf(g.w, o_part[i].w, fmaf(g.z, o_part[i].z,
-                                          fmaf(g.y, o_part[i].y, g.x * o_part[i].x)));
+    float d = 0.f;
+#pragma unroll
+    for (int h = 0; h < HD / 64; ++h) {
+      const float4 g =
+          *reinterpret_cast<const float4*>(sDO + (rg + RS * i) * LDP + 64 * h + 4 * cg);
+      const float4& op = o_part[i][h];
+      d = h == 0 ? fmaf(g.w, op.w, fmaf(g.z, op.z, fmaf(g.y, op.y, g.x * op.x)))
+                 : fmaf(g.w, op.w, fmaf(g.z, op.z, fmaf(g.y, op.y, fmaf(g.x, op.x, d))));
+    }
 #pragma unroll
     for (int off = 1; off < 16; off <<= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
     w.delta[i] = d;
@@ -288,11 +309,11 @@ masked_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restr
   }
 
   const int ni = (rows_end - q0 + 15) / 16;
-  float acc[NR][4];
+  float acc[NR][CW];
 #pragma unroll
   for (int i = 0; i < NR; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
 
   for (int t = 0; t < n_tiles; ++t) {
     const int buf = t % STAGES;
@@ -301,15 +322,17 @@ masked_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restr
       __syncthreads();          // ... for every warp, which is done with tile t - 1
     }
     if (t + 1 < n_tiles) {  // into the stage of tile t - 1
-      f32::load_tile_async<THREADS>(sK + (1 - buf) * TILE, k + k_base, (t + 1) * BK, k_end, tid);
-      f32::load_tile_async<THREADS>(sV + (1 - buf) * TILE, v + k_base, (t + 1) * BK, k_end, tid);
+      f32::load_tile_async<THREADS, HD>(sK + (1 - buf) * TILE, k + k_base, (t + 1) * BK, k_end,
+                                        tid);
+      f32::load_tile_async<THREADS, HD>(sV + (1 - buf) * TILE, v + k_base, (t + 1) * BK, k_end,
+                                        tid);
     }
     cpa::cp_async_commit();
     const float* tK = sK + buf * TILE;
     float* tV = sV + buf * TILE;
     const int kt = t * BK;
     const int n_keys = min(BK, k_end - kt);
-    dq_tile_sized(causal && kt == q0, ni, (n_keys + 15) / 16, acc, w, tK, tV, kt, n_keys,
+    dq_tile_sized<HD>(causal && kt == q0, ni, (n_keys + 15) / 16, acc, w, tK, tV, kt, n_keys,
                   t + 1 == n_tiles);
   }
   cpa::cp_async_wait<0>();
@@ -319,43 +342,60 @@ masked_attention_bwd_dq_kernel(const float* __restrict__ q, const float* __restr
   for (int i = 0; i < NR; ++i) {
     const int r = rg + RS * i;
     if (r >= q_rows) continue;
-    *reinterpret_cast<float4*>(dq + q_base + (size_t)(q0 + r) * HD + 4 * cg) =
-        make_float4(acc[i][0] * scale, acc[i][1] * scale, acc[i][2] * scale, acc[i][3] * scale);
+#pragma unroll
+    for (int h = 0; h < HD / 64; ++h)
+      *reinterpret_cast<float4*>(dq + q_base + (size_t)(q0 + r) * HD + 64 * h + 4 * cg) =
+          make_float4(acc[i][4 * h] * scale, acc[i][4 * h + 1] * scale, acc[i][4 * h + 2] * scale,
+                      acc[i][4 * h + 3] * scale);
   }
 }
 
-}  // namespace
-
-// q, dout, o: contiguous fp32 [B, H, Tq, 64]; k, v: fp32 [B, H, Tk, 64];
-// q_len, m_len: int32 [B] or null; m, s: fp32 [B, H, Tq] (the forward's row
-// max and row sum); delta: fp32 [B, H, Tq], written (rowsum(dO * O) on rows
-// with a key, else 0); dq like q. Returns the CUDA error code of the launch.
-extern "C" int masked_attention_bwd_dq(const void* q, const void* k, const void* v,
-                                       const void* dout, const void* o, const void* q_len,
-                                       const void* m_len, const void* m, const void* s,
-                                       void* delta, void* dq, int B, int H, int Tq, int Tk,
-                                       int D, float scale, int causal, void* stream) {
-  if (D != HD || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || (Tq + BQ - 1) / BQ > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  static bool smem_set = false;  // above 48 KB needs an explicit opt-in
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const void* o, const void* q_len, const void* m_len, const void* m,
+                   const void* s, void* delta, void* dq, int B, int H, int Tq, int Tk,
+                   float scale, int causal, cudaStream_t stream) {
+  static bool smem_set = false;  // above 48 KB needs an explicit opt-in, per instantiation
   if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        masked_attention_bwd_dq_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
+    const cudaError_t err = cudaFuncSetAttribute(masked_attention_bwd_dq_kernel<HD>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem_bytes<HD>());
+    if (err != cudaSuccess) return err;
     smem_set = true;
   }
   const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  masked_attention_bwd_dq_kernel<<<grid, THREADS, SMEM_BYTES,
-                                   static_cast<cudaStream_t>(stream)>>>(
+  masked_attention_bwd_dq_kernel<HD><<<grid, THREADS, smem_bytes<HD>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(o),
       static_cast<const int*>(q_len), static_cast<const int*>(m_len),
       static_cast<const float*>(m), static_cast<const float*>(s), static_cast<float*>(delta),
       static_cast<float*>(dq), H, Tq, Tk, scale, causal);
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
 }
 
-// Dynamic shared memory each block asks for, in bytes.
-extern "C" int masked_attention_bwd_dq_shared_bytes(void) { return (int)SMEM_BYTES; }
+}  // namespace
+
+// q, dout, o: contiguous fp32 [B, H, Tq, D]; k, v: fp32 [B, H, Tk, D], D =
+// 64 or 128; q_len, m_len: int32 [B] or null; m, s: fp32 [B, H, Tq] (the
+// forward's row max and row sum); delta: fp32 [B, H, Tq], written
+// (rowsum(dO * O) on rows with a key, else 0); dq like q. Returns the CUDA
+// error code of the launch.
+extern "C" int masked_attention_bwd_dq(const void* q, const void* k, const void* v,
+                                       const void* dout, const void* o, const void* q_len,
+                                       const void* m_len, const void* m, const void* s,
+                                       void* delta, void* dq, int B, int H, int Tq, int Tk,
+                                       int D, float scale, int causal, void* stream) {
+  if ((D != 64 && D != 128) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
+      (Tq + BQ - 1) / BQ > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(D == 128 ? launch<128>(q, k, v, dout, o, q_len, m_len, m, s, delta, dq, B, H, Tq,
+                                      Tk, scale, causal, st)
+                        : launch<64>(q, k, v, dout, o, q_len, m_len, m, s, delta, dq, B, H, Tq,
+                                     Tk, scale, causal, st));
+}
+
+// Dynamic shared memory each D = 64 block asks for, in bytes (a D = 128
+// block 202,752).
+extern "C" int masked_attention_bwd_dq_shared_bytes(void) { return (int)smem_bytes<64>(); }

@@ -67,64 +67,89 @@
 // exchange tile and two stages of statistics: 12 tiles of 64 x 68 fp32 and
 // 3,328 bytes more, 212,224 bytes a block (one block an SM).
 
+// Head widths. A template of the head width, compiled for D = 64 (the
+// design above) and D = 128; the C entry point runs the one its D names.
+// At D = 128 two groups' rings do not fit in shared memory, so one warp
+// group of all 256 threads walks every q-tile (tile_f32.cuh's RS = 16): a
+// thread owns 4 keys by 8 columns of dK and dV, as many accumulators as at
+// D = 64, and nothing is handed between groups at the end. The exchange
+// tile keeps 68-float rows (64 keys by 64 rows): 6 tiles of 64 x 132 fp32
+// and it, 222,208 bytes a block. Registers in PERF.md §6.
+
 #include "tile_f32.cuh"
 
 namespace {
 
-using f32::GROUP_THREADS;
-using f32::HD;
-using f32::LDP;
 using f32::NEG;
-using f32::TILE;
 
 constexpr int BQ = 64;  // query rows per tile
 constexpr int BK = 64;  // keys per block
-constexpr int GROUPS = 2;
-constexpr int THREADS = GROUPS * GROUP_THREADS;
+constexpr int THREADS = 256;
 constexpr int STAGES = 2;  // Q/dO tiles in a group's ring: one loads while one multiplies
-// a group's Q and dO rings, exchange tile (P^T, then dS^T) and statistics
-constexpr int GROUP_FLOATS = (2 * STAGES + 1) * TILE + STAGES * 3 * BQ;
-constexpr size_t SMEM_BYTES = sizeof(float) * (2 * TILE + HD + GROUPS * GROUP_FLOATS);
+constexpr int LDS = f32::ldp<64>();  // row stride of the exchange tile (64 keys x 64 rows)
 
-// One q-tile of one group: NI = 8 keys a thread (4 when the block has at
-// most 32 keys below m_len), NJ = 4 rows a thread in S^T and dP^T (2 when
-// the tile has at most 32 valid rows).
-template <int NI, int NJ>
-__device__ __forceinline__ void dkv_tile(float (&acc_dk)[8][4], float (&acc_dv)[8][4],
+// The layout of a block at head width HD. D = 64: two warp groups of 128
+// threads that split the q-tiles, a thread owning 8 keys (rows rg + 8 i of
+// S^T) by 4 columns; D = 128: the tiles of two groups' rings do not fit in
+// shared memory, so one group of all 256 threads walks every q-tile, a
+// thread owning 4 keys (rg + 16 i, tile_f32.cuh's RS = 16) by 8 columns, as
+// many accumulators a thread as at D = 64.
+template <int HD>
+struct Layout {
+  static constexpr int GROUPS = HD == 64 ? 2 : 1;
+  static constexpr int GROUP_THREADS = THREADS / GROUPS;
+  static constexpr int RS = GROUP_THREADS / 16;  // key groups: keys rg + RS i
+  static constexpr int NK = BK / RS;             // keys a thread
+  static constexpr int CW = HD / 16;             // accumulator columns a thread
+  static constexpr int TILE = f32::tile<HD>();
+  static constexpr int X_TILE = BK * LDS;  // the exchange tile, P^T then dS^T
+  // a group's Q and dO rings, exchange tile and statistics
+  static constexpr int GROUP_FLOATS = 2 * STAGES * TILE + X_TILE + STAGES * 3 * BQ;
+  static constexpr size_t SMEM_BYTES = sizeof(float) * (2 * TILE + HD + GROUPS * GROUP_FLOATS);
+};
+
+// One q-tile of one group: NI = NK keys a thread (NK / 2 when the block
+// has at most 32 keys below m_len), NJ = 4 rows a thread in S^T and dP^T (2
+// when the tile has at most 32 valid rows).
+template <int HD, int NI, int NJ>
+__device__ __forceinline__ void dkv_tile(float (&acc_dk)[Layout<HD>::NK][HD / 16],
+                                         float (&acc_dv)[Layout<HD>::NK][HD / 16],
                                          const float* sK, const float* sV, const float* tQ,
                                          const float* tDO, float* sX, const float* stat, int rg,
                                          int cg, int k0, int qt, int n_rows, int r_end, int mlen,
                                          int causal, float scale2) {
-  float x[8][4];
+  constexpr int RS = Layout<HD>::RS;
+  float x[Layout<HD>::NK][4];
   // S^T = K.Q^T, then P^T: rows past r_end and masked pairs take 0 (the
   // latter exactly exp(NEG - m) of a real m)
-  f32::dots<NI, NJ>(x, sK, tQ, rg, cg);
+  f32::dots<NI, NJ, false, RS, HD>(x, sK, tQ, rg, cg);
 #pragma unroll
   for (int i = 0; i < NI; ++i) {
-    const int key = k0 + rg + 8 * i;
+    const int key = k0 + rg + RS * i;
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
       const int rl = cg + 16 * j, row = qt + rl;
       const bool unmasked = row < r_end && key < mlen && (!causal || key <= row);
-      sX[(rg + 8 * i) * LDP + rl] =
+      sX[(rg + RS * i) * LDS + rl] =
           unmasked ? exp2f(fmaf(x[i][j], scale2, -stat[rl])) * stat[BQ + rl] : 0.f;
     }
   }
   __syncwarp();
-  f32::accumulate<NI>(acc_dv, sX, tDO, rg, cg, n_rows);  // dV += P^T.dO
-  f32::dots<NI, NJ>(x, sV, tDO, rg, cg);                 // dP^T = V.dO^T
+  f32::accumulate<NI, RS, HD, LDS>(acc_dv, sX, tDO, rg, cg, n_rows);  // dV += P^T.dO
+  f32::dots<NI, NJ, false, RS, HD>(x, sV, tDO, rg, cg);              // dP^T = V.dO^T
   __syncwarp();  // the half-warp is done reading P^T
 #pragma unroll
   for (int i = 0; i < NI; ++i)
 #pragma unroll
     for (int j = 0; j < NJ; ++j) {
-      float* p = sX + (rg + 8 * i) * LDP + cg + 16 * j;
+      float* p = sX + (rg + RS * i) * LDS + cg + 16 * j;
       *p *= x[i][j] - stat[2 * BQ + cg + 16 * j];  // dS^T = P^T * (dP^T - delta)
     }
   __syncwarp();
-  f32::accumulate<NI>(acc_dk, sX, tQ, rg, cg, n_rows);  // dK += dS^T.Q
+  f32::accumulate<NI, RS, HD, LDS>(acc_dk, sX, tQ, rg, cg, n_rows);  // dK += dS^T.Q
 }
 
+template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
 masked_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                                 const float* __restrict__ v, const float* __restrict__ dout,
@@ -133,15 +158,18 @@ masked_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __rest
                                 const float* __restrict__ delta_in, float* __restrict__ dk,
                                 float* __restrict__ dv, int H, int Tq, int Tk, float scale,
                                 int causal) {
+  using L = Layout<HD>;
+  constexpr int GROUPS = L::GROUPS, GROUP_THREADS = L::GROUP_THREADS, RS = L::RS, NK = L::NK;
+  constexpr int CW = L::CW, TILE = L::TILE, GROUP_FLOATS = L::GROUP_FLOATS;
   extern __shared__ __align__(16) float smem[];
-  float* sK = smem;          // [64][LDP], this block's keys
-  float* sV = sK + TILE;     // [64][LDP]
+  float* sK = smem;          // [64][ldp(HD)], this block's keys
+  float* sV = sK + TILE;     // [64][ldp(HD)]
   float* usum = sV + TILE;   // [HD]: sum of the uniform rows' dO / s
   const int tid = threadIdx.x, group = tid / GROUP_THREADS, gtid = tid % GROUP_THREADS;
-  float* sQ = usum + HD + group * GROUP_FLOATS;  // [STAGES][64][LDP], this group's ring
-  float* sDO = sQ + STAGES * TILE;               // [STAGES][64][LDP]
-  float* sX = sDO + STAGES * TILE;               // [64][LDP]: P^T, then dS^T
-  float* sStat = sX + TILE;  // [STAGES][3][BQ]: m * log2(e), 1/s, delta
+  float* sQ = usum + HD + group * GROUP_FLOATS;  // [STAGES][64][ldp(HD)], this group's ring
+  float* sDO = sQ + STAGES * TILE;               // [STAGES][64][ldp(HD)]
+  float* sX = sDO + STAGES * TILE;               // [64][LDS]: P^T, then dS^T
+  float* sStat = sX + L::X_TILE;  // [STAGES][3][BQ]: m * log2(e), 1/s, delta
 
   const int bh = blockIdx.x;
   const int b = bh / H;
@@ -163,11 +191,12 @@ masked_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __rest
   // K and V (keys at or past m_len load as zeros: every pair with them is
   // masked) and each group's first q-tile, one commit group
   if (n_tiles > 0) {
-    f32::load_tile_async<THREADS>(sK, k + k_base, k0, mlen, tid);
-    f32::load_tile_async<THREADS>(sV, v + k_base, k0, mlen, tid);
+    f32::load_tile_async<THREADS, HD>(sK, k + k_base, k0, mlen, tid);
+    f32::load_tile_async<THREADS, HD>(sV, v + k_base, k0, mlen, tid);
     if (group < n_tiles) {
-      f32::load_tile_async<GROUP_THREADS>(sQ, q + q_base, r_begin + group * BQ, r_end, gtid);
-      f32::load_tile_async<GROUP_THREADS>(sDO, dout + q_base, r_begin + group * BQ, r_end, gtid);
+      f32::load_tile_async<GROUP_THREADS, HD>(sQ, q + q_base, r_begin + group * BQ, r_end, gtid);
+      f32::load_tile_async<GROUP_THREADS, HD>(sDO, dout + q_base, r_begin + group * BQ, r_end,
+                                              gtid);
     }
   }
   cpa::cp_async_commit();
@@ -196,21 +225,22 @@ masked_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __rest
   // Rows in [valid_end, Tq) are uniform over the Tk keys: each adds
   // dO_row / s_row to every dV row. Summed once, while the copies land;
   // scratch is group 0's exchange tile.
-  f32::column_sums<THREADS, 8>(usum, smem + 2 * TILE + HD + 2 * STAGES * TILE, dout + q_base,
-                               valid_end, Tq, s_in + stat_base);
+  f32::column_sums<THREADS, 8, HD>(usum, smem + 2 * TILE + HD + 2 * STAGES * TILE,
+                                   dout + q_base, valid_end, Tq, s_in + stat_base);
   if (group < n_tiles) store_stats(0);
   if (group + GROUPS < n_tiles) fetch_stats(group + GROUPS);
   cpa::cp_async_wait<0>();
   __syncthreads();  // K, V, the first q-tiles and their statistics are in
 
-  const int rg = gtid >> 4, cg = gtid & 15;  // keys rg + 8 i; rows cg + 16 j; columns 4 cg + c
+  // keys rg + RS i; rows cg + 16 j; columns 64 h + 4 cg + c
+  const int rg = gtid >> 4, cg = gtid & 15;
   const float scale2 = scale * f32::LOG2E;
-  const bool eight_keys = mlen - k0 > 32;
-  float acc_dk[8][4], acc_dv[8][4];
+  const bool all_keys = mlen - k0 > 32;
+  float acc_dk[NK][CW], acc_dv[NK][CW];
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+  for (int i = 0; i < NK; ++i)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc_dk[i][c] = acc_dv[i][c] = 0.f;
+    for (int c = 0; c < CW; ++c) acc_dk[i][c] = acc_dv[i][c] = 0.f;
 
   // this group's q-tiles: group, group + GROUPS, ...
   for (int it = 0, t = group; t < n_tiles; ++it, t += GROUPS) {
@@ -224,8 +254,10 @@ masked_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __rest
     const int ahead = t + GROUPS;
     if (ahead < n_tiles) {  // into the stage of tile it - 1
       const int row0 = r_begin + ahead * BQ;
-      f32::load_tile_async<GROUP_THREADS>(sQ + (1 - buf) * TILE, q + q_base, row0, r_end, gtid);
-      f32::load_tile_async<GROUP_THREADS>(sDO + (1 - buf) * TILE, dout + q_base, row0, r_end, gtid);
+      f32::load_tile_async<GROUP_THREADS, HD>(sQ + (1 - buf) * TILE, q + q_base, row0, r_end,
+                                              gtid);
+      f32::load_tile_async<GROUP_THREADS, HD>(sDO + (1 - buf) * TILE, dout + q_base, row0, r_end,
+                                              gtid);
     }
     cpa::cp_async_commit();
     const int qt = r_begin + t * BQ;
@@ -233,85 +265,125 @@ masked_attention_bwd_dkv_kernel(const float* __restrict__ q, const float* __rest
     const float* tQ = sQ + buf * TILE;
     const float* tDO = sDO + buf * TILE;
     const float* stat = sStat + buf * 3 * BQ;
-    if (eight_keys) {
+    if (all_keys) {
       if (n_rows > 32) {
-        dkv_tile<8, 4>(acc_dk, acc_dv, sK, sV, tQ, tDO, sX, stat, rg, cg, k0, qt, n_rows, r_end,
-                       mlen, causal, scale2);
+        dkv_tile<HD, NK, 4>(acc_dk, acc_dv, sK, sV, tQ, tDO, sX, stat, rg, cg, k0, qt, n_rows,
+                            r_end, mlen, causal, scale2);
       } else {
-        dkv_tile<8, 2>(acc_dk, acc_dv, sK, sV, tQ, tDO, sX, stat, rg, cg, k0, qt, n_rows, r_end,
-                       mlen, causal, scale2);
+        dkv_tile<HD, NK, 2>(acc_dk, acc_dv, sK, sV, tQ, tDO, sX, stat, rg, cg, k0, qt, n_rows,
+                            r_end, mlen, causal, scale2);
       }
     } else if (n_rows > 32) {
-      dkv_tile<4, 4>(acc_dk, acc_dv, sK, sV, tQ, tDO, sX, stat, rg, cg, k0, qt, n_rows, r_end,
-                     mlen, causal, scale2);
+      dkv_tile<HD, NK / 2, 4>(acc_dk, acc_dv, sK, sV, tQ, tDO, sX, stat, rg, cg, k0, qt, n_rows,
+                              r_end, mlen, causal, scale2);
     } else {
-      dkv_tile<4, 2>(acc_dk, acc_dv, sK, sV, tQ, tDO, sX, stat, rg, cg, k0, qt, n_rows, r_end,
-                     mlen, causal, scale2);
+      dkv_tile<HD, NK / 2, 2>(acc_dk, acc_dv, sK, sV, tQ, tDO, sX, stat, rg, cg, k0, qt, n_rows,
+                              r_end, mlen, causal, scale2);
     }
   }
   cpa::cp_async_wait<0>();
   __syncthreads();  // both groups are done with their rings
 
-  // Group 0 hands its dV partial to group 1 and group 1 its dK partial to
-  // group 0, each through its own ring, element-major so that lanes hit
-  // distinct banks; then group 0 stores dK * scale and group 1 dV plus the
-  // uniform rows' sum, 16 bytes a row and thread.
+  if constexpr (GROUPS == 1) {
+    // one group: dK * scale and dV plus the uniform rows' sum, 16 bytes a
+    // row and thread
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
+    for (int i = 0; i < NK; ++i) {
+      const int key = rg + RS * i;
+      if (key >= k_rows) continue;
 #pragma unroll
-    for (int c = 0; c < 4; ++c)
-      sQ[(4 * i + c) * GROUP_THREADS + gtid] = group == 0 ? acc_dv[i][c] : acc_dk[i][c];
-  __syncthreads();
-  const float* other = usum + HD + (1 - group) * GROUP_FLOATS;
-  float* out = group == 0 ? dk : dv;
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int key = rg + 8 * i;
-    if (key >= k_rows) continue;
-    float g[4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      const float part = other[(4 * i + c) * GROUP_THREADS + gtid];
-      g[c] = group == 0 ? (acc_dk[i][c] + part) * scale : acc_dv[i][c] + part + usum[4 * cg + c];
+      for (int h = 0; h < HD / 64; ++h) {
+        const float* u = usum + 64 * h + 4 * cg;
+        const size_t at = k_base + (size_t)(k0 + key) * HD + 64 * h + 4 * cg;
+        *reinterpret_cast<float4*>(dk + at) =
+            make_float4(acc_dk[i][4 * h] * scale, acc_dk[i][4 * h + 1] * scale,
+                        acc_dk[i][4 * h + 2] * scale, acc_dk[i][4 * h + 3] * scale);
+        *reinterpret_cast<float4*>(dv + at) =
+            make_float4(acc_dv[i][4 * h] + u[0], acc_dv[i][4 * h + 1] + u[1],
+                        acc_dv[i][4 * h + 2] + u[2], acc_dv[i][4 * h + 3] + u[3]);
+      }
     }
-    *reinterpret_cast<float4*>(out + k_base + (size_t)(k0 + key) * HD + 4 * cg) =
-        make_float4(g[0], g[1], g[2], g[3]);
+  } else {
+    // Group 0 hands its dV partial to group 1 and group 1 its dK partial to
+    // group 0, each through its own ring, element-major so that lanes hit
+    // distinct banks; then group 0 stores dK * scale and group 1 dV plus the
+    // uniform rows' sum, 16 bytes a row and thread.
+#pragma unroll
+    for (int i = 0; i < NK; ++i)
+#pragma unroll
+      for (int c = 0; c < CW; ++c)
+        sQ[(CW * i + c) * GROUP_THREADS + gtid] = group == 0 ? acc_dv[i][c] : acc_dk[i][c];
+    __syncthreads();
+    const float* other = usum + HD + (1 - group) * GROUP_FLOATS;
+    float* out = group == 0 ? dk : dv;
+#pragma unroll
+    for (int i = 0; i < NK; ++i) {
+      const int key = rg + RS * i;
+      if (key >= k_rows) continue;
+      float g[CW];
+#pragma unroll
+      for (int c = 0; c < CW; ++c) {
+        const float part = other[(CW * i + c) * GROUP_THREADS + gtid];
+        g[c] = group == 0 ? (acc_dk[i][c] + part) * scale
+                          : acc_dv[i][c] + part + usum[64 * (c / 4) + 4 * cg + c % 4];
+      }
+#pragma unroll
+      for (int h = 0; h < HD / 64; ++h)
+        *reinterpret_cast<float4*>(out + k_base + (size_t)(k0 + key) * HD + 64 * h + 4 * cg) =
+            make_float4(g[4 * h], g[4 * h + 1], g[4 * h + 2], g[4 * h + 3]);
+    }
   }
+}
+
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const void* q_len, const void* m_len, const void* m, const void* s,
+                   const void* delta, void* dk, void* dv, int B, int H, int Tq, int Tk,
+                   float scale, int causal, cudaStream_t stream) {
+  constexpr size_t SMEM_BYTES = Layout<HD>::SMEM_BYTES;
+  static bool smem_set = false;  // above 48 KB needs an explicit opt-in, per instantiation
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(masked_attention_bwd_dkv_kernel<HD>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const dim3 grid(B * H, (Tk + BK - 1) / BK);
+  masked_attention_bwd_dkv_kernel<HD><<<grid, THREADS, SMEM_BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const int*>(q_len),
+      static_cast<const int*>(m_len), static_cast<const float*>(m),
+      static_cast<const float*>(s), static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), H, Tq, Tk, scale, causal);
+  return cudaGetLastError();
 }
 
 }  // namespace
 
-// q, dout: contiguous fp32 [B, H, Tq, 64]; k, v: fp32 [B, H, Tk, 64]; q_len,
-// m_len: int32 [B] or null; m, s, delta: fp32 [B, H, Tq] (the forward's row
-// max and row sum, and rowsum(dO * O)); dk, dv like k. Returns the CUDA
-// error code of the launch.
+// q, dout: contiguous fp32 [B, H, Tq, D]; k, v: fp32 [B, H, Tk, D], D = 64
+// or 128; q_len, m_len: int32 [B] or null; m, s, delta: fp32 [B, H, Tq]
+// (the forward's row max and row sum, and rowsum(dO * O)); dk, dv like k.
+// Returns the CUDA error code of the launch.
 extern "C" int masked_attention_bwd_dkv(const void* q, const void* k, const void* v,
                                         const void* dout, const void* q_len,
                                         const void* m_len, const void* m, const void* s,
                                         const void* delta, void* dk, void* dv, int B,
                                         int H, int Tq, int Tk, int D, float scale,
                                         int causal, void* stream) {
-  if (D != HD || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || (Tk + BK - 1) / BK > 65535) {
+  if ((D != 64 && D != 128) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
+      (Tk + BK - 1) / BK > 65535) {
     return (int)cudaErrorInvalidValue;
   }
-  static bool smem_set = false;  // above 48 KB needs an explicit opt-in
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        masked_attention_bwd_dkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
-    smem_set = true;
-  }
-  const dim3 grid(B * H, (Tk + BK - 1) / BK);
-  masked_attention_bwd_dkv_kernel<<<grid, THREADS, SMEM_BYTES,
-                                    static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const int*>(q_len),
-      static_cast<const int*>(m_len), static_cast<const float*>(m),
-      static_cast<const float*>(s), static_cast<const float*>(delta), static_cast<float*>(dk),
-      static_cast<float*>(dv), H, Tq, Tk, scale, causal);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(D == 128 ? launch<128>(q, k, v, dout, q_len, m_len, m, s, delta, dk, dv, B, H,
+                                      Tq, Tk, scale, causal, st)
+                        : launch<64>(q, k, v, dout, q_len, m_len, m, s, delta, dk, dv, B, H, Tq,
+                                     Tk, scale, causal, st));
 }
 
-// Dynamic shared memory each block asks for, in bytes.
-extern "C" int masked_attention_bwd_dkv_shared_bytes(void) { return (int)SMEM_BYTES; }
+// Dynamic shared memory each D = 64 block asks for, in bytes (a D = 128
+// block 222,208).
+extern "C" int masked_attention_bwd_dkv_shared_bytes(void) {
+  return (int)Layout<64>::SMEM_BYTES;
+}

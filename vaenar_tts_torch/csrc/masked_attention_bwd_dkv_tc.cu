@@ -89,42 +89,62 @@
 // floats), two stages of the q-tile's stats, the padding sum's 2 * 64 +
 // 128 * 8 floats and 1 KB for alignment: 81,664 bytes a block.
 
+// Head widths. A template of the head width, compiled for D = 64 (the
+// design above) and D = 128; the C entry point runs the one its D names.
+// At D = 128 one warp group would hold two 64 x 128 fp32 accumulators, 64
+// floats a thread more than D = 64's 223 registers leave room for, and
+// spill. So a block takes two warp groups (256 threads), and group g owns
+// columns 64 g .. 64 g + 63 of dK and dV: each keeps the D = 64 kernel's
+// accumulators. Both groups form the same S^T and dP^T over both 64-column
+// panels of the tiles (K = 128), recomputed rather than exchanged through
+// shared memory, then multiply their own panel of dO and of Q. Shared
+// memory 160,000 bytes a block (one block an SM); registers in PERF.md §6.
+
 #include "wgmma_bf16.cuh"
 
 namespace {
 
 using tc::bf16;
-using tc::HD;
 using tc::NEG;
+using wg::PANEL_DESC;
 using wg::TILE_ELEMS;
 
 constexpr int BQ = 64;  // query rows per tile
 constexpr int BK = 64;  // keys per block
-constexpr int THREADS = 128;
+// one warp group a 64-column panel of dK and dV: 128 threads at D = 64, 256
+// at D = 128
+template <int HD>
+__host__ __device__ constexpr int threads() { return 2 * HD; }
 constexpr int STAGES = 2;  // Q/dO tiles in the ring: one loads while one multiplies
 constexpr int PAD_DEPTH = 16;  // loads in flight a thread, padding rows past PAD_ROWS
 // padding rows of dO (and their s) prefetched into shared memory during the
 // q-tile loop; the train step's sites have at most 186
 constexpr int PAD_ROWS = 192;
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr size_t SMEM_BYTES = sizeof(bf16) * ((2 + 2 * STAGES) * TILE_ELEMS + PAD_ROWS * HD) +
-                              sizeof(float) * (STAGES * 3 * BQ + 2 * HD + THREADS * 8 + PAD_ROWS) +
-                              wg::ALIGN;
+template <int HD>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(bf16) * ((2 + 2 * STAGES) * wg::tile_elems<HD>() + PAD_ROWS * HD) +
+         sizeof(float) * (STAGES * 3 * BQ + 2 * HD + threads<HD>() * 8 + PAD_ROWS) + wg::ALIGN;
+}
 
-// The block's dK and dV accumulators (wgmma's D fragments, 64 keys x 64).
+// A warp group's dK and dV accumulators (wgmma's D fragments, 64 keys x the
+// group's 64 columns).
 struct KeyState {
   float dk[8][4], dv[8][4];
 };
 
-// One q-tile of NQ rows (16, 32, 48 or 64) starting at row qt: S^T and dP^T,
-// then P^T and dS^T, then dV += P^T . dO and dK += dS^T . Q. `stat` holds
-// the tile's rows' m * log2(e), 1/s and delta; P = 2^(S * scale_log2 - m
-// log2(e)) / s with scale_log2 = scale * log2(e).
-template <int NQ>
+// One q-tile of NQ rows (16, 32, 48 or 64) starting at row qt: S^T and dP^T
+// over the head width's HD / 64 panels, then P^T and dS^T, then dV += P^T .
+// dO and dK += dS^T . Q on the warp group's panel of dO and Q, which starts
+// `half` descriptor units in (0, or PANEL_DESC for the second group at
+// D = 128). `stat` holds the tile's rows' m * log2(e), 1/s and delta;
+// P = 2^(S * scale_log2 - m log2(e)) / s with scale_log2 = scale * log2(e).
+template <int HD, int NQ>
 __device__ __forceinline__ void dkv_tile(KeyState& st, uint64_t dk_desc, uint64_t dv_desc,
                                          const bf16* tQ, const bf16* tDO, const float* stat,
                                          int qt, int key_lo, int key_hi, int col_in, int r_end,
-                                         int mlen, float scale_log2, int causal) {
+                                         int mlen, float scale_log2, int causal,
+                                         uint64_t half) {
   constexpr int J = NQ / 8;
   float sT[J][4], dpT[J][4];
   wg::zero(sT);
@@ -134,10 +154,13 @@ __device__ __forceinline__ void dkv_tile(KeyState& st, uint64_t dk_desc, uint64_
   wg::fence();
   const uint64_t dq = wg::desc(tQ), ddo = wg::desc(tDO);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    wg::mma_ss<NQ>(sT, dk_desc + 2 * kk, dq + 2 * kk);
-    wg::mma_ss<NQ>(dpT, dv_desc + 2 * kk, ddo + 2 * kk);
-  }
+  for (int p = 0; p < HD / 64; ++p)  // the head width's panels, 4 k-steps each
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t at = p * PANEL_DESC + 2 * kk;
+      wg::mma_ss<NQ>(sT, dk_desc + at, dq + at);
+      wg::mma_ss<NQ>(dpT, dv_desc + at, ddo + at);
+    }
   wg::commit();
   wg::wait<0>();
   wg::fence_acc(sT);
@@ -202,10 +225,10 @@ __device__ __forceinline__ void dkv_tile(KeyState& st, uint64_t dk_desc, uint64_
   wg::fence();
 #pragma unroll
   for (int s = 0; s < NQ / 16; ++s) {
-    wg::mma_rs64_mn(st.dv, p_hi[s], ddo + 128 * s);
-    wg::mma_rs64_mn(st.dv, p_lo[s], ddo + 128 * s);
-    wg::mma_rs64_mn(st.dk, ds_hi[s], dq + 128 * s);
-    wg::mma_rs64_mn(st.dk, ds_lo[s], dq + 128 * s);
+    wg::mma_rs64_mn(st.dv, p_hi[s], ddo + half + 128 * s);
+    wg::mma_rs64_mn(st.dv, p_lo[s], ddo + half + 128 * s);
+    wg::mma_rs64_mn(st.dk, ds_hi[s], dq + half + 128 * s);
+    wg::mma_rs64_mn(st.dk, ds_lo[s], dq + half + 128 * s);
   }
   wg::commit();
   wg::wait<0>();
@@ -213,7 +236,8 @@ __device__ __forceinline__ void dkv_tile(KeyState& st, uint64_t dk_desc, uint64_
   wg::fence_acc(st.dk);
 }
 
-__global__ void __launch_bounds__(THREADS)
+template <int HD>
+__global__ void __launch_bounds__(threads<HD>())
 masked_attention_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
                                    const int* __restrict__ q_len, const int* __restrict__ m_len,
@@ -222,19 +246,28 @@ masked_attention_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __res
                                    const float* __restrict__ delta_in, bf16* __restrict__ dk,
                                    bf16* __restrict__ dv, int H, int Tq, int Tk, float scale,
                                    int causal) {
+  constexpr int THREADS = threads<HD>();
+  constexpr int TILE = wg::tile_elems<HD>();
+  // 16-byte chunks a row, and threads a row in the padding sums
+  constexpr int CHUNKS = HD / 8, SHIFT = cpa::log2i(CHUNKS);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sK = reinterpret_cast<bf16*>(wg::aligned_smem(smem_raw));  // [64][64] swizzled
-  bf16* sV = sK + TILE_ELEMS;                                       // [64][64]
-  bf16* sQ = sV + TILE_ELEMS;                 // [STAGES][64][64], the q-tile ring
-  bf16* sDO = sQ + STAGES * TILE_ELEMS;       // [STAGES][64][64]
-  float* sStat = reinterpret_cast<float*>(sDO + STAGES * TILE_ELEMS);  // [STAGES][3][BQ]:
-                                                                        // m, 1/s, delta
+  bf16* sK = reinterpret_cast<bf16*>(wg::aligned_smem(smem_raw));  // [64][HD] swizzled
+  bf16* sV = sK + TILE;                                             // [64][HD]
+  bf16* sQ = sV + TILE;                 // [STAGES][64][HD], the q-tile ring
+  bf16* sDO = sQ + STAGES * TILE;       // [STAGES][64][HD]
+  float* sStat = reinterpret_cast<float*>(sDO + STAGES * TILE);  // [STAGES][3][BQ]:
+                                                                  // m, 1/s, delta
   float* usum = sStat + STAGES * 3 * BQ;  // [HD] twice, then [THREADS * 8] scratch
   float* scratch = usum + 2 * HD;
-  bf16* sPad = reinterpret_cast<bf16*>(scratch + THREADS * 8);  // [PAD_ROWS][64], plain rows
+  bf16* sPad = reinterpret_cast<bf16*>(scratch + THREADS * 8);  // [PAD_ROWS][HD], plain rows
   float* sPadS = reinterpret_cast<float*>(sPad + PAD_ROWS * HD);  // [PAD_ROWS]
 
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  // Each warp group owns 64 columns of dK and dV: panel `group` of the
+  // head width (at D = 64 the one group owns them all). Both groups form
+  // the same S^T and dP^T, over every panel.
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int group = HD == 128 ? tid / 128 : 0, warp = (tid & 127) >> 5;
+  const uint64_t half = group * PANEL_DESC;
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int k0 = blockIdx.y * BK;
@@ -255,15 +288,15 @@ masked_attention_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __res
   // one commit group per q-tile: K and V with the first, then STAGES - 2
   // more ahead
   if (n_tiles > 0) {
-    wg::load_tile_async<THREADS>(sK, k + k_base, k0, Tk, tid);
-    wg::load_tile_async<THREADS>(sV, v + k_base, k0, Tk, tid);
+    wg::load_tile_async<THREADS, HD>(sK, k + k_base, k0, Tk, tid);
+    wg::load_tile_async<THREADS, HD>(sV, v + k_base, k0, Tk, tid);
   }
 #pragma unroll
   for (int p = 0; p < STAGES - 1; ++p) {
     if (p < n_tiles) {
-      wg::load_tile_async<THREADS>(sQ + p * TILE_ELEMS, q + q_base, r_begin + p * BQ, r_end, tid);
-      wg::load_tile_async<THREADS>(sDO + p * TILE_ELEMS, dout + q_base, r_begin + p * BQ, r_end,
-                                   tid);
+      wg::load_tile_async<THREADS, HD>(sQ + p * TILE, q + q_base, r_begin + p * BQ, r_end, tid);
+      wg::load_tile_async<THREADS, HD>(sDO + p * TILE, dout + q_base, r_begin + p * BQ, r_end,
+                                       tid);
     }
     tc::cp_async_commit();
   }
@@ -293,8 +326,8 @@ masked_attention_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __res
   // rows past those are summed from device memory then.
   const int n_pad = Tq - valid_end, n_pre = min(n_pad, PAD_ROWS);
   auto load_pad = [&]() {
-    for (int chunk = tid; chunk < n_pre * 8; chunk += THREADS) {
-      const int r = chunk >> 3, c = (chunk & 7) * 8;
+    for (int chunk = tid; chunk < n_pre * CHUNKS; chunk += THREADS) {
+      const int r = chunk >> SHIFT, c = (chunk & (CHUNKS - 1)) * 8;
       tc::cp_async16(sPad + r * HD + c, dout + q_base + (size_t)(valid_end + r) * HD + c, true);
     }
     for (int r = tid; r < n_pre; r += THREADS) {
@@ -321,10 +354,10 @@ masked_attention_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __res
     if (t == 0) load_pad();
     if (ahead < n_tiles) {
       const int row0 = r_begin + ahead * BQ;
-      wg::load_tile_async<THREADS>(sQ + (ahead % STAGES) * TILE_ELEMS, q + q_base, row0, r_end,
-                                   tid);
-      wg::load_tile_async<THREADS>(sDO + (ahead % STAGES) * TILE_ELEMS, dout + q_base, row0,
-                                   r_end, tid);
+      wg::load_tile_async<THREADS, HD>(sQ + (ahead % STAGES) * TILE, q + q_base, row0, r_end,
+                                       tid);
+      wg::load_tile_async<THREADS, HD>(sDO + (ahead % STAGES) * TILE, dout + q_base, row0,
+                                       r_end, tid);
     }
     tc::cp_async_commit();
     float* stat = sStat + buf * 3 * BQ;
@@ -337,33 +370,33 @@ masked_attention_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __res
     tc::cp_async_wait<STAGES - 1>();  // q-tile t (and K, V) have landed
     wg::fence_async_smem();
     __syncthreads();
-    const bf16* tQ = sQ + buf * TILE_ELEMS;
-    const bf16* tDO = sDO + buf * TILE_ELEMS;
+    const bf16* tQ = sQ + buf * TILE;
+    const bf16* tDO = sDO + buf * TILE;
     const int nq = min(BQ, r_end - qt);  // rows this tile needs
     if (nq > 48) {
-      dkv_tile<64>(st, dk_desc, dv_desc, tQ, tDO, stat, qt, key_lo, key_hi, col_in, r_end, mlen,
-                   scale_log2, causal);
+      dkv_tile<HD, 64>(st, dk_desc, dv_desc, tQ, tDO, stat, qt, key_lo, key_hi, col_in, r_end,
+                       mlen, scale_log2, causal, half);
     } else if (nq > 32) {
-      dkv_tile<48>(st, dk_desc, dv_desc, tQ, tDO, stat, qt, key_lo, key_hi, col_in, r_end, mlen,
-                   scale_log2, causal);
+      dkv_tile<HD, 48>(st, dk_desc, dv_desc, tQ, tDO, stat, qt, key_lo, key_hi, col_in, r_end,
+                       mlen, scale_log2, causal, half);
     } else if (nq > 16) {
-      dkv_tile<32>(st, dk_desc, dv_desc, tQ, tDO, stat, qt, key_lo, key_hi, col_in, r_end, mlen,
-                   scale_log2, causal);
+      dkv_tile<HD, 32>(st, dk_desc, dv_desc, tQ, tDO, stat, qt, key_lo, key_hi, col_in, r_end,
+                       mlen, scale_log2, causal, half);
     } else {
-      dkv_tile<16>(st, dk_desc, dv_desc, tQ, tDO, stat, qt, key_lo, key_hi, col_in, r_end, mlen,
-                   scale_log2, causal);
+      dkv_tile<HD, 16>(st, dk_desc, dv_desc, tQ, tDO, stat, qt, key_lo, key_hi, col_in, r_end,
+                       mlen, scale_log2, causal, half);
     }
     __syncthreads();  // the next iteration refills the stage of this tile
   }
   tc::cp_async_wait<0>();
   __syncthreads();
 
-  // the padding rows' sum: the prefetched rows from shared memory, 8 threads
-  // a row, then any others from device memory; each dV row gets it
+  // the padding rows' sum: the prefetched rows from shared memory, HD / 8
+  // threads a row, then any others from device memory; each dV row gets it
   {
-    const int c8 = (tid & 7) * 8;
+    const int c8 = (tid & (CHUNKS - 1)) * 8;
     float part[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
-    for (int r = tid >> 3; r < n_pre; r += THREADS / 8) {
+    for (int r = tid >> SHIFT; r < n_pre; r += THREADS / CHUNKS) {
       const uint4 raw = *reinterpret_cast<const uint4*>(sPad + r * HD + c8);
       const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
       const float inv = 1.f / sPadS[r];
@@ -375,79 +408,94 @@ masked_attention_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __res
       }
     }
 #pragma unroll
-    for (int i = 0; i < 8; ++i) scratch[(tid >> 3) * HD + c8 + i] = part[i];
+    for (int i = 0; i < 8; ++i) scratch[(tid >> SHIFT) * HD + c8 + i] = part[i];
     __syncthreads();
     if (tid < HD) {
       float total = 0.f;
-      for (int g = 0; g < THREADS / 8; ++g) total += scratch[g * HD + tid];
+      for (int g = 0; g < THREADS / CHUNKS; ++g) total += scratch[g * HD + tid];
       usum[tid] = total;
     }
     __syncthreads();
     if (n_pad > n_pre) {
-      wg::column_sums<THREADS, PAD_DEPTH>(usum + HD, scratch, dout + q_base, valid_end + n_pre,
+      wg::column_sums<THREADS, PAD_DEPTH, HD>(usum + HD, scratch, dout + q_base, valid_end + n_pre,
                                           Tq, s_in + stat_base);
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + col_in + (e & 1);
+        const int c = 64 * group + j * 8 + col_in + (e & 1);
         st.dv[j][e] += n_pad > n_pre ? usum[c] + usum[HD + c] : usum[c];
       }
   }
 
-  // dK * scale and dV, staged through the first stage of the ring
-  wg::stage_acc(sQ, st.dk, scale, scale);
-  wg::stage_acc(sDO, st.dv, 1.f, 1.f);
+  // dK * scale and dV, staged through the first stage of the ring, each
+  // group into its panel
+  wg::stage_acc(sQ + group * TILE_ELEMS, st.dk, scale, scale);
+  wg::stage_acc(sDO + group * TILE_ELEMS, st.dv, 1.f, 1.f);
   __syncthreads();
-  wg::store_tile<THREADS>(dk + k_base, sQ, k0, k_rows);
-  wg::store_tile<THREADS>(dv + k_base, sDO, k0, k_rows);
+  wg::store_tile<THREADS, HD>(dk + k_base, sQ, k0, k_rows);
+  wg::store_tile<THREADS, HD>(dv + k_base, sDO, k0, k_rows);
 }
 
-}  // namespace
-
-// q, dout: contiguous bf16 [B, H, Tq, 64]; k, v: bf16 [B, H, Tk, 64]; q_len,
-// m_len: int32 [B] or null; m, s, delta: fp32 [B, H, Tq] (the forward's row
-// max and row sum, and rowsum(dO * O)); dk, dv like k. Returns the CUDA
-// error code of the launch.
-extern "C" int masked_attention_bwd_dkv_tc(const void* q, const void* k, const void* v,
-                                           const void* dout, const void* q_len,
-                                           const void* m_len, const void* m, const void* s,
-                                           const void* delta, void* dk, void* dv, int B,
-                                           int H, int Tq, int Tk, int D, float scale,
-                                           int causal, void* stream) {
-  if (D != HD || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || (Tk + BK - 1) / BK > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  static bool smem_set = false;  // above 48 KB needs an explicit opt-in
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const void* q_len, const void* m_len, const void* m, const void* s,
+                   const void* delta, void* dk, void* dv, int B, int H, int Tq, int Tk,
+                   float scale, int causal, cudaStream_t stream) {
+  static bool smem_set = false;  // above 48 KB needs an explicit opt-in, per instantiation
   if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        masked_attention_bwd_dkv_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
+    const cudaError_t err = cudaFuncSetAttribute(masked_attention_bwd_dkv_tc_kernel<HD>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem_bytes<HD>());
+    if (err != cudaSuccess) return err;
     smem_set = true;
   }
   // a programmatic dependent launch: its blocks may start while the kernel
   // before it on the stream (the dQ kernel) still runs
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(B * H, (Tk + BK - 1) / BK);
-  config.blockDim = dim3(THREADS);
-  config.dynamicSmemBytes = SMEM_BYTES;
-  config.stream = static_cast<cudaStream_t>(stream);
+  config.blockDim = dim3(threads<HD>());
+  config.dynamicSmemBytes = smem_bytes<HD>();
+  config.stream = stream;
   cudaLaunchAttribute attribute[1];
   attribute[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attribute[0].val.programmaticStreamSerializationAllowed = 1;
   config.attrs = attribute;
   config.numAttrs = 1;
   const cudaError_t err = cudaLaunchKernelEx(
-      &config, masked_attention_bwd_dkv_tc_kernel, static_cast<const bf16*>(q),
+      &config, masked_attention_bwd_dkv_tc_kernel<HD>, static_cast<const bf16*>(q),
       static_cast<const bf16*>(k), static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
       static_cast<const int*>(q_len), static_cast<const int*>(m_len),
       static_cast<const float*>(m), static_cast<const float*>(s),
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Tq,
       Tk, scale, causal);
-  return (int)(err != cudaSuccess ? err : cudaGetLastError());
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-// Dynamic shared memory each block asks for, in bytes.
-extern "C" int masked_attention_bwd_dkv_tc_shared_bytes(void) { return (int)SMEM_BYTES; }
+}  // namespace
+
+// q, dout: contiguous bf16 [B, H, Tq, D]; k, v: bf16 [B, H, Tk, D], D = 64
+// or 128; q_len, m_len: int32 [B] or null; m, s, delta: fp32 [B, H, Tq]
+// (the forward's row max and row sum, and rowsum(dO * O)); dk, dv like k.
+// Returns the CUDA error code of the launch.
+extern "C" int masked_attention_bwd_dkv_tc(const void* q, const void* k, const void* v,
+                                           const void* dout, const void* q_len,
+                                           const void* m_len, const void* m, const void* s,
+                                           const void* delta, void* dk, void* dv, int B,
+                                           int H, int Tq, int Tk, int D, float scale,
+                                           int causal, void* stream) {
+  if ((D != 64 && D != 128) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
+      (Tk + BK - 1) / BK > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(D == 128 ? launch<128>(q, k, v, dout, q_len, m_len, m, s, delta, dk, dv, B, H,
+                                      Tq, Tk, scale, causal, st)
+                        : launch<64>(q, k, v, dout, q_len, m_len, m, s, delta, dk, dv, B, H, Tq,
+                                     Tk, scale, causal, st));
+}
+
+// Dynamic shared memory each D = 64 block asks for, in bytes (a D = 128
+// block of two warp groups 160,000).
+extern "C" int masked_attention_bwd_dkv_tc_shared_bytes(void) { return (int)smem_bytes<64>(); }

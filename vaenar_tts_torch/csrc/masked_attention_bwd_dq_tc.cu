@@ -91,12 +91,20 @@
 // print it). Shared memory: Q, dO and a two-stage K/V ring, 6 tiles of
 // 64 x 64 bf16, and 1 KB for alignment: 50,176 bytes a block.
 
+// Head widths. A template of the head width, compiled for D = 64 (the
+// design above) and D = 128; the C entry point runs the one its D names.
+// At D = 128 each tile is two 64-column swizzled panels: S and dP run 4
+// k-steps on each, dQ += dS . K is two products of N = 64 into the two
+// halves of a 64 x 128 accumulator, and delta takes two threads a row of
+// 64 columns each. Shared memory 99,328 bytes a block; registers in
+// PERF.md §6.
+
 #include "wgmma_bf16.cuh"
 
 namespace {
 
 using tc::bf16;
-using tc::HD;
+using wg::PANEL_DESC;
 using wg::TILE_ELEMS;
 
 constexpr int BQ = 64;  // query rows per block
@@ -104,7 +112,10 @@ constexpr int BK = 64;  // keys per tile
 constexpr int THREADS = 128;
 constexpr int STAGES = 2;  // K/V tiles in the ring: one loads while one multiplies
 constexpr float LOG2E = 1.4426950408889634f;
-constexpr size_t SMEM_BYTES = sizeof(bf16) * (2 + 2 * STAGES) * TILE_ELEMS + wg::ALIGN;
+template <int HD>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(bf16) * (2 + 2 * STAGES) * wg::tile_elems<HD>() + wg::ALIGN;
+}
 
 // This thread's two rows (g and g + 8 of its warp's 16): the unmasked keys
 // [0, lim), m log2(e), 1/s and delta.
@@ -116,8 +127,9 @@ struct RowStats {
 // One key tile of NK keys (16, 32, 48 or 64) starting at key kt: S and dP,
 // then P and dS, then dQ += dS_hi . K + dS_lo . K. P = 2^(S * scale_log2 -
 // m log2(e)) / s with scale_log2 = scale * log2(e).
-template <int NK>
-__device__ __forceinline__ void dq_tile(float (&acc)[8][4], uint64_t dq_desc, uint64_t ddo_desc,
+template <int HD, int NK>
+__device__ __forceinline__ void dq_tile(float (&acc)[HD / 8][4], uint64_t dq_desc,
+                                        uint64_t ddo_desc,
                                         const bf16* tK, const bf16* tV, const RowStats& rs,
                                         int kt, int col_in, float scale_log2) {
   constexpr int J = NK / 8;
@@ -129,10 +141,13 @@ __device__ __forceinline__ void dq_tile(float (&acc)[8][4], uint64_t dq_desc, ui
   wg::fence();
   const uint64_t dk = wg::desc(tK), dv = wg::desc(tV);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    wg::mma_ss<NK>(sc, dq_desc + 2 * kk, dk + 2 * kk);
-    wg::mma_ss<NK>(dp, ddo_desc + 2 * kk, dv + 2 * kk);
-  }
+  for (int p = 0; p < HD / 64; ++p)  // the head width's panels, 4 k-steps each
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t at = p * PANEL_DESC + 2 * kk;
+      wg::mma_ss<NK>(sc, dq_desc + at, dk + at);
+      wg::mma_ss<NK>(dp, ddo_desc + at, dv + at);
+    }
   wg::commit();
   wg::wait<0>();
   wg::fence_acc(sc);
@@ -168,8 +183,8 @@ __device__ __forceinline__ void dq_tile(float (&acc)[8][4], uint64_t dq_desc, ui
       }
   }
 
-  // dQ += dS . K as hi and lo parts: dS from registers, K an MN-major B,
-  // k-step s = keys 16 s .. 16 s + 15
+  // dQ += dS . K as hi and lo parts: dS from registers, K an MN-major B
+  // (one product of N = 64 for each panel), k-step s = keys 16 s .. 16 s + 15
   uint32_t ds_hi[NK / 16][4], ds_lo[NK / 16][4];
 #pragma unroll
   for (int s = 0; s < NK / 16; ++s) wg::a_split(ds_hi[s], ds_lo[s], dp, s);
@@ -179,12 +194,17 @@ __device__ __forceinline__ void dq_tile(float (&acc)[8][4], uint64_t dq_desc, ui
   for (int s = 0; s < NK / 16; ++s) {
     wg::mma_rs64_mn(acc, ds_hi[s], dk + 128 * s);
     wg::mma_rs64_mn(acc, ds_lo[s], dk + 128 * s);
+    if constexpr (HD == 128) {
+      wg::mma_rs64_mn<8>(acc, ds_hi[s], dk + PANEL_DESC + 128 * s);
+      wg::mma_rs64_mn<8>(acc, ds_lo[s], dk + PANEL_DESC + 128 * s);
+    }
   }
   wg::commit();
   wg::wait<0>();
   wg::fence_acc(acc);
 }
 
+template <int HD>
 __global__ void __launch_bounds__(THREADS)
 masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                   const bf16* __restrict__ v, const bf16* __restrict__ dout,
@@ -199,11 +219,13 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
   // reads delta.
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 
+  constexpr int TILE = wg::tile_elems<HD>();
+  constexpr int CHUNKS = HD / 8, SHIFT = cpa::log2i(CHUNKS);  // 16-byte chunks a row
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(wg::aligned_smem(smem_raw));  // [64][64] swizzled
-  bf16* sDO = sQ + TILE_ELEMS;                                      // [64][64]
-  bf16* sK = sDO + TILE_ELEMS;          // [STAGES][64][64], the key-tile ring
-  bf16* sV = sK + STAGES * TILE_ELEMS;  // [STAGES][64][64]
+  bf16* sQ = reinterpret_cast<bf16*>(wg::aligned_smem(smem_raw));  // [64][HD] swizzled
+  bf16* sDO = sQ + TILE;                                            // [64][HD]
+  bf16* sK = sDO + TILE;          // [STAGES][64][HD], the key-tile ring
+  bf16* sV = sK + STAGES * TILE;  // [STAGES][64][HD]
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int bh = blockIdx.x;
@@ -220,9 +242,9 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
 
   if (rows_end <= q0) {  // no row of the block has a key
     const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
-    for (int chunk = tid; chunk < q_rows * 8; chunk += THREADS)
-      *reinterpret_cast<uint4*>(dq + q_base + (size_t)(q0 + (chunk >> 3)) * HD +
-                                (chunk & 7) * 8) = zero;
+    for (int chunk = tid; chunk < q_rows * CHUNKS; chunk += THREADS)
+      *reinterpret_cast<uint4*>(dq + q_base + (size_t)(q0 + (chunk >> SHIFT)) * HD +
+                                (chunk & (CHUNKS - 1)) * 8) = zero;
     for (int r = tid; r < q_rows; r += THREADS) delta_out[stat_base + q0 + r] = 0.f;
     return;
   }
@@ -232,12 +254,12 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
 
   // commit groups: Q and dO, then key tiles 0 .. STAGES - 2, then one per
   // key tile in the loop
-  wg::load_tile_async<THREADS>(sQ, q + q_base, q0, rows_end, tid);
-  wg::load_tile_async<THREADS>(sDO, dout + q_base, q0, rows_end, tid);
+  wg::load_tile_async<THREADS, HD>(sQ, q + q_base, q0, rows_end, tid);
+  wg::load_tile_async<THREADS, HD>(sDO, dout + q_base, q0, rows_end, tid);
   tc::cp_async_commit();
   auto load_kv = [&](int stage, int t) {
-    wg::load_tile_async<THREADS>(sK + stage * TILE_ELEMS, k + k_base, t * BK, k_end, tid);
-    wg::load_tile_async<THREADS>(sV + stage * TILE_ELEMS, v + k_base, t * BK, k_end, tid);
+    wg::load_tile_async<THREADS, HD>(sK + stage * TILE, k + k_base, t * BK, k_end, tid);
+    wg::load_tile_async<THREADS, HD>(sV + stage * TILE, v + k_base, t * BK, k_end, tid);
   };
 #pragma unroll
   for (int p = 0; p < STAGES - 1; ++p) {
@@ -245,14 +267,16 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
     tc::cp_async_commit();
   }
 
-  // delta: thread tid sums columns [32 h, 32 h + 32) of row r of dO * O
+  // delta: thread tid sums columns [HD / 2 h, HD / 2 (h + 1)) of row r of
+  // dO * O, HD / 16 chunks of 16 bytes
+  constexpr int D_CHUNKS = HD / 16;
   const int d_row = tid >> 1, d_half = tid & 1;
-  uint4 o_raw[4];
+  uint4 o_raw[D_CHUNKS];
   const bool d_in = q0 + d_row < rows_end;
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < D_CHUNKS; ++i)
     o_raw[i] = d_in ? *reinterpret_cast<const uint4*>(o + q_base + (size_t)(q0 + d_row) * HD +
-                                                      d_half * 32 + i * 8)
+                                                      d_half * (HD / 2) + i * 8)
                     : make_uint4(0u, 0u, 0u, 0u);
   // this lane's two rows: their unmasked keys, m log2(e) and 1/s
   RowStats rs;
@@ -271,8 +295,9 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
   __syncthreads();
   float dsum = 0.f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const uint4 g_raw = *reinterpret_cast<const uint4*>(sDO + wg::swz(d_row, d_half * 4 + i));
+  for (int i = 0; i < D_CHUNKS; ++i) {
+    const uint4 g_raw =
+        *reinterpret_cast<const uint4*>(sDO + wg::swz(d_row, d_half * D_CHUNKS + i));
     const __nv_bfloat162* gh = reinterpret_cast<const __nv_bfloat162*>(&g_raw);
     const __nv_bfloat162* oh = reinterpret_cast<const __nv_bfloat162*>(&o_raw[i]);
 #pragma unroll
@@ -292,7 +317,7 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
   const int col_in = (lane & 3) * 2;
   const float scale_log2 = scale * LOG2E;
   const uint64_t dq_desc = wg::desc(sQ), ddo_desc = wg::desc(sDO);
-  float acc[8][4];
+  float acc[HD / 8][4];
   wg::zero(acc);
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -304,17 +329,17 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
     tc::cp_async_wait<STAGES - 1>();  // key tile t has landed
     wg::fence_async_smem();
     __syncthreads();
-    const bf16* tK = sK + buf * TILE_ELEMS;
-    const bf16* tV = sV + buf * TILE_ELEMS;
+    const bf16* tK = sK + buf * TILE;
+    const bf16* tV = sV + buf * TILE;
     const int kn = min(BK, k_end - kt);  // keys this tile needs
     if (kn > 48) {
-      dq_tile<64>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2);
+      dq_tile<HD, 64>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2);
     } else if (kn > 32) {
-      dq_tile<48>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2);
+      dq_tile<HD, 48>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2);
     } else if (kn > 16) {
-      dq_tile<32>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2);
+      dq_tile<HD, 32>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2);
     } else {
-      dq_tile<16>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2);
+      dq_tile<HD, 16>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2);
     }
     __syncthreads();  // the next iteration refills the stage of this tile
   }
@@ -323,42 +348,57 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
   // dQ * scale, staged through the Q tile (the loop's last barrier follows
   // every product that read it); rows without a key are zeros
   wg::stage_acc(sQ, acc, scale, scale);
+  if constexpr (HD == 128) wg::stage_acc<8>(sQ + TILE_ELEMS, acc, scale, scale);
   __syncthreads();
-  wg::store_tile<THREADS>(dq + q_base, sQ, q0, q_rows);
+  wg::store_tile<THREADS, HD>(dq + q_base, sQ, q0, q_rows);
 }
 
-}  // namespace
-
-// q, dout, o: contiguous bf16 [B, H, Tq, 64]; k, v: bf16 [B, H, Tk, 64];
-// q_len, m_len: int32 [B] or null; m, s: fp32 [B, H, Tq] (the forward's row
-// max and row sum); delta: fp32 [B, H, Tq], written (rowsum(dO * O) on rows
-// with a key, else 0); dq like q. Returns the CUDA error code of the launch.
-extern "C" int masked_attention_bwd_dq_tc(const void* q, const void* k, const void* v,
-                                          const void* dout, const void* o, const void* q_len,
-                                          const void* m_len, const void* m, const void* s,
-                                          void* delta, void* dq, int B, int H, int Tq, int Tk,
-                                          int D, float scale, int causal, void* stream) {
-  if (D != HD || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || (Tq + BQ - 1) / BQ > 65535) {
-    return (int)cudaErrorInvalidValue;
-  }
-  static bool smem_set = false;  // above 48 KB needs an explicit opt-in
+template <int HD>
+cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
+                   const void* o, const void* q_len, const void* m_len, const void* m,
+                   const void* s, void* delta, void* dq, int B, int H, int Tq, int Tk,
+                   float scale, int causal, cudaStream_t stream) {
+  static bool smem_set = false;  // above 48 KB needs an explicit opt-in, per instantiation
   if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        masked_attention_bwd_dq_tc_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)SMEM_BYTES);
-    if (err != cudaSuccess) return (int)err;
+    const cudaError_t err = cudaFuncSetAttribute(masked_attention_bwd_dq_tc_kernel<HD>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)smem_bytes<HD>());
+    if (err != cudaSuccess) return err;
     smem_set = true;
   }
   const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  masked_attention_bwd_dq_tc_kernel<<<grid, THREADS, SMEM_BYTES,
-                                      static_cast<cudaStream_t>(stream)>>>(
+  masked_attention_bwd_dq_tc_kernel<HD><<<grid, THREADS, smem_bytes<HD>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const bf16*>(o),
       static_cast<const int*>(q_len), static_cast<const int*>(m_len),
       static_cast<const float*>(m), static_cast<const float*>(s), static_cast<float*>(delta),
       static_cast<bf16*>(dq), H, Tq, Tk, scale, causal);
-  return (int)cudaGetLastError();
+  return cudaGetLastError();
 }
 
-// Dynamic shared memory each block asks for, in bytes.
-extern "C" int masked_attention_bwd_dq_tc_shared_bytes(void) { return (int)SMEM_BYTES; }
+}  // namespace
+
+// q, dout, o: contiguous bf16 [B, H, Tq, D]; k, v: bf16 [B, H, Tk, D], D =
+// 64 or 128; q_len, m_len: int32 [B] or null; m, s: fp32 [B, H, Tq] (the
+// forward's row max and row sum); delta: fp32 [B, H, Tq], written
+// (rowsum(dO * O) on rows with a key, else 0); dq like q. Returns the CUDA
+// error code of the launch.
+extern "C" int masked_attention_bwd_dq_tc(const void* q, const void* k, const void* v,
+                                          const void* dout, const void* o, const void* q_len,
+                                          const void* m_len, const void* m, const void* s,
+                                          void* delta, void* dq, int B, int H, int Tq, int Tk,
+                                          int D, float scale, int causal, void* stream) {
+  if ((D != 64 && D != 128) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
+      (Tq + BQ - 1) / BQ > 65535) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)(D == 128 ? launch<128>(q, k, v, dout, o, q_len, m_len, m, s, delta, dq, B, H, Tq,
+                                      Tk, scale, causal, st)
+                        : launch<64>(q, k, v, dout, o, q_len, m_len, m, s, delta, dq, B, H, Tq,
+                                     Tk, scale, causal, st));
+}
+
+// Dynamic shared memory each D = 64 block asks for, in bytes (a D = 128
+// block 99,328).
+extern "C" int masked_attention_bwd_dq_tc_shared_bytes(void) { return (int)smem_bytes<64>(); }

@@ -63,15 +63,19 @@
 // memory: Q and, for each group, a two-stage K/V ring and a P tile: 6 or 11
 // tiles of 64 x 68 fp32, 104,448 or 191,488 bytes a block.
 
+// Head widths. A template of the head width, compiled for D = 64 (the
+// design above) and D = 128; the C entry point runs the one its D names.
+// At D = 128 a thread owns 8 columns of O (64 h + 4 cg + c, h < 2) and a
+// block takes one warp group at every Tk: two groups' rings, 11 tiles of
+// 64 x 132 fp32, do not fit in shared memory; one group's 6 tiles take
+// 202,752 bytes. Registers in PERF.md §6.
+
 #include "tile_f32.cuh"
 
 namespace {
 
 using f32::GROUP_THREADS;
-using f32::HD;
-using f32::LDP;
 using f32::NEG;
-using f32::TILE;
 
 constexpr int BQ = 64;  // query rows per block
 constexpr int BK = 64;  // keys per tile
@@ -80,27 +84,32 @@ constexpr int STAGES = 2;  // K/V tiles in a group's ring: one loads while one m
 // second group splits a long chain of key tiles and mostly idles on a short
 // one)
 constexpr int TWO_GROUPS_MIN_TK = 512;
-constexpr int GROUP_FLOATS = (2 * STAGES + 1) * TILE;  // a group's K/V ring and P tile
+// a group's K/V ring and P tile
+template <int HD>
+__host__ __device__ constexpr int group_floats() {
+  return (2 * STAGES + 1) * f32::tile<HD>();
+}
 
-template <int GROUPS>
-constexpr size_t smem_bytes() {
-  return sizeof(float) * (TILE + GROUPS * GROUP_FLOATS);
+template <int HD, int GROUPS>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(float) * (f32::tile<HD>() + GROUPS * group_floats<HD>());
 }
 
 // Rows [pad0, Tq) of one (b, h): o = mean(v) over its Tk keys, m = NEG,
 // s = Tk. `scratch` is shared memory for HD + 4 * THREADS floats.
-template <int THREADS>
+template <int THREADS, int HD>
 __device__ __forceinline__ void write_padding_rows(float* scratch, const float* __restrict__ v,
                                                    float* __restrict__ o,
                                                    float* __restrict__ m_out,
                                                    float* __restrict__ s_out, int pad0, int Tq,
                                                    int Tk) {
+  constexpr int TPR = HD / 4;  // threads a row, 4 columns each
   float* sum = scratch;  // [HD]
-  f32::column_sums<THREADS, 8>(sum, scratch + HD, v, 0, Tk, nullptr);
-  const int c4 = (threadIdx.x & 15) * 4;
+  f32::column_sums<THREADS, 8, HD>(sum, scratch + HD, v, 0, Tk, nullptr);
+  const int c4 = (threadIdx.x % TPR) * 4;
   const float n = (float)Tk;
   const float4 mean = make_float4(sum[c4] / n, sum[c4 + 1] / n, sum[c4 + 2] / n, sum[c4 + 3] / n);
-  for (int r = pad0 + (threadIdx.x >> 4); r < Tq; r += THREADS / 16)
+  for (int r = pad0 + (threadIdx.x / TPR); r < Tq; r += THREADS / TPR)
     *reinterpret_cast<float4*>(o + (size_t)r * HD + c4) = mean;
   for (int r = pad0 + threadIdx.x; r < Tq; r += THREADS) {
     m_out[r] = NEG;
@@ -108,7 +117,7 @@ __device__ __forceinline__ void write_padding_rows(float* scratch, const float* 
   }
 }
 
-template <int GROUPS>
+template <int HD, int GROUPS>
 __global__ void __launch_bounds__(GROUPS * GROUP_THREADS)
 masked_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                             const float* __restrict__ v, const int* __restrict__ q_len,
@@ -116,6 +125,8 @@ masked_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict
                             float* __restrict__ m_out, float* __restrict__ s_out, int H, int Tq,
                             int Tk, float scale, int causal) {
   constexpr int THREADS = GROUPS * GROUP_THREADS;
+  constexpr int LDP = f32::ldp<HD>(), TILE = f32::tile<HD>(), GROUP_FLOATS = group_floats<HD>();
+  constexpr int CW = HD / 16;  // accumulator columns a thread
   extern __shared__ __align__(16) float smem[];
   float* sQ = smem;  // [64][LDP]
 
@@ -146,10 +157,10 @@ masked_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict
   float* sP = sV + STAGES * TILE;                // [64][LDP]
   // Q and each group's first tile, one commit group
   if (n_tiles > 0) {
-    f32::load_tile_async<THREADS>(sQ, q + q_base, q0, rows_end, tid);
+    f32::load_tile_async<THREADS, HD>(sQ, q + q_base, q0, rows_end, tid);
     if (group < n_tiles) {
-      f32::load_tile_async<GROUP_THREADS>(sK, k + k_base, group * BK, k_end, gtid);
-      f32::load_tile_async<GROUP_THREADS>(sV, v + k_base, group * BK, k_end, gtid);
+      f32::load_tile_async<GROUP_THREADS, HD>(sK, k + k_base, group * BK, k_end, gtid);
+      f32::load_tile_async<GROUP_THREADS, HD>(sV, v + k_base, group * BK, k_end, gtid);
     }
     cpa::cp_async_commit();
   }
@@ -159,7 +170,7 @@ masked_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict
   // else the last block. Its scratch is group 0's P tile.
   const int writer = min((pad0 + BQ - 1) / BQ, (int)gridDim.y - 1);
   if (pad0 < Tq && qb == writer) {
-    write_padding_rows<THREADS>(sQ + TILE + 2 * STAGES * TILE, v + k_base, o + q_base,
+    write_padding_rows<THREADS, HD>(sQ + TILE + 2 * STAGES * TILE, v + k_base, o + q_base,
                                 m_out + stat_base, s_out + stat_base, pad0, Tq, Tk);
   }
   if (n_tiles == 0) return;
@@ -168,13 +179,13 @@ masked_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict
 
   const int rg = gtid >> 4, cg = gtid & 15;  // rows rg + 8 i; keys cg + 16 j; columns 4 cg + c
   const float scale2 = scale * f32::LOG2E;
-  float acc[8][4], row_max[8], row_sum[8];  // row_sum: this thread's keys only, until the end
+  float acc[8][CW], row_max[8], row_sum[8];  // row_sum: this thread's keys only, until the end
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     row_max[i] = NEG;
     row_sum[i] = 0.f;
 #pragma unroll
-    for (int c = 0; c < 4; ++c) acc[i][c] = 0.f;
+    for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
   }
 
   // this group's key tiles: group, group + GROUPS, ...
@@ -186,8 +197,10 @@ masked_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict
     }
     const int ahead = t + GROUPS;
     if (ahead < n_tiles) {  // into the stage of tile it - 1
-      f32::load_tile_async<GROUP_THREADS>(sK + (1 - buf) * TILE, k + k_base, ahead * BK, k_end, gtid);
-      f32::load_tile_async<GROUP_THREADS>(sV + (1 - buf) * TILE, v + k_base, ahead * BK, k_end, gtid);
+      f32::load_tile_async<GROUP_THREADS, HD>(sK + (1 - buf) * TILE, k + k_base, ahead * BK, k_end,
+                                              gtid);
+      f32::load_tile_async<GROUP_THREADS, HD>(sV + (1 - buf) * TILE, v + k_base, ahead * BK, k_end,
+                                              gtid);
     }
     cpa::cp_async_commit();
     const float* tK = sK + buf * TILE;
@@ -200,9 +213,9 @@ masked_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict
     // that is written)
     float sc[8][4];
     if (n_keys > 32) {
-      f32::dots<8, 4>(sc, sQ, tK, rg, cg);
+      f32::dots<8, 4, false, 8, HD>(sc, sQ, tK, rg, cg);
     } else {
-      f32::dots<8, 2>(sc, sQ, tK, rg, cg);
+      f32::dots<8, 2, false, 8, HD>(sc, sQ, tK, rg, cg);
     }
 
     // mask, online softmax in base 2; P to this warp's rows of sP
@@ -231,11 +244,11 @@ masked_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict
       }
       row_sum[i] = row_sum[i] * alpha + part;
 #pragma unroll
-      for (int c = 0; c < 4; ++c) acc[i][c] *= alpha;
+      for (int c = 0; c < CW; ++c) acc[i][c] *= alpha;
     }
     __syncwarp();  // P rows are written and read by one half-warp each
 
-    f32::accumulate<8>(acc, sP, tV, rg, cg, n_keys);
+    f32::accumulate<8, 8, HD>(acc, sP, tV, rg, cg, n_keys);
   }
   cpa::cp_async_wait<0>();
 
@@ -246,14 +259,14 @@ masked_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict
   // keys in it, holds m = NEG and drops out with weight exp2(NEG - m) = 0.
   if constexpr (GROUPS == 2) {
     __syncthreads();  // both groups are done with their rings
-    float* xch = sQ + TILE + GROUP_FLOATS;  // [48][GROUP_THREADS]
+    float* xch = sQ + TILE + GROUP_FLOATS;  // [16 + 8 CW][GROUP_THREADS]
     if (group == 1) {
 #pragma unroll
       for (int i = 0; i < 8; ++i) {
         xch[i * GROUP_THREADS + gtid] = row_max[i];
         xch[(8 + i) * GROUP_THREADS + gtid] = row_sum[i];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) xch[(16 + 4 * i + c) * GROUP_THREADS + gtid] = acc[i][c];
+        for (int c = 0; c < CW; ++c) xch[(16 + CW * i + c) * GROUP_THREADS + gtid] = acc[i][c];
       }
     }
     __syncthreads();
@@ -266,8 +279,8 @@ masked_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict
         row_sum[i] = row_sum[i] * a0 + xch[(8 + i) * GROUP_THREADS + gtid] * a1;
         row_max[i] = m_new;
 #pragma unroll
-        for (int c = 0; c < 4; ++c)
-          acc[i][c] = acc[i][c] * a0 + xch[(16 + 4 * i + c) * GROUP_THREADS + gtid] * a1;
+        for (int c = 0; c < CW; ++c)
+          acc[i][c] = acc[i][c] * a0 + xch[(16 + CW * i + c) * GROUP_THREADS + gtid] * a1;
       }
     }
   }
@@ -281,8 +294,11 @@ masked_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict
       const int row = q0 + rg + 8 * i;
       if (row >= rows_end) continue;  // past Tq, or a padding row written by the writer
       const float inv = 1.f / row_sum[i];
-      *reinterpret_cast<float4*>(o + q_base + (size_t)row * HD + 4 * cg) =
-          make_float4(acc[i][0] * inv, acc[i][1] * inv, acc[i][2] * inv, acc[i][3] * inv);
+#pragma unroll
+      for (int h = 0; h < HD / 64; ++h)
+        *reinterpret_cast<float4*>(o + q_base + (size_t)row * HD + 64 * h + 4 * cg) =
+            make_float4(acc[i][4 * h] * inv, acc[i][4 * h + 1] * inv, acc[i][4 * h + 2] * inv,
+                        acc[i][4 * h + 3] * inv);
       if (cg == 0) {
         m_out[stat_base + row] = row_max[i] * f32::LN2;
         s_out[stat_base + row] = row_sum[i];
@@ -291,20 +307,21 @@ masked_attention_fwd_kernel(const float* __restrict__ q, const float* __restrict
   }
 }
 
-template <int GROUPS>
+template <int HD, int GROUPS>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* q_len,
                    const void* m_len, void* o, void* m, void* s, int B, int H, int Tq, int Tk,
                    float scale, int causal, cudaStream_t stream) {
   static bool smem_set = false;  // above 48 KB needs an explicit opt-in
   if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(masked_attention_fwd_kernel<GROUPS>,
+    const cudaError_t err = cudaFuncSetAttribute(masked_attention_fwd_kernel<HD, GROUPS>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 (int)smem_bytes<GROUPS>());
+                                                 (int)smem_bytes<HD, GROUPS>());
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
   const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  masked_attention_fwd_kernel<GROUPS><<<grid, GROUPS * GROUP_THREADS, smem_bytes<GROUPS>(), stream>>>(
+  masked_attention_fwd_kernel<HD, GROUPS>
+      <<<grid, GROUPS * GROUP_THREADS, smem_bytes<HD, GROUPS>(), stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(q_len), static_cast<const int*>(m_len), static_cast<float*>(o),
       static_cast<float*>(m), static_cast<float*>(s), H, Tq, Tk, scale, causal);
@@ -313,25 +330,31 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* q_le
 
 }  // namespace
 
-// q, k, v: contiguous fp32 [B, H, T, 64]; q_len, m_len: int32 [B] or null;
-// o like q; m, s: fp32 [B, H, Tq]. Returns the CUDA error code of the launch
-// (0 on success).
+// q, k, v: contiguous fp32 [B, H, T, D], D = 64 or 128 (the wrapper pads
+// other widths up to 128 with zero columns); q_len, m_len: int32 [B] or
+// null; o like q; m, s: fp32 [B, H, Tq]. Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* q_len, const void* m_len,
                                     void* o, void* m, void* s, int B, int H,
                                     int Tq, int Tk, int D, float scale,
                                     int causal, void* stream) {
-  if (D != HD || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
+  if ((D != 64 && D != 128) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
       (Tq + BQ - 1) / BQ > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  // D = 128: one warp group (two groups' rings, 11 tiles of 64 x 132 fp32,
+  // do not fit in shared memory)
+  if (D == 128) {
+    return (int)launch<128, 1>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal, st);
+  }
   return (int)(Tk > TWO_GROUPS_MIN_TK
-                   ? launch<2>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal, st)
-                   : launch<1>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal, st));
+                   ? launch<64, 2>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal, st)
+                   : launch<64, 1>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal, st));
 }
 
-// Dynamic shared memory a block of two warp groups asks for, in bytes (a
-// block of one group asks for 104,448; ptxas -v reports static shared memory
-// only).
-extern "C" int masked_attention_fwd_shared_bytes(void) { return (int)smem_bytes<2>(); }
+// Dynamic shared memory a D = 64 block of two warp groups asks for, in
+// bytes (a block of one group asks for 104,448, a D = 128 block 202,752;
+// ptxas -v reports static shared memory only).
+extern "C" int masked_attention_fwd_shared_bytes(void) { return (int)smem_bytes<64, 2>(); }

@@ -84,13 +84,23 @@
 // Shared memory: Q and a two-stage K/V ring for each group, 5 or 9 tiles of
 // 64 x 64 bf16 and 1 KB for alignment = 41,984 or 74,752 bytes a block.
 
+// Head widths. The kernel is a template of the head width, compiled for
+// D = 64 (the design above) and D = 128; the C entry point runs the one
+// its D names, and the wrapper pads every other width up to 128 with zero
+// columns. At D = 128 a tile is two 64-column swizzled panels
+// (wgmma_bf16.cuh): S = Q.K^T runs 4 k-steps on each panel, and O += P.V
+// is two products of N = 64, one into each half of a 64 x 128 fp32
+// accumulator (64 floats a thread in place of 32); the softmax, the warp
+// groups and the narrowed key tiles are D = 64's. Shared memory 82,944 or
+// 148,480 bytes a block; registers in PERF.md §6.
+
 #include "wgmma_bf16.cuh"
 
 namespace {
 
 using tc::bf16;
-using tc::HD;
 using tc::NEG;
+using wg::PANEL_DESC;
 using wg::TILE_ELEMS;
 
 constexpr int BQ = 64;  // query rows per block
@@ -107,14 +117,15 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int WRITERS = 4;       // blocks of a (b, h) that share the padding rows,
 constexpr int WRITER_ROWS = 256;  // each taking this many rows at least
 
-template <int GROUPS>
-constexpr size_t smem_bytes() {
-  return sizeof(bf16) * (1 + GROUPS * 2 * STAGES) * TILE_ELEMS + wg::ALIGN;
+template <int HD, int GROUPS>
+__host__ __device__ constexpr size_t smem_bytes() {
+  return sizeof(bf16) * (1 + GROUPS * 2 * STAGES) * wg::tile_elems<HD>() + wg::ALIGN;
 }
 
 // Per-thread state of one warp group's online softmax over its rows.
+template <int HD>
 struct RowState {
-  float acc[8][4];  // O accumulator, wgmma's D fragment
+  float acc[HD / 8][4];  // O accumulator, wgmma's D fragment
   float row_max[2], row_sum[2];  // rows g and g + 8 of the warp's 16
 };
 
@@ -132,8 +143,8 @@ __device__ __forceinline__ float tree(float (&t)[N], Op op) {
 // the mask, the online softmax, O += P_hi.V + P_lo.V. Of this thread's two
 // rows, columns below lim_lo (lim_hi) are unmasked; the others are masked
 // (NEG), or have no term at all at or past Tk (-inf).
-template <int NK>
-__device__ __forceinline__ void fwd_tile(RowState& st, uint64_t dq, const bf16* tK,
+template <int HD, int NK>
+__device__ __forceinline__ void fwd_tile(RowState<HD>& st, uint64_t dq, const bf16* tK,
                                          const bf16* tV, int kt, int col_in, int lim_lo,
                                          int lim_hi, int Tk, float scale) {
   constexpr int J = NK / 8;
@@ -143,7 +154,10 @@ __device__ __forceinline__ void fwd_tile(RowState& st, uint64_t dq, const bf16* 
   wg::fence();
   const uint64_t dk = wg::desc(tK);
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) wg::mma_ss<NK>(sc, dq + 2 * kk, dk + 2 * kk);
+  for (int p = 0; p < HD / 64; ++p)  // the head width's panels, 4 k-steps each
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg::mma_ss<NK>(sc, dq + p * PANEL_DESC + 2 * kk, dk + p * PANEL_DESC + 2 * kk);
   wg::commit();
   wg::wait<0>();
   wg::fence_acc(sc);
@@ -207,7 +221,7 @@ __device__ __forceinline__ void fwd_tile(RowState& st, uint64_t dq, const bf16* 
   }
   if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {  // a row max moved
 #pragma unroll
-    for (int j = 0; j < 8; ++j)
+    for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st.acc[j][e] *= alpha[e >> 1];
   }
@@ -218,7 +232,8 @@ __device__ __forceinline__ void fwd_tile(RowState& st, uint64_t dq, const bf16* 
     st.row_sum[h] = st.row_sum[h] * alpha[h] + part[h];
   }
 
-  // O += P_hi . V + P_lo . V: P from registers, V an MN-major B
+  // O += P_hi . V + P_lo . V: P from registers, V an MN-major B, one
+  // product of N = 64 for each panel of V
   uint32_t p_hi[NK / 16][4], p_lo[NK / 16][4];
 #pragma unroll
   for (int s = 0; s < NK / 16; ++s) wg::a_split(p_hi[s], p_lo[s], sc, s);
@@ -229,13 +244,17 @@ __device__ __forceinline__ void fwd_tile(RowState& st, uint64_t dq, const bf16* 
   for (int s = 0; s < NK / 16; ++s) {  // keys 16 s .. 16 s + 15
     wg::mma_rs64_mn(st.acc, p_hi[s], dv + 128 * s);
     wg::mma_rs64_mn(st.acc, p_lo[s], dv + 128 * s);
+    if constexpr (HD == 128) {
+      wg::mma_rs64_mn<8>(st.acc, p_hi[s], dv + PANEL_DESC + 128 * s);
+      wg::mma_rs64_mn<8>(st.acc, p_lo[s], dv + PANEL_DESC + 128 * s);
+    }
   }
   wg::commit();
   wg::wait<0>();
   wg::fence_acc(st.acc);
 }
 
-template <int GROUPS>
+template <int HD, int GROUPS>
 __global__ void __launch_bounds__(GROUPS * GROUP_THREADS)
 masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                                const bf16* __restrict__ v, const int* __restrict__ q_len,
@@ -243,9 +262,10 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
                                float* __restrict__ m_out, float* __restrict__ s_out, int H,
                                int Tq, int Tk, float scale, int causal) {
   constexpr int THREADS = GROUPS * GROUP_THREADS;
+  constexpr int TILE = wg::tile_elems<HD>();
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = wg::aligned_smem(smem_raw);
-  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [64][64] swizzled; stages o at the end
+  bf16* sQ = reinterpret_cast<bf16*>(smem);  // [64][HD] swizzled; stages o at the end
 
   const int tid = threadIdx.x, lane = tid & 31;
   const int bh = blockIdx.x;  // b * H + h
@@ -287,17 +307,17 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
 
   // Each group's ring holds stage s's K tile at 2 s and V tile at 2 s + 1.
   const int group = tid / GROUP_THREADS, gtid = tid % GROUP_THREADS, gwarp = gtid / 32;
-  bf16* ring = sQ + TILE_ELEMS + group * 2 * STAGES * TILE_ELEMS;
+  bf16* ring = sQ + TILE + group * 2 * STAGES * TILE;
   auto load_kv = [&](int stage, int t) {
-    wg::load_tile_async<GROUP_THREADS>(ring + 2 * stage * TILE_ELEMS, k + k_base, t * BK, Tk, gtid);
-    wg::load_tile_async<GROUP_THREADS>(ring + (2 * stage + 1) * TILE_ELEMS, v + k_base, t * BK, Tk,
-                                       gtid);
+    wg::load_tile_async<GROUP_THREADS, HD>(ring + 2 * stage * TILE, k + k_base, t * BK, Tk, gtid);
+    wg::load_tile_async<GROUP_THREADS, HD>(ring + (2 * stage + 1) * TILE, v + k_base, t * BK, Tk,
+                                           gtid);
   };
   // Q, loaded by every thread; then each group's first STAGES - 1 tiles, one
   // commit group a tile; issued before the padding rows' pass, which a block
   // with valid rows runs while they land
   if (computes) {
-    wg::load_tile_async<THREADS>(sQ, q + q_base, q0, q0 + q_rows, tid);
+    wg::load_tile_async<THREADS, HD>(sQ, q + q_base, q0, q0 + q_rows, tid);
     tc::cp_async_commit();
 #pragma unroll
     for (int p = 0; p < STAGES - 1; ++p) {
@@ -309,9 +329,10 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
 
   if (writer >= 0 && writer < writers) {
     // scratch: group 0's last stage, which no load fills before the loop
-    float* sum = reinterpret_cast<float*>(sQ + (1 + 2 * (STAGES - 1)) * TILE_ELEMS);
-    wg::column_sums<THREADS, PAD_DEPTH>(sum, sum + HD, v + k_base, 0, Tk, nullptr);
-    const int c8 = (tid & 7) * 8;
+    constexpr int TPR = HD / 8;  // threads a row, 8 columns each
+    float* sum = reinterpret_cast<float*>(sQ + (1 + 2 * (STAGES - 1)) * TILE);
+    wg::column_sums<THREADS, PAD_DEPTH, HD>(sum, sum + HD, v + k_base, 0, Tk, nullptr);
+    const int c8 = (tid & (TPR - 1)) * 8;
     uint4 mean;
     __nv_bfloat162* mean2 = reinterpret_cast<__nv_bfloat162*>(&mean);
 #pragma unroll
@@ -319,7 +340,7 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
       mean2[i] = __floats2bfloat162_rn(sum[c8 + 2 * i] / (float)Tk, sum[c8 + 2 * i + 1] / (float)Tk);
     const int share = (Tq - pad0 + writers - 1) / writers;
     const int r0 = pad0 + writer * share, r1 = min(Tq, r0 + share);
-    for (int r = r0 + (tid >> 3); r < r1; r += THREADS / 8) {
+    for (int r = r0 + (tid >> cpa::log2i(TPR)); r < r1; r += THREADS / TPR) {
       *reinterpret_cast<uint4*>(o + q_base + (size_t)r * HD + c8) = mean;
     }
     for (int r = r0 + tid; r < r1; r += THREADS) {
@@ -342,7 +363,7 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
     return causal ? min(lim, row + 1) : lim;
   };
   const int lim_lo = row_lim(row_lo), lim_hi = row_lim(row_hi);
-  RowState st;
+  RowState<HD> st;
   wg::zero(st.acc);
   st.row_max[0] = st.row_max[1] = NEG;
   st.row_sum[0] = st.row_sum[1] = 0.f;
@@ -357,18 +378,18 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
     tc::cp_async_wait<STAGES - 1>();  // tile t has landed
     wg::fence_async_smem();
     tc::group_sync(1 + group, GROUP_THREADS);
-    const bf16* tK = ring + 2 * buf * TILE_ELEMS;
-    const bf16* tV = ring + (2 * buf + 1) * TILE_ELEMS;
+    const bf16* tK = ring + 2 * buf * TILE;
+    const bf16* tV = ring + (2 * buf + 1) * TILE;
     const int kt = t * BK;
     const int kn = min(BK, k_end - kt);  // keys this tile needs
     if (kn > 48) {
-      fwd_tile<64>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
+      fwd_tile<HD, 64>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
     } else if (kn > 32) {
-      fwd_tile<48>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
+      fwd_tile<HD, 48>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
     } else if (kn > 16) {
-      fwd_tile<32>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
+      fwd_tile<HD, 32>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
     } else {
-      fwd_tile<16>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
+      fwd_tile<HD, 16>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
     }
     tc::group_sync(1 + group, GROUP_THREADS);  // the next tile refills this stage
   }
@@ -381,7 +402,7 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
   // merges two tiles: a group with no tile, or a row that saw only masked
   // keys in it, holds m = NEG and drops out with weight exp(NEG - m) = 0.
   if (GROUPS == 2) {
-    float* xch = reinterpret_cast<float*>(sQ + TILE_ELEMS);  // [36][GROUP_THREADS]
+    float* xch = reinterpret_cast<float*>(sQ + TILE);  // [4 + HD / 2][GROUP_THREADS]
     if (group == 1) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -389,7 +410,7 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
         xch[(2 + h) * GROUP_THREADS + gtid] = st.row_sum[h];
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) xch[(4 + j * 4 + e) * GROUP_THREADS + gtid] = st.acc[j][e];
     }
@@ -406,7 +427,7 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
         st.row_max[h] = m_new;
       }
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
+      for (int j = 0; j < HD / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           st.acc[j][e] = st.acc[j][e] * a0[e >> 1] +
@@ -417,6 +438,8 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
   if (group == 0) {
     // o = acc / s for the rows below rows_end, staged through sQ
     wg::stage_acc(sQ, st.acc, 1.f / st.row_sum[0], 1.f / st.row_sum[1]);
+    if constexpr (HD == 128)
+      wg::stage_acc<8>(sQ + TILE_ELEMS, st.acc, 1.f / st.row_sum[0], 1.f / st.row_sum[1]);
     if ((lane & 3) == 0) {
       if (row_lo < rows_end) {
         m_out[stat_base + row_lo] = st.row_max[0];
@@ -429,24 +452,24 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
     }
   }
   __syncthreads();
-  wg::store_tile<THREADS>(o + q_base, sQ, q0, rows_end - q0);
+  wg::store_tile<THREADS, HD>(o + q_base, sQ, q0, rows_end - q0);
 }
 
-template <int GROUPS>
+template <int HD, int GROUPS>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* q_len,
                    const void* m_len, void* o, void* m, void* s, int B, int H, int Tq, int Tk,
                    float scale, int causal, cudaStream_t stream) {
   static bool smem_set = false;  // above 48 KB needs an explicit opt-in
   if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(masked_attention_fwd_tc_kernel<GROUPS>,
+    const cudaError_t err = cudaFuncSetAttribute(masked_attention_fwd_tc_kernel<HD, GROUPS>,
                                                  cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 (int)smem_bytes<GROUPS>());
+                                                 (int)smem_bytes<HD, GROUPS>());
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
   const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
-  masked_attention_fwd_tc_kernel<GROUPS>
-      <<<grid, GROUPS * GROUP_THREADS, smem_bytes<GROUPS>(), stream>>>(
+  masked_attention_fwd_tc_kernel<HD, GROUPS>
+      <<<grid, GROUPS * GROUP_THREADS, smem_bytes<HD, GROUPS>(), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
           static_cast<const int*>(q_len), static_cast<const int*>(m_len), static_cast<bf16*>(o),
           static_cast<float*>(m), static_cast<float*>(s), H, Tq, Tk, scale, causal);
@@ -455,22 +478,33 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* q_le
 
 }  // namespace
 
-// q, k, v: contiguous bf16 [B, H, T, 64]; q_len, m_len: int32 [B] or null;
-// o like q; m, s: fp32 [B, H, Tq]. Returns the CUDA error code of the launch
-// (0 on success).
+// q, k, v: contiguous bf16 [B, H, T, D], D = 64 or 128 (the wrapper pads
+// other widths up to 128 with zero columns); q_len, m_len: int32 [B] or
+// null; o like q; m, s: fp32 [B, H, Tq]. Returns the CUDA error code of the
+// launch (0 on success).
 extern "C" int masked_attention_fwd_tc(const void* q, const void* k, const void* v,
                                        const void* q_len, const void* m_len, void* o, void* m,
                                        void* s, int B, int H, int Tq, int Tk, int D,
                                        float scale, int causal, void* stream) {
-  if (D != HD || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 || (Tq + BQ - 1) / BQ > 65535) {
+  if ((D != 64 && D != 128) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
+      (Tq + BQ - 1) / BQ > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return (int)(Tk > TWO_GROUPS_MIN_TK
-                   ? launch<2>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal, st)
-                   : launch<1>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal, st));
+  const bool two = Tk > TWO_GROUPS_MIN_TK;
+  if (D == 128) {
+    return (int)(two ? launch<128, 2>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale,
+                                      causal, st)
+                     : launch<128, 1>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale,
+                                      causal, st));
+  }
+  return (int)(two ? launch<64, 2>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal,
+                                   st)
+                   : launch<64, 1>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal,
+                                   st));
 }
 
-// Dynamic shared memory a block of two warp groups asks for, in bytes (a
-// block of one group asks for 41,984).
-extern "C" int masked_attention_fwd_tc_shared_bytes(void) { return (int)smem_bytes<2>(); }
+// Dynamic shared memory a D = 64 block of two warp groups asks for, in
+// bytes (a block of one group asks for 41,984; at D = 128 82,944 and
+// 148,480).
+extern "C" int masked_attention_fwd_tc_shared_bytes(void) { return (int)smem_bytes<64, 2>(); }

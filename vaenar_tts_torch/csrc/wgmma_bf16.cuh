@@ -1,20 +1,27 @@
 // Building blocks of the bf16 attention kernels, which multiply with
 // Hopper's warp-group instructions (masked_attention_fwd_tc.cu,
-// masked_attention_bwd_dq_tc.cu, masked_attention_bwd_dkv_tc.cu): 64 x 64
-// bf16 tiles in shared memory in wgmma's 128-byte-swizzled layout, filled
+// masked_attention_bwd_dq_tc.cu, masked_attention_bwd_dkv_tc.cu): tiles of
+// 64 rows of HD bf16 (HD = 64 or 128, the head width) in shared memory, each
+// HD / 64 panels of 64 x 64 in wgmma's 128-byte-swizzled layout, filled
 // with cp.async (16 bytes a thread), read by wgmma.mma_async m64nNk16 (bf16
 // in, fp32 accumulate) through matrix descriptors, with the A operand from
 // shared memory or from registers. A warp group is 4 warps (128 threads)
 // whose first warp is a multiple of 4; all of its threads issue each
 // product together.
 //
-// Tile layout: a tile holds 64 rows of 64 bf16 (128 bytes, 8 chunks of 16
+// Tile layout: a panel holds 64 rows of 64 bf16 (128 bytes, 8 chunks of 16
 // bytes), rows one after the other, and stores chunk c of row r at chunk
-// c ^ (r & 7); a tile starts on a 1024-byte boundary. That is wgmma's
+// c ^ (r & 7); a panel starts on a 1024-byte boundary. That is wgmma's
 // canonical 128-byte swizzle: read as a K-major operand (rows = M or N, the
 // head width = K) or, for B, as an MN-major one (rows = K, the head width =
 // N), and the 8 rows that one 16-byte column of reads touches fall into 8
-// different bank groups.
+// different bank groups. A row of 128 bf16 is 256 bytes, two swizzle atoms
+// wide: a D = 128 tile is two panels one after the other, columns 0-63 in
+// the first and 64-127 in the second, so each panel is read through a
+// descriptor of its own (PANEL_DESC further on), never one descriptor
+// spanning both: a product over K = 128 runs 4 k-steps on each panel, and
+// one with N = 128 (O = P.V, dQ = dS.K, dV and dK) runs as two products of
+// N = 64 into the two halves of its accumulator.
 //
 // Fragments (PTX ISA, "wgmma .m64nNk16"), thread t of the group, warp
 // w = t / 32, lane l, g = l / 4, c = 2 * (l % 4):
@@ -41,7 +48,6 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int HD = 64;  // head width: the columns of a tile
 constexpr float NEG = -4294967295.0f;  // -2^32+1, rounds to -2^32 as in fp32 JAX
 
 using cpa::cp_async16;
@@ -66,15 +72,25 @@ __device__ __forceinline__ void split_bf16(float x, float y, uint32_t& hi, uint3
 namespace wg {
 
 using tc::bf16;
-using tc::HD;
 using tc::NEG;
 
 constexpr int ROWS = 64;                  // rows of a tile
-constexpr int TILE_ELEMS = ROWS * HD;     // 8 KB of bf16
-constexpr int ALIGN = 1024;               // a tile's alignment in shared memory
+constexpr int PANEL = 64;                 // columns of a panel
+constexpr int TILE_ELEMS = ROWS * PANEL;  // a panel: 8 KB of bf16
+constexpr int ALIGN = 1024;               // a panel's alignment in shared memory
+// a panel's size in a matrix descriptor's start-address units (16 bytes):
+// the descriptor of panel p is desc(tile) + p * PANEL_DESC
+constexpr uint64_t PANEL_DESC = TILE_ELEMS * sizeof(bf16) / 16;
 
-// The element offset of chunk c (8 bf16) of row r in a swizzled tile.
-__device__ __forceinline__ int swz(int r, int c) { return r * HD + ((c ^ (r & 7)) << 3); }
+// Elements of a tile of HD columns.
+template <int HD>
+__host__ __device__ constexpr int tile_elems() { return ROWS * HD; }
+
+// The element offset of chunk c (8 bf16; c < HD / 8) of row r in a swizzled
+// tile: chunk c % 8 of panel c / 8.
+__device__ __forceinline__ int swz(int r, int c) {
+  return (c >> 3) * TILE_ELEMS + r * PANEL + (((c & 7) ^ (r & 7)) << 3);
+}
 
 // The first ALIGN-byte boundary at or after the dynamic shared memory's
 // start; a kernel asks for ALIGN bytes more than it lays out.
@@ -82,15 +98,16 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
   return raw + ((ALIGN - (tc::smem_addr(raw) & (ALIGN - 1))) & (ALIGN - 1));
 }
 
-// Rows [row0, row0 + 64) of a [T, 64] bf16 matrix into a swizzled tile, as
+// Rows [row0, row0 + 64) of a [T, HD] bf16 matrix into a swizzled tile, as
 // asynchronous copies by THREADS threads numbered `tid`; rows at or past
 // `rows_end` become zeros.
-template <int THREADS>
+template <int THREADS, int HD>
 __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* __restrict__ src,
                                                 int row0, int rows_end, int tid) {
+  constexpr int CHUNKS = HD / 8, SHIFT = cpa::log2i(CHUNKS);  // 16-byte chunks a row
 #pragma unroll
-  for (int chunk = tid; chunk < ROWS * 8; chunk += THREADS) {
-    const int r = chunk >> 3, c = chunk & 7;
+  for (int chunk = tid; chunk < ROWS * CHUNKS; chunk += THREADS) {
+    const int r = chunk >> SHIFT, c = chunk & (CHUNKS - 1);
     const bool in = row0 + r < rows_end;
     tc::cp_async16(dst + swz(r, c), in ? src + (size_t)(row0 + r) * HD + c * 8 : src, in);
   }
@@ -115,7 +132,7 @@ __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-// The matrix descriptor of a swizzled tile from its row 0: start address,
+// The matrix descriptor of a swizzled panel from its row 0: start address,
 // leading byte offset 16 (unused by a 128-byte swizzle), stride byte offset
 // 1024 (8 rows of 128 bytes), 128-byte swizzle. A K-major operand's k-step
 // kk starts 32 * kk bytes in (desc + 2 * kk); an MN-major operand's k-step
@@ -220,22 +237,27 @@ __device__ __forceinline__ void mma_ss<64>(float (&d)[8][4], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(1));
 }
 
-__device__ __forceinline__ void mma_rs64_mn(float (&d)[8][4], const uint32_t (&a)[4],
+// d[J0 .. J0 + 7] (columns 8 J0 .. 8 J0 + 63 of a D fragment) += A . B for
+// one k-step of 16, N = 64: A (64 x 16) from registers, B (16 x 64) an
+// MN-major panel by descriptor db.
+template <int J0 = 0, int J = 8>
+__device__ __forceinline__ void mma_rs64_mn(float (&d)[J][4], const uint32_t (&a)[4],
                                             uint64_t db) {
+  static_assert(J0 + 8 <= J, "the product's 64 columns lie outside d");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
       "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
-        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
-        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
-        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
-        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
-        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "+f"(d[J0 + 0][0]), "+f"(d[J0 + 0][1]), "+f"(d[J0 + 0][2]), "+f"(d[J0 + 0][3]),
+        "+f"(d[J0 + 1][0]), "+f"(d[J0 + 1][1]), "+f"(d[J0 + 1][2]), "+f"(d[J0 + 1][3]),
+        "+f"(d[J0 + 2][0]), "+f"(d[J0 + 2][1]), "+f"(d[J0 + 2][2]), "+f"(d[J0 + 2][3]),
+        "+f"(d[J0 + 3][0]), "+f"(d[J0 + 3][1]), "+f"(d[J0 + 3][2]), "+f"(d[J0 + 3][3]),
+        "+f"(d[J0 + 4][0]), "+f"(d[J0 + 4][1]), "+f"(d[J0 + 4][2]), "+f"(d[J0 + 4][3]),
+        "+f"(d[J0 + 5][0]), "+f"(d[J0 + 5][1]), "+f"(d[J0 + 5][2]), "+f"(d[J0 + 5][3]),
+        "+f"(d[J0 + 6][0]), "+f"(d[J0 + 6][1]), "+f"(d[J0 + 6][2]), "+f"(d[J0 + 6][3]),
+        "+f"(d[J0 + 7][0]), "+f"(d[J0 + 7][1]), "+f"(d[J0 + 7][2]), "+f"(d[J0 + 7][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
@@ -251,45 +273,49 @@ __device__ __forceinline__ void a_split(uint32_t (&hi)[4], uint32_t (&lo)[4],
   tc::split_bf16(d[2 * s + 1][2], d[2 * s + 1][3], hi[3], lo[3]);
 }
 
-// This thread's part of a 64 x 64 fp32 D fragment, row g of its warp's 16
-// times `mul_lo` and row g + 8 times `mul_hi`, into a swizzled bf16 tile.
-__device__ __forceinline__ void stage_acc(bf16* tile, const float (&d)[8][4], float mul_lo,
+// This thread's part of 64 columns of an fp32 D fragment, d[J0 .. J0 + 7],
+// row g of its warp's 16 times `mul_lo` and row g + 8 times `mul_hi`, into a
+// swizzled bf16 panel.
+template <int J0 = 0, int J = 8>
+__device__ __forceinline__ void stage_acc(bf16* tile, const float (&d)[J][4], float mul_lo,
                                           float mul_hi) {
   const int lane = threadIdx.x & 31;
   const int r = (threadIdx.x & 127) / 32 * 16 + (lane >> 2), c = (lane & 3) * 2;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
     *reinterpret_cast<__nv_bfloat162*>(tile + swz(r, j) + c) =
-        __floats2bfloat162_rn(d[j][0] * mul_lo, d[j][1] * mul_lo);
+        __floats2bfloat162_rn(d[J0 + j][0] * mul_lo, d[J0 + j][1] * mul_lo);
     *reinterpret_cast<__nv_bfloat162*>(tile + swz(r + 8, j) + c) =
-        __floats2bfloat162_rn(d[j][2] * mul_hi, d[j][3] * mul_hi);
+        __floats2bfloat162_rn(d[J0 + j][2] * mul_hi, d[J0 + j][3] * mul_hi);
   }
 }
 
 // Rows [0, rows) of a swizzled tile to rows [row0, row0 + rows) of a
-// [T, 64] bf16 matrix, 16 bytes a thread.
-template <int THREADS>
+// [T, HD] bf16 matrix, 16 bytes a thread.
+template <int THREADS, int HD>
 __device__ __forceinline__ void store_tile(bf16* __restrict__ dst, const bf16* tile, int row0,
                                            int rows) {
-  for (int chunk = threadIdx.x; chunk < rows * 8; chunk += THREADS) {
-    const int r = chunk >> 3, c = chunk & 7;
+  constexpr int CHUNKS = HD / 8, SHIFT = cpa::log2i(CHUNKS);
+  for (int chunk = threadIdx.x; chunk < rows * CHUNKS; chunk += THREADS) {
+    const int r = chunk >> SHIFT, c = chunk & (CHUNKS - 1);
     *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * HD + c * 8) =
         *reinterpret_cast<const uint4*>(tile + swz(r, c));
   }
 }
 
-// Column sums of rows [row0, row1) of a [T, 64] bf16 matrix, in fp32, each
-// row divided by div[r] when `div` is not null, into sum[0..64) in shared
-// memory; `scratch` is shared memory for THREADS * 8 floats. 8 threads a
-// row, 16 bytes a load, DEPTH loads in flight a thread: the pass is bound
+// Column sums of rows [row0, row1) of a [T, HD] bf16 matrix, in fp32, each
+// row divided by div[r] when `div` is not null, into sum[0..HD) in shared
+// memory; `scratch` is shared memory for THREADS * 8 floats. HD / 8 threads
+// a row, 16 bytes a load, DEPTH loads in flight a thread: the pass is bound
 // by its rounds of loads. Ends with a barrier, so `sum` is ready for every
 // thread.
-template <int THREADS, int DEPTH>
+template <int THREADS, int DEPTH, int HD>
 __device__ __forceinline__ void column_sums(float* sum, float* scratch,
                                             const bf16* __restrict__ src, int row0, int row1,
                                             const float* __restrict__ div) {
-  constexpr int STEP = THREADS / 8;  // rows read at once by the block
-  const int c8 = (threadIdx.x & 7) * 8;
+  constexpr int TPR = HD / 8;          // threads a row
+  constexpr int STEP = THREADS / TPR;  // rows read at once by the block
+  const int c8 = (threadIdx.x % TPR) * 8;
   float acc[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) acc[i] = 0.f;
@@ -302,7 +328,7 @@ __device__ __forceinline__ void column_sums(float* sum, float* scratch,
       acc[2 * i + 1] += f.y * inv;
     }
   };
-  for (int r = row0 + (threadIdx.x >> 3); r < row1; r += DEPTH * STEP) {
+  for (int r = row0 + (threadIdx.x / TPR); r < row1; r += DEPTH * STEP) {
     uint4 raw[DEPTH];
     float inv[DEPTH];
 #pragma unroll
@@ -316,7 +342,7 @@ __device__ __forceinline__ void column_sums(float* sum, float* scratch,
     for (int u = 0; u < DEPTH; ++u) add(raw[u], div ? 1.f / inv[u] : 1.f);
   }
 #pragma unroll
-  for (int i = 0; i < 8; ++i) scratch[(threadIdx.x >> 3) * HD + c8 + i] = acc[i];
+  for (int i = 0; i < 8; ++i) scratch[(threadIdx.x / TPR) * HD + c8 + i] = acc[i];
   __syncthreads();
   if (threadIdx.x < HD) {
     float total = 0.f;

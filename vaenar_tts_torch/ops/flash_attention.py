@@ -36,6 +36,16 @@ Which kernel serves which dtype, on CUDA tensors (``launch_counts`` key):
 In both dtypes the dQ kernel also reads O and forms δ, which the dK/dV
 kernel launched after it reads: no separate δ pass runs on the card.
 
+Head widths: each kernel is compiled for D = 64 and D = 128
+(``KERNEL_HEAD_DIMS``), and its C function runs the one its D argument
+names. The D = 128 launches count under the key with ``_d128`` appended
+(``masked_attention_fwd_tc_d128``, ...). Every other width up to 128 runs
+on the next native width (``kernel_width``): q, k and v (and o and dO in the
+backward) are padded with zero columns (``pad_head_width``), the scale is
+left as the caller gave it, and o, dq, dk and dv are sliced back. That is
+exact: a zero column adds nothing to a score, and the output and gradient
+columns it adds are zero. Widths above 128 raise.
+
 ``masked_flash_attention`` and ``masked_flash_attention_backward`` launch
 them and raise if they cannot; there is no fall back. On CPU tensors, and
 only there, they call ``masked_attention_reference`` and
@@ -51,18 +61,42 @@ from collections import Counter
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 NEG = -2.0 ** 32 + 1.0
-KERNEL_HEAD_DIMS = (64,)
+# the head widths each kernel is compiled for, and the suffix of their
+# launch_counts keys
+KERNEL_HEAD_DIMS = (64, 128)
+WIDTH_SUFFIX = {64: "", 128: "_d128"}
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 # launches of each hand-written kernel in this process; callers reset it
 launch_counts: Counter = Counter()
 
 # the backward kernels that read O and write δ themselves (both dQ
-# kernels); every other one reads the δ they wrote
-DELTA_FORMING_KERNELS = frozenset({"masked_attention_bwd_dq",
-                                   "masked_attention_bwd_dq_tc"})
+# kernels, at both widths); every other one reads the δ they wrote
+DELTA_FORMING_KERNELS = frozenset(
+    f"{base}{suffix}" for base in ("masked_attention_bwd_dq", "masked_attention_bwd_dq_tc")
+    for suffix in WIDTH_SUFFIX.values())
+
+
+def kernel_width(head_dim: int) -> int:
+    """The native width a head width runs at: the least of
+    ``KERNEL_HEAD_DIMS`` at or above it (64 for 1-64, 128 for 65-128).
+    Raises for a width above 128, which no kernel takes."""
+    for width in KERNEL_HEAD_DIMS:
+        if 1 <= head_dim <= width:
+            return width
+    raise ValueError(f"the attention kernels take head widths 1 to {KERNEL_HEAD_DIMS[-1]} "
+                     f"(native {KERNEL_HEAD_DIMS}, narrower ones padded with zero columns "
+                     f"to the next); got {head_dim}")
+
+
+def pad_head_width(width: int, *tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """``tensors`` with zero columns appended to their last dimension up to
+    ``width``; a tensor already that wide is returned as it is."""
+    return tuple(t if t.shape[-1] == width else F.pad(t, (0, width - t.shape[-1]))
+                 for t in tensors)
 
 
 def attention_mask(q_lengths: Optional[torch.Tensor],
@@ -177,7 +211,8 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *more: torch.Tensor) -> None:
     """Raise on anything the kernels do not take: q (and ``more``, shaped
     like q) [B, H, Tq, D], k and v [B, H, Tk, D], one CUDA device, one dtype
-    of KERNEL_DTYPES, D in KERNEL_HEAD_DIMS, contiguous, not empty."""
+    of KERNEL_DTYPES, D that ``kernel_width`` takes (1 to 128), contiguous,
+    not empty."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, H, T, D]")
     B, H, Tq, D = q.shape
@@ -187,9 +222,7 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"shape mismatch: q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}, "
                          f"{[tuple(t.shape) for t in more]}")
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the kernel takes head widths {KERNEL_HEAD_DIMS}; "
-                         f"got {D}")
+    kernel_width(D)
     tensors = (q, k, v, *more)
     if q.dtype not in KERNEL_DTYPES or any(t.dtype != q.dtype for t in tensors):
         raise ValueError(f"the kernel takes one dtype of {KERNEL_DTYPES}; got "
@@ -220,13 +253,16 @@ def masked_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                       torch.Tensor]:
     """Masked attention; returns (o [B,H,Tq,D] in q's dtype, m and s fp32
     [B,H,Tq]). CPU tensors take the plain version; CUDA tensors launch the
-    kernel on the current stream or raise."""
+    kernel of width ``kernel_width(D)`` on the current stream, q, k and v
+    zero-padded to it and o sliced back (contiguous), or raise."""
     if _check_device(q, "masked_flash_attention"):
         return masked_attention_reference(q, k, v, q_lengths, m_lengths,
                                           scale, causal)
     _check_kernel_inputs(q, k, v)
     B, H, Tq, D = q.shape
     Tk = k.shape[2]
+    width = kernel_width(D)
+    q, k, v = pad_head_width(width, q, k, v)
     ql = _check_lengths(q_lengths, B, q.device, "q_lengths")
     ml = _check_lengths(m_lengths, B, q.device, "m_lengths")
 
@@ -234,9 +270,9 @@ def masked_flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     s = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        _launch(kernel_name("fwd", q.dtype), (q, k, v, ql, ml, o, m, s),
-                B, H, Tq, Tk, D, scale, causal)
-    return o, m, s
+        _launch(kernel_name("fwd", q.dtype, width), (q, k, v, ql, ml, o, m, s),
+                B, H, Tq, Tk, width, scale, causal)
+    return (o if width == D else o[..., :D].contiguous()), m, s
 
 
 def masked_flash_attention_backward(
@@ -246,13 +282,16 @@ def masked_flash_attention_backward(
         scale: float = 1.0, causal: bool = False
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) in the dtypes of q, k, v. CPU tensors take the plain
-    version; CUDA tensors launch the dQ kernel and the dK/dV kernel on the
-    current stream, or raise."""
+    version; CUDA tensors launch the dQ kernel and the dK/dV kernel of width
+    ``kernel_width(D)`` on the current stream, q, k, v, o and do zero-padded
+    to it and the gradients sliced back (contiguous), or raise."""
     if _check_device(q, "masked_flash_attention_backward"):
         return masked_attention_backward_reference(
             q, k, v, q_lengths, m_lengths, o, m, s, do, scale, causal)
     _check_kernel_inputs(q, k, v, o, do)
-    B, H, Tq, _ = q.shape
+    B, H, Tq, D = q.shape
+    width = kernel_width(D)
+    q, k, v, o, do = pad_head_width(width, q, k, v, o, do)
     for name, stat in (("m", m), ("s", s)):
         if (stat.shape != (B, H, Tq) or stat.dtype != torch.float32
                 or stat.device != q.device or not stat.is_contiguous()):
@@ -271,24 +310,35 @@ def masked_flash_attention_backward(
                                scale, causal, o=o)
         launch_backward_kernel("dkv", q, k, v, do, ql, ml, m, s, delta,
                                (dk, dv), scale, causal)
+    if width != D:
+        dq, dk, dv = (g[..., :D].contiguous() for g in (dq, dk, dv))
     return dq, dk, dv
 
 
-def kernel_name(kind: str, dtype: torch.dtype) -> str:
-    """The kernel (its C function and ``launch_counts`` key) that serves
-    ``kind`` ("fwd", "dq" or "dkv") for ``dtype``: bf16 takes the
-    tensor-core kernels, fp32 the fp32-FMA ones."""
+def kernel_name(kind: str, dtype: torch.dtype, head_dim: int = 64) -> str:
+    """The kernel (its ``launch_counts`` key) that serves ``kind`` ("fwd",
+    "dq" or "dkv") for ``dtype`` at head width ``head_dim``: bf16 takes the
+    tensor-core kernels, fp32 the fp32-FMA ones, each at ``kernel_width(
+    head_dim)``; the D = 128 instantiation's key ends in ``_d128``."""
     base = "masked_attention_fwd" if kind == "fwd" else f"masked_attention_bwd_{kind}"
-    return f"{base}_tc" if dtype == torch.bfloat16 else base
+    if dtype == torch.bfloat16:
+        base += "_tc"
+    return base + WIDTH_SUFFIX[kernel_width(head_dim)]
+
+
+def c_function(name: str) -> str:
+    """The C function of the kernel whose ``launch_counts`` key is ``name``:
+    one function a kernel serves both widths."""
+    return name.removesuffix(WIDTH_SUFFIX[128])
 
 
 def _launch(name: str, tensors, B: int, H: int, Tq: int, Tk: int, D: int,
             scale: float, causal: bool) -> None:
-    """Call the C function ``name`` on the current stream with the tensors'
-    pointers (None for a missing length) and the shape; raise if the launch
-    fails, else count it."""
+    """Call the C function of kernel ``name`` on the current stream with
+    the tensors' pointers (None for a missing length) and the shape; raise
+    if the launch fails, else count it under ``name``."""
     from . import _build
-    fn = getattr(_build.load_library(), name)
+    fn = getattr(_build.load_library(), c_function(name))
     err = fn(*(None if t is None else t.data_ptr() for t in tensors),
              B, H, Tq, Tk, D, float(scale), int(bool(causal)),
              torch.cuda.current_stream().cuda_stream)
@@ -306,14 +356,18 @@ def launch_backward_kernel(kernel: str, q: torch.Tensor, k: torch.Tensor,
                            causal: bool, o: Optional[torch.Tensor] = None) -> None:
     """Launch one backward kernel, ``"dq"`` (writes ``outs = (dq,)``) or
     ``"dkv"`` (``outs = (dk, dv)``), the one ``kernel_name`` picks for q's
-    dtype, on the current stream, and count it. The tensors are taken as
-    ``masked_flash_attention_backward`` checks them: CUDA, contiguous,
-    lengths int32 or None, ``delta`` fp32 [B, H, Tq]. A kernel of
-    ``DELTA_FORMING_KERNELS`` reads ``o`` and writes ``delta``; every other
-    one reads ``delta`` and is given no ``o``. Raise on a wrong ``o`` or if
-    the launch fails."""
+    dtype and width, on the current stream, and count it. The tensors are
+    taken as ``masked_flash_attention_backward`` checks and pads them: CUDA,
+    contiguous, D native (64 or 128), lengths int32 or None, ``delta`` fp32
+    [B, H, Tq]. A kernel of ``DELTA_FORMING_KERNELS`` reads ``o`` and
+    writes ``delta``; every other one reads ``delta`` and is given no
+    ``o``. Raise on a width that is not native, on a wrong ``o`` or if the
+    launch fails."""
     B, H, Tq, D = q.shape
-    name = kernel_name(kernel, q.dtype)
+    if D not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"a backward kernel takes the native widths {KERNEL_HEAD_DIMS}; "
+                         f"got {D} (masked_flash_attention_backward pads it)")
+    name = kernel_name(kernel, q.dtype, D)
     if (o is not None) != (name in DELTA_FORMING_KERNELS):
         raise ValueError(f"{name} reads o" if o is None else f"{name} takes no o")
     reads_o = () if o is None else (o,)

@@ -4,7 +4,7 @@ symbol table of the hparams character string (the port's copy of
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Sequence
 
 from ..configs.hparams import TextConfig
 from .cleaners import english_cleaners
@@ -27,3 +27,11 @@ class CharTokenizer:
 
     def encode_english(self, raw: str) -> List[int]:
         return self.encode(english_cleaners(raw))
+
+    def decode(self, ids: Sequence[int], strip_specials: bool = False) -> str:
+        """The symbols of ``ids``; ``strip_specials`` drops pad, BOS and EOS."""
+        s = "".join(self.symbols[int(i)] for i in ids)
+        if strip_specials:
+            for sp in (self.cfg.pad, self.cfg.bos, self.cfg.eos):
+                s = s.replace(sp, "")
+        return s

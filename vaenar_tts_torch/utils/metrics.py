@@ -163,6 +163,21 @@ def alignment_diagonality(ali: np.ndarray, mel_len: int, text_len: int
             "coverage": best_cov}
 
 
+def batch_diagonality(ali_batch: np.ndarray, mel_lens: Sequence[int],
+                      text_lens: Sequence[int], n_valid: int | None = None
+                      ) -> Dict[str, float]:
+    """The mean of ``alignment_diagonality``'s scores over the first
+    ``n_valid`` items (all when None) of a padded batch ``ali_batch`` [batch,
+    heads, mel_frames, text_tokens], and their count ``n``."""
+    n = n_valid if n_valid is not None else ali_batch.shape[0]
+    scores = [alignment_diagonality(ali_batch[i], int(mel_lens[i]), int(text_lens[i]))
+              for i in range(n)]
+    out = {key: float(np.mean([sc[key] for sc in scores]))
+           for key in ("diagonality", "focus", "coverage")}
+    out["n"] = len(scores)
+    return out
+
+
 def batch_summary(pairs: Sequence[tuple], dtw: bool = False) -> Dict[str, float]:
     """The means of ``mel_l1``, ``mel_l2`` and ``mcd`` over (pred, ref) mel
     pairs, with their count ``n``; ``dtw=True`` adds ``mcd_dtw_db``."""

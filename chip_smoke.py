@@ -17,9 +17,10 @@ dK/dV kernel reads: a backward launches those two kernels and nothing else.
 2. build: every csrc/*.cu with nvcc for sm_90a (one nvcc for each source,
    all started together), and ptxas's register and shared-memory report;
 3. kernels against their plain PyTorch versions on the card, in fp32 and
-   bf16, at head widths 64 and 128 (the kernels' two instantiations) on
-   every case and at 8, 32 and 96 (zero-padded to the next of those) on a
-   subset (PADDED_FWD_CASES, PADDED_BWD_CASES), all under one tolerance a
+   bf16, at head widths 64, 128 and 256 (the kernels' three
+   instantiations) on every case and at 8, 32, 96 and 160 (zero-padded to
+   the next of those) on a subset (PADDED_FWD_CASES, PADDED_BWD_CASES),
+   all under one tolerance a
    dtype, each check asserting which kernel it launched: the forward at the
    synthesis path's shapes, on ragged shapes, fully masked rows and
    Tk > 4096; the dQ and dK/dV backward kernels at the training path's
@@ -180,14 +181,15 @@ dK/dV kernel reads: a backward launches those two kernels and nothing else.
    a process of its own (`--graph-failure-worker`) a capture that fails
    raises with no step run eagerly;
 24. head_widths (run after 10.): the shipped config's attention width
-   in 2 heads (D = 128) and in 8 (D = 32, zero padded to the D = 64
-   kernels) in every stack, fresh weights from `cli.train`'s seeded cold
-   start at batch 32, r = 2 (head_widths_phase): at D = 128 a bf16 epoch
-   eager and graphed, equal to the bit, bf16 synthesis, fp32 synthesis and
-   an fp32 step against the CPU, synthesis and train-step walls beside the
-   shipped model's, and the D = 128 kernels timed at this model's sites;
-   at D = 32 a bf16 step, bf16 synthesis and fp32 synthesis against the
-   CPU; every run's kernel launches, by instantiation.
+   in 2 heads (D = 128), in 1 (D = 256) and in 8 (D = 32, zero padded to
+   the D = 64 kernels) in every stack, fresh weights from `cli.train`'s
+   seeded cold start at batch 32, r = 2 (head_widths_phase): at D = 128
+   and at D = 256 a bf16 epoch eager and graphed, equal to the bit, bf16
+   synthesis, fp32 synthesis and an fp32 step against the CPU, synthesis
+   and train-step walls beside the shipped model's, and that width's
+   kernels timed at this model's sites; at D = 32 a bf16 epoch eager and
+   graphed, equal to the bit, bf16 synthesis and fp32 synthesis against
+   the CPU; every run's kernel launches, by instantiation.
 
 Each phase prints a JSON line {"phase": ..., "seconds": ...} first. A failed
 check raises; the script then exits non-zero without printing the final
@@ -459,13 +461,14 @@ RING_CASES = (("causal_1680", 1680, True), ("self_3360", 3360, False))
 RING_REPS = 5
 TOL_TP_BF16_MEL = 0.01
 # head widths: the kernels are compiled for D = 64 (the shipped model's 4
-# heads of 64) and D = 128; every other width up to 128 is padded with zero
-# columns to the next of those. The kernel checks run every case at
-# D = 128 and these subsets at the padded widths, under the D = 64
-# tolerances; the head_widths phase runs the shipped attention width (256)
-# in 2 heads (D = 128) and in 8 (D = 32, the padded route) in every stack
+# heads of 64), D = 128 and D = 256; every other width up to 256 is padded
+# with zero columns to the next of those. The kernel checks run every case
+# at D = 128 and 256 and these subsets at the padded widths, under the
+# D = 64 tolerances; the head_widths phase runs the shipped attention
+# width (256) in 2 heads (D = 128), in 1 (D = 256) and in 8 (D = 32, the
+# padded route) in every stack
 HEAD_STACKS = ("encoder", "decoder", "posterior", "prior")
-PADDED_WIDTHS = (8, 32, 96)
+PADDED_WIDTHS = (8, 32, 96, 160)
 PADDED_FWD_CASES = ("self_160", "causal_1680", "tile_edges_97", "row_edges_causal_130",
                     "no_key_causal_700")
 PADDED_BWD_CASES = ("encoder_self_32", "causal_self_240", "cross_240x32", "tile_edges_causal_97",
@@ -561,15 +564,15 @@ def kernel_key(fa, kind, dtype, D=64):
 
 def check_kernels(torch, fa, device, D=64, names=None):
     """Forward kernel against plain version, fp32 (masked_attention_fwd) and
-    bf16 (masked_attention_fwd_tc), at head width D (128: the kernels'
-    D = 128 instantiation; a width that is not native goes through the
+    bf16 (masked_attention_fwd_tc), at head width D (128 or 256: the
+    kernels' instantiation of that width; a width that is not native goes through the
     wrapper's zero padding to the kernel of fa.kernel_width(D)), on the
     check_cases named in ``names`` (all when None), at scale D^-1/2;
     returns {kernel: {dtype: largest |o| error}} and {kernel: {key: the
     worst share of the o tolerance}}, key ``max_share_of_tol`` at a native
     width and ``max_share_of_tol_padded`` at a padded one."""
     worst, worst_share = {}, {}
-    key = "max_share_of_tol" if D in (64, 128) else "max_share_of_tol_padded"
+    key = "max_share_of_tol" if D in fa.KERNEL_HEAD_DIMS else "max_share_of_tol_padded"
     scale = D ** -0.5
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
@@ -786,7 +789,7 @@ def check_backward(torch, fa, device, D=64, names=None):
     dq alone) and ``max_share_of_tol_delta`` (a dQ kernel that forms delta),
     each ending in ``_padded`` at a padded width."""
     worst, worst_share = {}, {}
-    native = D in (64, 128)
+    native = D in fa.KERNEL_HEAD_DIMS
     suffix = "" if native else "_padded"
 
     def fold(kernel, kind, share):
@@ -986,7 +989,7 @@ def time_backward(torch, fa, device, sites, dtype_name, H=4, D=64):
         delta = fa.attention_delta(o, do).contiguous()
 
         # one kernel alone takes a native width: others pad as the wrapper does
-        native = (q, k, v, do, o) if D in (64, 128) else fa.pad_head_width(
+        native = (q, k, v, do, o) if D in fa.KERNEL_HEAD_DIMS else fa.pad_head_width(
             fa.kernel_width(D), q, k, v, do, o)
         outs_native = {"dq": (torch.empty_like(native[0]),),
                        "dkv": (torch.empty_like(native[1]), torch.empty_like(native[2]))}
@@ -1439,7 +1442,7 @@ def train_step_times(torch, fa, steps, model, hp, batch, r, reps=10, warmup=2):
     return walls, {k: v / reps for k, v in fa.launch_counts.items()}
 
 
-def profile_train_steps(torch, steps, model, hp, batch, r, reps=2):
+def profile_train_steps(torch, steps, model, hp, batch, r, reps=1):
     """torch.profiler over ``reps`` train steps at reduction factor ``r``:
     device time per step (the sum of the kernels' own device time; one
     stream, so kernels do not overlap), kernel launches per step, and the
@@ -3469,24 +3472,26 @@ def merge_worst(into, *found):
 def head_widths_phase(torch, np, fa, tmp, data_dir, device, token_ids, use_q, n_attn,
                       init_pass, per_step, shipped_walls):
     """The shipped LJSpeech config at its attention width, 256, in 2 heads
-    (D = 128, the kernels' second instantiation) and in 8 (D = 32, zero
-    padded to the D = 64 kernels) in every stack, from fresh weights of
-    ``cli.train``'s seeded cold start on the 64 train and 32 dev records of
-    ``data_dir`` at batch 32, r = 2. D = 128: bf16 ``cli.train`` through the
-    device data cache for one epoch, eagerly and as a CUDA graph
+    (D = 128), in 1 (D = 256), the kernels' second and third
+    instantiations, and in 8 (D = 32, zero padded to the D = 64 kernels) in
+    every stack, from fresh weights of ``cli.train``'s seeded cold start on
+    the 64 train and 32 dev records of ``data_dir`` at batch 32, r = 2. At
+    D = 128 and D = 256 (``native``): bf16 ``cli.train`` through the device
+    data cache for one epoch, eagerly and as a CUDA graph
     (``train.device_cache_epoch_scan``), the two equal to the bit; the
     eager run's state synthesizes the 4 lines at temperature 0 in bf16 and
     in fp32 (the fp32 mels against the CPU's, lengths equal); an fp32 train
     step at batch 4 against the CPU's (card_vs_cpu_train_step); bf16 and
     fp32 train steps at batch 32 and synthesis timed beside the shipped
-    D = 64 walls ``shipped_walls``; then the D = 128 kernels at this
+    D = 64 walls ``shipped_walls``; then that width's kernels at this
     model's sites (card, bound, plain and SDPA ms). D = 32: the same two
     bf16 epochs, equal to the bit (the graph captures the wrapper's pad
     and slice copies), bf16 synthesis and fp32 synthesis against the CPU.
     Every run checks which kernels it launched, and how often. Returns
-    ({path: launches}, {kernel: launches replayed in the graphs, at both
-    widths}, {"fwd": synthesis timing totals, "long": the 1024 x 4104
-    case's, "bwd": train step timing totals, each by dtype}) at D = 128."""
+    ({path: launches}, {kernel: launches replayed in the graphs, at every
+    width}, {D: {"fwd": synthesis timing totals, "long": the 1024 x 4104
+    case's, "bwd": train step timing totals, each by dtype}}) for D = 128
+    and 256."""
     from vaenar_tts_torch.cli import train as cli_train
     from vaenar_tts_torch.cli.inference import synthesize_batch
     from vaenar_tts_torch.configs.overrides import apply_overrides
@@ -3587,61 +3592,75 @@ def head_widths_phase(torch, np, fa, tmp, data_dir, device, token_ids, use_q, n_
         check(equal, f"D = {D}: the graphed bf16 epoch's losses differ from the eager epoch's")
         return eager_dir, names, {n: per_step * runner["replays"] for n in names.values()}
 
-    # D = 128: one epoch eagerly and as a graph, from the same cold start
-    eager_dir, names, replayed = epochs(2)
-
-    # its state: synthesis in both dtypes, the fp32 step against the CPU
-    hp = load_hparams(eager_dir)
-    check(hp.encoder.attention_dim // hp.encoder.attention_heads == 128,
-          f"{hp.encoder.attention_heads} heads of {hp.encoder.attention_dim}")
-    hp32 = apply_overrides(hp, ["train.compute_dtype=float32"])
-    model = load_trained(VAENAR, CheckpointManager, hp, eager_dir, device)
-    mels, lens = synthesize(model, hp, "head_widths_d128_bf16_synthesis", {names["fwd"]: n_attn})
-    card_vs_cpu_synthesis(hp, eager_dir, "head_widths_d128_fp32_synthesis",
-                          {fa.kernel_name("fwd", torch.float32, 128): n_attn})
-    fp32_names = {kind: fa.kernel_name(kind, torch.float32, 128) for kind in ("fwd", "dq", "dkv")}
-    paths["head_widths_d128_fp32_step_card_vs_cpu"] = card_vs_cpu_train_step(
-        torch, np, fa, apply_overrides(hp32, NO_DROPOUT), eager_dir, data_dir, device,
-        {n: per_step for n in fp32_names.values()})
-
-    # walls beside the shipped model's, and the kernels at this model's sites
-    walls = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        synthesize_batch(model, hp, token_ids, 0.0, use_q)
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
-    big = next(iter(BucketedLoader(list_shards(data_dir, "train"), 32, hp.dataset.mel_bucket,
-                                   hp.dataset.text_bucket, shuffle=False).epoch(0)))
-    batch = to_device(big, device)
-    step_walls = {}
-    for dtype_name, h_, want in (("bfloat16", hp, names), ("float32", hp32, fp32_names)):
-        m_ = load_trained(VAENAR, CheckpointManager, h_, eager_dir, device)
-        walls_t, counts = train_step_times(torch, fa, steps, m_, h_, batch, 2, reps=5)
-        # the 5 timed steps, whose launches were counted (not the warm-up's)
-        paths[f"head_widths_d128_{dtype_name}_timed_steps"] = {
-            n: int(round(c * 5)) for n, c in counts.items()}
-        step_walls[dtype_name] = statistics.median(walls_t)
-        check(counts == {n: float(per_step) for n in want.values()},
-              f"launches per D = 128 {dtype_name} train step: {counts}")
-    print(json.dumps({"head_widths_walls": {
-        "synthesis_s": {"d128_bfloat16": walls, "d64_shipped_bfloat16": shipped_walls["synthesis"],
-                        "d128_mel_lengths": lens.tolist(),
-                        "d64_mel_lengths": shipped_walls["synthesis_lengths"]},
-        "train_step_median_s_r2_batch32": {
-            "d128": step_walls, "d64_shipped": shipped_walls["train_step"]}}}), flush=True)
-    max_mel = mels.shape[1]
-    sites = synthesis_sites(torch, hp, token_ids, lens, max_mel, device)
-    step_sites = train_sites(torch, hp, big, device)
     long_case = [c for c in check_cases(torch, device) if c[0] == "long_1024x4104"][0]
-    timing = {"fwd": {}, "long": {}, "bwd": {}}
-    for dtype_name in ("bfloat16", "float32"):
-        timing["fwd"][dtype_name] = time_kernels(torch, fa, device, sites, dtype_name, 2, 128)
-        timing["long"][dtype_name] = time_kernels(
-            torch, fa, device, [(long_case[0], 1, *long_case[1:])], dtype_name, 2, 128)
-        timing["bwd"][dtype_name] = time_backward(torch, fa, device, step_sites, dtype_name,
-                                                  2, 128)
+
+    def native(heads):
+        """D = 256 / heads, a native width (128 or 256): one epoch eagerly
+        and as a graph from the same cold start; the eager state's
+        synthesis in both dtypes and fp32 train step against the CPU; walls
+        beside the shipped model's; the kernels at this model's sites.
+        Returns ({kernel: launches replayed}, timing totals)."""
+        D = 256 // heads
+        eager_dir, names, replayed_d = epochs(heads)
+        hp = load_hparams(eager_dir)
+        check(hp.encoder.attention_dim // hp.encoder.attention_heads == D,
+              f"{hp.encoder.attention_heads} heads of {hp.encoder.attention_dim}")
+        hp32 = apply_overrides(hp, ["train.compute_dtype=float32"])
+        model = load_trained(VAENAR, CheckpointManager, hp, eager_dir, device)
+        mels, lens = synthesize(model, hp, f"head_widths_d{D}_bf16_synthesis",
+                                {names["fwd"]: n_attn})
+        card_vs_cpu_synthesis(hp, eager_dir, f"head_widths_d{D}_fp32_synthesis",
+                              {fa.kernel_name("fwd", torch.float32, D): n_attn})
+        fp32_names = {kind: fa.kernel_name(kind, torch.float32, D) for kind in ("fwd", "dq", "dkv")}
+        paths[f"head_widths_d{D}_fp32_step_card_vs_cpu"] = card_vs_cpu_train_step(
+            torch, np, fa, apply_overrides(hp32, NO_DROPOUT), eager_dir, data_dir, device,
+            {n: per_step for n in fp32_names.values()})
+
+        # walls beside the shipped model's, and the kernels at this model's sites
+        walls = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            synthesize_batch(model, hp, token_ids, 0.0, use_q)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t)
+        big = next(iter(BucketedLoader(list_shards(data_dir, "train"), 32, hp.dataset.mel_bucket,
+                                       hp.dataset.text_bucket, shuffle=False).epoch(0)))
+        batch = to_device(big, device)
+        step_walls = {}
+        for dtype_name, h_, want in (("bfloat16", hp, names), ("float32", hp32, fp32_names)):
+            m_ = load_trained(VAENAR, CheckpointManager, h_, eager_dir, device)
+            walls_t, counts = train_step_times(torch, fa, steps, m_, h_, batch, 2, reps=5)
+            # the 5 timed steps, whose launches were counted (not the warm-up's)
+            paths[f"head_widths_d{D}_{dtype_name}_timed_steps"] = {
+                n: int(round(c * 5)) for n, c in counts.items()}
+            step_walls[dtype_name] = statistics.median(walls_t)
+            check(counts == {n: float(per_step) for n in want.values()},
+                  f"launches per D = {D} {dtype_name} train step: {counts}")
+        print(json.dumps({"head_widths_walls": {
+            "head_dim": D,
+            "synthesis_s": {f"d{D}_bfloat16": walls,
+                            "d64_shipped_bfloat16": shipped_walls["synthesis"],
+                            f"d{D}_mel_lengths": lens.tolist(),
+                            "d64_mel_lengths": shipped_walls["synthesis_lengths"]},
+            "train_step_median_s_r2_batch32": {
+                f"d{D}": step_walls, "d64_shipped": shipped_walls["train_step"]}}}), flush=True)
+        sites = synthesis_sites(torch, hp, token_ids, lens, mels.shape[1], device)
+        step_sites = train_sites(torch, hp, big, device)
+        timing = {"fwd": {}, "long": {}, "bwd": {}}
+        for dtype_name in ("bfloat16", "float32"):
+            timing["fwd"][dtype_name] = time_kernels(torch, fa, device, sites, dtype_name,
+                                                     heads, D)
+            timing["long"][dtype_name] = time_kernels(
+                torch, fa, device, [(long_case[0], 1, *long_case[1:])], dtype_name, heads, D)
+            timing["bwd"][dtype_name] = time_backward(torch, fa, device, step_sites, dtype_name,
+                                                      heads, D)
+        return replayed_d, timing
+
+    replayed, timing = {}, {}
+    for heads in (2, 1):
+        replayed_d, timing[256 // heads] = native(heads)
+        replayed.update(replayed_d)
 
     # D = 32, zero padded to the D = 64 kernels, the pad and slice copies
     # captured in the graphed epoch
@@ -3722,19 +3741,19 @@ def main():
                           for name, _ in _build.KERNELS}}), flush=True)
 
     phase("kernel_checks")
-    # D = 64 and D = 128 on every case; the padded widths on a subset, their
-    # errors folded into the D = 64 or D = 128 kernel that served them
+    # the native widths (64, 128, 256) on every case; the padded widths on a
+    # subset, their errors folded into the native kernel that served them
     # each kernel's largest errors by dtype, and its shares of the
     # tolerances at the native and at the padded widths
     worst, shares = {}, {}
-    for D in (64, 128, *PADDED_WIDTHS):
-        merge_worst((worst, shares), *check_kernels(torch, fa, device, D,
-                                                    None if D in (64, 128) else PADDED_FWD_CASES))
+    for D in (*fa.KERNEL_HEAD_DIMS, *PADDED_WIDTHS):
+        merge_worst((worst, shares), *check_kernels(
+            torch, fa, device, D, None if D in fa.KERNEL_HEAD_DIMS else PADDED_FWD_CASES))
 
     phase("backward_checks")
-    for D in (64, 128, *PADDED_WIDTHS):
-        merge_worst((worst, shares), *check_backward(torch, fa, device, D,
-                                                     None if D in (64, 128) else PADDED_BWD_CASES))
+    for D in (*fa.KERNEL_HEAD_DIMS, *PADDED_WIDTHS):
+        merge_worst((worst, shares), *check_backward(
+            torch, fa, device, D, None if D in fa.KERNEL_HEAD_DIMS else PADDED_BWD_CASES))
     print(json.dumps({"backward_device_kernels": check_backward_launches(torch, fa, device)}),
           flush=True)
 
@@ -4240,18 +4259,19 @@ def main():
                   {"fp32_train_step": fp32_step_counts["masked_attention_bwd_dkv"]},
                   shares["masked_attention_bwd_dkv"]),
     ]
-    # the D = 128 instantiations: launched on the head_widths paths only,
-    # timed at the D = 128 model's sites
-    d128 = "at D = 128, the shipped attention width in 2 heads (head_widths)"
-    for dtype_name in ("bfloat16", "float32"):
-        dt = getattr(torch, dtype_name)
-        name = fa.kernel_name("fwd", dt, 128)
-        kernels.append(fwd_entry(name, dtype_name, 0, {}, {
-            **shares[name], "per": f"{synth_per}, {d128}"}, width_timing))
-        for kern in ("dq", "dkv"):
-            name = fa.kernel_name(kern, dt, 128)
-            kernels.append(bwd_entry(name, kern, dtype_name, 0, {}, {
-                **shares[name], "per": f"{train_per}, {d128}"}, width_timing))
+    # the D = 128 and D = 256 instantiations: launched on the head_widths
+    # paths only, timed at the sites of the model of that width
+    for D, heads in ((128, "2 heads"), (256, "1 head")):
+        at = f"at D = {D}, the shipped attention width in {heads} (head_widths)"
+        for dtype_name in ("bfloat16", "float32"):
+            dt = getattr(torch, dtype_name)
+            name = fa.kernel_name("fwd", dt, D)
+            kernels.append(fwd_entry(name, dtype_name, 0, {}, {
+                **shares[name], "per": f"{synth_per}, {at}"}, width_timing[D]))
+            for kern in ("dq", "dkv"):
+                name = fa.kernel_name(kern, dt, D)
+                kernels.append(bwd_entry(name, kern, dtype_name, 0, {}, {
+                    **shares[name], "per": f"{train_per}, {at}"}, width_timing[D]))
     new_paths.update(width_paths)
     for n, c in width_replayed.items():
         graph_replayed["bfloat16"][n] = graph_replayed["bfloat16"].get(n, 0) + c

@@ -23,9 +23,9 @@ seeded training batch at r = 2, or with `--batch N` its N items with the
 longest mels (N = 1: the latency of one item's blocks, the card otherwise
 idle). `--heads N` splits the shipped attention width (256) into N heads
 of 256 / N at every site (default 4 heads of 64; 2 heads run the D = 128
-kernels, 8 heads the zero-padded D = 32 route), with the checks at that
-width too; a tree from before the kernels took other widths runs only the
-default. The last line is the card's name and power limit.
+kernels, 1 head the D = 256 ones, 8 heads the zero-padded D = 32 route),
+with the checks at that width too; a tree from before the kernels took
+other widths runs only the default. The last line is the card's name and power limit.
 
 It loads chip_smoke.py by file path and calls its helpers `MODEL_DIR`,
 `LINES`, `check_cases`, `check_kernels`, `check_backward`, `write_records`,

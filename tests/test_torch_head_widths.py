@@ -1,8 +1,9 @@
 """Head widths in the port's attention wrapper: which native kernel width a
 head width runs at, the zero padding that carries every other width up to
-128 there, and the model's attention at D = 128 against the JAX package's.
+256 there, and the model's attention at D = 128 against the JAX package's
+(tests/test_torch_wide_heads.py holds one head of 256).
 
-The kernels are compiled for D = 64 and D = 128 only; a narrower width is
+The kernels are compiled for D = 64, 128 and 256 only; a narrower width is
 padded with zero columns to the next native one and the results are sliced
 back, which is exact (a zero column adds nothing to a score, and the
 columns it adds to o and the gradients are zero). Here the route is taken
@@ -29,43 +30,48 @@ from vaenar_tts_torch.interop.weights import load_jax_weights
 from vaenar_tts_torch.models import attention as tatt
 from vaenar_tts_torch.ops import flash_attention as fa
 
-PADDED_WIDTHS = (8, 32, 96)
+PADDED_WIDTHS = (8, 32, 96, 160, 192)
 ATOL_PAD = 1e-6
 
 
 def test_kernel_width_of_every_width_up_to_128():
-    got = {d: fa.kernel_width(d) for d in range(1, 129)}
-    assert got == {d: 64 if d <= 64 else 128 for d in range(1, 129)}
-    assert fa.KERNEL_HEAD_DIMS == (64, 128)
+    """Every width up to the cap (256 since the D = 256 kernels; the name
+    is the test's from when the cap was 128)."""
+    got = {d: fa.kernel_width(d) for d in range(1, 257)}
+    assert got == {d: 64 if d <= 64 else 128 if d <= 128 else 256 for d in range(1, 257)}
+    assert fa.KERNEL_HEAD_DIMS == (64, 128, 256) and fa.MAX_HEAD_DIM == 256
 
 
-@pytest.mark.parametrize("width", [0, 129, 256])
+@pytest.mark.parametrize("width", [0, 257, 384, 512])
 def test_kernel_width_raises_outside_1_to_128(width):
-    with pytest.raises(ValueError, match=r"head widths 1 to 128 \(native \(64, 128\)"):
+    """Widths outside 1 to the cap, 256, raise, and the message names it."""
+    with pytest.raises(ValueError, match=r"head widths 1 to 256 \(native \(64, 128, 256\)"):
         fa.kernel_width(width)
 
 
-@pytest.mark.parametrize("D", [8, 32, 96, 128])
+@pytest.mark.parametrize("D", [8, 32, 96, 128, 160, 256])
 def test_check_kernel_inputs_takes_widths_up_to_128(D):
     q, k, v = (torch.zeros(2, 2, t, D) for t in (5, 7, 7))
     fa._check_kernel_inputs(q, k, v, torch.zeros_like(q))
 
 
 def test_check_kernel_inputs_raises_above_128():
-    q, k, v = (torch.zeros(2, 2, t, 160) for t in (5, 7, 7))
-    with pytest.raises(ValueError, match="got 160"):
+    """Above the cap, 256, the inputs are refused before any launch."""
+    q, k, v = (torch.zeros(2, 2, t, 272) for t in (5, 7, 7))
+    with pytest.raises(ValueError, match="got 272"):
         fa._check_kernel_inputs(q, k, v)
 
 
 @pytest.mark.parametrize("D,suffix", [(8, ""), (32, ""), (64, ""), (96, "_d128"),
-                                      (128, "_d128")])
+                                      (128, "_d128"), (129, "_d256"), (160, "_d256"),
+                                      (256, "_d256")])
 def test_kernel_names_follow_the_native_width(D, suffix):
     for kind, base in (("fwd", "masked_attention_fwd"), ("dq", "masked_attention_bwd_dq"),
                        ("dkv", "masked_attention_bwd_dkv")):
         for dtype, tc in ((torch.float32, ""), (torch.bfloat16, "_tc")):
             name = fa.kernel_name(kind, dtype, D)
             assert name == f"{base}{tc}{suffix}"
-            assert fa.c_function(name) == f"{base}{tc}"  # one C function, both widths
+            assert fa.c_function(name) == f"{base}{tc}"  # one C function, every width
             assert (name in fa.DELTA_FORMING_KERNELS) == (kind == "dq")
 
 

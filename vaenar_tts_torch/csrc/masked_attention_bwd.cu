@@ -96,6 +96,18 @@
 // At D = 128 a thread owns 8 columns of dQ (64 h + 4 cg + c, h < 2) and of
 // its rows' O for delta; 6 tiles of 64 x 132 fp32, 202,752 bytes, leave
 // one block an SM. Registers in PERF.md §6.
+//
+// D = 256: a kernel of its own (masked_attention_bwd_dq_wide_kernel). A row
+// of 256 fp32 is two tiles of 128 columns (64 x 132). Q, dO, K and V are all
+// read at the full width (S and dP), and the D = 128 layout at that width,
+// 8 tiles even with one stage, does not fit. So the grid gains an axis over
+// two column slices of dQ, and a block (the D = 128 thread layout, 256
+// threads, 4 x 8 of dQ a thread) holds Q's and dO's two halves and streams
+// each key tile through one stage as two halves of K and V: the other
+// slice's half first, S and dP from its products, then the block's own
+// half, whose products add to them (f32::dots with ADD) and whose K stays
+// for dQ += dS . K; dS goes over that V half. 6 tiles of 64 x 132, 202,752
+// bytes. Both slices form S, dP and delta; slice 0 writes delta.
 
 #include "tile_f32.cuh"
 
@@ -373,10 +385,191 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   return cudaGetLastError();
 }
 
+// D = 256: f32::HALF columns a tile, two tiles a row; see the head-width
+// note at the top. Key tiles stream in halves through one stage.
+using f32::HALF;
+using f32::WIDE;
+constexpr size_t WIDE_SMEM_BYTES = sizeof(float) * 6 * f32::tile<HALF>();
+
+__global__ void __launch_bounds__(THREADS, 1)
+masked_attention_bwd_dq_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                    const float* __restrict__ v, const float* __restrict__ dout,
+                                    const float* __restrict__ o, const int* __restrict__ q_len,
+                                    const int* __restrict__ m_len,
+                                    const float* __restrict__ m_in,
+                                    const float* __restrict__ s_in,
+                                    float* __restrict__ delta_out, float* __restrict__ dq, int H,
+                                    int Tq, int Tk, float scale, int causal) {
+  constexpr int LDP = f32::ldp<HALF>(), TILE = f32::tile<HALF>();
+  constexpr int CW = HALF / 16;  // dQ columns a thread: 64 h + 4 cg + c
+  extern __shared__ __align__(16) float smem[];
+  float* sQ = smem;             // [2][64][LDP]: the block's rows of q, columns 0-127, 128-255
+  float* sDO = sQ + 2 * TILE;   // [2][64][LDP]: the same of dO
+  float* sK = sDO + 2 * TILE;   // [64][LDP]: a half of the key tile's k
+  float* sV = sK + TILE;        // [64][LDP]: the same half of v, then dS
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;  // b * H + h
+  const int b = bh / H;
+  const int q0 = blockIdx.y * BQ;
+  const int q_rows = min(BQ, Tq - q0);
+  const int own = blockIdx.z, c0 = own * HALF;  // this block's half: columns of dQ and K
+  const int mlen = max(0, min(m_len ? m_len[b] : Tk, Tk));
+  // rows below valid_end have an unmasked key; the others have dQ = 0
+  const int valid_end = mlen > 0 ? max(0, min(q_len ? q_len[b] : Tq, Tq)) : 0;
+  const int rows_end = min(q0 + q_rows, valid_end);
+  const size_t q_base = (size_t)bh * Tq * WIDE;
+  const size_t k_base = (size_t)bh * Tk * WIDE;
+  const size_t stat_base = (size_t)bh * Tq;
+
+  if (rows_end <= q0) {  // no row of the block has a key: zero dQ in the slice, zero delta
+    constexpr int CHUNKS = HALF / 4, SHIFT = cpa::log2i(CHUNKS);
+    for (int c = tid; c < q_rows * CHUNKS; c += THREADS)
+      *reinterpret_cast<float4*>(dq + q_base + (size_t)(q0 + (c >> SHIFT)) * WIDE + c0 +
+                                 (c & (CHUNKS - 1)) * 4) = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (own == 0) store_zeros(delta_out + stat_base + q0, q_rows, tid);
+    return;
+  }
+  // keys at or past k_end are masked for every row of the block
+  const int k_end = causal ? min(mlen, rows_end) : mlen;
+  const int n_tiles = (k_end + BK - 1) / BK;
+
+  // Q and dO, both halves, one commit group
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    f32::load_tile_async<THREADS, HALF, WIDE>(sQ + h * TILE, q + q_base + h * HALF, q0, rows_end,
+                                              tid);
+    f32::load_tile_async<THREADS, HALF, WIDE>(sDO + h * TILE, dout + q_base + h * HALF, q0,
+                                              rows_end, tid);
+  }
+  cpa::cp_async_commit();
+
+  // this thread's rows rg + RS i: O's columns 64 u + 4 cg .. + 3 (u < 4)
+  // for delta, m * log2(e) and 1/s; rows without a key take zeros
+  const int rg = tid >> 4, cg = tid & 15;  // rows rg + RS i; keys cg + 16 j; columns 4 cg + c
+  const float scale2 = scale * f32::LOG2E;
+  float4 o_part[NR][WIDE / 64];
+  float m2[NR], inv_s[NR], delta[NR];
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int row = q0 + rg + RS * i;
+    const bool in = row < rows_end;
+#pragma unroll
+    for (int u = 0; u < WIDE / 64; ++u)
+      o_part[i][u] = in ? *reinterpret_cast<const float4*>(o + q_base + (size_t)row * WIDE +
+                                                           64 * u + 4 * cg)
+                        : make_float4(0.f, 0.f, 0.f, 0.f);
+    m2[i] = in ? m_in[stat_base + row] * f32::LOG2E : 0.f;
+    inv_s[i] = in ? 1.f / s_in[stat_base + row] : 0.f;
+  }
+  cpa::cp_async_wait<0>();
+  __syncthreads();  // Q and dO have landed
+
+  // delta of rows rg + RS i over the full width, summed over the half-warp;
+  // slice 0's lane cg == i writes row rg + RS i
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    float d = 0.f;
+#pragma unroll
+    for (int u = 0; u < WIDE / 64; ++u) {
+      const float4 g = *reinterpret_cast<const float4*>(sDO + (u / 2) * TILE +
+                                                        (rg + RS * i) * LDP + 64 * (u % 2) +
+                                                        4 * cg);
+      const float4& op = o_part[i][u];
+      d = fmaf(g.w, op.w, fmaf(g.z, op.z, fmaf(g.y, op.y, fmaf(g.x, op.x, d))));
+    }
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+    delta[i] = d;
+    if (own == 0 && cg == i && rg + RS * i < q_rows) delta_out[stat_base + q0 + rg + RS * i] = d;
+  }
+
+  float acc[NR][CW];
+#pragma unroll
+  for (int i = 0; i < NR; ++i)
+#pragma unroll
+    for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
+
+  // K and V's half h of key tile t into the one stage, once every warp is
+  // done with what it held
+  auto load_half = [&](int t, int h) {
+    __syncthreads();
+    f32::load_tile_async<THREADS, HALF, WIDE>(sK, k + k_base + h * HALF, t * BK, k_end, tid);
+    f32::load_tile_async<THREADS, HALF, WIDE>(sV, v + k_base + h * HALF, t * BK, k_end, tid);
+    cpa::cp_async_commit();
+    cpa::cp_async_wait<0>();
+    __syncthreads();
+  };
+  for (int t = 0; t < n_tiles; ++t) {
+    const int kt = t * BK;
+    const int n_keys = min(BK, k_end - kt);
+    // S = Q.K^T and dP = dO.V^T: the other half's products, then this
+    // block's own half's added
+    float sc[NR][4], dp[NR][4];
+    load_half(t, 1 - own);
+    f32::dots<NR, 4, false, RS, HALF>(sc, sQ + (1 - own) * TILE, sK, rg, cg);
+    f32::dots<NR, 4, false, RS, HALF>(dp, sDO + (1 - own) * TILE, sV, rg, cg);
+    load_half(t, own);
+    f32::dots<NR, 4, false, RS, HALF, true>(sc, sQ + own * TILE, sK, rg, cg);
+    f32::dots<NR, 4, false, RS, HALF, true>(dp, sDO + own * TILE, sV, rg, cg);
+    __syncthreads();  // every warp is done reading V: dS goes over it
+#pragma unroll
+    for (int i = 0; i < NR; ++i) {
+      const int row = q0 + rg + RS * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int key = kt + cg + 16 * j;
+        // a masked key of a row with a key has P = exp(NEG - m) = 0 exactly;
+        // rows without a key take no part
+        const bool unmasked = row < rows_end && key < k_end && (!causal || key <= row);
+        const float p = exp2f(fmaf(sc[i][j], scale2, -m2[i])) * inv_s[i];
+        sV[(rg + RS * i) * LDP + cg + 16 * j] = unmasked ? p * (dp[i][j] - delta[i]) : 0.f;
+      }
+    }
+    __syncwarp();  // a half-warp reads the dS rows that it wrote
+    f32::accumulate<NR, RS, HALF>(acc, sV, sK, rg, cg, n_keys);  // dQ += dS . K, own half
+  }
+
+  // dQ * scale in the block's slice, 16 bytes a row and thread; rows without
+  // a key are zeros
+#pragma unroll
+  for (int i = 0; i < NR; ++i) {
+    const int r = rg + RS * i;
+    if (r >= q_rows) continue;
+#pragma unroll
+    for (int h = 0; h < HALF / 64; ++h)
+      *reinterpret_cast<float4*>(dq + q_base + (size_t)(q0 + r) * WIDE + c0 + 64 * h + 4 * cg) =
+          make_float4(acc[i][4 * h] * scale, acc[i][4 * h + 1] * scale, acc[i][4 * h + 2] * scale,
+                      acc[i][4 * h + 3] * scale);
+  }
+}
+
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* dout,
+                        const void* o, const void* q_len, const void* m_len, const void* m,
+                        const void* s, void* delta, void* dq, int B, int H, int Tq, int Tk,
+                        float scale, int causal, cudaStream_t stream) {
+  static bool smem_set = false;  // above 48 KB needs an explicit opt-in
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(masked_attention_bwd_dq_wide_kernel,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)WIDE_SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const dim3 grid(B * H, (Tq + BQ - 1) / BQ, WIDE / HALF);
+  masked_attention_bwd_dq_wide_kernel<<<grid, THREADS, WIDE_SMEM_BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(o),
+      static_cast<const int*>(q_len), static_cast<const int*>(m_len),
+      static_cast<const float*>(m), static_cast<const float*>(s), static_cast<float*>(delta),
+      static_cast<float*>(dq), H, Tq, Tk, scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q, dout, o: contiguous fp32 [B, H, Tq, D]; k, v: fp32 [B, H, Tk, D], D =
-// 64 or 128; q_len, m_len: int32 [B] or null; m, s: fp32 [B, H, Tq] (the
+// 64, 128 or 256; q_len, m_len: int32 [B] or null; m, s: fp32 [B, H, Tq] (the
 // forward's row max and row sum); delta: fp32 [B, H, Tq], written
 // (rowsum(dO * O) on rows with a key, else 0); dq like q. Returns the CUDA
 // error code of the launch.
@@ -385,17 +578,21 @@ extern "C" int masked_attention_bwd_dq(const void* q, const void* k, const void*
                                        const void* m_len, const void* m, const void* s,
                                        void* delta, void* dq, int B, int H, int Tq, int Tk,
                                        int D, float scale, int causal, void* stream) {
-  if ((D != 64 && D != 128) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
+  if ((D != 64 && D != 128 && D != WIDE) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
       (Tq + BQ - 1) / BQ > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == WIDE) {
+    return (int)launch_wide(q, k, v, dout, o, q_len, m_len, m, s, delta, dq, B, H, Tq, Tk, scale,
+                            causal, st);
+  }
   return (int)(D == 128 ? launch<128>(q, k, v, dout, o, q_len, m_len, m, s, delta, dq, B, H, Tq,
                                       Tk, scale, causal, st)
                         : launch<64>(q, k, v, dout, o, q_len, m_len, m, s, delta, dq, B, H, Tq,
                                      Tk, scale, causal, st));
 }
 
-// Dynamic shared memory each D = 64 block asks for, in bytes (a D = 128
-// block 202,752).
+// Dynamic shared memory each D = 64 block asks for, in bytes (a D = 128 or
+// D = 256 block 202,752).
 extern "C" int masked_attention_bwd_dq_shared_bytes(void) { return (int)smem_bytes<64>(); }

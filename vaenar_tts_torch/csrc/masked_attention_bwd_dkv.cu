@@ -75,6 +75,18 @@
 // D = 64, and nothing is handed between groups at the end. The exchange
 // tile keeps 68-float rows (64 keys by 64 rows): 6 tiles of 64 x 132 fp32
 // and it, 222,208 bytes a block. Registers in PERF.md §6.
+//
+// D = 256: a kernel of its own (masked_attention_bwd_dkv_wide_kernel). A
+// row of 256 fp32 is two tiles of 128 columns (64 x 132). S^T and dP^T read
+// K, V, Q and dO at the full width, and the D = 128 layout at that width
+// does not fit. So the grid gains an axis over two column slices of dK and
+// dV, and a block (the D = 128 thread layout: one group of 256 threads, 4
+// keys by 8 columns a thread) holds K's and V's two halves and streams each
+// q-tile through one stage as two halves of Q and dO: the other slice's
+// half first, S^T and dP^T from its products, then the block's own half,
+// whose products add to them and which stays for dV += P^T.dO and dK +=
+// dS^T.Q. The padding rows' dO / s is summed in the slice's columns. 6
+// tiles of 64 x 132, the exchange tile and the statistics: 221,440 bytes.
 
 #include "tile_f32.cuh"
 
@@ -359,10 +371,186 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   return cudaGetLastError();
 }
 
+// D = 256: f32::HALF columns a tile, two tiles a row; see the head-width
+// note at the top. Q-tiles stream in halves through one stage.
+using f32::HALF;
+using f32::WIDE;
+constexpr int WIDE_RS = 16;             // key groups: keys rg + 16 i
+constexpr int WIDE_NK = BK / WIDE_RS;   // keys a thread
+constexpr size_t WIDE_SMEM_BYTES =
+    sizeof(float) * (6 * f32::tile<HALF>() + BK * LDS + 3 * BQ + HALF);
+
+__global__ void __launch_bounds__(THREADS, 1)
+masked_attention_bwd_dkv_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                     const float* __restrict__ v,
+                                     const float* __restrict__ dout,
+                                     const int* __restrict__ q_len,
+                                     const int* __restrict__ m_len,
+                                     const float* __restrict__ m_in,
+                                     const float* __restrict__ s_in,
+                                     const float* __restrict__ delta_in, float* __restrict__ dk,
+                                     float* __restrict__ dv, int H, int Tq, int Tk, float scale,
+                                     int causal) {
+  constexpr int TILE = f32::tile<HALF>(), RS = WIDE_RS, NK = WIDE_NK;
+  constexpr int CW = HALF / 16;  // accumulator columns a thread: 64 h + 4 cg + c
+  extern __shared__ __align__(16) float smem[];
+  float* sK = smem;            // [2][64][ldp(HALF)]: the block's keys' k, columns 0-127, 128-255
+  float* sV = sK + 2 * TILE;   // [2][64][ldp(HALF)]: the same of v
+  float* sQ = sV + 2 * TILE;   // [64][ldp(HALF)]: a half of the q-tile's q
+  float* sDO = sQ + TILE;      // [64][ldp(HALF)]: the same half of dO
+  float* sX = sDO + TILE;      // [64][LDS]: P^T, then dS^T; the padding sums' scratch before
+  float* sStat = sX + BK * LDS;  // [3][BQ]: the q-tile's m * log2(e), 1/s, delta
+  float* usum = sStat + 3 * BQ;  // [HALF]: the uniform rows' dO / s in the block's slice
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.x;
+  const int b = bh / H;
+  const int k0 = blockIdx.y * BK;
+  const int k_rows = min(BK, Tk - k0);
+  const int own = blockIdx.z, c0 = own * HALF;  // this block's half: columns of dK, dV, Q, dO
+  const int mlen = max(0, min(m_len ? m_len[b] : Tk, Tk));
+  // rows below valid_end have an unmasked key; the others are uniform
+  const int valid_end = mlen > 0 ? max(0, min(q_len ? q_len[b] : Tq, Tq)) : 0;
+  const size_t q_base = (size_t)bh * Tq * WIDE;
+  const size_t k_base = (size_t)bh * Tk * WIDE;
+  const size_t stat_base = (size_t)bh * Tq;
+
+  // as masked_attention_bwd_dkv_kernel: the q-tiles that see this block's keys
+  const int r_begin = causal ? k0 : 0;
+  const int r_end = k0 < mlen ? valid_end : 0;
+  const int n_tiles = r_begin < r_end ? (r_end - r_begin + BQ - 1) / BQ : 0;
+
+  // K and V, both halves (keys at or past m_len load as zeros), one commit
+  // group
+  if (n_tiles > 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      f32::load_tile_async<THREADS, HALF, WIDE>(sK + h * TILE, k + k_base + h * HALF, k0, mlen,
+                                                tid);
+      f32::load_tile_async<THREADS, HALF, WIDE>(sV + h * TILE, v + k_base + h * HALF, k0, mlen,
+                                                tid);
+    }
+  }
+  cpa::cp_async_commit();
+
+  // Rows in [valid_end, Tq) are uniform over the Tk keys: each adds
+  // dO_row / s_row to every dV row. Summed once in the slice's columns,
+  // while the copies land.
+  f32::column_sums<THREADS, 8, HALF, WIDE>(usum, sX, dout + q_base + c0, valid_end, Tq,
+                                           s_in + stat_base);
+
+  const int rg = tid >> 4, cg = tid & 15;  // keys rg + RS i; rows cg + 16 j; columns 64 h + 4 cg + c
+  const float scale2 = scale * f32::LOG2E;
+  float acc_dk[NK][CW], acc_dv[NK][CW];
+#pragma unroll
+  for (int i = 0; i < NK; ++i)
+#pragma unroll
+    for (int c = 0; c < CW; ++c) acc_dk[i][c] = acc_dv[i][c] = 0.f;
+
+  // Q and dO's half h of the q-tile at row qt into the one stage (and, with
+  // the first half, the tile's statistics, a row a thread; rows at or past
+  // r_end take m = 0, 1/s = 1, delta = 0, unused), once every warp is done
+  // with what it held
+  auto load_half = [&](int qt, int h, bool stats) {
+    __syncthreads();
+    f32::load_tile_async<THREADS, HALF, WIDE>(sQ, q + q_base + h * HALF, qt, r_end, tid);
+    f32::load_tile_async<THREADS, HALF, WIDE>(sDO, dout + q_base + h * HALF, qt, r_end, tid);
+    cpa::cp_async_commit();
+    if (stats && tid < BQ) {
+      const int row = qt + tid;
+      const bool in = row < r_end;
+      sStat[tid] = in ? m_in[stat_base + row] * f32::LOG2E : 0.f;
+      sStat[BQ + tid] = in ? 1.f / s_in[stat_base + row] : 1.f;
+      sStat[2 * BQ + tid] = in ? delta_in[stat_base + row] : 0.f;
+    }
+    cpa::cp_async_wait<0>();
+    __syncthreads();
+  };
+  for (int t = 0; t < n_tiles; ++t) {
+    const int qt = r_begin + t * BQ;
+    const int n_rows = min(BQ, r_end - qt);
+    // S^T = K.Q^T and dP^T = V.dO^T: the other half's products, then this
+    // block's own half's added
+    float x[NK][4], dpt[NK][4];
+    load_half(qt, 1 - own, true);
+    f32::dots<NK, 4, false, RS, HALF>(x, sK + (1 - own) * TILE, sQ, rg, cg);
+    f32::dots<NK, 4, false, RS, HALF>(dpt, sV + (1 - own) * TILE, sDO, rg, cg);
+    load_half(qt, own, false);
+    f32::dots<NK, 4, false, RS, HALF, true>(x, sK + own * TILE, sQ, rg, cg);
+    f32::dots<NK, 4, false, RS, HALF, true>(dpt, sV + own * TILE, sDO, rg, cg);
+    // P^T: rows past r_end and masked pairs take 0 (the latter exactly
+    // exp(NEG - m) of a real m)
+#pragma unroll
+    for (int i = 0; i < NK; ++i) {
+      const int key = k0 + rg + RS * i;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int rl = cg + 16 * j, row = qt + rl;
+        const bool unmasked = row < r_end && key < mlen && (!causal || key <= row);
+        sX[(rg + RS * i) * LDS + rl] =
+            unmasked ? exp2f(fmaf(x[i][j], scale2, -sStat[rl])) * sStat[BQ + rl] : 0.f;
+      }
+    }
+    __syncwarp();
+    f32::accumulate<NK, RS, HALF, LDS>(acc_dv, sX, sDO, rg, cg, n_rows);  // dV += P^T.dO
+    __syncwarp();  // the half-warp is done reading P^T
+#pragma unroll
+    for (int i = 0; i < NK; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        float* p = sX + (rg + RS * i) * LDS + cg + 16 * j;
+        *p *= dpt[i][j] - sStat[2 * BQ + cg + 16 * j];  // dS^T = P^T * (dP^T - delta)
+      }
+    __syncwarp();
+    f32::accumulate<NK, RS, HALF, LDS>(acc_dk, sX, sQ, rg, cg, n_rows);  // dK += dS^T.Q
+  }
+
+  // dK * scale and dV plus the uniform rows' sum in the block's slice, 16
+  // bytes a row and thread
+#pragma unroll
+  for (int i = 0; i < NK; ++i) {
+    const int key = rg + RS * i;
+    if (key >= k_rows) continue;
+#pragma unroll
+    for (int h = 0; h < HALF / 64; ++h) {
+      const float* u = usum + 64 * h + 4 * cg;
+      const size_t at = k_base + (size_t)(k0 + key) * WIDE + c0 + 64 * h + 4 * cg;
+      *reinterpret_cast<float4*>(dk + at) =
+          make_float4(acc_dk[i][4 * h] * scale, acc_dk[i][4 * h + 1] * scale,
+                      acc_dk[i][4 * h + 2] * scale, acc_dk[i][4 * h + 3] * scale);
+      *reinterpret_cast<float4*>(dv + at) =
+          make_float4(acc_dv[i][4 * h] + u[0], acc_dv[i][4 * h + 1] + u[1],
+                      acc_dv[i][4 * h + 2] + u[2], acc_dv[i][4 * h + 3] + u[3]);
+    }
+  }
+}
+
+cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* dout,
+                        const void* q_len, const void* m_len, const void* m, const void* s,
+                        const void* delta, void* dk, void* dv, int B, int H, int Tq, int Tk,
+                        float scale, int causal, cudaStream_t stream) {
+  static bool smem_set = false;  // above 48 KB needs an explicit opt-in
+  if (!smem_set) {
+    const cudaError_t err = cudaFuncSetAttribute(masked_attention_bwd_dkv_wide_kernel,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)WIDE_SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    smem_set = true;
+  }
+  const dim3 grid(B * H, (Tk + BK - 1) / BK, WIDE / HALF);
+  masked_attention_bwd_dkv_wide_kernel<<<grid, THREADS, WIDE_SMEM_BYTES, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const int*>(q_len),
+      static_cast<const int*>(m_len), static_cast<const float*>(m),
+      static_cast<const float*>(s), static_cast<const float*>(delta), static_cast<float*>(dk),
+      static_cast<float*>(dv), H, Tq, Tk, scale, causal);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
-// q, dout: contiguous fp32 [B, H, Tq, D]; k, v: fp32 [B, H, Tk, D], D = 64
-// or 128; q_len, m_len: int32 [B] or null; m, s, delta: fp32 [B, H, Tq]
+// q, dout: contiguous fp32 [B, H, Tq, D]; k, v: fp32 [B, H, Tk, D], D = 64,
+// 128 or 256; q_len, m_len: int32 [B] or null; m, s, delta: fp32 [B, H, Tq]
 // (the forward's row max and row sum, and rowsum(dO * O)); dk, dv like k.
 // Returns the CUDA error code of the launch.
 extern "C" int masked_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -371,11 +559,15 @@ extern "C" int masked_attention_bwd_dkv(const void* q, const void* k, const void
                                         const void* delta, void* dk, void* dv, int B,
                                         int H, int Tq, int Tk, int D, float scale,
                                         int causal, void* stream) {
-  if ((D != 64 && D != 128) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
+  if ((D != 64 && D != 128 && D != WIDE) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
       (Tk + BK - 1) / BK > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == WIDE) {
+    return (int)launch_wide(q, k, v, dout, q_len, m_len, m, s, delta, dk, dv, B, H, Tq, Tk,
+                            scale, causal, st);
+  }
   return (int)(D == 128 ? launch<128>(q, k, v, dout, q_len, m_len, m, s, delta, dk, dv, B, H,
                                       Tq, Tk, scale, causal, st)
                         : launch<64>(q, k, v, dout, q_len, m_len, m, s, delta, dk, dv, B, H, Tq,
@@ -383,7 +575,7 @@ extern "C" int masked_attention_bwd_dkv(const void* q, const void* k, const void
 }
 
 // Dynamic shared memory each D = 64 block asks for, in bytes (a D = 128
-// block 222,208).
+// block 222,208, a D = 256 block 221,440).
 extern "C" int masked_attention_bwd_dkv_shared_bytes(void) {
   return (int)Layout<64>::SMEM_BYTES;
 }

@@ -99,6 +99,17 @@
 // panels of the tiles (K = 128), recomputed rather than exchanged through
 // shared memory, then multiply their own panel of dO and of Q. Shared
 // memory 160,000 bytes a block (one block an SM); registers in PERF.md §6.
+//
+// D = 256 (slices of 128 columns). Four groups of the D = 64 accumulators
+// would need 4 x 128 threads x 224 registers, more than an SM's 65,536, so
+// the grid gains an axis over two column slices of dK and dV, and a block
+// is the D = 128 design on its slice: two warp groups, each owning one
+// 64-column panel of the slice, both forming S^T and dP^T over all four
+// panels of the tiles (16 k-steps each). S^T and dP^T are formed four times
+// in all. K, V and the Q/dO ring stay whole at the full width (196,608
+// bytes), which leaves no room for the padding rows' copy: their dO / s
+// in the slice's columns is summed from device memory after the loop
+// (wg::column_sums). 209,408 bytes a block.
 
 #include "wgmma_bf16.cuh"
 
@@ -111,20 +122,25 @@ using wg::TILE_ELEMS;
 
 constexpr int BQ = 64;  // query rows per tile
 constexpr int BK = 64;  // keys per block
-// one warp group a 64-column panel of dK and dV: 128 threads at D = 64, 256
-// at D = 128
+using wg::slice_width;
+
+// one warp group a 64-column panel of the block's dK and dV: 128 threads at
+// D = 64, 256 at D = 128 and 256
 template <int HD>
-__host__ __device__ constexpr int threads() { return 2 * HD; }
+__host__ __device__ constexpr int threads() { return 2 * slice_width<HD>(); }
 constexpr int STAGES = 2;  // Q/dO tiles in the ring: one loads while one multiplies
 constexpr int PAD_DEPTH = 16;  // loads in flight a thread, padding rows past PAD_ROWS
 // padding rows of dO (and their s) prefetched into shared memory during the
-// q-tile loop; the train step's sites have at most 186
-constexpr int PAD_ROWS = 192;
+// q-tile loop; the train step's sites have at most 186. None at D = 256,
+// where they do not fit beside the tiles.
+template <int HD>
+__host__ __device__ constexpr int pad_rows() { return HD > 128 ? 0 : 192; }
 constexpr float LOG2E = 1.4426950408889634f;
 template <int HD>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return sizeof(bf16) * ((2 + 2 * STAGES) * wg::tile_elems<HD>() + PAD_ROWS * HD) +
-         sizeof(float) * (STAGES * 3 * BQ + 2 * HD + threads<HD>() * 8 + PAD_ROWS) + wg::ALIGN;
+  return sizeof(bf16) * ((2 + 2 * STAGES) * wg::tile_elems<HD>() + pad_rows<HD>() * HD) +
+         sizeof(float) * (STAGES * 3 * BQ + 2 * HD + threads<HD>() * 8 + pad_rows<HD>()) +
+         wg::ALIGN;
 }
 
 // A warp group's dK and dV accumulators (wgmma's D fragments, 64 keys x the
@@ -137,7 +153,8 @@ struct KeyState {
 // over the head width's HD / 64 panels, then P^T and dS^T, then dV += P^T .
 // dO and dK += dS^T . Q on the warp group's panel of dO and Q, which starts
 // `half` descriptor units in (0, or PANEL_DESC for the second group at
-// D = 128). `stat` holds the tile's rows' m * log2(e), 1/s and delta;
+// D = 128; at D = 256 the slice's first panel, plus the group's). `stat`
+// holds the tile's rows' m * log2(e), 1/s and delta;
 // P = 2^(S * scale_log2 - m log2(e)) / s with scale_log2 = scale * log2(e).
 template <int HD, int NQ>
 __device__ __forceinline__ void dkv_tile(KeyState& st, uint64_t dk_desc, uint64_t dv_desc,
@@ -248,6 +265,7 @@ masked_attention_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __res
                                    int causal) {
   constexpr int THREADS = threads<HD>();
   constexpr int TILE = wg::tile_elems<HD>();
+  constexpr int OW = slice_width<HD>(), SLICES = HD / OW, PAD_ROWS = pad_rows<HD>();
   // 16-byte chunks a row, and threads a row in the padding sums
   constexpr int CHUNKS = HD / 8, SHIFT = cpa::log2i(CHUNKS);
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -263,11 +281,12 @@ masked_attention_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __res
   float* sPadS = reinterpret_cast<float*>(sPad + PAD_ROWS * HD);  // [PAD_ROWS]
 
   // Each warp group owns 64 columns of dK and dV: panel `group` of the
-  // head width (at D = 64 the one group owns them all). Both groups form
-  // the same S^T and dP^T, over every panel.
+  // block's slice [c0, c0 + OW) (at D = 64 the one group owns them all).
+  // Both groups form the same S^T and dP^T, over every panel.
   const int tid = threadIdx.x, lane = tid & 31;
-  const int group = HD == 128 ? tid / 128 : 0, warp = (tid & 127) >> 5;
-  const uint64_t half = group * PANEL_DESC;
+  const int group = OW == 128 ? tid / 128 : 0, warp = (tid & 127) >> 5;
+  const int c0 = SLICES > 1 ? (int)blockIdx.z * OW : 0;
+  const uint64_t half = (uint64_t)(c0 / 64 + group) * PANEL_DESC;
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int k0 = blockIdx.y * BK;
@@ -417,8 +436,9 @@ masked_attention_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __res
     }
     __syncthreads();
     if (n_pad > n_pre) {
-      wg::column_sums<THREADS, PAD_DEPTH, HD>(usum + HD, scratch, dout + q_base, valid_end + n_pre,
-                                          Tq, s_in + stat_base);
+      // the slice's columns, [c0, c0 + OW)
+      wg::column_sums<THREADS, PAD_DEPTH, OW, HD>(usum + HD, scratch, dout + q_base + c0,
+                                                  valid_end + n_pre, Tq, s_in + stat_base);
     }
 #pragma unroll
     for (int j = 0; j < 8; ++j)
@@ -434,8 +454,8 @@ masked_attention_bwd_dkv_tc_kernel(const bf16* __restrict__ q, const bf16* __res
   wg::stage_acc(sQ + group * TILE_ELEMS, st.dk, scale, scale);
   wg::stage_acc(sDO + group * TILE_ELEMS, st.dv, 1.f, 1.f);
   __syncthreads();
-  wg::store_tile<THREADS, HD>(dk + k_base, sQ, k0, k_rows);
-  wg::store_tile<THREADS, HD>(dv + k_base, sDO, k0, k_rows);
+  wg::store_tile<THREADS, OW, HD>(dk + k_base + c0, sQ, k0, k_rows);
+  wg::store_tile<THREADS, OW, HD>(dv + k_base + c0, sDO, k0, k_rows);
 }
 
 template <int HD>
@@ -454,7 +474,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
   // a programmatic dependent launch: its blocks may start while the kernel
   // before it on the stream (the dQ kernel) still runs
   cudaLaunchConfig_t config = {};
-  config.gridDim = dim3(B * H, (Tk + BK - 1) / BK);
+  config.gridDim = dim3(B * H, (Tk + BK - 1) / BK, HD / slice_width<HD>());
   config.blockDim = dim3(threads<HD>());
   config.dynamicSmemBytes = smem_bytes<HD>();
   config.stream = stream;
@@ -475,8 +495,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 
 }  // namespace
 
-// q, dout: contiguous bf16 [B, H, Tq, D]; k, v: bf16 [B, H, Tk, D], D = 64
-// or 128; q_len, m_len: int32 [B] or null; m, s, delta: fp32 [B, H, Tq]
+// q, dout: contiguous bf16 [B, H, Tq, D]; k, v: bf16 [B, H, Tk, D], D = 64,
+// 128 or 256; q_len, m_len: int32 [B] or null; m, s, delta: fp32 [B, H, Tq]
 // (the forward's row max and row sum, and rowsum(dO * O)); dk, dv like k.
 // Returns the CUDA error code of the launch.
 extern "C" int masked_attention_bwd_dkv_tc(const void* q, const void* k, const void* v,
@@ -485,11 +505,15 @@ extern "C" int masked_attention_bwd_dkv_tc(const void* q, const void* k, const v
                                            const void* delta, void* dk, void* dv, int B,
                                            int H, int Tq, int Tk, int D, float scale,
                                            int causal, void* stream) {
-  if ((D != 64 && D != 128) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
+  if ((D != 64 && D != 128 && D != 256) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
       (Tk + BK - 1) / BK > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 256) {
+    return (int)launch<256>(q, k, v, dout, q_len, m_len, m, s, delta, dk, dv, B, H, Tq, Tk,
+                            scale, causal, st);
+  }
   return (int)(D == 128 ? launch<128>(q, k, v, dout, q_len, m_len, m, s, delta, dk, dv, B, H,
                                       Tq, Tk, scale, causal, st)
                         : launch<64>(q, k, v, dout, q_len, m_len, m, s, delta, dk, dv, B, H, Tq,
@@ -497,5 +521,5 @@ extern "C" int masked_attention_bwd_dkv_tc(const void* q, const void* k, const v
 }
 
 // Dynamic shared memory each D = 64 block asks for, in bytes (a D = 128
-// block of two warp groups 160,000).
+// block of two warp groups 160,000, a D = 256 block 209,408).
 extern "C" int masked_attention_bwd_dkv_tc_shared_bytes(void) { return (int)smem_bytes<64>(); }

@@ -98,6 +98,16 @@
 // halves of a 64 x 128 accumulator, and delta takes two threads a row of
 // 64 columns each. Shared memory 99,328 bytes a block; registers in
 // PERF.md §6.
+//
+// D = 256 (slices of 128 columns). A 64 x 256 fp32 dQ accumulator (128
+// floats a thread) beside S, dP and dS's fragments would pass ptxas's cap
+// of 255 registers, so the grid gains an axis over two column slices of
+// dQ: each block forms S and dP over all four 64-column panels of its
+// tiles (16 k-steps each) and dQ += dS . K over the two panels of K in its
+// slice, which keeps D = 128's accumulator and fragments. S, dP and delta
+// are formed by both slices, twice in all; slice 0 writes delta. Q, dO and
+// the two-stage K/V ring stay whole at the full width: 197,632 bytes a
+// block.
 
 #include "wgmma_bf16.cuh"
 
@@ -124,14 +134,18 @@ struct RowStats {
   float m_log2[2], inv_s[2], delta[2];
 };
 
-// One key tile of NK keys (16, 32, 48 or 64) starting at key kt: S and dP,
-// then P and dS, then dQ += dS_hi . K + dS_lo . K. P = 2^(S * scale_log2 -
-// m log2(e)) / s with scale_log2 = scale * log2(e).
-template <int HD, int NK>
-__device__ __forceinline__ void dq_tile(float (&acc)[HD / 8][4], uint64_t dq_desc,
+using wg::slice_width;
+
+// One key tile of NK keys (16, 32, 48 or 64) starting at key kt: S and dP
+// over the HD / 64 panels of the tiles, then P and dS, then dQ += dS_hi . K
+// + dS_lo . K over the OW / 64 panels of K from `slice` descriptor units
+// in. P = 2^(S * scale_log2 - m log2(e)) / s with scale_log2 = scale *
+// log2(e).
+template <int HD, int OW, int NK>
+__device__ __forceinline__ void dq_tile(float (&acc)[OW / 8][4], uint64_t dq_desc,
                                         uint64_t ddo_desc,
                                         const bf16* tK, const bf16* tV, const RowStats& rs,
-                                        int kt, int col_in, float scale_log2) {
+                                        int kt, int col_in, float scale_log2, uint64_t slice) {
   constexpr int J = NK / 8;
   float sc[J][4], dp[J][4];
   wg::zero(sc);
@@ -192,11 +206,11 @@ __device__ __forceinline__ void dq_tile(float (&acc)[HD / 8][4], uint64_t dq_des
   wg::fence();
 #pragma unroll
   for (int s = 0; s < NK / 16; ++s) {
-    wg::mma_rs64_mn(acc, ds_hi[s], dk + 128 * s);
-    wg::mma_rs64_mn(acc, ds_lo[s], dk + 128 * s);
-    if constexpr (HD == 128) {
-      wg::mma_rs64_mn<8>(acc, ds_hi[s], dk + PANEL_DESC + 128 * s);
-      wg::mma_rs64_mn<8>(acc, ds_lo[s], dk + PANEL_DESC + 128 * s);
+    wg::mma_rs64_mn(acc, ds_hi[s], dk + slice + 128 * s);
+    wg::mma_rs64_mn(acc, ds_lo[s], dk + slice + 128 * s);
+    if constexpr (OW == 128) {
+      wg::mma_rs64_mn<8>(acc, ds_hi[s], dk + slice + PANEL_DESC + 128 * s);
+      wg::mma_rs64_mn<8>(acc, ds_lo[s], dk + slice + PANEL_DESC + 128 * s);
     }
   }
   wg::commit();
@@ -220,7 +234,9 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
   asm volatile("griddepcontrol.launch_dependents;" ::: "memory");
 
   constexpr int TILE = wg::tile_elems<HD>();
-  constexpr int CHUNKS = HD / 8, SHIFT = cpa::log2i(CHUNKS);  // 16-byte chunks a row
+  constexpr int OW = slice_width<HD>(), SLICES = HD / OW;
+  // 16-byte chunks of a row in the block's slice
+  constexpr int CHUNKS = OW / 8, SHIFT = cpa::log2i(CHUNKS);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   bf16* sQ = reinterpret_cast<bf16*>(wg::aligned_smem(smem_raw));  // [64][HD] swizzled
   bf16* sDO = sQ + TILE;                                            // [64][HD]
@@ -239,13 +255,20 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
   const size_t q_base = (size_t)bh * Tq * HD;
   const size_t k_base = (size_t)bh * Tk * HD;
   const size_t stat_base = (size_t)bh * Tq;
+  // this block's columns of dQ, [c0, c0 + OW), K's panels from `slice`
+  // descriptor units in; slice 0 writes delta
+  const int c0 = SLICES > 1 ? (int)blockIdx.z * OW : 0;
+  const uint64_t slice = (uint64_t)(c0 / 64) * PANEL_DESC;
+  const bool writes_delta = SLICES == 1 || blockIdx.z == 0;
 
   if (rows_end <= q0) {  // no row of the block has a key
     const uint4 zero = make_uint4(0u, 0u, 0u, 0u);
     for (int chunk = tid; chunk < q_rows * CHUNKS; chunk += THREADS)
-      *reinterpret_cast<uint4*>(dq + q_base + (size_t)(q0 + (chunk >> SHIFT)) * HD +
+      *reinterpret_cast<uint4*>(dq + q_base + (size_t)(q0 + (chunk >> SHIFT)) * HD + c0 +
                                 (chunk & (CHUNKS - 1)) * 8) = zero;
-    for (int r = tid; r < q_rows; r += THREADS) delta_out[stat_base + q0 + r] = 0.f;
+    for (int r = tid; writes_delta && r < q_rows; r += THREADS) {
+      delta_out[stat_base + q0 + r] = 0.f;
+    }
     return;
   }
   // keys at or past k_end are masked for every row of the block
@@ -309,7 +332,7 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
   }
   dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
   // rows without a key read zeros (dO tile rows and o_raw): their delta is 0
-  if (d_half == 0 && d_row < q_rows) delta_out[stat_base + q0 + d_row] = dsum;
+  if (writes_delta && d_half == 0 && d_row < q_rows) delta_out[stat_base + q0 + d_row] = dsum;
   // row warp * 16 + j sits in lanes 2 j and 2 j + 1 of its own warp
   rs.delta[0] = __shfl_sync(0xffffffffu, dsum, 2 * (lane >> 2));
   rs.delta[1] = __shfl_sync(0xffffffffu, dsum, 2 * (lane >> 2) + 16);
@@ -317,7 +340,7 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
   const int col_in = (lane & 3) * 2;
   const float scale_log2 = scale * LOG2E;
   const uint64_t dq_desc = wg::desc(sQ), ddo_desc = wg::desc(sDO);
-  float acc[HD / 8][4];
+  float acc[OW / 8][4];
   wg::zero(acc);
 
   for (int t = 0; t < n_tiles; ++t) {
@@ -333,13 +356,17 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
     const bf16* tV = sV + buf * TILE;
     const int kn = min(BK, k_end - kt);  // keys this tile needs
     if (kn > 48) {
-      dq_tile<HD, 64>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2);
+      dq_tile<HD, OW, 64>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2,
+                             slice);
     } else if (kn > 32) {
-      dq_tile<HD, 48>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2);
+      dq_tile<HD, OW, 48>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2,
+                             slice);
     } else if (kn > 16) {
-      dq_tile<HD, 32>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2);
+      dq_tile<HD, OW, 32>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2,
+                             slice);
     } else {
-      dq_tile<HD, 16>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2);
+      dq_tile<HD, OW, 16>(acc, dq_desc, ddo_desc, tK, tV, rs, kt, col_in, scale_log2,
+                             slice);
     }
     __syncthreads();  // the next iteration refills the stage of this tile
   }
@@ -348,9 +375,9 @@ masked_attention_bwd_dq_tc_kernel(const bf16* __restrict__ q, const bf16* __rest
   // dQ * scale, staged through the Q tile (the loop's last barrier follows
   // every product that read it); rows without a key are zeros
   wg::stage_acc(sQ, acc, scale, scale);
-  if constexpr (HD == 128) wg::stage_acc<8>(sQ + TILE_ELEMS, acc, scale, scale);
+  if constexpr (OW == 128) wg::stage_acc<8>(sQ + TILE_ELEMS, acc, scale, scale);
   __syncthreads();
-  wg::store_tile<THREADS, HD>(dq + q_base, sQ, q0, q_rows);
+  wg::store_tile<THREADS, OW, HD>(dq + q_base + c0, sQ, q0, q_rows);
 }
 
 template <int HD>
@@ -366,7 +393,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
-  const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
+  const dim3 grid(B * H, (Tq + BQ - 1) / BQ, HD / slice_width<HD>());
   masked_attention_bwd_dq_tc_kernel<HD><<<grid, THREADS, smem_bytes<HD>(), stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
       static_cast<const bf16*>(dout), static_cast<const bf16*>(o),
@@ -379,7 +406,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 }  // namespace
 
 // q, dout, o: contiguous bf16 [B, H, Tq, D]; k, v: bf16 [B, H, Tk, D], D =
-// 64 or 128; q_len, m_len: int32 [B] or null; m, s: fp32 [B, H, Tq] (the
+// 64, 128 or 256; q_len, m_len: int32 [B] or null; m, s: fp32 [B, H, Tq] (the
 // forward's row max and row sum); delta: fp32 [B, H, Tq], written
 // (rowsum(dO * O) on rows with a key, else 0); dq like q. Returns the CUDA
 // error code of the launch.
@@ -388,11 +415,15 @@ extern "C" int masked_attention_bwd_dq_tc(const void* q, const void* k, const vo
                                           const void* m_len, const void* m, const void* s,
                                           void* delta, void* dq, int B, int H, int Tq, int Tk,
                                           int D, float scale, int causal, void* stream) {
-  if ((D != 64 && D != 128) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
+  if ((D != 64 && D != 128 && D != 256) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
       (Tq + BQ - 1) / BQ > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 256) {
+    return (int)launch<256>(q, k, v, dout, o, q_len, m_len, m, s, delta, dq, B, H, Tq, Tk, scale,
+                            causal, st);
+  }
   return (int)(D == 128 ? launch<128>(q, k, v, dout, o, q_len, m_len, m, s, delta, dq, B, H, Tq,
                                       Tk, scale, causal, st)
                         : launch<64>(q, k, v, dout, o, q_len, m_len, m, s, delta, dq, B, H, Tq,
@@ -400,5 +431,5 @@ extern "C" int masked_attention_bwd_dq_tc(const void* q, const void* k, const vo
 }
 
 // Dynamic shared memory each D = 64 block asks for, in bytes (a D = 128
-// block 99,328).
+// block 99,328, a D = 256 block 197,632).
 extern "C" int masked_attention_bwd_dq_tc_shared_bytes(void) { return (int)smem_bytes<64>(); }

@@ -93,6 +93,19 @@
 // accumulator (64 floats a thread in place of 32); the softmax, the warp
 // groups and the narrowed key tiles are D = 64's. Shared memory 82,944 or
 // 148,480 bytes a block; registers in PERF.md §6.
+//
+// D = 256 (slices of 128 columns). One group's 64 x 256 fp32 accumulator
+// would be 128 floats a thread, near ptxas's cap of 255 registers, and two
+// groups' rings at the full width (295,936 bytes) do not fit. So the grid
+// gains an axis over two column slices of o: each block forms S = Q.K^T
+// over all four 64-column panels of Q and K (16 k-steps) and O += P.V over
+// the two panels of V in its slice, so its accumulator, softmax and
+// narrowed key tiles are D = 128's. S is formed once a slice, twice in
+// all. Both slices compute the same m and s; slice 0 writes them (and the
+// padding rows' NEG and Tk), each slice its columns of o and of the
+// padding rows' mean(v). Shared memory: Q at the full width and, for each
+// group, a two-stage ring of a full-width K tile and a sliced V tile,
+// 132,096 or 230,400 bytes a block.
 
 #include "wgmma_bf16.cuh"
 
@@ -117,15 +130,24 @@ constexpr float LOG2E = 1.4426950408889634f;
 constexpr int WRITERS = 4;       // blocks of a (b, h) that share the padding rows,
 constexpr int WRITER_ROWS = 256;  // each taking this many rows at least
 
+using wg::slice_width;
+
+// Q, then each group's ring: a stage is a K tile of the head width and a V
+// tile of the slice, KR + 1 V tiles with KR = HD / slice_width (1, or 2 at
+// D = 256)
 template <int HD, int GROUPS>
 __host__ __device__ constexpr size_t smem_bytes() {
-  return sizeof(bf16) * (1 + GROUPS * 2 * STAGES) * wg::tile_elems<HD>() + wg::ALIGN;
+  return sizeof(bf16) * (wg::tile_elems<HD>() +
+                         GROUPS * STAGES * (HD / slice_width<HD>() + 1) *
+                             wg::tile_elems<slice_width<HD>()>()) +
+         wg::ALIGN;
 }
 
-// Per-thread state of one warp group's online softmax over its rows.
-template <int HD>
+// Per-thread state of one warp group's online softmax over its rows, OW
+// columns of o.
+template <int OW>
 struct RowState {
-  float acc[HD / 8][4];  // O accumulator, wgmma's D fragment
+  float acc[OW / 8][4];  // O accumulator, wgmma's D fragment
   float row_max[2], row_sum[2];  // rows g and g + 8 of the warp's 16
 };
 
@@ -139,12 +161,14 @@ __device__ __forceinline__ float tree(float (&t)[N], Op op) {
   return t[0];
 }
 
-// One key tile of NK keys (16, 32, 48 or 64) starting at key kt: S = Q.K^T,
-// the mask, the online softmax, O += P_hi.V + P_lo.V. Of this thread's two
-// rows, columns below lim_lo (lim_hi) are unmasked; the others are masked
-// (NEG), or have no term at all at or past Tk (-inf).
-template <int HD, int NK>
-__device__ __forceinline__ void fwd_tile(RowState<HD>& st, uint64_t dq, const bf16* tK,
+// One key tile of NK keys (16, 32, 48 or 64) starting at key kt: S = Q.K^T
+// over the HD / 64 panels of Q and K, the mask, the online softmax, O +=
+// P_hi.V + P_lo.V over the OW / 64 panels of the V tile (the block's
+// slice). Of this thread's two rows, columns below lim_lo (lim_hi) are
+// unmasked; the others are masked (NEG), or have no term at all at or past
+// Tk (-inf).
+template <int HD, int OW, int NK>
+__device__ __forceinline__ void fwd_tile(RowState<OW>& st, uint64_t dq, const bf16* tK,
                                          const bf16* tV, int kt, int col_in, int lim_lo,
                                          int lim_hi, int Tk, float scale) {
   constexpr int J = NK / 8;
@@ -221,7 +245,7 @@ __device__ __forceinline__ void fwd_tile(RowState<HD>& st, uint64_t dq, const bf
   }
   if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f)) {  // a row max moved
 #pragma unroll
-    for (int j = 0; j < HD / 8; ++j)
+    for (int j = 0; j < OW / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) st.acc[j][e] *= alpha[e >> 1];
   }
@@ -244,7 +268,7 @@ __device__ __forceinline__ void fwd_tile(RowState<HD>& st, uint64_t dq, const bf
   for (int s = 0; s < NK / 16; ++s) {  // keys 16 s .. 16 s + 15
     wg::mma_rs64_mn(st.acc, p_hi[s], dv + 128 * s);
     wg::mma_rs64_mn(st.acc, p_lo[s], dv + 128 * s);
-    if constexpr (HD == 128) {
+    if constexpr (OW == 128) {
       wg::mma_rs64_mn<8>(st.acc, p_hi[s], dv + PANEL_DESC + 128 * s);
       wg::mma_rs64_mn<8>(st.acc, p_lo[s], dv + PANEL_DESC + 128 * s);
     }
@@ -263,6 +287,8 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
                                int Tq, int Tk, float scale, int causal) {
   constexpr int THREADS = GROUPS * GROUP_THREADS;
   constexpr int TILE = wg::tile_elems<HD>();
+  constexpr int OW = slice_width<HD>(), SLICES = HD / OW, KR = SLICES;
+  constexpr int VTILE = wg::tile_elems<OW>();  // a V tile; a K tile is KR of them
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = wg::aligned_smem(smem_raw);
   bf16* sQ = reinterpret_cast<bf16*>(smem);  // [64][HD] swizzled; stages o at the end
@@ -277,6 +303,9 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
   const size_t q_base = (size_t)bh * Tq * HD;
   const size_t k_base = (size_t)bh * Tk * HD;
   const size_t stat_base = (size_t)bh * Tq;
+  // this block's columns of o and v, [c0, c0 + OW); slice 0 writes m and s
+  const int c0 = SLICES > 1 ? (int)blockIdx.z * OW : 0;
+  const bool writes_stats = SLICES == 1 || blockIdx.z == 0;
 
   // Rows at or past pad0 (q_len; every row when m_len <= 0) are fully
   // masked: uniform attention over the Tk keys, o = mean(v), m = NEG,
@@ -305,13 +334,16 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
   if (causal) k_end = min(k_end, rows_end);
   const int n_tiles = computes ? (k_end + BK - 1) / BK : 0;
 
-  // Each group's ring holds stage s's K tile at 2 s and V tile at 2 s + 1.
+  // Each group's ring holds stage s's K tile at (KR + 1) s V tiles and its
+  // V tile (the block's slice) right after it: at 2 s and 2 s + 1 when a
+  // block computes every column.
   const int group = tid / GROUP_THREADS, gtid = tid % GROUP_THREADS, gwarp = gtid / 32;
-  bf16* ring = sQ + TILE + group * 2 * STAGES * TILE;
+  bf16* ring = sQ + TILE + group * (KR + 1) * STAGES * VTILE;
   auto load_kv = [&](int stage, int t) {
-    wg::load_tile_async<GROUP_THREADS, HD>(ring + 2 * stage * TILE, k + k_base, t * BK, Tk, gtid);
-    wg::load_tile_async<GROUP_THREADS, HD>(ring + (2 * stage + 1) * TILE, v + k_base, t * BK, Tk,
-                                           gtid);
+    wg::load_tile_async<GROUP_THREADS, HD>(ring + (KR + 1) * stage * VTILE, k + k_base, t * BK,
+                                           Tk, gtid);
+    wg::load_tile_async<GROUP_THREADS, OW, HD>(ring + ((KR + 1) * stage + KR) * VTILE,
+                                               v + k_base + c0, t * BK, Tk, gtid);
   };
   // Q, loaded by every thread; then each group's first STAGES - 1 tiles, one
   // commit group a tile; issued before the padding rows' pass, which a block
@@ -329,9 +361,9 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
 
   if (writer >= 0 && writer < writers) {
     // scratch: group 0's last stage, which no load fills before the loop
-    constexpr int TPR = HD / 8;  // threads a row, 8 columns each
-    float* sum = reinterpret_cast<float*>(sQ + (1 + 2 * (STAGES - 1)) * TILE);
-    wg::column_sums<THREADS, PAD_DEPTH, HD>(sum, sum + HD, v + k_base, 0, Tk, nullptr);
+    constexpr int TPR = OW / 8;  // threads a row, 8 columns each
+    float* sum = reinterpret_cast<float*>(sQ + TILE + (KR + 1) * (STAGES - 1) * VTILE);
+    wg::column_sums<THREADS, PAD_DEPTH, OW, HD>(sum, sum + OW, v + k_base + c0, 0, Tk, nullptr);
     const int c8 = (tid & (TPR - 1)) * 8;
     uint4 mean;
     __nv_bfloat162* mean2 = reinterpret_cast<__nv_bfloat162*>(&mean);
@@ -341,9 +373,9 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
     const int share = (Tq - pad0 + writers - 1) / writers;
     const int r0 = pad0 + writer * share, r1 = min(Tq, r0 + share);
     for (int r = r0 + (tid >> cpa::log2i(TPR)); r < r1; r += THREADS / TPR) {
-      *reinterpret_cast<uint4*>(o + q_base + (size_t)r * HD + c8) = mean;
+      *reinterpret_cast<uint4*>(o + q_base + (size_t)r * HD + c0 + c8) = mean;
     }
-    for (int r = r0 + tid; r < r1; r += THREADS) {
+    for (int r = r0 + tid; writes_stats && r < r1; r += THREADS) {
       m_out[stat_base + r] = NEG;
       s_out[stat_base + r] = (float)Tk;
     }
@@ -363,7 +395,7 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
     return causal ? min(lim, row + 1) : lim;
   };
   const int lim_lo = row_lim(row_lo), lim_hi = row_lim(row_hi);
-  RowState<HD> st;
+  RowState<OW> st;
   wg::zero(st.acc);
   st.row_max[0] = st.row_max[1] = NEG;
   st.row_sum[0] = st.row_sum[1] = 0.f;
@@ -378,18 +410,18 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
     tc::cp_async_wait<STAGES - 1>();  // tile t has landed
     wg::fence_async_smem();
     tc::group_sync(1 + group, GROUP_THREADS);
-    const bf16* tK = ring + 2 * buf * TILE;
-    const bf16* tV = ring + (2 * buf + 1) * TILE;
+    const bf16* tK = ring + (KR + 1) * buf * VTILE;
+    const bf16* tV = ring + ((KR + 1) * buf + KR) * VTILE;
     const int kt = t * BK;
     const int kn = min(BK, k_end - kt);  // keys this tile needs
     if (kn > 48) {
-      fwd_tile<HD, 64>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
+      fwd_tile<HD, OW, 64>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
     } else if (kn > 32) {
-      fwd_tile<HD, 48>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
+      fwd_tile<HD, OW, 48>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
     } else if (kn > 16) {
-      fwd_tile<HD, 32>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
+      fwd_tile<HD, OW, 32>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
     } else {
-      fwd_tile<HD, 16>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
+      fwd_tile<HD, OW, 16>(st, dq, tK, tV, kt, col_in, lim_lo, lim_hi, Tk, scale);
     }
     tc::group_sync(1 + group, GROUP_THREADS);  // the next tile refills this stage
   }
@@ -402,7 +434,7 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
   // merges two tiles: a group with no tile, or a row that saw only masked
   // keys in it, holds m = NEG and drops out with weight exp(NEG - m) = 0.
   if (GROUPS == 2) {
-    float* xch = reinterpret_cast<float*>(sQ + TILE);  // [4 + HD / 2][GROUP_THREADS]
+    float* xch = reinterpret_cast<float*>(sQ + TILE);  // [4 + OW / 2][GROUP_THREADS]
     if (group == 1) {
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -410,7 +442,7 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
         xch[(2 + h) * GROUP_THREADS + gtid] = st.row_sum[h];
       }
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
+      for (int j = 0; j < OW / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) xch[(4 + j * 4 + e) * GROUP_THREADS + gtid] = st.acc[j][e];
     }
@@ -427,7 +459,7 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
         st.row_max[h] = m_new;
       }
 #pragma unroll
-      for (int j = 0; j < HD / 8; ++j)
+      for (int j = 0; j < OW / 8; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           st.acc[j][e] = st.acc[j][e] * a0[e >> 1] +
@@ -438,9 +470,9 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
   if (group == 0) {
     // o = acc / s for the rows below rows_end, staged through sQ
     wg::stage_acc(sQ, st.acc, 1.f / st.row_sum[0], 1.f / st.row_sum[1]);
-    if constexpr (HD == 128)
+    if constexpr (OW == 128)
       wg::stage_acc<8>(sQ + TILE_ELEMS, st.acc, 1.f / st.row_sum[0], 1.f / st.row_sum[1]);
-    if ((lane & 3) == 0) {
+    if (writes_stats && (lane & 3) == 0) {
       if (row_lo < rows_end) {
         m_out[stat_base + row_lo] = st.row_max[0];
         s_out[stat_base + row_lo] = st.row_sum[0];
@@ -452,7 +484,7 @@ masked_attention_fwd_tc_kernel(const bf16* __restrict__ q, const bf16* __restric
     }
   }
   __syncthreads();
-  wg::store_tile<THREADS, HD>(o + q_base, sQ, q0, rows_end - q0);
+  wg::store_tile<THREADS, OW, HD>(o + q_base + c0, sQ, q0, rows_end - q0);
 }
 
 template <int HD, int GROUPS>
@@ -467,7 +499,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* q_le
     if (err != cudaSuccess) return err;
     smem_set = true;
   }
-  const dim3 grid(B * H, (Tq + BQ - 1) / BQ);
+  const dim3 grid(B * H, (Tq + BQ - 1) / BQ, HD / slice_width<HD>());
   masked_attention_fwd_tc_kernel<HD, GROUPS>
       <<<grid, GROUPS * GROUP_THREADS, smem_bytes<HD, GROUPS>(), stream>>>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
@@ -478,20 +510,26 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* q_le
 
 }  // namespace
 
-// q, k, v: contiguous bf16 [B, H, T, D], D = 64 or 128 (the wrapper pads
-// other widths up to 128 with zero columns); q_len, m_len: int32 [B] or
+// q, k, v: contiguous bf16 [B, H, T, D], D = 64, 128 or 256 (the wrapper
+// pads other widths up to 256 with zero columns); q_len, m_len: int32 [B] or
 // null; o like q; m, s: fp32 [B, H, Tq]. Returns the CUDA error code of the
 // launch (0 on success).
 extern "C" int masked_attention_fwd_tc(const void* q, const void* k, const void* v,
                                        const void* q_len, const void* m_len, void* o, void* m,
                                        void* s, int B, int H, int Tq, int Tk, int D,
                                        float scale, int causal, void* stream) {
-  if ((D != 64 && D != 128) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
+  if ((D != 64 && D != 128 && D != 256) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
       (Tq + BQ - 1) / BQ > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool two = Tk > TWO_GROUPS_MIN_TK;
+  if (D == 256) {
+    return (int)(two ? launch<256, 2>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale,
+                                      causal, st)
+                     : launch<256, 1>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale,
+                                      causal, st));
+  }
   if (D == 128) {
     return (int)(two ? launch<128, 2>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale,
                                       causal, st)
@@ -506,5 +544,5 @@ extern "C" int masked_attention_fwd_tc(const void* q, const void* k, const void*
 
 // Dynamic shared memory a D = 64 block of two warp groups asks for, in
 // bytes (a block of one group asks for 41,984; at D = 128 82,944 and
-// 148,480).
+// 148,480; at D = 256 132,096 and 230,400).
 extern "C" int masked_attention_fwd_tc_shared_bytes(void) { return (int)smem_bytes<64, 2>(); }

@@ -1,8 +1,11 @@
 // Building blocks of the fp32 attention kernels (masked_attention_fwd.cu,
 // masked_attention_bwd.cu, masked_attention_bwd_dkv.cu): tiles of 64 rows
-// of HD fp32 (HD = 64 or 128, the head width) in shared memory, filled
-// with cp.async, and multiplied on the SIMT units with fp32 FMAs (the fp32
-// path must match the fp32 reference, which TF32 tensor cores would not).
+// of HD fp32 (HD = 64 or 128, the head width, or a half of a D = 256 row)
+// in shared memory, filled with cp.async, and multiplied on the SIMT units
+// with fp32 FMAs (the fp32 path must match the fp32 reference, which TF32
+// tensor cores would not). At D = 256 a row is two tiles of 128 columns: the
+// loaders and the column sums take a row stride LD apart from the columns
+// they read, and dots can add a second half's product to the first's.
 //
 // Register tiles. A warp group of 128 threads covers a 64 x 64 product;
 // thread t, with rg = t / 16 and cg = t % 16, owns 8 x 4 of it: rows
@@ -43,13 +46,18 @@ __host__ __device__ constexpr int ldp() { return HD + 4; }
 template <int HD>
 __host__ __device__ constexpr int tile() { return TILE_ROWS * ldp<HD>(); }
 constexpr float NEG = -4294967295.0f;  // -2^32+1, rounds to -2^32 as in fp32 JAX
+// D = 256: a row is two tiles of HALF columns, and a block computes the
+// output columns of one of them (the grid has an axis over the halves)
+constexpr int WIDE = 256;
+constexpr int HALF = 128;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-// Rows [row0, row0 + 64) of a [T, HD] fp32 matrix into a shared tile, as
-// asynchronous copies by THREADS threads numbered `tid` (16 bytes a copy,
-// HD / 4 a row); rows at or past `rows_end` become zeros.
-template <int THREADS, int HD>
+// Rows [row0, row0 + 64) of HD columns of an fp32 matrix whose rows are LD
+// floats apart into a shared tile, as asynchronous copies by THREADS threads
+// numbered `tid` (16 bytes a copy, HD / 4 a row); rows at or past
+// `rows_end` become zeros.
+template <int THREADS, int HD, int LD = HD>
 __device__ __forceinline__ void load_tile_async(float* dst, const float* __restrict__ src,
                                                 int row0, int rows_end, int tid) {
   constexpr int CHUNKS = HD / 4, SHIFT = cpa::log2i(CHUNKS);  // 16-byte chunks a row
@@ -57,7 +65,7 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* __restr
   for (int chunk = tid; chunk < TILE_ROWS * CHUNKS; chunk += THREADS) {
     const int r = chunk >> SHIFT, col = (chunk & (CHUNKS - 1)) * 4;
     const bool in = row0 + r < rows_end;
-    cpa::cp_async16(dst + r * ldp<HD>() + col, in ? src + (size_t)(row0 + r) * HD + col : src,
+    cpa::cp_async16(dst + r * ldp<HD>() + col, in ? src + (size_t)(row0 + r) * LD + col : src,
                     in);
   }
 }
@@ -69,15 +77,18 @@ __device__ __forceinline__ void load_tile_async(float* dst, const float* __restr
 // tile on the causal diagonal (row x of `a` and row y of `b` are query x and
 // key y of one 64-index range), skips the pairs (i, j) whose keys all lie
 // past their rows, 16 j > RS i + RS - 1: every product there is masked.
-// `a` and `b` are head-width tiles (row stride ldp(HD)).
-template <int NI, int NJ, bool TRI = false, int RS = 8, int HD = 64>
+// `a` and `b` are head-width tiles (row stride ldp(HD)). ADD adds the sums
+// to `out` in place of starting from 0 (the second half of a D = 256 row).
+template <int NI, int NJ, bool TRI = false, int RS = 8, int HD = 64, bool ADD = false>
 __device__ __forceinline__ void dots(float (&out)[TILE_ROWS / RS][4], const float* a,
                                      const float* b, int rg, int cg) {
   constexpr int LDP = ldp<HD>();
+  if constexpr (!ADD) {
 #pragma unroll
-  for (int i = 0; i < TILE_ROWS / RS; ++i)
+    for (int i = 0; i < TILE_ROWS / RS; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
+      for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
+  }
 #pragma unroll 2
   for (int d = 0; d < HD; d += 4) {
     float4 bv[NJ];
@@ -160,14 +171,15 @@ __device__ __forceinline__ void accumulate_tri(float (&acc)[TILE_ROWS / RS][HD /
   }
 }
 
-// Column sums of rows [row0, row1) of a [T, HD] fp32 matrix, each row times
-// 1 / div[r] when `div` is not null, into sum[0..HD) in shared memory;
+// Column sums of rows [row0, row1) of HD columns of an fp32 matrix whose
+// rows are LD floats apart, each row times 1 / div[r] when `div` is not
+// null, into sum[0..HD) in shared memory;
 // `scratch` is shared memory for THREADS * 4 floats. A thread reads 4
 // columns of a row with one 16-byte load, HD / 4 threads a row, and keeps
 // DEPTH loads in flight: a sum over many rows is bound by memory latency,
 // not by instructions. Ends with a barrier, so `sum` is ready for every
 // thread.
-template <int THREADS, int DEPTH, int HD = 64>
+template <int THREADS, int DEPTH, int HD = 64, int LD = HD>
 __device__ __forceinline__ void column_sums(float* sum, float* scratch,
                                             const float* __restrict__ src, int row0, int row1,
                                             const float* __restrict__ div) {
@@ -187,14 +199,14 @@ __device__ __forceinline__ void column_sums(float* sum, float* scratch,
     float w[DEPTH];
 #pragma unroll
     for (int u = 0; u < DEPTH; ++u) {
-      raw[u] = *reinterpret_cast<const float4*>(src + (size_t)(r + u * STEP) * HD + c4);
+      raw[u] = *reinterpret_cast<const float4*>(src + (size_t)(r + u * STEP) * LD + c4);
       w[u] = div ? div[r + u * STEP] : 1.f;
     }
 #pragma unroll
     for (int u = 0; u < DEPTH; ++u) add(raw[u], div ? 1.f / w[u] : 1.f);
   }
   for (; r < row1; r += STEP)
-    add(*reinterpret_cast<const float4*>(src + (size_t)r * HD + c4), div ? 1.f / div[r] : 1.f);
+    add(*reinterpret_cast<const float4*>(src + (size_t)r * LD + c4), div ? 1.f / div[r] : 1.f);
   reinterpret_cast<float4*>(scratch)[threadIdx.x] = acc;
   __syncthreads();
   if (threadIdx.x < HD) {

@@ -1,8 +1,9 @@
 // Building blocks of the bf16 attention kernels, which multiply with
 // Hopper's warp-group instructions (masked_attention_fwd_tc.cu,
 // masked_attention_bwd_dq_tc.cu, masked_attention_bwd_dkv_tc.cu): tiles of
-// 64 rows of HD bf16 (HD = 64 or 128, the head width) in shared memory, each
-// HD / 64 panels of 64 x 64 in wgmma's 128-byte-swizzled layout, filled
+// 64 rows of HD bf16 (HD = 64, 128 or 256, the head width, or a slice of it)
+// in shared memory, each HD / 64 panels of 64 x 64 in wgmma's
+// 128-byte-swizzled layout, filled
 // with cp.async (16 bytes a thread), read by wgmma.mma_async m64nNk16 (bf16
 // in, fp32 accumulate) through matrix descriptors, with the A operand from
 // shared memory or from registers. A warp group is 4 warps (128 threads)
@@ -21,7 +22,11 @@
 // descriptor of its own (PANEL_DESC further on), never one descriptor
 // spanning both: a product over K = 128 runs 4 k-steps on each panel, and
 // one with N = 128 (O = P.V, dQ = dS.K, dV and dK) runs as two products of
-// N = 64 into the two halves of its accumulator.
+// N = 64 into the two halves of its accumulator. A D = 256 tile is four
+// panels; a block there owns a slice of 128 output columns (two panels),
+// and the tile loaders and the store take a row stride LD apart from the
+// columns they move, so that a slice is read from and written to its place
+// in a [T, 256] row.
 //
 // Fragments (PTX ISA, "wgmma .m64nNk16"), thread t of the group, warp
 // w = t / 32, lane l, g = l / 4, c = 2 * (l % 4):
@@ -86,6 +91,12 @@ constexpr uint64_t PANEL_DESC = TILE_ELEMS * sizeof(bf16) / 16;
 template <int HD>
 __host__ __device__ constexpr int tile_elems() { return ROWS * HD; }
 
+// The output columns a block computes at head width HD: all of them, or at
+// D = 256 a slice of 128 (the grid has an axis over the HD / 128 slices),
+// so that a block's accumulators stay D = 128's.
+template <int HD>
+__host__ __device__ constexpr int slice_width() { return HD > 128 ? 128 : HD; }
+
 // The element offset of chunk c (8 bf16; c < HD / 8) of row r in a swizzled
 // tile: chunk c % 8 of panel c / 8.
 __device__ __forceinline__ int swz(int r, int c) {
@@ -98,10 +109,10 @@ __device__ __forceinline__ unsigned char* aligned_smem(unsigned char* raw) {
   return raw + ((ALIGN - (tc::smem_addr(raw) & (ALIGN - 1))) & (ALIGN - 1));
 }
 
-// Rows [row0, row0 + 64) of a [T, HD] bf16 matrix into a swizzled tile, as
-// asynchronous copies by THREADS threads numbered `tid`; rows at or past
-// `rows_end` become zeros.
-template <int THREADS, int HD>
+// Rows [row0, row0 + 64) of HD columns of a bf16 matrix whose rows are LD
+// elements apart into a swizzled tile, as asynchronous copies by THREADS
+// threads numbered `tid`; rows at or past `rows_end` become zeros.
+template <int THREADS, int HD, int LD = HD>
 __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* __restrict__ src,
                                                 int row0, int rows_end, int tid) {
   constexpr int CHUNKS = HD / 8, SHIFT = cpa::log2i(CHUNKS);  // 16-byte chunks a row
@@ -109,7 +120,7 @@ __device__ __forceinline__ void load_tile_async(bf16* dst, const bf16* __restric
   for (int chunk = tid; chunk < ROWS * CHUNKS; chunk += THREADS) {
     const int r = chunk >> SHIFT, c = chunk & (CHUNKS - 1);
     const bool in = row0 + r < rows_end;
-    tc::cp_async16(dst + swz(r, c), in ? src + (size_t)(row0 + r) * HD + c * 8 : src, in);
+    tc::cp_async16(dst + swz(r, c), in ? src + (size_t)(row0 + r) * LD + c * 8 : src, in);
   }
 }
 
@@ -290,26 +301,27 @@ __device__ __forceinline__ void stage_acc(bf16* tile, const float (&d)[J][4], fl
   }
 }
 
-// Rows [0, rows) of a swizzled tile to rows [row0, row0 + rows) of a
-// [T, HD] bf16 matrix, 16 bytes a thread.
-template <int THREADS, int HD>
+// Rows [0, rows) of a swizzled tile of HD columns to rows [row0, row0 +
+// rows) of a bf16 matrix whose rows are LD elements apart, 16 bytes a
+// thread.
+template <int THREADS, int HD, int LD = HD>
 __device__ __forceinline__ void store_tile(bf16* __restrict__ dst, const bf16* tile, int row0,
                                            int rows) {
   constexpr int CHUNKS = HD / 8, SHIFT = cpa::log2i(CHUNKS);
   for (int chunk = threadIdx.x; chunk < rows * CHUNKS; chunk += THREADS) {
     const int r = chunk >> SHIFT, c = chunk & (CHUNKS - 1);
-    *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * HD + c * 8) =
+    *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * LD + c * 8) =
         *reinterpret_cast<const uint4*>(tile + swz(r, c));
   }
 }
 
-// Column sums of rows [row0, row1) of a [T, HD] bf16 matrix, in fp32, each
-// row divided by div[r] when `div` is not null, into sum[0..HD) in shared
-// memory; `scratch` is shared memory for THREADS * 8 floats. HD / 8 threads
-// a row, 16 bytes a load, DEPTH loads in flight a thread: the pass is bound
-// by its rounds of loads. Ends with a barrier, so `sum` is ready for every
-// thread.
-template <int THREADS, int DEPTH, int HD>
+// Column sums of rows [row0, row1) of HD columns of a bf16 matrix whose
+// rows are LD elements apart, in fp32, each row divided by div[r] when
+// `div` is not null, into sum[0..HD) in shared memory; `scratch` is shared
+// memory for THREADS * 8 floats. HD / 8 threads a row, 16 bytes a load,
+// DEPTH loads in flight a thread: the pass is bound by its rounds of loads.
+// Ends with a barrier, so `sum` is ready for every thread.
+template <int THREADS, int DEPTH, int HD, int LD = HD>
 __device__ __forceinline__ void column_sums(float* sum, float* scratch,
                                             const bf16* __restrict__ src, int row0, int row1,
                                             const float* __restrict__ div) {
@@ -334,7 +346,7 @@ __device__ __forceinline__ void column_sums(float* sum, float* scratch,
 #pragma unroll
     for (int u = 0; u < DEPTH; ++u) {
       const int ru = r + u * STEP;
-      raw[u] = ru < row1 ? *reinterpret_cast<const uint4*>(src + (size_t)ru * HD + c8)
+      raw[u] = ru < row1 ? *reinterpret_cast<const uint4*>(src + (size_t)ru * LD + c8)
                          : make_uint4(0u, 0u, 0u, 0u);
       inv[u] = ru < row1 && div ? div[ru] : 1.f;
     }

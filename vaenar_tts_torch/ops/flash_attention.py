@@ -36,15 +36,20 @@ Which kernel serves which dtype, on CUDA tensors (``launch_counts`` key):
 In both dtypes the dQ kernel also reads O and forms δ, which the dK/dV
 kernel launched after it reads: no separate δ pass runs on the card.
 
-Head widths: each kernel is compiled for D = 64 and D = 128
+Head widths: each kernel is compiled for D = 64, 128 and 256
 (``KERNEL_HEAD_DIMS``), and its C function runs the one its D argument
-names. The D = 128 launches count under the key with ``_d128`` appended
-(``masked_attention_fwd_tc_d128``, ...). Every other width up to 128 runs
-on the next native width (``kernel_width``): q, k and v (and o and dO in the
-backward) are padded with zero columns (``pad_head_width``), the scale is
-left as the caller gave it, and o, dq, dk and dv are sliced back. That is
-exact: a zero column adds nothing to a score, and the output and gradient
-columns it adds are zero. Widths above 128 raise.
+names. The D = 128 and D = 256 launches count under the key with
+``_d128`` or ``_d256`` appended (``masked_attention_fwd_tc_d256``, ...). At
+D = 256 each kernel's grid has an axis over two slices of 128 output
+columns (the C sources say why); one launch covers both. Every other width
+up to 256 runs on the next native width (``kernel_width``): q, k and v
+(and o and dO in the backward) are padded with zero columns
+(``pad_head_width``), the scale is left as the caller gave it, and o, dq,
+dk and dv are sliced back. That is exact: a zero column adds nothing to a
+score, and the output and gradient columns it adds are zero. Widths above
+256 raise (``MAX_HEAD_DIM``): at D = 384 the bf16 dQ kernel's full-width
+tiles alone would take 294,912 bytes of shared memory, more than a block
+has.
 
 ``masked_flash_attention`` and ``masked_flash_attention_backward`` launch
 them and raise if they cannot; there is no fall back. On CPU tensors, and
@@ -66,15 +71,16 @@ import torch.nn.functional as F
 NEG = -2.0 ** 32 + 1.0
 # the head widths each kernel is compiled for, and the suffix of their
 # launch_counts keys
-KERNEL_HEAD_DIMS = (64, 128)
-WIDTH_SUFFIX = {64: "", 128: "_d128"}
+KERNEL_HEAD_DIMS = (64, 128, 256)
+WIDTH_SUFFIX = {64: "", 128: "_d128", 256: "_d256"}
+MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 # launches of each hand-written kernel in this process; callers reset it
 launch_counts: Counter = Counter()
 
 # the backward kernels that read O and write δ themselves (both dQ
-# kernels, at both widths); every other one reads the δ they wrote
+# kernels, at every width); every other one reads the δ they wrote
 DELTA_FORMING_KERNELS = frozenset(
     f"{base}{suffix}" for base in ("masked_attention_bwd_dq", "masked_attention_bwd_dq_tc")
     for suffix in WIDTH_SUFFIX.values())
@@ -82,12 +88,13 @@ DELTA_FORMING_KERNELS = frozenset(
 
 def kernel_width(head_dim: int) -> int:
     """The native width a head width runs at: the least of
-    ``KERNEL_HEAD_DIMS`` at or above it (64 for 1-64, 128 for 65-128).
-    Raises for a width above 128, which no kernel takes."""
+    ``KERNEL_HEAD_DIMS`` at or above it (64 for 1-64, 128 for 65-128, 256
+    for 129-256). Raises for a width above ``MAX_HEAD_DIM`` (256), which no
+    kernel takes."""
     for width in KERNEL_HEAD_DIMS:
         if 1 <= head_dim <= width:
             return width
-    raise ValueError(f"the attention kernels take head widths 1 to {KERNEL_HEAD_DIMS[-1]} "
+    raise ValueError(f"the attention kernels take head widths 1 to {MAX_HEAD_DIM} "
                      f"(native {KERNEL_HEAD_DIMS}, narrower ones padded with zero columns "
                      f"to the next); got {head_dim}")
 
@@ -211,7 +218,7 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *more: torch.Tensor) -> None:
     """Raise on anything the kernels do not take: q (and ``more``, shaped
     like q) [B, H, Tq, D], k and v [B, H, Tk, D], one CUDA device, one dtype
-    of KERNEL_DTYPES, D that ``kernel_width`` takes (1 to 128), contiguous,
+    of KERNEL_DTYPES, D that ``kernel_width`` takes (1 to 256), contiguous,
     not empty."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, H, T, D]")
@@ -319,7 +326,8 @@ def kernel_name(kind: str, dtype: torch.dtype, head_dim: int = 64) -> str:
     """The kernel (its ``launch_counts`` key) that serves ``kind`` ("fwd",
     "dq" or "dkv") for ``dtype`` at head width ``head_dim``: bf16 takes the
     tensor-core kernels, fp32 the fp32-FMA ones, each at ``kernel_width(
-    head_dim)``; the D = 128 instantiation's key ends in ``_d128``."""
+    head_dim)``; the D = 128 and D = 256 instantiations' keys end in
+    ``_d128`` and ``_d256``."""
     base = "masked_attention_fwd" if kind == "fwd" else f"masked_attention_bwd_{kind}"
     if dtype == torch.bfloat16:
         base += "_tc"
@@ -328,8 +336,11 @@ def kernel_name(kind: str, dtype: torch.dtype, head_dim: int = 64) -> str:
 
 def c_function(name: str) -> str:
     """The C function of the kernel whose ``launch_counts`` key is ``name``:
-    one function a kernel serves both widths."""
-    return name.removesuffix(WIDTH_SUFFIX[128])
+    one function a kernel serves every width."""
+    for suffix in WIDTH_SUFFIX.values():
+        if suffix and name.endswith(suffix):
+            return name.removesuffix(suffix)
+    return name
 
 
 def _launch(name: str, tensors, B: int, H: int, Tq: int, Tk: int, D: int,
@@ -358,7 +369,7 @@ def launch_backward_kernel(kernel: str, q: torch.Tensor, k: torch.Tensor,
     ``"dkv"`` (``outs = (dk, dv)``), the one ``kernel_name`` picks for q's
     dtype and width, on the current stream, and count it. The tensors are
     taken as ``masked_flash_attention_backward`` checks and pads them: CUDA,
-    contiguous, D native (64 or 128), lengths int32 or None, ``delta`` fp32
+    contiguous, D native (64, 128 or 256), lengths int32 or None, ``delta`` fp32
     [B, H, Tq]. A kernel of ``DELTA_FORMING_KERNELS`` reads ``o`` and
     writes ``delta``; every other one reads ``delta`` and is given no
     ``o``. Raise on a width that is not native, on a wrong ``o`` or if the

@@ -461,14 +461,21 @@ RING_CASES = (("causal_1680", 1680, True), ("self_3360", 3360, False))
 RING_REPS = 5
 TOL_TP_BF16_MEL = 0.01
 # head widths: the kernels are compiled for D = 64 (the shipped model's 4
-# heads of 64), D = 128 and D = 256; every other width up to 256 is padded
-# with zero columns to the next of those. The kernel checks run every case
-# at D = 128 and 256 and these subsets at the padded widths, under the
+# heads of 64), D = 128 and D = 256, and the wide kernels take every
+# multiple of 128 above 256 at run time; every other width is padded with
+# zero columns to the next of those. The kernel checks run every case at
+# D = 128, 256 and at WIDE_WIDTHS, these subsets at the padded widths, and
+# one small case at UNCAPPED_WIDTH (the width has no cap), under the
 # D = 64 tolerances; the head_widths phase runs the shipped attention
 # width (256) in 2 heads (D = 128), in 1 (D = 256) and in 8 (D = 32, the
-# padded route) in every stack
+# padded route), and one head of WIDE_MODEL_DIM (D = 384, the wide
+# kernels at three slices), in every stack
 HEAD_STACKS = ("encoder", "decoder", "posterior", "prior")
-PADDED_WIDTHS = (8, 32, 96, 160)
+PADDED_WIDTHS = (8, 32, 96, 160, 320)
+WIDE_WIDTHS = (384, 512)
+UNCAPPED_WIDTH = 1024
+UNCAPPED_CASES = ("row_edges_causal_130",)
+WIDE_MODEL_DIM = 384
 PADDED_FWD_CASES = ("self_160", "causal_1680", "tile_edges_97", "row_edges_causal_130",
                     "no_key_causal_700")
 PADDED_BWD_CASES = ("encoder_self_32", "causal_self_240", "cross_240x32", "tile_edges_causal_97",
@@ -562,17 +569,25 @@ def kernel_key(fa, kind, dtype, D=64):
     return fa.kernel_name(kind, dtype) if D == 64 else fa.kernel_name(kind, dtype, D)
 
 
+def is_native(fa, D):
+    """Whether a kernel runs at head width D itself, unpadded (a tree from
+    before the wide kernels, timed by scripts/torch_attention_sites.py, has
+    no ``fa.is_native_width``)."""
+    native = getattr(fa, "is_native_width", None)
+    return native(D) if native else D in fa.KERNEL_HEAD_DIMS
+
+
 def check_kernels(torch, fa, device, D=64, names=None):
     """Forward kernel against plain version, fp32 (masked_attention_fwd) and
-    bf16 (masked_attention_fwd_tc), at head width D (128 or 256: the
-    kernels' instantiation of that width; a width that is not native goes through the
-    wrapper's zero padding to the kernel of fa.kernel_width(D)), on the
+    bf16 (masked_attention_fwd_tc), at head width D (128, 256 or a multiple
+    of 128 above: the kernel of that width; a width that is not native goes
+    through the wrapper's zero padding to the kernel of fa.kernel_width(D)), on the
     check_cases named in ``names`` (all when None), at scale D^-1/2;
     returns {kernel: {dtype: largest |o| error}} and {kernel: {key: the
     worst share of the o tolerance}}, key ``max_share_of_tol`` at a native
     width and ``max_share_of_tol_padded`` at a padded one."""
     worst, worst_share = {}, {}
-    key = "max_share_of_tol" if D in fa.KERNEL_HEAD_DIMS else "max_share_of_tol_padded"
+    key = "max_share_of_tol" if is_native(fa, D) else "max_share_of_tol_padded"
     scale = D ** -0.5
     for dtype_name in ("float32", "bfloat16"):
         dtype = getattr(torch, dtype_name)
@@ -670,6 +685,17 @@ def forward_bound(torch, tq, tk, causal, ql, ml, B, dtype_name, H=4, D=64):
             flops / 1e9, n_bytes / 1e6)
 
 
+def sdpa_backend(torch, q, k, v, mask, scale):
+    """The backend (a ``torch.nn.attention.SDPBackend`` name) that torch's
+    dispatcher picks for scaled_dot_product_attention on these inputs, or
+    None where this torch does not say."""
+    try:
+        from torch.nn.attention import SDPBackend
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, mask, 0.0, False, scale=scale)).name
+    except (AttributeError, ImportError, RuntimeError, TypeError, ValueError):
+        return None
+
+
 def time_kernels(torch, fa, device, sites, dtype_name, H=4, D=64):
     """Kernel, plain and SDPA times and the bound at each attention site of
     the main path, with the main path's lengths, in ``dtype_name``, at H
@@ -692,7 +718,9 @@ def time_kernels(torch, fa, device, sites, dtype_name, H=4, D=64):
         row = {"site": name, "dtype": dtype_name, "kernel": kernel_key(fa, "fwd", dtype, D),
                "shape": [len(ql), H, tq, tk, D], "causal": causal,
                "calls_per_synthesis": calls, "ms": ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": max(flop_ms, byte_ms),
+               "library_ms": library_ms,
+               "library_backend": sdpa_backend(torch, q, k, v, mask, scale),
+               "bound_ms": max(flop_ms, byte_ms),
                "flop_ms": flop_ms, "byte_ms": byte_ms, "gflop": gflop,
                "mbytes": mbytes, "tflops_achieved": gflop / ms}
         print(json.dumps(row), flush=True)
@@ -789,7 +817,7 @@ def check_backward(torch, fa, device, D=64, names=None):
     dq alone) and ``max_share_of_tol_delta`` (a dQ kernel that forms delta),
     each ending in ``_padded`` at a padded width."""
     worst, worst_share = {}, {}
-    native = D in fa.KERNEL_HEAD_DIMS
+    native = is_native(fa, D)
     suffix = "" if native else "_padded"
 
     def fold(kernel, kind, share):
@@ -989,7 +1017,7 @@ def time_backward(torch, fa, device, sites, dtype_name, H=4, D=64):
         delta = fa.attention_delta(o, do).contiguous()
 
         # one kernel alone takes a native width: others pad as the wrapper does
-        native = (q, k, v, do, o) if D in fa.KERNEL_HEAD_DIMS else fa.pad_head_width(
+        native = (q, k, v, do, o) if is_native(fa, D) else fa.pad_head_width(
             fa.kernel_width(D), q, k, v, do, o)
         outs_native = {"dq": (torch.empty_like(native[0]),),
                        "dkv": (torch.empty_like(native[1]), torch.empty_like(native[2]))}
@@ -3473,25 +3501,30 @@ def head_widths_phase(torch, np, fa, tmp, data_dir, device, token_ids, use_q, n_
                       init_pass, per_step, shipped_walls):
     """The shipped LJSpeech config at its attention width, 256, in 2 heads
     (D = 128), in 1 (D = 256), the kernels' second and third
-    instantiations, and in 8 (D = 32, zero padded to the D = 64 kernels) in
-    every stack, from fresh weights of ``cli.train``'s seeded cold start on
-    the 64 train and 32 dev records of ``data_dir`` at batch 32, r = 2. At
-    D = 128 and D = 256 (``native``): bf16 ``cli.train`` through the device
-    data cache for one epoch, eagerly and as a CUDA graph
-    (``train.device_cache_epoch_scan``), the two equal to the bit; the
-    eager run's state synthesizes the 4 lines at temperature 0 in bf16 and
-    in fp32 (the fp32 mels against the CPU's, lengths equal); an fp32 train
-    step at batch 4 against the CPU's (card_vs_cpu_train_step); bf16 and
-    fp32 train steps at batch 32 and synthesis timed beside the shipped
-    D = 64 walls ``shipped_walls``; then that width's kernels at this
-    model's sites (card, bound, plain and SDPA ms). D = 32: the same two
-    bf16 epochs, equal to the bit (the graph captures the wrapper's pad
-    and slice copies), bf16 synthesis and fp32 synthesis against the CPU.
-    Every run checks which kernels it launched, and how often. Returns
+    instantiations, and in 8 (D = 32, zero padded to the D = 64 kernels),
+    and at attention width WIDE_MODEL_DIM in 1 head (D = 384, the wide
+    kernels; the posterior's input width follows), in every stack, from
+    fresh weights of ``cli.train``'s seeded
+    cold start on the 64 train and 32 dev records of ``data_dir`` at batch
+    32, r = 2. At D = 128, 256 and 384 (``native``): bf16 ``cli.train``
+    through the device data cache for one epoch, eagerly and as a CUDA
+    graph (``train.device_cache_epoch_scan``), the two equal to the bit;
+    the eager run's state synthesizes the 4 lines at temperature 0 in bf16
+    and in fp32 (the fp32 mels against the CPU's, lengths equal); an fp32
+    train step at batch 4 against the CPU's (card_vs_cpu_train_step); the
+    launches of one train step at batch 32 in each dtype, and at D = 384
+    alone, the newest width, those steps and synthesis timed beside the
+    shipped D = 64 walls ``shipped_walls``; then that width's kernels at
+    this model's sites (card, bound, plain and SDPA ms), and at D = 384's
+    sites the wide kernels at D = 512 too. D = 32: the same two bf16
+    epochs, equal to the bit (the graph captures the wrapper's pad and
+    slice copies), bf16 synthesis and fp32 synthesis against the CPU.
+    Every run checks which kernels it launched, and how often; the report
+    gives each width's seconds by part (``d<D>_seconds``). Returns
     ({path: launches}, {kernel: launches replayed in the graphs, at every
     width}, {D: {"fwd": synthesis timing totals, "long": the 1024 x 4104
-    case's, "bwd": train step timing totals, each by dtype}}) for D = 128
-    and 256."""
+    case's, "bwd": train step timing totals, each by dtype}}) for D = 128,
+    256, 384 and 512."""
     from vaenar_tts_torch.cli import train as cli_train
     from vaenar_tts_torch.cli.inference import synthesize_batch
     from vaenar_tts_torch.configs.overrides import apply_overrides
@@ -3507,22 +3540,28 @@ def head_widths_phase(torch, np, fa, tmp, data_dir, device, token_ids, use_q, n_
     n_train = N_TRAIN // 32  # steps an epoch at batch 32
     n_dev = -(-N_DEV // 32)
 
-    def train(heads, tag, extra, argv_extra=()):
-        """``cli.train`` from a cold start at ``heads`` heads a stack, one
-        epoch at r = 2 with the overrides ``extra``; its launches are path
-        head_widths_d<D>_<tag>'s. Returns (history, model directory)."""
-        model_dir = os.path.join(tmp, f"heads{heads}_{tag}")
+    def train(heads, dim, tag, extra, argv_extra=()):
+        """``cli.train`` from a cold start at ``heads`` heads of ``dim`` /
+        ``heads`` a stack, one epoch at r = 2 with the overrides ``extra``;
+        its launches are path head_widths_d<D>_<tag>'s. Returns (history,
+        model directory)."""
+        model_dir = os.path.join(tmp, f"heads{heads}_dim{dim}_{tag}")
         argv = ["--dataset", "ljspeech", "--data_dir", data_dir, "--model_dir", model_dir,
                 "--log_dir", model_dir + "_logs", "--device", str(device), "--max_epochs", "1",
                 "--hparams", os.path.join(MODEL_DIR, "hparams.json"), "--no-draw_plots",
                 *argv_extra]
+        # the posterior's blocks add their attention's output to their
+        # input (the JAX package's CrossAttentionBlock needs the two widths
+        # equal), so its input width, posterior.pre_hidden, follows dim
         for o in [f"{stack}.attention_heads={heads}" for stack in HEAD_STACKS] + [
-                "train.reduction_factors=(2,)", "train.reduce_interval=(0,)", *extra]:
+                f"{stack}.attention_dim={dim}" for stack in HEAD_STACKS] + [
+                f"posterior.pre_hidden={dim}", "train.reduction_factors=(2,)",
+                "train.reduce_interval=(0,)", *extra]:
             argv += ["--override", o]
         fa.launch_counts.clear()
         history, _ = run_cli(cli_train.main, argv)
         torch.cuda.synchronize()
-        paths[f"head_widths_d{256 // heads}_{tag}"] = dict(fa.launch_counts)
+        paths[f"head_widths_d{dim // heads}_{tag}"] = dict(fa.launch_counts)
         check(all(np.isfinite(v) for split in ("train", "dev") for m in history[split].values()
                   for v in m.values()), f"{heads} heads, {tag}: a non-finite loss")
         return history, model_dir
@@ -3552,17 +3591,20 @@ def head_widths_phase(torch, np, fa, tmp, data_dir, device, token_ids, use_q, n_
         check(torch.equal(lens.cpu(), lens_cpu), f"{tag}: card lengths {lens} != CPU {lens_cpu}")
         check(err <= TOL_MEL_CARD_CPU, f"{tag}: card vs CPU mel error {err}")
 
-    def epochs(heads):
-        """One bf16 epoch at ``heads`` heads through the device data cache,
-        eagerly and as a CUDA graph (``train.device_cache_epoch_scan``),
-        from the same cold start: each run's launches of the kernels of
-        this width, the runner's replays and captured launches, the losses
-        equal to the bit. Returns (the eager run's model directory, the
-        kernels' names by kind, {kernel: launches replayed})."""
-        D = 256 // heads
+    def epochs(heads, dim=256):
+        """One bf16 epoch at ``heads`` heads of ``dim`` / ``heads`` through
+        the device data cache, eagerly and as a CUDA graph
+        (``train.device_cache_epoch_scan``), from the same cold start: each
+        run's launches of the kernels of this width, the runner's replays
+        and captured launches, the losses equal to the bit. Returns (the
+        eager run's model directory, the kernels' names by kind, {kernel:
+        launches replayed})."""
+        D = dim // heads
         cache = [f"train.device_data_cache_mb={LOOP_CACHE_MB}"]
-        eager, eager_dir = train(heads, "bf16_eager", cache + ["train.device_cache_epoch_scan=false"])
-        graphed, _ = train(heads, "bf16_graphed", cache + ["train.device_cache_epoch_scan=true"])
+        eager, eager_dir = train(heads, dim, "bf16_eager",
+                                 cache + ["train.device_cache_epoch_scan=false"])
+        graphed, _ = train(heads, dim, "bf16_graphed",
+                           cache + ["train.device_cache_epoch_scan=true"])
         names = {kind: fa.kernel_name(kind, torch.bfloat16, D) for kind in ("fwd", "dq", "dkv")}
         want_eager = {names["fwd"]: init_pass + per_step * (1 + n_train + n_dev),
                       names["dq"]: per_step * (1 + n_train), names["dkv"]: per_step * (1 + n_train)}
@@ -3594,14 +3636,24 @@ def head_widths_phase(torch, np, fa, tmp, data_dir, device, token_ids, use_q, n_
 
     long_case = [c for c in check_cases(torch, device) if c[0] == "long_1024x4104"][0]
 
-    def native(heads):
-        """D = 256 / heads, a native width (128 or 256): one epoch eagerly
-        and as a graph from the same cold start; the eager state's
-        synthesis in both dtypes and fp32 train step against the CPU; walls
-        beside the shipped model's; the kernels at this model's sites.
-        Returns ({kernel: launches replayed}, timing totals)."""
-        D = 256 // heads
-        eager_dir, names, replayed_d = epochs(heads)
+    def native(heads, dim=256, walls=False, also=()):
+        """D = dim / heads, a native width (128, 256 or 384): one epoch
+        eagerly and as a graph from the same cold start; the eager state's
+        synthesis in both dtypes and fp32 train step against the CPU; the
+        launches of one train step in each dtype, timed with the synthesis
+        beside the shipped model's walls when ``walls``; the kernels at
+        this model's sites, at D and at each width of ``also``. Returns
+        ({kernel: launches replayed}, {width: timing totals})."""
+        D = dim // heads
+        seconds, t_lap = {}, time.perf_counter()
+
+        def lap(part):
+            """Seconds since the last lap into ``seconds[part]``."""
+            nonlocal t_lap
+            seconds[part], t_lap = time.perf_counter() - t_lap, time.perf_counter()
+
+        eager_dir, names, replayed_d = epochs(heads, dim)
+        lap("epochs")
         hp = load_hparams(eager_dir)
         check(hp.encoder.attention_dim // hp.encoder.attention_heads == D,
               f"{hp.encoder.attention_heads} heads of {hp.encoder.attention_dim}")
@@ -3611,59 +3663,76 @@ def head_widths_phase(torch, np, fa, tmp, data_dir, device, token_ids, use_q, n_
                                 {names["fwd"]: n_attn})
         card_vs_cpu_synthesis(hp, eager_dir, f"head_widths_d{D}_fp32_synthesis",
                               {fa.kernel_name("fwd", torch.float32, D): n_attn})
+        lap("synthesis")
         fp32_names = {kind: fa.kernel_name(kind, torch.float32, D) for kind in ("fwd", "dq", "dkv")}
         paths[f"head_widths_d{D}_fp32_step_card_vs_cpu"] = card_vs_cpu_train_step(
             torch, np, fa, apply_overrides(hp32, NO_DROPOUT), eager_dir, data_dir, device,
             {n: per_step for n in fp32_names.values()})
+        lap("fp32_step_card_vs_cpu")
 
-        # walls beside the shipped model's, and the kernels at this model's sites
-        walls = []
-        for _ in range(3):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            synthesize_batch(model, hp, token_ids, 0.0, use_q)
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t)
+        # the launches of one train step at batch 32 in each dtype; at the
+        # newest width, walls beside the shipped model's (the steps timed
+        # and counted, and the synthesis); the kernels at this model's sites
         big = next(iter(BucketedLoader(list_shards(data_dir, "train"), 32, hp.dataset.mel_bucket,
                                        hp.dataset.text_bucket, shuffle=False).epoch(0)))
         batch = to_device(big, device)
+        reps = 5 if walls else 1
         step_walls = {}
         for dtype_name, h_, want in (("bfloat16", hp, names), ("float32", hp32, fp32_names)):
             m_ = load_trained(VAENAR, CheckpointManager, h_, eager_dir, device)
-            walls_t, counts = train_step_times(torch, fa, steps, m_, h_, batch, 2, reps=5)
-            # the 5 timed steps, whose launches were counted (not the warm-up's)
-            paths[f"head_widths_d{D}_{dtype_name}_timed_steps"] = {
-                n: int(round(c * 5)) for n, c in counts.items()}
+            walls_t, counts = train_step_times(torch, fa, steps, m_, h_, batch, 2, reps=reps,
+                                               warmup=2 if walls else 0)
+            # the counted steps' launches (not the warm-up's)
+            paths[f"head_widths_d{D}_{dtype_name}_" + ("timed_steps" if walls else "step")] = {
+                n: int(round(c * reps)) for n, c in counts.items()}
             step_walls[dtype_name] = statistics.median(walls_t)
             check(counts == {n: float(per_step) for n in want.values()},
                   f"launches per D = {D} {dtype_name} train step: {counts}")
-        print(json.dumps({"head_widths_walls": {
-            "head_dim": D,
-            "synthesis_s": {f"d{D}_bfloat16": walls,
-                            "d64_shipped_bfloat16": shipped_walls["synthesis"],
-                            f"d{D}_mel_lengths": lens.tolist(),
-                            "d64_mel_lengths": shipped_walls["synthesis_lengths"]},
-            "train_step_median_s_r2_batch32": {
-                f"d{D}": step_walls, "d64_shipped": shipped_walls["train_step"]}}}), flush=True)
+        if walls:
+            synthesis_walls = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                synthesize_batch(model, hp, token_ids, 0.0, use_q)
+                torch.cuda.synchronize()
+                synthesis_walls.append(time.perf_counter() - t)
+            print(json.dumps({"head_widths_walls": {
+                "head_dim": D,
+                "synthesis_s": {f"d{D}_bfloat16": synthesis_walls,
+                                "d64_shipped_bfloat16": shipped_walls["synthesis"],
+                                f"d{D}_mel_lengths": lens.tolist(),
+                                "d64_mel_lengths": shipped_walls["synthesis_lengths"]},
+                "train_step_median_s_r2_batch32": {
+                    f"d{D}": step_walls, "d64_shipped": shipped_walls["train_step"]}}}),
+                  flush=True)
+        lap("steps_and_walls")
         sites = synthesis_sites(torch, hp, token_ids, lens, mels.shape[1], device)
         step_sites = train_sites(torch, hp, big, device)
-        timing = {"fwd": {}, "long": {}, "bwd": {}}
-        for dtype_name in ("bfloat16", "float32"):
-            timing["fwd"][dtype_name] = time_kernels(torch, fa, device, sites, dtype_name,
-                                                     heads, D)
-            timing["long"][dtype_name] = time_kernels(
-                torch, fa, device, [(long_case[0], 1, *long_case[1:])], dtype_name, heads, D)
-            timing["bwd"][dtype_name] = time_backward(torch, fa, device, step_sites, dtype_name,
-                                                      heads, D)
+        timing = {}
+        for width in (D, *also):
+            timing[width] = {"fwd": {}, "long": {}, "bwd": {}}
+            for dtype_name in ("bfloat16", "float32"):
+                timing[width]["fwd"][dtype_name] = time_kernels(torch, fa, device, sites,
+                                                                dtype_name, heads, width)
+                timing[width]["long"][dtype_name] = time_kernels(
+                    torch, fa, device, [(long_case[0], 1, *long_case[1:])], dtype_name, heads,
+                    width)
+                timing[width]["bwd"][dtype_name] = time_backward(torch, fa, device, step_sites,
+                                                                 dtype_name, heads, width)
+            lap(f"kernel_times_d{width}")
+        report[f"d{D}_seconds"] = seconds
         return replayed_d, timing
 
     replayed, timing = {}, {}
-    for heads in (2, 1):
-        replayed_d, timing[256 // heads] = native(heads)
+    for heads, dim, walls, also in ((2, 256, False, ()), (1, 256, False, ()),
+                                    (1, WIDE_MODEL_DIM, True, (512,))):
+        replayed_d, timing_d = native(heads, dim, walls, also)
         replayed.update(replayed_d)
+        timing.update(timing_d)
 
     # D = 32, zero padded to the D = 64 kernels, the pad and slice copies
     # captured in the graphed epoch
+    t_d32 = time.perf_counter()
     d32_dir, base, d32_replayed = epochs(8)
     check(base == {kind: fa.kernel_name(kind, torch.bfloat16) for kind in ("fwd", "dq", "dkv")},
           f"D = 32 takes {base}, expected the D = 64 kernels")
@@ -3674,6 +3743,7 @@ def head_widths_phase(torch, np, fa, tmp, data_dir, device, token_ids, use_q, n_
                "head_widths_d32_bf16_synthesis", {base["fwd"]: n_attn})
     card_vs_cpu_synthesis(hp8, d32_dir, "head_widths_d32_fp32_synthesis",
                           {fa.kernel_name("fwd", torch.float32): n_attn})
+    report["d32_seconds"] = time.perf_counter() - t_d32
     print(json.dumps({"head_widths": report, "launches": paths}), flush=True)
     return paths, replayed, timing
 
@@ -3741,19 +3811,27 @@ def main():
                           for name, _ in _build.KERNELS}}), flush=True)
 
     phase("kernel_checks")
-    # the native widths (64, 128, 256) on every case; the padded widths on a
-    # subset, their errors folded into the native kernel that served them
-    # each kernel's largest errors by dtype, and its shares of the
-    # tolerances at the native and at the padded widths
+    # the native widths (64, 128, 256 and the wide kernels' 384 and 512) on
+    # every case; the padded widths on a subset, their errors folded into
+    # the native kernel that served them; D = 1024 on one small case. Each
+    # kernel's largest errors by dtype, and its shares of the tolerances at
+    # the native and at the padded widths
     worst, shares = {}, {}
-    for D in (*fa.KERNEL_HEAD_DIMS, *PADDED_WIDTHS):
-        merge_worst((worst, shares), *check_kernels(
-            torch, fa, device, D, None if D in fa.KERNEL_HEAD_DIMS else PADDED_FWD_CASES))
+    widths = (*fa.KERNEL_HEAD_DIMS, *WIDE_WIDTHS, *PADDED_WIDTHS, UNCAPPED_WIDTH)
+
+    def cases(D, padded_cases):
+        if D == UNCAPPED_WIDTH:
+            return UNCAPPED_CASES
+        return None if is_native(fa, D) else padded_cases
+
+    for D in widths:
+        merge_worst((worst, shares), *check_kernels(torch, fa, device, D,
+                                                    cases(D, PADDED_FWD_CASES)))
 
     phase("backward_checks")
-    for D in (*fa.KERNEL_HEAD_DIMS, *PADDED_WIDTHS):
-        merge_worst((worst, shares), *check_backward(
-            torch, fa, device, D, None if D in fa.KERNEL_HEAD_DIMS else PADDED_BWD_CASES))
+    for D in widths:
+        merge_worst((worst, shares), *check_backward(torch, fa, device, D,
+                                                     cases(D, PADDED_BWD_CASES)))
     print(json.dumps({"backward_device_kernels": check_backward_launches(torch, fa, device)}),
           flush=True)
 
@@ -4259,19 +4337,29 @@ def main():
                   {"fp32_train_step": fp32_step_counts["masked_attention_bwd_dkv"]},
                   shares["masked_attention_bwd_dkv"]),
     ]
-    # the D = 128 and D = 256 instantiations: launched on the head_widths
-    # paths only, timed at the sites of the model of that width
-    for D, heads in ((128, "2 heads"), (256, "1 head")):
-        at = f"at D = {D}, the shipped attention width in {heads} (head_widths)"
+    # the D = 128 and D = 256 instantiations and the wide kernels (D = 384,
+    # with their times at D = 512 at the same sites beside): launched on the
+    # head_widths paths only, timed at the sites of the model of that width
+    timing_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "per_train_step_r2",
+                   "tk_4104")
+    for D, heads in ((128, "2 heads"), (256, "1 head"), (WIDE_MODEL_DIM, "1 head")):
+        at = f"at D = {D}, attention width {D * int(heads[0])} in {heads} (head_widths)"
         for dtype_name in ("bfloat16", "float32"):
             dt = getattr(torch, dtype_name)
-            name = fa.kernel_name("fwd", dt, D)
-            kernels.append(fwd_entry(name, dtype_name, 0, {}, {
-                **shares[name], "per": f"{synth_per}, {at}"}, width_timing[D]))
-            for kern in ("dq", "dkv"):
+            for kern in ("fwd", "dq", "dkv"):
                 name = fa.kernel_name(kern, dt, D)
-                kernels.append(bwd_entry(name, kern, dtype_name, 0, {}, {
-                    **shares[name], "per": f"{train_per}, {at}"}, width_timing[D]))
+                extra = {**shares[name], "per": f"{synth_per if kern == 'fwd' else train_per}, {at}"}
+                if name.endswith(fa.WIDE_SUFFIX):
+                    extra["source"] = "vaenar_tts_torch/csrc/masked_attention_wide" + (
+                        "_tc.cu" if dtype_name == "bfloat16" else ".cu")
+                    at_512 = (fwd_entry(name, dtype_name, 0, {}, {}, width_timing[512])
+                              if kern == "fwd" else
+                              bwd_entry(name, kern, dtype_name, 0, {}, {}, width_timing[512]))
+                    extra["at_d512_same_sites"] = {k: at_512[k] for k in timing_keys
+                                                   if k in at_512}
+                kernels.append(fwd_entry(name, dtype_name, 0, {}, extra, width_timing[D])
+                               if kern == "fwd" else
+                               bwd_entry(name, kern, dtype_name, 0, {}, extra, width_timing[D]))
     new_paths.update(width_paths)
     for n, c in width_replayed.items():
         graph_replayed["bfloat16"][n] = graph_replayed["bfloat16"].get(n, 0) + c

@@ -4,7 +4,7 @@
 model:
 
     python3 scripts/torch_attention_sites.py ROOT [ROOT ...] [--checks] [--dtype float32]
-        [--batch N] [--heads N]
+        [--batch N] [--heads N] [--attention-dim N]
 
 Each ROOT is a directory that holds a `vaenar_tts_torch/` package (this
 checkout, or another tree unpacked with `git archive`); each runs in its own
@@ -24,8 +24,10 @@ longest mels (N = 1: the latency of one item's blocks, the card otherwise
 idle). `--heads N` splits the shipped attention width (256) into N heads
 of 256 / N at every site (default 4 heads of 64; 2 heads run the D = 128
 kernels, 1 head the D = 256 ones, 8 heads the zero-padded D = 32 route),
-with the checks at that width too; a tree from before the kernels took
-other widths runs only the default. The last line is the card's name and power limit.
+with the checks at that width too; `--attention-dim N` takes N in place of
+256 (`--attention-dim 384 --heads 1`: the wide kernels at D = 384). A tree
+from before the kernels took other widths runs only the default. The last
+line is the card's name and power limit.
 
 It loads chip_smoke.py by file path and calls its helpers `MODEL_DIR`,
 `LINES`, `check_cases`, `check_kernels`, `check_backward`, `write_records`,
@@ -126,11 +128,11 @@ def main_path_sites(torch, cs, device, batch=None):
 ATTENTION_DIM = 256  # the shipped model's attention width in every stack
 
 
-def run_one(root, checks, dtypes, batch=None, heads=4):
+def run_one(root, checks, dtypes, batch=None, heads=4, attention_dim=ATTENTION_DIM):
     """One run from ``root`` (train-step sites on the ``batch`` longest items
     of the seeded batch, or all of them), at ``heads`` heads of
-    ATTENTION_DIM / heads; prints JSON lines."""
-    width = ATTENTION_DIM // heads
+    attention_dim / heads; prints JSON lines."""
+    width = attention_dim // heads
     sys.path.insert(0, os.path.abspath(root))
     import torch
     from vaenar_tts_torch.ops import _build
@@ -173,10 +175,12 @@ def main(argv):
         run_one(argv[1], "--checks" in argv, argv[argv.index("--dtype") + 1:][:1]
                 if "--dtype" in argv else ["float32", "bfloat16"],
                 int(argv[argv.index("--batch") + 1]) if "--batch" in argv else None,
-                int(argv[argv.index("--heads") + 1]) if "--heads" in argv else 4)
+                int(argv[argv.index("--heads") + 1]) if "--heads" in argv else 4,
+                int(argv[argv.index("--attention-dim") + 1]) if "--attention-dim" in argv
+                else ATTENTION_DIM)
         return 0
     flags = [a for a in argv if a == "--checks"]
-    for option in ("--dtype", "--batch", "--heads"):
+    for option in ("--dtype", "--batch", "--heads", "--attention-dim"):
         if option in argv:
             flags += argv[argv.index(option):][:2]
     roots = [a for a in argv if a not in flags]

@@ -1,11 +1,12 @@
 """Head widths in the port's attention wrapper: which native kernel width a
-head width runs at, the zero padding that carries every other width up to
-256 there, and the model's attention at D = 128 against the JAX package's
-(tests/test_torch_wide_heads.py holds one head of 256).
+head width runs at, the zero padding that carries every other width there,
+and the model's attention at D = 128 against the JAX package's
+(tests/test_torch_wide_heads.py holds one head of 256,
+tests/test_torch_widest_heads.py one of 384 and one of 512).
 
-The kernels are compiled for D = 64, 128 and 256 only; a narrower width is
-padded with zero columns to the next native one and the results are sliced
-back, which is exact (a zero column adds nothing to a score, and the
+The kernels are compiled for D = 64, 128 and 256, and the wide kernels take
+every multiple of 128 above 256; any other width is padded with zero
+columns to the next native one and the results are sliced back, which is exact (a zero column adds nothing to a score, and the
 columns it adds to o and the gradients are zero). Here the route is taken
 as the wrapper takes it on a card, pad -> plain version -> slice, and held
 against the plain version at the true width: fp32, atol 1e-6 (the same
@@ -30,41 +31,57 @@ from vaenar_tts_torch.interop.weights import load_jax_weights
 from vaenar_tts_torch.models import attention as tatt
 from vaenar_tts_torch.ops import flash_attention as fa
 
-PADDED_WIDTHS = (8, 32, 96, 160, 192)
+PADDED_WIDTHS = (8, 32, 96, 160, 192, 320)
 ATOL_PAD = 1e-6
 
 
 def test_kernel_width_of_every_width_up_to_128():
-    """Every width up to the cap (256 since the D = 256 kernels; the name
-    is the test's from when the cap was 128)."""
+    """Every width up to 256, the widest compiled instantiation (the name is
+    the test's from when the kernels stopped at 128); there is no upper
+    width any more."""
     got = {d: fa.kernel_width(d) for d in range(1, 257)}
     assert got == {d: 64 if d <= 64 else 128 if d <= 128 else 256 for d in range(1, 257)}
-    assert fa.KERNEL_HEAD_DIMS == (64, 128, 256) and fa.MAX_HEAD_DIM == 256
+    assert fa.KERNEL_HEAD_DIMS == (64, 128, 256) and not hasattr(fa, "MAX_HEAD_DIM")
 
 
-@pytest.mark.parametrize("width", [0, 257, 384, 512])
+@pytest.mark.parametrize("width,native", [(257, 384), (384, 384), (385, 512), (512, 512),
+                                          (1000, 1024)])
+def test_kernel_width_above_256_is_the_next_multiple_of_128(width, native):
+    """Above 256 a width runs on the wide kernels at the next multiple of
+    128, natively when it is one."""
+    assert fa.kernel_width(width) == native
+    assert fa.is_native_width(width) == (width == native)
+
+
+@pytest.mark.parametrize("width", [0, -1])
 def test_kernel_width_raises_outside_1_to_128(width):
-    """Widths outside 1 to the cap, 256, raise, and the message names it."""
-    with pytest.raises(ValueError, match=r"head widths 1 to 256 \(native \(64, 128, 256\)"):
+    """Widths below 1 raise, and the message says what the kernels take
+    (the name is the test's from when widths above the widest
+    instantiation raised too)."""
+    with pytest.raises(ValueError, match=r"head widths of 1 and more \(native \(64, 128, 256\) "
+                                         r"and every multiple of 128 above"):
         fa.kernel_width(width)
 
 
-@pytest.mark.parametrize("D", [8, 32, 96, 128, 160, 256])
+@pytest.mark.parametrize("D", [8, 32, 96, 128, 160, 256, 272, 384])
 def test_check_kernel_inputs_takes_widths_up_to_128(D):
     q, k, v = (torch.zeros(2, 2, t, D) for t in (5, 7, 7))
     fa._check_kernel_inputs(q, k, v, torch.zeros_like(q))
 
 
 def test_check_kernel_inputs_raises_above_128():
-    """Above the cap, 256, the inputs are refused before any launch."""
-    q, k, v = (torch.zeros(2, 2, t, 272) for t in (5, 7, 7))
-    with pytest.raises(ValueError, match="got 272"):
+    """A width the kernels do not take, 0 (no width is too wide any more;
+    the name is the test's from when one was), is refused before any
+    launch."""
+    q, k, v = (torch.zeros(2, 2, t, 0) for t in (5, 7, 7))
+    with pytest.raises(ValueError, match="got 0"):
         fa._check_kernel_inputs(q, k, v)
 
 
 @pytest.mark.parametrize("D,suffix", [(8, ""), (32, ""), (64, ""), (96, "_d128"),
                                       (128, "_d128"), (129, "_d256"), (160, "_d256"),
-                                      (256, "_d256")])
+                                      (256, "_d256"), (257, "_wide"), (320, "_wide"),
+                                      (384, "_wide"), (512, "_wide"), (1024, "_wide")])
 def test_kernel_names_follow_the_native_width(D, suffix):
     for kind, base in (("fwd", "masked_attention_fwd"), ("dq", "masked_attention_bwd_dq"),
                        ("dkv", "masked_attention_bwd_dkv")):
@@ -75,11 +92,21 @@ def test_kernel_names_follow_the_native_width(D, suffix):
             assert (name in fa.DELTA_FORMING_KERNELS) == (kind == "dq")
 
 
-def test_launch_backward_kernel_takes_native_widths_only():
-    q = torch.zeros(1, 1, 4, 96)
+@pytest.mark.parametrize("D,native", [(96, False), (320, False), (384, True)])
+def test_launch_backward_kernel_takes_native_widths_only(D, native):
+    """A width that is not native is refused before anything is loaded; a
+    native one (384: the wide kernels) passes the width check and reaches
+    the kernel name, whose launch needs a card (here the name check on the
+    missing ``o`` of a dQ kernel stops it first)."""
+    q = torch.zeros(1, 1, 4, D)
     stat = torch.zeros(1, 1, 4)
-    with pytest.raises(ValueError, match="native widths"):
-        fa.launch_backward_kernel("dkv", q, q, q, q, None, None, stat, stat, stat, (q, q),
+    if not native:
+        with pytest.raises(ValueError, match="native widths"):
+            fa.launch_backward_kernel("dkv", q, q, q, q, None, None, stat, stat, stat, (q, q),
+                                      0.1, False)
+        return
+    with pytest.raises(ValueError, match=r"masked_attention_bwd_dq_wide reads o"):
+        fa.launch_backward_kernel("dq", q, q, q, q, None, None, stat, stat, stat, (q,),
                                   0.1, False)
 
 

@@ -109,6 +109,7 @@
 // for dQ += dS . K; dS goes over that V half. 6 tiles of 64 x 132, 202,752
 // bytes. Both slices form S, dP and delta; slice 0 writes delta.
 
+#include "attention_wide.cuh"
 #include "tile_f32.cuh"
 
 namespace {
@@ -569,7 +570,8 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, const void*
 }  // namespace
 
 // q, dout, o: contiguous fp32 [B, H, Tq, D]; k, v: fp32 [B, H, Tk, D], D =
-// 64, 128 or 256; q_len, m_len: int32 [B] or null; m, s: fp32 [B, H, Tq] (the
+// 64, 128, 256 or a multiple of 128 above (the wide kernel,
+// masked_attention_wide.cu); q_len, m_len: int32 [B] or null; m, s: fp32 [B, H, Tq] (the
 // forward's row max and row sum); delta: fp32 [B, H, Tq], written
 // (rowsum(dO * O) on rows with a key, else 0); dq like q. Returns the CUDA
 // error code of the launch.
@@ -578,11 +580,14 @@ extern "C" int masked_attention_bwd_dq(const void* q, const void* k, const void*
                                        const void* m_len, const void* m, const void* s,
                                        void* delta, void* dq, int B, int H, int Tq, int Tk,
                                        int D, float scale, int causal, void* stream) {
-  if ((D != 64 && D != 128 && D != WIDE) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
+  if ((D != 64 && D != 128 && D != WIDE && !wide::takes(D)) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
       (Tq + BQ - 1) / BQ > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide::takes(D)) {  // every multiple of 128 above 256
+    return (int)wide::dq_f32(q, k, v, dout, o, q_len, m_len, m, s, delta, dq, B, H, Tq, Tk, D, scale, causal, st);
+  }
   if (D == WIDE) {
     return (int)launch_wide(q, k, v, dout, o, q_len, m_len, m, s, delta, dq, B, H, Tq, Tk, scale,
                             causal, st);

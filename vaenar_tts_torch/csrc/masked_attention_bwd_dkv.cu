@@ -88,6 +88,7 @@
 // dS^T.Q. The padding rows' dO / s is summed in the slice's columns. 6
 // tiles of 64 x 132, the exchange tile and the statistics: 221,440 bytes.
 
+#include "attention_wide.cuh"
 #include "tile_f32.cuh"
 
 namespace {
@@ -550,7 +551,8 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, const void*
 }  // namespace
 
 // q, dout: contiguous fp32 [B, H, Tq, D]; k, v: fp32 [B, H, Tk, D], D = 64,
-// 128 or 256; q_len, m_len: int32 [B] or null; m, s, delta: fp32 [B, H, Tq]
+// 128, 256 or a multiple of 128 above (the wide kernel,
+// masked_attention_wide.cu); q_len, m_len: int32 [B] or null; m, s, delta: fp32 [B, H, Tq]
 // (the forward's row max and row sum, and rowsum(dO * O)); dk, dv like k.
 // Returns the CUDA error code of the launch.
 extern "C" int masked_attention_bwd_dkv(const void* q, const void* k, const void* v,
@@ -559,11 +561,14 @@ extern "C" int masked_attention_bwd_dkv(const void* q, const void* k, const void
                                         const void* delta, void* dk, void* dv, int B,
                                         int H, int Tq, int Tk, int D, float scale,
                                         int causal, void* stream) {
-  if ((D != 64 && D != 128 && D != WIDE) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
+  if ((D != 64 && D != 128 && D != WIDE && !wide::takes(D)) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
       (Tk + BK - 1) / BK > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide::takes(D)) {  // every multiple of 128 above 256
+    return (int)wide::dkv_f32(q, k, v, dout, q_len, m_len, m, s, delta, dk, dv, B, H, Tq, Tk, D, scale, causal, st);
+  }
   if (D == WIDE) {
     return (int)launch_wide(q, k, v, dout, q_len, m_len, m, s, delta, dk, dv, B, H, Tq, Tk,
                             scale, causal, st);

@@ -111,6 +111,7 @@
 // in the slice's columns is summed from device memory after the loop
 // (wg::column_sums). 209,408 bytes a block.
 
+#include "attention_wide.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
@@ -496,7 +497,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 }  // namespace
 
 // q, dout: contiguous bf16 [B, H, Tq, D]; k, v: bf16 [B, H, Tk, D], D = 64,
-// 128 or 256; q_len, m_len: int32 [B] or null; m, s, delta: fp32 [B, H, Tq]
+// 128, 256 or a multiple of 128 above (the wide kernel,
+// masked_attention_wide_tc.cu); q_len, m_len: int32 [B] or null; m, s, delta: fp32 [B, H, Tq]
 // (the forward's row max and row sum, and rowsum(dO * O)); dk, dv like k.
 // Returns the CUDA error code of the launch.
 extern "C" int masked_attention_bwd_dkv_tc(const void* q, const void* k, const void* v,
@@ -505,11 +507,14 @@ extern "C" int masked_attention_bwd_dkv_tc(const void* q, const void* k, const v
                                            const void* delta, void* dk, void* dv, int B,
                                            int H, int Tq, int Tk, int D, float scale,
                                            int causal, void* stream) {
-  if ((D != 64 && D != 128 && D != 256) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
+  if ((D != 64 && D != 128 && D != 256 && !wide::takes(D)) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
       (Tk + BK - 1) / BK > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide::takes(D)) {  // every multiple of 128 above 256
+    return (int)wide::dkv_tc(q, k, v, dout, q_len, m_len, m, s, delta, dk, dv, B, H, Tq, Tk, D, scale, causal, st);
+  }
   if (D == 256) {
     return (int)launch<256>(q, k, v, dout, q_len, m_len, m, s, delta, dk, dv, B, H, Tq, Tk,
                             scale, causal, st);

@@ -109,6 +109,7 @@
 // the two-stage K/V ring stay whole at the full width: 197,632 bytes a
 // block.
 
+#include "attention_wide.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
@@ -406,7 +407,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 }  // namespace
 
 // q, dout, o: contiguous bf16 [B, H, Tq, D]; k, v: bf16 [B, H, Tk, D], D =
-// 64, 128 or 256; q_len, m_len: int32 [B] or null; m, s: fp32 [B, H, Tq] (the
+// 64, 128, 256 or a multiple of 128 above (the wide kernel,
+// masked_attention_wide_tc.cu); q_len, m_len: int32 [B] or null; m, s: fp32 [B, H, Tq] (the
 // forward's row max and row sum); delta: fp32 [B, H, Tq], written
 // (rowsum(dO * O) on rows with a key, else 0); dq like q. Returns the CUDA
 // error code of the launch.
@@ -415,11 +417,14 @@ extern "C" int masked_attention_bwd_dq_tc(const void* q, const void* k, const vo
                                           const void* m_len, const void* m, const void* s,
                                           void* delta, void* dq, int B, int H, int Tq, int Tk,
                                           int D, float scale, int causal, void* stream) {
-  if ((D != 64 && D != 128 && D != 256) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
+  if ((D != 64 && D != 128 && D != 256 && !wide::takes(D)) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
       (Tq + BQ - 1) / BQ > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide::takes(D)) {  // every multiple of 128 above 256
+    return (int)wide::dq_tc(q, k, v, dout, o, q_len, m_len, m, s, delta, dq, B, H, Tq, Tk, D, scale, causal, st);
+  }
   if (D == 256) {
     return (int)launch<256>(q, k, v, dout, o, q_len, m_len, m, s, delta, dq, B, H, Tq, Tk, scale,
                             causal, st);

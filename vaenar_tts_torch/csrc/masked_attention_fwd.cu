@@ -81,6 +81,7 @@
 // ADD), formed by both slices; slice 0 writes m and s. One stage: the next
 // tile loads after this one's products, not during them.
 
+#include "attention_wide.cuh"
 #include "tile_f32.cuh"
 
 namespace {
@@ -516,8 +517,9 @@ cudaError_t launch_wide(const void* q, const void* k, const void* v, const void*
 
 }  // namespace
 
-// q, k, v: contiguous fp32 [B, H, T, D], D = 64, 128 or 256 (the wrapper
-// pads other widths up to 256 with zero columns); q_len, m_len: int32 [B] or
+// q, k, v: contiguous fp32 [B, H, T, D], D = 64, 128, 256 or a multiple of
+// 128 above (the wide kernel, masked_attention_wide.cu; the wrapper pads
+// other widths with zero columns to the next of those); q_len, m_len: int32 [B] or
 // null; o like q; m, s: fp32 [B, H, Tq]. Returns the CUDA error code of the
 // launch (0 on success).
 extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
@@ -525,11 +527,14 @@ extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
                                     void* o, void* m, void* s, int B, int H,
                                     int Tq, int Tk, int D, float scale,
                                     int causal, void* stream) {
-  if ((D != 64 && D != 128 && D != WIDE) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
+  if ((D != 64 && D != 128 && D != WIDE && !wide::takes(D)) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
       (Tq + BQ - 1) / BQ > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide::takes(D)) {  // every multiple of 128 above 256
+    return (int)wide::fwd_f32(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, D, scale, causal, st);
+  }
   if (D == WIDE) {
     return (int)launch_wide(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal, st);
   }

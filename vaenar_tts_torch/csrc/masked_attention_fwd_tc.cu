@@ -107,6 +107,7 @@
 // group, a two-stage ring of a full-width K tile and a sliced V tile,
 // 132,096 or 230,400 bytes a block.
 
+#include "attention_wide.cuh"
 #include "wgmma_bf16.cuh"
 
 namespace {
@@ -510,19 +511,23 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* q_le
 
 }  // namespace
 
-// q, k, v: contiguous bf16 [B, H, T, D], D = 64, 128 or 256 (the wrapper
-// pads other widths up to 256 with zero columns); q_len, m_len: int32 [B] or
+// q, k, v: contiguous bf16 [B, H, T, D], D = 64, 128, 256 or a multiple of
+// 128 above (the wide kernel, masked_attention_wide_tc.cu; the wrapper pads
+// other widths with zero columns to the next of those); q_len, m_len: int32 [B] or
 // null; o like q; m, s: fp32 [B, H, Tq]. Returns the CUDA error code of the
 // launch (0 on success).
 extern "C" int masked_attention_fwd_tc(const void* q, const void* k, const void* v,
                                        const void* q_len, const void* m_len, void* o, void* m,
                                        void* s, int B, int H, int Tq, int Tk, int D,
                                        float scale, int causal, void* stream) {
-  if ((D != 64 && D != 128 && D != 256) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
+  if ((D != 64 && D != 128 && D != 256 && !wide::takes(D)) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
       (Tq + BQ - 1) / BQ > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (wide::takes(D)) {  // every multiple of 128 above 256
+    return (int)wide::fwd_tc(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, D, scale, causal, st);
+  }
   const bool two = Tk > TWO_GROUPS_MIN_TK;
   if (D == 256) {
     return (int)(two ? launch<256, 2>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale,

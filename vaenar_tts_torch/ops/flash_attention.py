@@ -41,15 +41,22 @@ Head widths: each kernel is compiled for D = 64, 128 and 256
 names. The D = 128 and D = 256 launches count under the key with
 ``_d128`` or ``_d256`` appended (``masked_attention_fwd_tc_d256``, ...). At
 D = 256 each kernel's grid has an axis over two slices of 128 output
-columns (the C sources say why); one launch covers both. Every other width
-up to 256 runs on the next native width (``kernel_width``): q, k and v
-(and o and dO in the backward) are padded with zero columns
-(``pad_head_width``), the scale is left as the caller gave it, and o, dq,
-dk and dv are sliced back. That is exact: a zero column adds nothing to a
-score, and the output and gradient columns it adds are zero. Widths above
-256 raise (``MAX_HEAD_DIM``): at D = 384 the bf16 dQ kernel's full-width
-tiles alone would take 294,912 bytes of shared memory, more than a block
-has.
+columns (the C sources say why); one launch covers both. Above 256 there
+is no upper width: every multiple of 128 (``WIDE_STEP``) runs on one wide
+kernel a pass and dtype (``csrc/masked_attention_wide_tc.cu`` for bf16,
+``csrc/masked_attention_wide.cu`` for fp32), which takes the width at run
+time, and its launches count under the key with ``_wide`` appended
+(``WIDE_SUFFIX``) at every width. Its grid has an axis over the D / 128
+output slices, and no block holds an operand at the full width: the
+D = 256 kernels keep Q, K (and dO, V) whole, which at D = 384 would take
+more shared memory than a block has, so the wide kernels stream them in
+panels of 64 columns. Every other width runs on the next native width
+(``kernel_width``: 1-64 at 64, 65-128 at 128, 129-256 at 256, above that
+the next multiple of 128): q, k and v (and o and dO in the backward) are
+padded with zero columns (``pad_head_width``), the scale is left as the
+caller gave it, and o, dq, dk and dv are sliced back. That is exact: a
+zero column adds nothing to a score, and the output and gradient columns
+it adds are zero. A width below 1 raises.
 
 ``masked_flash_attention`` and ``masked_flash_attention_backward`` launch
 them and raise if they cannot; there is no fall back. On CPU tensors, and
@@ -73,7 +80,11 @@ NEG = -2.0 ** 32 + 1.0
 # launch_counts keys
 KERNEL_HEAD_DIMS = (64, 128, 256)
 WIDTH_SUFFIX = {64: "", 128: "_d128", 256: "_d256"}
-MAX_HEAD_DIM = KERNEL_HEAD_DIMS[-1]
+# above the widest of those there is no upper width: every multiple of
+# WIDE_STEP runs on the wide kernels, whose launches count under
+# WIDE_SUFFIX at every width
+WIDE_STEP = 128
+WIDE_SUFFIX = "_wide"
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 # launches of each hand-written kernel in this process; callers reset it
@@ -83,20 +94,27 @@ launch_counts: Counter = Counter()
 # kernels, at every width); every other one reads the δ they wrote
 DELTA_FORMING_KERNELS = frozenset(
     f"{base}{suffix}" for base in ("masked_attention_bwd_dq", "masked_attention_bwd_dq_tc")
-    for suffix in WIDTH_SUFFIX.values())
+    for suffix in (*WIDTH_SUFFIX.values(), WIDE_SUFFIX))
 
 
 def kernel_width(head_dim: int) -> int:
     """The native width a head width runs at: the least of
     ``KERNEL_HEAD_DIMS`` at or above it (64 for 1-64, 128 for 65-128, 256
-    for 129-256). Raises for a width above ``MAX_HEAD_DIM`` (256), which no
-    kernel takes."""
+    for 129-256), and above 256 the next multiple of ``WIDE_STEP`` (384
+    for 257-384, 512 for 385-512, ...). Raises for a width below 1."""
+    if head_dim < 1:
+        raise ValueError(f"the attention kernels take head widths of 1 and more (native "
+                         f"{KERNEL_HEAD_DIMS} and every multiple of {WIDE_STEP} above, others "
+                         f"padded with zero columns to the next); got {head_dim}")
     for width in KERNEL_HEAD_DIMS:
-        if 1 <= head_dim <= width:
+        if head_dim <= width:
             return width
-    raise ValueError(f"the attention kernels take head widths 1 to {MAX_HEAD_DIM} "
-                     f"(native {KERNEL_HEAD_DIMS}, narrower ones padded with zero columns "
-                     f"to the next); got {head_dim}")
+    return -(-head_dim // WIDE_STEP) * WIDE_STEP
+
+
+def is_native_width(head_dim: int) -> bool:
+    """Whether a kernel runs at ``head_dim`` itself, without padding."""
+    return head_dim >= 1 and kernel_width(head_dim) == head_dim
 
 
 def pad_head_width(width: int, *tensors: torch.Tensor) -> Tuple[torch.Tensor, ...]:
@@ -218,8 +236,8 @@ def _check_kernel_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *more: torch.Tensor) -> None:
     """Raise on anything the kernels do not take: q (and ``more``, shaped
     like q) [B, H, Tq, D], k and v [B, H, Tk, D], one CUDA device, one dtype
-    of KERNEL_DTYPES, D that ``kernel_width`` takes (1 to 256), contiguous,
-    not empty."""
+    of KERNEL_DTYPES, D that ``kernel_width`` takes (1 and more),
+    contiguous, not empty."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, H, T, D]")
     B, H, Tq, D = q.shape
@@ -327,17 +345,18 @@ def kernel_name(kind: str, dtype: torch.dtype, head_dim: int = 64) -> str:
     "dq" or "dkv") for ``dtype`` at head width ``head_dim``: bf16 takes the
     tensor-core kernels, fp32 the fp32-FMA ones, each at ``kernel_width(
     head_dim)``; the D = 128 and D = 256 instantiations' keys end in
-    ``_d128`` and ``_d256``."""
+    ``_d128`` and ``_d256``, the wide kernels' (every width above 256) in
+    ``_wide``."""
     base = "masked_attention_fwd" if kind == "fwd" else f"masked_attention_bwd_{kind}"
     if dtype == torch.bfloat16:
         base += "_tc"
-    return base + WIDTH_SUFFIX[kernel_width(head_dim)]
+    return base + WIDTH_SUFFIX.get(kernel_width(head_dim), WIDE_SUFFIX)
 
 
 def c_function(name: str) -> str:
     """The C function of the kernel whose ``launch_counts`` key is ``name``:
     one function a kernel serves every width."""
-    for suffix in WIDTH_SUFFIX.values():
+    for suffix in (*WIDTH_SUFFIX.values(), WIDE_SUFFIX):
         if suffix and name.endswith(suffix):
             return name.removesuffix(suffix)
     return name
@@ -369,15 +388,17 @@ def launch_backward_kernel(kernel: str, q: torch.Tensor, k: torch.Tensor,
     ``"dkv"`` (``outs = (dk, dv)``), the one ``kernel_name`` picks for q's
     dtype and width, on the current stream, and count it. The tensors are
     taken as ``masked_flash_attention_backward`` checks and pads them: CUDA,
-    contiguous, D native (64, 128 or 256), lengths int32 or None, ``delta`` fp32
+    contiguous, D native (64, 128, 256 or a multiple of 128 above),
+    lengths int32 or None, ``delta`` fp32
     [B, H, Tq]. A kernel of ``DELTA_FORMING_KERNELS`` reads ``o`` and
     writes ``delta``; every other one reads ``delta`` and is given no
     ``o``. Raise on a width that is not native, on a wrong ``o`` or if the
     launch fails."""
     B, H, Tq, D = q.shape
-    if D not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"a backward kernel takes the native widths {KERNEL_HEAD_DIMS}; "
-                         f"got {D} (masked_flash_attention_backward pads it)")
+    if not is_native_width(D):
+        raise ValueError(f"a backward kernel takes the native widths {KERNEL_HEAD_DIMS} and "
+                         f"the multiples of {WIDE_STEP} above; got {D} "
+                         f"(masked_flash_attention_backward pads it)")
     name = kernel_name(kernel, q.dtype, D)
     if (o is not None) != (name in DELTA_FORMING_KERNELS):
         raise ValueError(f"{name} reads o" if o is None else f"{name} takes no o")

@@ -22,8 +22,9 @@ dK/dV kernel reads: a backward launches those two kernels and nothing else.
    the next of those) on a subset (PADDED_FWD_CASES, PADDED_BWD_CASES),
    all under one tolerance a
    dtype, each check asserting which kernel it launched: the forward at the
-   synthesis path's shapes, on ragged shapes, fully masked rows and
-   Tk > 4096; the dQ and dK/dV backward kernels at the training path's
+   synthesis path's shapes, on ragged shapes, fully masked rows, Tk > 4096
+   and logits of standard deviation 8 (|S| up to a few tens, at every
+   width); the dQ and dK/dV backward kernels at the training path's
    shapes (r = 2 and r = 5), with fully masked rows, an item with no key, a
    ragged pair and a long causal site, and each dQ kernel alone with its
    delta; both at the edges of the kernels' tiles (padding rows over many
@@ -230,6 +231,13 @@ LINES = [
 # tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
+# the fp32 forward at D >= 256 runs on the tensor cores in 3xTF32, three
+# TF32 products for each fp32 one (masked_attention_fwd_3xtf32.cu): a third
+# of the 495 TFLOP/s dense TF32 rate, beside the SIMT fp32 bound
+PEAK_3XTF32 = 495e12 / 3
+# the fp32 forward kernels (launch_counts keys) that run 3xTF32: their
+# bound_ms and bound_by are at PEAK_3XTF32, their SIMT flop_ms only beside
+TF32X3_KERNELS = ("masked_attention_fwd_d256", "masked_attention_fwd_wide")
 # bytes of an element of q, k, v, o and the gradients; the row statistics,
 # delta and the lengths are 4-byte in both dtypes
 ELEMENT_BYTES = {"float32": 4, "bfloat16": 2}
@@ -240,6 +248,9 @@ ELEMENT_BYTES = {"float32": 4, "bfloat16": 2}
 TOL_O = {"float32": (1e-4, 0.0), "bfloat16": (1e-3, 2.0 ** -7)}
 TOL_M = 1e-4
 TOL_S_REL = 1e-4
+# the check cases whose q and k are scaled by sqrt(std), so that the scaled
+# logits have this standard deviation (|S| up to a few tens) in place of 1
+LARGE_LOGIT_STD = {"large_logits_130": 8.0}
 # card against CPU, whole model at temperature 0: an fp32 chain of ~50
 # layers whose sums run in another order on the card; mels are of order 1,
 # as the JAX-against-port tolerance on the CPU (tests/test_torch_model.py)
@@ -474,10 +485,10 @@ HEAD_STACKS = ("encoder", "decoder", "posterior", "prior")
 PADDED_WIDTHS = (8, 32, 96, 160, 320)
 WIDE_WIDTHS = (384, 512)
 UNCAPPED_WIDTH = 1024
-UNCAPPED_CASES = ("row_edges_causal_130",)
+UNCAPPED_CASES = ("row_edges_causal_130", "large_logits_130", "split_keys_64x2100")
 WIDE_MODEL_DIM = 384
 PADDED_FWD_CASES = ("self_160", "causal_1680", "tile_edges_97", "row_edges_causal_130",
-                    "no_key_causal_700")
+                    "no_key_causal_700", "large_logits_130", "split_keys_64x2100")
 PADDED_BWD_CASES = ("encoder_self_32", "causal_self_240", "cross_240x32", "tile_edges_causal_97",
                     "row_edges_causal_130", "key_edges_bwd_130x81")
 TOL_TP_LOSS_REL = 1e-4
@@ -525,7 +536,9 @@ def fixed_len(torch, device, *lens):
 def check_cases(torch, device):
     """(name, Tq, Tk, causal, q_len, m_len): the main path's shapes (text
     160, reduced mel 1680), a ragged pair and a Tk > 4096 case, with random
-    lengths that leave rows fully masked, and one case with full lengths."""
+    lengths that leave rows fully masked, one case with full lengths, the
+    tiles' edges, one case of large logits (LARGE_LOGIT_STD) and, last, two
+    of few q-blocks and many keys."""
     rand_len = length_sampler(torch, device, 7)
     return [
         ("self_160", 160, 160, False, rand_len(160, 20, (0, 160)), rand_len(160, 20, (0, 160))),
@@ -559,6 +572,17 @@ def check_cases(torch, device):
          fixed_len(torch, device, 63, 64, 65, 48)),
         ("no_key_causal_700", 700, 700, True, fixed_len(torch, device, 700, 650, 97, 1),
          fixed_len(torch, device, 700, 0, 97, 600)),
+        # large logits (q and k scaled in check_kernels, LARGE_LOGIT_STD):
+        # the 3xTF32 split's error grows with |S|; a last tile of 2 keys
+        ("large_logits_130", 130, 130, False, fixed_len(torch, device, 130, 97, 64, 1),
+         fixed_len(torch, device, 130, 120, 33, 130)),
+        # few q-blocks and many key tiles: the fp32 forward at D >= 256
+        # splits a q-block's keys over a cluster of 4 (2 when causal) blocks;
+        # an item with no key, a rank left without a tile
+        ("split_keys_64x2100", 64, 2100, False, fixed_len(torch, device, 64, 40, 1, 64),
+         fixed_len(torch, device, 2100, 1500, 2100, 0)),
+        ("split_keys_causal_128x1100", 128, 1100, True, fixed_len(torch, device, 128, 100, 65, 128),
+         fixed_len(torch, device, 1100, 64, 1100, 30)),
     ]
 
 
@@ -596,6 +620,9 @@ def check_kernels(torch, fa, device, D=64, names=None):
             if names is not None and name not in names:
                 continue
             q, k, v = random_qkv(torch, device, dtype, 4, 4, tq, tk, D, seed=i)
+            if name in LARGE_LOGIT_STD:
+                gain = LARGE_LOGIT_STD[name] ** 0.5
+                q, k = q * gain, k * gain
             fa.launch_counts.clear()
             o, m, s = fa.masked_flash_attention(q, k, v, ql, ml, scale, causal)
             check(dict(fa.launch_counts) == {kernel: 1}, f"{name}/{dtype_name}/D={D}: launched "
@@ -685,6 +712,20 @@ def forward_bound(torch, tq, tk, causal, ql, ml, B, dtype_name, H=4, D=64):
             flops / 1e9, n_bytes / 1e6)
 
 
+def bound_flop_ms(kernel, flop_ms, tf32x3):
+    """The operations' ms that bound ``kernel``: at PEAK_3XTF32
+    (``tf32x3["flop_ms_3xtf32"]``) for the 3xTF32 kernels, else the SIMT or
+    bf16 ``flop_ms``."""
+    return tf32x3["flop_ms_3xtf32"] if kernel in TF32X3_KERNELS else flop_ms
+
+
+def bound_by(kernel, t, prefix=""):
+    """"operations" or "bytes": which of ``t``'s summed operation and byte
+    times (keys after ``prefix``) bounds ``kernel``."""
+    flops = t[f"{prefix}flop_ms_3xtf32"] if kernel in TF32X3_KERNELS else t[f"{prefix}flop_ms"]
+    return "operations" if flops >= t[f"{prefix}byte_ms"] else "bytes"
+
+
 def sdpa_backend(torch, q, k, v, mask, scale):
     """The backend (a ``torch.nn.attention.SDPBackend`` name) that torch's
     dispatcher picks for scaled_dot_product_attention on these inputs, or
@@ -705,7 +746,10 @@ def time_kernels(torch, fa, device, sites, dtype_name, H=4, D=64):
     import torch.nn.functional as F
     totals = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
               "flop_ms": 0.0, "byte_ms": 0.0}
+    if dtype_name == "float32":
+        totals["flop_ms_3xtf32"] = 0.0
     dtype = getattr(torch, dtype_name)
+    kernel = kernel_key(fa, "fwd", dtype, D)
     for i, (name, calls, tq, tk, causal, ql, ml) in enumerate(sites):
         q, k, v = random_qkv(torch, device, dtype, len(ql), H, tq, tk, D, seed=100 + i)
         mask = fa.attention_mask(ql, ml, len(ql), tq, tk, causal, device)
@@ -715,13 +759,14 @@ def time_kernels(torch, fa, device, sites, dtype_name, H=4, D=64):
         library_ms = time_ms(torch, lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale))
         flop_ms, byte_ms, gflop, mbytes = forward_bound(torch, tq, tk, causal, ql, ml, len(ql),
                                                         dtype_name, H, D)
-        row = {"site": name, "dtype": dtype_name, "kernel": kernel_key(fa, "fwd", dtype, D),
+        tf32x3 = {"flop_ms_3xtf32": 1e12 * gflop / PEAK_3XTF32} if dtype_name == "float32" else {}
+        row = {"site": name, "dtype": dtype_name, "kernel": kernel,
                "shape": [len(ql), H, tq, tk, D], "causal": causal,
                "calls_per_synthesis": calls, "ms": ms, "plain_ms": plain_ms,
                "library_ms": library_ms,
                "library_backend": sdpa_backend(torch, q, k, v, mask, scale),
-               "bound_ms": max(flop_ms, byte_ms),
-               "flop_ms": flop_ms, "byte_ms": byte_ms, "gflop": gflop,
+               "bound_ms": max(bound_flop_ms(kernel, flop_ms, tf32x3), byte_ms),
+               "flop_ms": flop_ms, **tf32x3, "byte_ms": byte_ms, "gflop": gflop,
                "mbytes": mbytes, "tflops_achieved": gflop / ms}
         print(json.dumps(row), flush=True)
         for key in totals:
@@ -1004,7 +1049,10 @@ def time_backward(torch, fa, device, sites, dtype_name, H=4, D=64):
                                "fwd_flop_ms", "fwd_byte_ms",
                                "dq_bound_ms", "dkv_bound_ms", "dq_flop_ms", "dq_byte_ms",
                                "dkv_flop_ms", "dkv_byte_ms")}
+    if dtype_name == "float32":
+        totals["fwd_flop_ms_3xtf32"] = 0.0
     dtype = getattr(torch, dtype_name)
+    fwd_kernel = kernel_key(fa, "fwd", dtype, D)
     atol, rtol = TOL_GRAD[dtype_name]
     for i, (name, calls, tq, tk, causal, ql, ml) in enumerate(sites):
         B = len(ql)
@@ -1029,8 +1077,10 @@ def time_backward(torch, fa, device, sites, dtype_name, H=4, D=64):
                                       o=native[4] if reads_o else None)
 
         mask = fa.attention_mask(ql, ml, B, tq, tk, causal, device)
-        fwd_flop_ms, fwd_byte_ms, _, _ = forward_bound(torch, tq, tk, causal, ql, ml, B,
-                                                       dtype_name, H, D)
+        fwd_flop_ms, fwd_byte_ms, fwd_gflop, _ = forward_bound(torch, tq, tk, causal, ql, ml, B,
+                                                               dtype_name, H, D)
+        tf32x3 = ({"flop_ms_3xtf32": 1e12 * fwd_gflop / PEAK_3XTF32}
+                  if dtype_name == "float32" else {})
         row = {"site": name, "dtype": dtype_name, "shape": [B, H, tq, tk, D], "causal": causal,
                "kernels": [kernel_key(fa, kind, dtype, D) for kind in ("fwd", "dq", "dkv")],
                "calls_per_train_step": calls,
@@ -1041,7 +1091,8 @@ def time_backward(torch, fa, device, sites, dtype_name, H=4, D=64):
                "fwd_library_ms": time_ms(torch, lambda: F.scaled_dot_product_attention(
                    q, k, v, attn_mask=mask, scale=scale)),
                "fwd_flop_ms": fwd_flop_ms, "fwd_byte_ms": fwd_byte_ms,
-               "fwd_bound_ms": max(fwd_flop_ms, fwd_byte_ms),
+               **{f"fwd_{k}": x for k, x in tf32x3.items()},
+               "fwd_bound_ms": max(bound_flop_ms(fwd_kernel, fwd_flop_ms, tf32x3), fwd_byte_ms),
                "dq_ms": time_ms(torch, lambda: launch("dq")),
                "dkv_ms": time_ms(torch, lambda: launch("dkv")),
                "pair_ms": time_ms(torch, lambda: (launch("dq"), launch("dkv"))),
@@ -4262,17 +4313,15 @@ def main():
                 "launches": launches, "launches_by_path": by_path,
                 "max_abs_err": worst[name][dtype_name],
                 "ms": t_syn["ms"], "plain_ms": t_syn["plain_ms"], "bound_ms": t_syn["bound_ms"],
-                "bound_by": "operations" if t_syn["flop_ms"] >= t_syn["byte_ms"] else "bytes",
+                "bound_by": bound_by(name, t_syn),
                 "library_ms": t_syn["library_ms"],
                 "per_train_step_r2": {
                     "ms": t_step["fwd_ms"], "plain_ms": t_step["fwd_plain_ms"],
                     "bound_ms": t_step["fwd_bound_ms"], "library_ms": t_step["fwd_library_ms"],
-                    "bound_by": ("operations" if t_step["fwd_flop_ms"] >= t_step["fwd_byte_ms"]
-                                 else "bytes")},
+                    "bound_by": bound_by(name, t_step, "fwd_")},
                 "tk_4104": {"ms": t_long["ms"], "plain_ms": t_long["plain_ms"],
                             "library_ms": t_long["library_ms"], "bound_ms": t_long["bound_ms"],
-                            "bound_by": ("operations" if t_long["flop_ms"] >= t_long["byte_ms"]
-                                         else "bytes")},
+                            "bound_by": bound_by(name, t_long)},
                 "per": synth_per, **extra}
 
     def bwd_entry(name, kern, dtype_name, launches, by_path, extra, timing=None):
@@ -4357,6 +4406,8 @@ def main():
                               bwd_entry(name, kern, dtype_name, 0, {}, {}, width_timing[512]))
                     extra["at_d512_same_sites"] = {k: at_512[k] for k in timing_keys
                                                    if k in at_512}
+                if name in TF32X3_KERNELS:
+                    extra["source"] = "vaenar_tts_torch/csrc/masked_attention_fwd_3xtf32.cu"
                 kernels.append(fwd_entry(name, dtype_name, 0, {}, extra, width_timing[D])
                                if kern == "fwd" else
                                bwd_entry(name, kern, dtype_name, 0, {}, extra, width_timing[D]))

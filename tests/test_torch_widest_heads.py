@@ -5,7 +5,8 @@ stack of a tiny model, and the model's attention at one head of 384 and of
 Every head width above 256 runs on the wide kernels at the next multiple
 of 128 (csrc/masked_attention_wide_tc.cu, csrc/masked_attention_wide.cu:
 their grids take the D / 128 output slices, and S is summed over panels of
-64 columns); here, as on the CPU, through the plain version the wrapper
+64 columns; the fp32 forward on csrc/masked_attention_fwd_3xtf32.cu); here,
+as on the CPU, through the plain version the wrapper
 takes for CPU tensors (tests/test_torch_head_widths.py holds the padding
 route to those widths, at D = 320). Here, as tests/test_torch_wide_heads.py
 holds one head of 256:

@@ -1,8 +1,10 @@
 // The wide attention kernels' launchers: every head width D above 256 that
 // is a multiple of 128, taken at run time, bf16 in masked_attention_wide_tc.cu
-// and fp32 in masked_attention_wide.cu. The C entry points of the D = 64,
-// 128 and 256 kernels (masked_attention_fwd*.cu, masked_attention_bwd*.cu)
-// send those widths here; the arguments are theirs, in their order.
+// and fp32 in masked_attention_wide.cu, and the fp32 forward at D = 256 and
+// above (fwd_f32, masked_attention_fwd_3xtf32.cu). The C entry points of
+// the D = 64, 128 and 256 kernels (masked_attention_fwd*.cu,
+// masked_attention_bwd*.cu) send those widths here; the arguments are
+// theirs, in their order.
 
 #pragma once
 
@@ -24,6 +26,50 @@ inline cudaError_t opt_in(Kernel kernel, size_t bytes, bool& done) {
   return err;
 }
 
+// Column sums of rows [row0, row1) of COLS columns of an fp32 matrix whose
+// rows are ld floats apart, each row times 1 / div[r] when `div` is not
+// null, into sum[0..COLS); `scratch` is shared memory for THREADS * 4
+// floats (f32::column_sums with a run-time row stride). Ends with a
+// barrier.
+template <int THREADS, int COLS = 128>
+__device__ __forceinline__ void slice_sums(float* sum, float* scratch,
+                                           const float* __restrict__ src, int ld, int row0,
+                                           int row1, const float* __restrict__ div) {
+  constexpr int DEPTH = 8;             // loads in flight a thread
+  constexpr int TPR = COLS / 4;        // threads a row
+  constexpr int STEP = THREADS / TPR;  // rows read at once by the block
+  const int c4 = (threadIdx.x % TPR) * 4;
+  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  auto add = [&](const float4& x, float w) {
+    acc.x = fmaf(x.x, w, acc.x);
+    acc.y = fmaf(x.y, w, acc.y);
+    acc.z = fmaf(x.z, w, acc.z);
+    acc.w = fmaf(x.w, w, acc.w);
+  };
+  int r = row0 + (threadIdx.x / TPR);
+  for (; r + (DEPTH - 1) * STEP < row1; r += DEPTH * STEP) {
+    float4 raw[DEPTH];
+    float w[DEPTH];
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u) {
+      raw[u] = *reinterpret_cast<const float4*>(src + (size_t)(r + u * STEP) * ld + c4);
+      w[u] = div ? div[r + u * STEP] : 1.f;
+    }
+#pragma unroll
+    for (int u = 0; u < DEPTH; ++u) add(raw[u], div ? 1.f / w[u] : 1.f);
+  }
+  for (; r < row1; r += STEP)
+    add(*reinterpret_cast<const float4*>(src + (size_t)r * ld + c4), div ? 1.f / div[r] : 1.f);
+  reinterpret_cast<float4*>(scratch)[threadIdx.x] = acc;
+  __syncthreads();
+  if (threadIdx.x < COLS) {
+    float total = 0.f;
+    for (int g = 0; g < STEP; ++g) total += scratch[g * COLS + threadIdx.x];
+    sum[threadIdx.x] = total;
+  }
+  __syncthreads();
+}
+
 cudaError_t fwd_tc(const void* q, const void* k, const void* v, const void* q_len,
                    const void* m_len, void* o, void* m, void* s, int B, int H, int Tq, int Tk,
                    int D, float scale, int causal, cudaStream_t stream);
@@ -36,6 +82,7 @@ cudaError_t dkv_tc(const void* q, const void* k, const void* v, const void* dout
                    const void* delta, void* dk, void* dv, int B, int H, int Tq, int Tk, int D,
                    float scale, int causal, cudaStream_t stream);
 
+// D = 256 too (masked_attention_fwd_3xtf32.cu)
 cudaError_t fwd_f32(const void* q, const void* k, const void* v, const void* q_len,
                     const void* m_len, void* o, void* m, void* s, int B, int H, int Tq, int Tk,
                     int D, float scale, int causal, cudaStream_t stream);

@@ -1,7 +1,8 @@
 // Masked multi-head attention, forward, fp32 FMAs, for sm_90a. Plain C
 // interface, bound from Python with ctypes
-// (vaenar_tts_torch/ops/flash_attention.py); fp32 q, k, v take this kernel,
-// bf16 ones masked_attention_fwd_tc.cu.
+// (vaenar_tts_torch/ops/flash_attention.py); fp32 q, k, v take this kernel
+// at D = 64 and 128 and the 3xTF32 one (masked_attention_fwd_3xtf32.cu) at
+// D = 256 and above, bf16 ones masked_attention_fwd_tc.cu.
 //
 // Replaces the two forward Pallas kernels of
 // vaenar_tts_tpu/ops/flash_attention.py for fp32 inputs:
@@ -68,18 +69,9 @@
 // At D = 128 a thread owns 8 columns of O (64 h + 4 cg + c, h < 2) and a
 // block takes one warp group at every Tk: two groups' rings, 11 tiles of
 // 64 x 132 fp32, do not fit in shared memory; one group's 6 tiles take
-// 202,752 bytes. Registers in PERF.md §6.
-//
-// D = 256: a kernel of its own (masked_attention_fwd_wide_kernel). A row of
-// 256 fp32 is two tiles of 128 columns (64 x 132), and the D = 128 layout
-// would need Q, a two-stage K/V ring and P at that width, 304,128 bytes.
-// So the grid gains an axis over two column slices of o (blocks of one
-// warp group, the D = 128 thread layout: 8 x 8 of o a thread): a block
-// holds Q's two halves, and for one key tile at a time K's two halves and
-// V's half in its slice, with P: 6 tiles of 64 x 132, 202,752 bytes. S is
-// the sum of the two halves' products (f32::dots, then f32::dots with
-// ADD), formed by both slices; slice 0 writes m and s. One stage: the next
-// tile loads after this one's products, not during them.
+// 202,752 bytes. Registers in PERF.md §6. D = 256 and every multiple of 128
+// above run on the 3xTF32 tensor-core forward
+// (masked_attention_fwd_3xtf32.cu, wide::fwd_f32).
 
 #include "attention_wide.cuh"
 #include "tile_f32.cuh"
@@ -107,24 +99,23 @@ __host__ __device__ constexpr size_t smem_bytes() {
   return sizeof(float) * (f32::tile<HD>() + GROUPS * group_floats<HD>());
 }
 
-// Rows [pad0, Tq) of one (b, h): o = mean(v) over its Tk keys in HD
-// columns of rows LD floats apart, and, when `stats`, m = NEG, s = Tk.
-// `scratch` is shared memory for HD + 4 * THREADS floats.
-template <int THREADS, int HD, int LD = HD>
+// Rows [pad0, Tq) of one (b, h): o = mean(v) over its Tk keys, m = NEG,
+// s = Tk. `scratch` is shared memory for HD + 4 * THREADS floats.
+template <int THREADS, int HD>
 __device__ __forceinline__ void write_padding_rows(float* scratch, const float* __restrict__ v,
                                                    float* __restrict__ o,
                                                    float* __restrict__ m_out,
                                                    float* __restrict__ s_out, int pad0, int Tq,
-                                                   int Tk, bool stats = true) {
+                                                   int Tk) {
   constexpr int TPR = HD / 4;  // threads a row, 4 columns each
   float* sum = scratch;  // [HD]
-  f32::column_sums<THREADS, 8, HD, LD>(sum, scratch + HD, v, 0, Tk, nullptr);
+  f32::column_sums<THREADS, 8, HD>(sum, scratch + HD, v, 0, Tk, nullptr);
   const int c4 = (threadIdx.x % TPR) * 4;
   const float n = (float)Tk;
   const float4 mean = make_float4(sum[c4] / n, sum[c4 + 1] / n, sum[c4 + 2] / n, sum[c4 + 3] / n);
   for (int r = pad0 + (threadIdx.x / TPR); r < Tq; r += THREADS / TPR)
-    *reinterpret_cast<float4*>(o + (size_t)r * LD + c4) = mean;
-  for (int r = pad0 + threadIdx.x; stats && r < Tq; r += THREADS) {
+    *reinterpret_cast<float4*>(o + (size_t)r * HD + c4) = mean;
+  for (int r = pad0 + threadIdx.x; r < Tq; r += THREADS) {
     m_out[r] = NEG;
     s_out[r] = n;
   }
@@ -341,202 +332,25 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* q_le
   return cudaGetLastError();
 }
 
-// D = 256: f32::HALF columns a tile, two tiles a row; see the head-width
-// note at the top. One warp group, key tiles in one stage.
-using f32::HALF;
-using f32::WIDE;
-constexpr size_t WIDE_SMEM_BYTES = sizeof(float) * 6 * f32::tile<HALF>();
-
-__global__ void __launch_bounds__(GROUP_THREADS)
-masked_attention_fwd_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                                 const float* __restrict__ v, const int* __restrict__ q_len,
-                                 const int* __restrict__ m_len, float* __restrict__ o,
-                                 float* __restrict__ m_out, float* __restrict__ s_out, int H,
-                                 int Tq, int Tk, float scale, int causal) {
-  constexpr int LDP = f32::ldp<HALF>(), TILE = f32::tile<HALF>();
-  constexpr int CW = HALF / 16;  // o columns a thread: 64 h + 4 cg + c
-  extern __shared__ __align__(16) float smem[];
-  float* sQ = smem;           // [2][64][LDP]: the block's rows of q, columns 0-127, 128-255
-  float* sK = sQ + 2 * TILE;  // [2][64][LDP]: the key tile's k, the same halves
-  float* sV = sK + 2 * TILE;  // [64][LDP]: the key tile's v in the block's slice
-  float* sP = sV + TILE;      // [64][LDP]: P; the padding rows' scratch before the loop
-
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x;  // b * H + h
-  const int b = bh / H;
-  // the last q-block first: when causal its chain of key tiles is the longest
-  const int qb = (int)gridDim.y - 1 - (int)blockIdx.y;
-  const int q0 = qb * BQ;
-  const int q_rows = min(BQ, Tq - q0);
-  const int c0 = (int)blockIdx.z * HALF;  // this block's columns of o and v
-  const bool writes_stats = blockIdx.z == 0;
-  const int qlen = q_len ? q_len[b] : Tq;
-  const int klim = max(0, min(Tk, m_len ? m_len[b] : Tk));  // keys a valid row may see
-  const size_t q_base = (size_t)bh * Tq * WIDE;
-  const size_t k_base = (size_t)bh * Tk * WIDE;
-  const size_t stat_base = (size_t)bh * Tq;
-
-  // as masked_attention_fwd_kernel: rows below pad0 have a key (key 0), the
-  // others are uniform; valid rows see no key at or past k_end
-  const int pad0 = klim > 0 ? max(0, min(qlen, Tq)) : 0;
-  const int rows_end = min(q0 + q_rows, pad0);
-  const int k_end = causal ? min(klim, rows_end) : klim;
-  const int n_tiles = q0 < pad0 ? (k_end + BK - 1) / BK : 0;
-
-  auto load_kv = [&](int t) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      f32::load_tile_async<GROUP_THREADS, HALF, WIDE>(sK + h * TILE, k + k_base + h * HALF,
-                                                      t * BK, k_end, tid);
-    f32::load_tile_async<GROUP_THREADS, HALF, WIDE>(sV, v + k_base + c0, t * BK, k_end, tid);
-  };
-  // Q and key tile 0, one commit group
-  if (n_tiles > 0) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-      f32::load_tile_async<GROUP_THREADS, HALF, WIDE>(sQ + h * TILE, q + q_base + h * HALF, q0,
-                                                      rows_end, tid);
-    load_kv(0);
-    cpa::cp_async_commit();
-  }
-
-  // one block of the (b, h) writes the padding rows, in its slice, while
-  // the copies above land (the same writer as masked_attention_fwd_kernel's)
-  const int writer = min((pad0 + BQ - 1) / BQ, (int)gridDim.y - 1);
-  if (pad0 < Tq && qb == writer) {
-    write_padding_rows<GROUP_THREADS, HALF, WIDE>(sP, v + k_base + c0, o + q_base + c0,
-                                                  m_out + stat_base, s_out + stat_base, pad0,
-                                                  Tq, Tk, writes_stats);
-  }
-  if (n_tiles == 0) return;
-
-  const int rg = tid >> 4, cg = tid & 15;  // rows rg + 8 i; keys cg + 16 j; columns 4 cg + c
-  const float scale2 = scale * f32::LOG2E;
-  float acc[8][CW], row_max[8], row_sum[8];  // row_sum: this thread's keys only, until the end
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    row_max[i] = NEG;
-    row_sum[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    if (t > 0) {
-      __syncthreads();  // every warp is done with tile t - 1
-      load_kv(t);
-      cpa::cp_async_commit();
-    }
-    cpa::cp_async_wait<0>();
-    __syncthreads();  // tile t (and Q) have landed, and the writer is done with sP
-    const int kt = t * BK;
-    const int n_keys = min(BK, k_end - kt);
-
-    // S = Q.K^T over both halves; a tile with at most 32 keys left computes
-    // only those, as masked_attention_fwd_kernel
-    float sc[8][4];
-    if (n_keys > 32) {
-      f32::dots<8, 4, false, 8, HALF>(sc, sQ, sK, rg, cg);
-      f32::dots<8, 4, false, 8, HALF, true>(sc, sQ + TILE, sK + TILE, rg, cg);
-    } else {
-      f32::dots<8, 2, false, 8, HALF>(sc, sQ, sK, rg, cg);
-      f32::dots<8, 2, false, 8, HALF, true>(sc, sQ + TILE, sK + TILE, rg, cg);
-    }
-
-    // mask, online softmax in base 2; P to this warp's rows of sP
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      const int row = q0 + rg + 8 * i;
-      float tile_max = NEG;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = kt + cg + 16 * j;
-        sc[i][j] = col < k_end && (!causal || col <= row) ? sc[i][j] * scale2 : NEG;
-        tile_max = fmaxf(tile_max, sc[i][j]);
-      }
-#pragma unroll
-      for (int off = 1; off < 16; off <<= 1)
-        tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
-      const float m_new = fmaxf(row_max[i], tile_max);
-      const float alpha = exp2f(row_max[i] - m_new);
-      row_max[i] = m_new;
-      float part = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f(sc[i][j] - m_new);
-        part += p;
-        sP[(rg + 8 * i) * LDP + cg + 16 * j] = p;
-      }
-      row_sum[i] = row_sum[i] * alpha + part;
-#pragma unroll
-      for (int c = 0; c < CW; ++c) acc[i][c] *= alpha;
-    }
-    __syncwarp();  // P rows are written and read by one half-warp each
-
-    f32::accumulate<8, 8, HALF>(acc, sP, sV, rg, cg, n_keys);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int off = 1; off < 16; off <<= 1)
-      row_sum[i] += __shfl_xor_sync(0xffffffffu, row_sum[i], off);
-    const int row = q0 + rg + 8 * i;
-    if (row >= rows_end) continue;  // past Tq, or a padding row written by the writer
-    const float inv = 1.f / row_sum[i];
-#pragma unroll
-    for (int h = 0; h < HALF / 64; ++h)
-      *reinterpret_cast<float4*>(o + q_base + (size_t)row * WIDE + c0 + 64 * h + 4 * cg) =
-          make_float4(acc[i][4 * h] * inv, acc[i][4 * h + 1] * inv, acc[i][4 * h + 2] * inv,
-                      acc[i][4 * h + 3] * inv);
-    if (writes_stats && cg == 0) {
-      m_out[stat_base + row] = row_max[i] * f32::LN2;
-      s_out[stat_base + row] = row_sum[i];
-    }
-  }
-}
-
-cudaError_t launch_wide(const void* q, const void* k, const void* v, const void* q_len,
-                        const void* m_len, void* o, void* m, void* s, int B, int H, int Tq,
-                        int Tk, float scale, int causal, cudaStream_t stream) {
-  static bool smem_set = false;  // above 48 KB needs an explicit opt-in
-  if (!smem_set) {
-    const cudaError_t err = cudaFuncSetAttribute(masked_attention_fwd_wide_kernel,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 (int)WIDE_SMEM_BYTES);
-    if (err != cudaSuccess) return err;
-    smem_set = true;
-  }
-  const dim3 grid(B * H, (Tq + BQ - 1) / BQ, WIDE / HALF);
-  masked_attention_fwd_wide_kernel<<<grid, GROUP_THREADS, WIDE_SMEM_BYTES, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int*>(q_len), static_cast<const int*>(m_len), static_cast<float*>(o),
-      static_cast<float*>(m), static_cast<float*>(s), H, Tq, Tk, scale, causal);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // q, k, v: contiguous fp32 [B, H, T, D], D = 64, 128, 256 or a multiple of
-// 128 above (the wide kernel, masked_attention_wide.cu; the wrapper pads
-// other widths with zero columns to the next of those); q_len, m_len: int32 [B] or
-// null; o like q; m, s: fp32 [B, H, Tq]. Returns the CUDA error code of the
-// launch (0 on success).
+// 128 above (D >= 256: the 3xTF32 kernel, masked_attention_fwd_3xtf32.cu;
+// the wrapper pads other widths with zero columns to the next of those);
+// q_len, m_len: int32 [B] or null; o like q; m, s: fp32 [B, H, Tq]. Returns
+// the CUDA error code of the launch (0 on success).
 extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
                                     const void* q_len, const void* m_len,
                                     void* o, void* m, void* s, int B, int H,
                                     int Tq, int Tk, int D, float scale,
                                     int causal, void* stream) {
-  if ((D != 64 && D != 128 && D != WIDE && !wide::takes(D)) || B <= 0 || H <= 0 || Tq <= 0 || Tk <= 0 ||
-      (Tq + BQ - 1) / BQ > 65535) {
+  if ((D != 64 && D != 128 && D != f32::WIDE && !wide::takes(D)) || B <= 0 || H <= 0 ||
+      Tq <= 0 || Tk <= 0 || (Tq + BQ - 1) / BQ > 65535) {
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (wide::takes(D)) {  // every multiple of 128 above 256
+  if (D == f32::WIDE || wide::takes(D)) {  // 256 and every multiple of 128 above
     return (int)wide::fwd_f32(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, D, scale, causal, st);
-  }
-  if (D == WIDE) {
-    return (int)launch_wide(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal, st);
   }
   // D = 128: one warp group (two groups' rings, 11 tiles of 64 x 132 fp32,
   // do not fit in shared memory)
@@ -549,6 +363,6 @@ extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
 }
 
 // Dynamic shared memory a D = 64 block of two warp groups asks for, in
-// bytes (a block of one group asks for 104,448, a D = 128 or D = 256 block
-// 202,752; ptxas -v reports static shared memory only).
+// bytes (a block of one group asks for 104,448, a D = 128 block 202,752;
+// ptxas -v reports static shared memory only).
 extern "C" int masked_attention_fwd_shared_bytes(void) { return (int)smem_bytes<64, 2>(); }

@@ -1,34 +1,30 @@
 // Masked multi-head attention at every head width above 256 (each multiple
-// of 128, taken at run time), fp32 FMAs, for sm_90a: the forward, the dQ
-// kernel (which also forms delta) and the dK/dV kernel. Reached through the
-// C entry points of the D = 64, 128 and 256 kernels
-// (masked_attention_fwd.cu, masked_attention_bwd.cu,
+// of 128, taken at run time), fp32 FMAs, for sm_90a: the dQ kernel (which
+// also forms delta) and the dK/dV kernel. Reached through the C entry
+// points of the D = 64, 128 and 256 kernels (masked_attention_bwd.cu,
 // masked_attention_bwd_dkv.cu), which send every D > 256 here; the bf16
 // counterparts, and the design both share, are in
-// masked_attention_wide_tc.cu.
+// masked_attention_wide_tc.cu. The fp32 forward at these widths is
+// masked_attention_fwd_3xtf32.cu's (3xTF32 on the tensor cores).
 //
-// Replaces, for fp32 inputs at D > 256, the Pallas kernels of
-// vaenar_tts_tpu/ops/flash_attention.py: _fwd_kernel (l.104, pallas_call
-// l.299), _fwd_kernel_blocked (l.142, pallas_call l.224), _dq_kernel
-// (l.320, pallas_call l.442; and delta, l.425-427) and _dkv_kernel (l.370,
-// pallas_call l.467). The contract is masked_attention_bwd.cu's and
-// masked_attention_fwd.cu's.
+// Replaces, for fp32 inputs at D > 256, the backward Pallas kernels of
+// vaenar_tts_tpu/ops/flash_attention.py: _dq_kernel (l.320, pallas_call
+// l.442; and delta, l.425-427) and _dkv_kernel (l.370, pallas_call l.467).
+// The contract is masked_attention_bwd.cu's.
 //
 // The design (masked_attention_wide_tc.cu's): a grid axis over the D / 128
-// slices of 128 output columns; S (and dP) summed over the D / 64 panels
-// of 64 columns of Q and K (and dO and V), streamed through a two-stage
+// slices of 128 output columns; S and dP summed over the D / 64 panels
+// of 64 columns of Q and K and of dO and V, streamed through a two-stage
 // cp.async ring; besides them a block holds only its slice of the
 // operand the second product reads, the score tile and the tile's
-// statistics. fp32 FMAs on the SIMT units (the fp32 path must meet the
-// fp32 reference's tolerance, which TF32 tensor cores would not), with
-// tile_f32.cuh's 64 x 68 tiles and register layouts: the forward's and
-// dK/dV's accumulators are the D = 256 kernels' (masked_attention_fwd.cu's
-// masked_attention_fwd_wide_kernel and its backward pair), a panel's
-// product is f32::dots at HD = 64 added to the panels before it, and the
-// second product f32::accumulate at HD = 128 on the slice. Shared memory a
-// block, at every width: 123,392 (forward), 190,464 (dQ) and 225,536
-// (dK/dV) bytes. Right first: key and q-tiles are not narrowed, and S is
-// recomputed in each slice; its times are in PERF.md §6.
+// statistics. fp32 FMAs on the SIMT units, with tile_f32.cuh's 64 x 68
+// tiles and register layouts: dK/dV's accumulators are the D = 256
+// kernels' (masked_attention_bwd_dkv.cu's), a panel's product is f32::dots
+// at HD = 64 added to the panels before it, and the second product
+// f32::accumulate at HD = 128 on the slice. Shared memory a block, at every
+// width: 190,464 (dQ) and 225,536 (dK/dV) bytes. Right first: key and
+// q-tiles are not narrowed, and S is recomputed in each slice; its times
+// are in PERF.md §6.
 
 #include "attention_wide.cuh"
 #include "tile_f32.cuh"
@@ -37,8 +33,8 @@ namespace {
 
 using f32::NEG;
 
-constexpr int BQ = 64;      // query rows of a block (forward, dQ) or of a q-tile (dK/dV)
-constexpr int BK = 64;      // keys of a tile (forward, dQ) or of a block (dK/dV)
+constexpr int BQ = 64;      // query rows of a block (dQ) or of a q-tile (dK/dV)
+constexpr int BK = 64;      // keys of a tile (dQ) or of a block (dK/dV)
 constexpr int PANEL = 64;   // columns of a streamed panel
 constexpr int SLICE = 128;  // output columns of a block
 constexpr int STAGES = 2;   // the panel ring: one stage loads while one multiplies
@@ -61,211 +57,6 @@ __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ 
     const bool in = row0 + r < rows_end;
     cpa::cp_async16(dst + r * f32::ldp<COLS>() + col,
                     in ? src + (size_t)(row0 + r) * ld + col : src, in);
-  }
-}
-
-// Column sums of rows [row0, row1) of SLICE columns of an fp32 matrix whose
-// rows are ld floats apart, each row times 1 / div[r] when `div` is not
-// null, into sum[0..SLICE); `scratch` is shared memory for THREADS * 4
-// floats (f32::column_sums with a run-time row stride). Ends with a
-// barrier.
-template <int THREADS>
-__device__ __forceinline__ void slice_sums(float* sum, float* scratch,
-                                           const float* __restrict__ src, int ld, int row0,
-                                           int row1, const float* __restrict__ div) {
-  constexpr int DEPTH = 8;             // loads in flight a thread
-  constexpr int TPR = SLICE / 4;       // threads a row
-  constexpr int STEP = THREADS / TPR;  // rows read at once by the block
-  const int c4 = (threadIdx.x % TPR) * 4;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-  auto add = [&](const float4& x, float w) {
-    acc.x = fmaf(x.x, w, acc.x);
-    acc.y = fmaf(x.y, w, acc.y);
-    acc.z = fmaf(x.z, w, acc.z);
-    acc.w = fmaf(x.w, w, acc.w);
-  };
-  int r = row0 + (threadIdx.x / TPR);
-  for (; r + (DEPTH - 1) * STEP < row1; r += DEPTH * STEP) {
-    float4 raw[DEPTH];
-    float w[DEPTH];
-#pragma unroll
-    for (int u = 0; u < DEPTH; ++u) {
-      raw[u] = *reinterpret_cast<const float4*>(src + (size_t)(r + u * STEP) * ld + c4);
-      w[u] = div ? div[r + u * STEP] : 1.f;
-    }
-#pragma unroll
-    for (int u = 0; u < DEPTH; ++u) add(raw[u], div ? 1.f / w[u] : 1.f);
-  }
-  for (; r < row1; r += STEP)
-    add(*reinterpret_cast<const float4*>(src + (size_t)r * ld + c4), div ? 1.f / div[r] : 1.f);
-  reinterpret_cast<float4*>(scratch)[threadIdx.x] = acc;
-  __syncthreads();
-  if (threadIdx.x < SLICE) {
-    float total = 0.f;
-    for (int g = 0; g < STEP; ++g) total += scratch[g * SLICE + threadIdx.x];
-    sum[threadIdx.x] = total;
-  }
-  __syncthreads();
-}
-
-// ---------------------------------------------------------------- forward
-
-constexpr int FWD_THREADS = 128;  // thread t owns rows t / 16 + 8 i, keys t % 16 + 16 j
-// the ring (a Q and a K panel a stage), V's slice, P, the padding sums
-constexpr size_t FWD_SMEM =
-    sizeof(float) * (STAGES * 2 * TP + TS + TP + SLICE + 4 * FWD_THREADS);
-
-__global__ void __launch_bounds__(FWD_THREADS)
-fwd_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const int* __restrict__ q_len,
-                    const int* __restrict__ m_len, float* __restrict__ o,
-                    float* __restrict__ m_out, float* __restrict__ s_out, int H, int Tq, int Tk,
-                    int D, float scale, int causal) {
-  constexpr int CW = SLICE / 16;  // o columns a thread: 64 h + 4 cg + c
-  extern __shared__ __align__(16) float smem[];
-  float* ring = smem;                      // [STAGES][Q panel, K panel]
-  float* sV = ring + STAGES * 2 * TP;      // [64][ldp(SLICE)]: the key tile's v in the slice
-  float* sP = sV + TS;                     // [64][LDP]
-  float* sum = sP + TP;                    // [SLICE], then 4 * THREADS of scratch
-
-  const int tid = threadIdx.x;
-  const int bh = blockIdx.x;  // b * H + h
-  const int b = bh / H;
-  // the last q-block first: when causal its chain of key tiles is the longest
-  const int qb = (int)gridDim.y - 1 - (int)blockIdx.y;
-  const int q0 = qb * BQ;
-  const int q_rows = min(BQ, Tq - q0);
-  const int c0 = (int)blockIdx.z * SLICE;  // this block's columns of o and v
-  const bool writes_stats = blockIdx.z == 0;
-  const int np = D / PANEL;
-  const int qlen = q_len ? q_len[b] : Tq;
-  const int klim = max(0, min(Tk, m_len ? m_len[b] : Tk));  // keys a valid row may see
-  const size_t q_base = (size_t)bh * Tq * D;
-  const size_t k_base = (size_t)bh * Tk * D;
-  const size_t stat_base = (size_t)bh * Tq;
-
-  // as masked_attention_fwd_kernel: rows below pad0 have a key (key 0), the
-  // others are uniform; valid rows see no key at or past k_end
-  const int pad0 = klim > 0 ? max(0, min(qlen, Tq)) : 0;
-  const int rows_end = min(q0 + q_rows, pad0);
-  const int k_end = causal ? min(klim, rows_end) : klim;
-  const int n_tiles = q0 < pad0 ? (k_end + BK - 1) / BK : 0;
-  const int n_steps = n_tiles * np;  // one step a (key tile, panel)
-
-  auto load_step = [&](int s) {
-    const int t = s / np, p = s - t * np;
-    float* stage = ring + (s & 1) * 2 * TP;
-    load_tile<FWD_THREADS, PANEL>(stage, q + q_base + p * PANEL, D, q0, rows_end, tid);
-    load_tile<FWD_THREADS, PANEL>(stage + TP, k + k_base + p * PANEL, D, t * BK, k_end, tid);
-  };
-  if (n_steps > 0) {
-    load_step(0);
-    cpa::cp_async_commit();
-  }
-
-  // one block of the (b, h, slice) writes the rows at or past pad0, in its
-  // slice, while the copies above land (masked_attention_fwd.cu's writer)
-  const int writer = min((pad0 + BQ - 1) / BQ, (int)gridDim.y - 1);
-  if (pad0 < Tq && qb == writer) {
-    constexpr int TPR = SLICE / 4;  // threads a row, 4 columns each
-    slice_sums<FWD_THREADS>(sum, sum + SLICE, v + k_base + c0, D, 0, Tk, nullptr);
-    const int c4 = (tid % TPR) * 4;
-    const float n = (float)Tk;
-    const float4 mean =
-        make_float4(sum[c4] / n, sum[c4 + 1] / n, sum[c4 + 2] / n, sum[c4 + 3] / n);
-    for (int r = pad0 + tid / TPR; r < Tq; r += FWD_THREADS / TPR)
-      *reinterpret_cast<float4*>(o + q_base + (size_t)r * D + c0 + c4) = mean;
-    for (int r = pad0 + tid; writes_stats && r < Tq; r += FWD_THREADS) {
-      m_out[stat_base + r] = NEG;
-      s_out[stat_base + r] = n;
-    }
-  }
-  if (n_steps == 0) return;
-
-  const int rg = tid >> 4, cg = tid & 15;  // rows rg + 8 i; keys cg + 16 j; columns 4 cg + c
-  const float scale2 = scale * f32::LOG2E;
-  float acc[8][CW], row_max[8], row_sum[8];  // row_sum: this thread's keys only, until the end
-  float sc[8][4];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    row_max[i] = NEG;
-    row_sum[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CW; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int s = 0; s < n_steps; ++s) {
-    const int t = s / np, p = s - t * np;
-    if (s + 1 < n_steps) load_step(s + 1);
-    // the tile's V slice, read after its last panel: the tile before, the
-    // last to read its buffer, has passed the barrier
-    if (p == 0) load_tile<FWD_THREADS, SLICE>(sV, v + k_base + c0, D, t * BK, k_end, tid);
-    cpa::cp_async_commit();
-    cpa::cp_async_wait<1>();  // step s's panels have landed (and V, by the last panel)
-    __syncthreads();
-    const float* stage = ring + (s & 1) * 2 * TP;
-    if (p == 0) {
-#pragma unroll
-      for (int i = 0; i < 8; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) sc[i][j] = 0.f;
-    }
-    f32::dots<8, 4, false, 8, PANEL, true>(sc, stage, stage + TP, rg, cg);
-
-    if (p == np - 1) {
-      // mask, online softmax in base 2; P to this warp's rows of sP
-      const int kt = t * BK;
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int row = q0 + rg + 8 * i;
-        float tile_max = NEG;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = kt + cg + 16 * j;
-          sc[i][j] = col < k_end && (!causal || col <= row) ? sc[i][j] * scale2 : NEG;
-          tile_max = fmaxf(tile_max, sc[i][j]);
-        }
-#pragma unroll
-        for (int off = 1; off < 16; off <<= 1)
-          tile_max = fmaxf(tile_max, __shfl_xor_sync(0xffffffffu, tile_max, off));
-        const float m_new = fmaxf(row_max[i], tile_max);
-        const float alpha = exp2f(row_max[i] - m_new);
-        row_max[i] = m_new;
-        float part = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float pr = exp2f(sc[i][j] - m_new);
-          part += pr;
-          sP[(rg + 8 * i) * LDP + cg + 16 * j] = pr;
-        }
-        row_sum[i] = row_sum[i] * alpha + part;
-#pragma unroll
-        for (int c = 0; c < CW; ++c) acc[i][c] *= alpha;
-      }
-      __syncwarp();  // P rows are written and read by one half-warp each
-      f32::accumulate<8, 8, SLICE, LDP>(acc, sP, sV, rg, cg, min(BK, k_end - kt));
-    }
-    __syncthreads();  // the next step refills this stage
-  }
-  cpa::cp_async_wait<0>();
-
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-#pragma unroll
-    for (int off = 1; off < 16; off <<= 1)
-      row_sum[i] += __shfl_xor_sync(0xffffffffu, row_sum[i], off);
-    const int row = q0 + rg + 8 * i;
-    if (row >= rows_end) continue;  // past Tq, or a padding row written by the writer
-    const float inv = 1.f / row_sum[i];
-#pragma unroll
-    for (int h = 0; h < SLICE / 64; ++h)
-      *reinterpret_cast<float4*>(o + q_base + (size_t)row * D + c0 + 64 * h + 4 * cg) =
-          make_float4(acc[i][4 * h] * inv, acc[i][4 * h + 1] * inv, acc[i][4 * h + 2] * inv,
-                      acc[i][4 * h + 3] * inv);
-    if (writes_stats && cg == 0) {
-      m_out[stat_base + row] = row_max[i] * f32::LN2;
-      s_out[stat_base + row] = row_sum[i];
-    }
   }
 }
 
@@ -559,7 +350,7 @@ dkv_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
   // Rows in [valid_end, Tq) are uniform over the Tk keys: each adds
   // dO_row / s_row to every dV row, summed in the slice's columns from
   // device memory (blocks with no q-tile included)
-  slice_sums<BWD_THREADS>(usum, sX, dout + q_base + c0, D, valid_end, Tq, s_in + stat_base);
+  wide::slice_sums<BWD_THREADS>(usum, sX, dout + q_base + c0, D, valid_end, Tq, s_in + stat_base);
 
   // dK * scale and dV plus the uniform rows' sum in the block's slice
 #pragma unroll
@@ -583,20 +374,6 @@ dkv_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }  // namespace
 
 namespace wide {
-
-cudaError_t fwd_f32(const void* q, const void* k, const void* v, const void* q_len,
-                    const void* m_len, void* o, void* m, void* s, int B, int H, int Tq, int Tk,
-                    int D, float scale, int causal, cudaStream_t stream) {
-  static bool smem_set = false;
-  const cudaError_t err = opt_in(fwd_f32_wide_kernel, FWD_SMEM, smem_set);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(B * H, (Tq + BQ - 1) / BQ, D / SLICE);
-  fwd_f32_wide_kernel<<<grid, FWD_THREADS, FWD_SMEM, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const int*>(q_len), static_cast<const int*>(m_len), static_cast<float*>(o),
-      static_cast<float*>(m), static_cast<float*>(s), H, Tq, Tk, D, scale, causal);
-  return cudaGetLastError();
-}
 
 cudaError_t dq_f32(const void* q, const void* k, const void* v, const void* dout, const void* o,
                    const void* q_len, const void* m_len, const void* m, const void* s,

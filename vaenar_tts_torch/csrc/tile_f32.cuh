@@ -2,8 +2,9 @@
 // masked_attention_bwd.cu, masked_attention_bwd_dkv.cu): tiles of 64 rows
 // of HD fp32 (HD = 64 or 128, the head width, or a half of a D = 256 row)
 // in shared memory, filled with cp.async, and multiplied on the SIMT units
-// with fp32 FMAs (the fp32 path must match the fp32 reference, which TF32
-// tensor cores would not). At D = 256 a row is two tiles of 128 columns: the
+// with fp32 FMAs (the fp32 path must match the fp32 reference, which one
+// TF32 product would not; the 3xTF32 forward, masked_attention_fwd_3xtf32.cu,
+// does on the tensor cores). At D = 256 a row is two tiles of 128 columns: the
 // loaders and the column sums take a row stride LD apart from the columns
 // they read, and dots can add a second half's product to the first's.
 //

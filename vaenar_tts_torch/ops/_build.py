@@ -26,8 +26,9 @@ LIB_NAME = "libvaenar_kernels.so"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
-# (C function, pointer arguments): the fp32 SIMT kernels and the bf16
-# tensor-core kernels
+# (C function, pointer arguments): the fp32 kernels (SIMT FMAs, but for the
+# forward at D >= 256, 3xTF32 on the tensor cores) and the bf16 tensor-core
+# kernels
 KERNELS = (("masked_attention_fwd", 8),
            ("masked_attention_bwd_dq", 11),
            ("masked_attention_bwd_dkv", 11),

@@ -30,8 +30,11 @@ Which kernel serves which dtype, on CUDA tensors (``launch_counts`` key):
   (``masked_attention_fwd``), the dQ kernel ``csrc/masked_attention_bwd.cu``
   (``masked_attention_bwd_dq``) and the dK/dV kernel
   ``csrc/masked_attention_bwd_dkv.cu`` (``masked_attention_bwd_dkv``), fp32
-  FMAs, which the fp32 reference's tolerance needs (TF32 tensor cores would
-  not meet it).
+  FMAs, but for the forward at D = 256 and above
+  (``csrc/masked_attention_fwd_3xtf32.cu``), which runs on the tensor cores
+  in 3xTF32: each fp32 operand split into two TF32 parts and three products
+  summed, within the fp32 reference's tolerance, which one TF32 product
+  would not meet.
 
 In both dtypes the dQ kernel also reads O and forms δ, which the dK/dV
 kernel launched after it reads: no separate δ pass runs on the card.
@@ -40,17 +43,22 @@ Head widths: each kernel is compiled for D = 64, 128 and 256
 (``KERNEL_HEAD_DIMS``), and its C function runs the one its D argument
 names. The D = 128 and D = 256 launches count under the key with
 ``_d128`` or ``_d256`` appended (``masked_attention_fwd_tc_d256``, ...). At
-D = 256 each kernel's grid has an axis over two slices of 128 output
-columns (the C sources say why); one launch covers both. Above 256 there
+D = 256 each kernel's grid but the fp32 forward's (below) has an axis over
+two slices of 128 output columns (the C sources say why); one launch
+covers both. Above 256 there
 is no upper width: every multiple of 128 (``WIDE_STEP``) runs on one wide
 kernel a pass and dtype (``csrc/masked_attention_wide_tc.cu`` for bf16,
-``csrc/masked_attention_wide.cu`` for fp32), which takes the width at run
-time, and its launches count under the key with ``_wide`` appended
-(``WIDE_SUFFIX``) at every width. Its grid has an axis over the D / 128
-output slices, and no block holds an operand at the full width: the
+``csrc/masked_attention_wide.cu`` for the fp32 backward), which takes the
+width at run time, and its launches count under the key with ``_wide``
+appended (``WIDE_SUFFIX``) at every width. Its grid has an axis over the
+D / 128 output slices, and no block holds an operand at the full width: the
 D = 256 kernels keep Q, K (and dO, V) whole, which at D = 384 would take
 more shared memory than a block has, so the wide kernels stream them in
-panels of 64 columns. Every other width runs on the next native width
+panels of 64 columns. The fp32 forward at D = 256 and above is one 3xTF32
+kernel (``csrc/masked_attention_fwd_3xtf32.cu``, counted under
+``masked_attention_fwd_d256`` and ``masked_attention_fwd_wide``): it forms
+S once for up to 512 output columns, so its grid has ceil(D / 512)
+slices. Every other width runs on the next native width
 (``kernel_width``: 1-64 at 64, 65-128 at 128, 129-256 at 256, above that
 the next multiple of 128): q, k and v (and o and dO in the backward) are
 padded with zero columns (``pad_head_width``), the scale is left as the

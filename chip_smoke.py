@@ -231,13 +231,14 @@ LINES = [
 # tensor cores, HBM3 bandwidth
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}
 PEAK_BYTES = 3.35e12
-# the fp32 forward at D >= 256 runs on the tensor cores in 3xTF32, three
+# the fp32 forward at D >= 128 runs on the tensor cores in 3xTF32, three
 # TF32 products for each fp32 one (masked_attention_fwd_3xtf32.cu): a third
 # of the 495 TFLOP/s dense TF32 rate, beside the SIMT fp32 bound
 PEAK_3XTF32 = 495e12 / 3
 # the fp32 forward kernels (launch_counts keys) that run 3xTF32: their
 # bound_ms and bound_by are at PEAK_3XTF32, their SIMT flop_ms only beside
-TF32X3_KERNELS = ("masked_attention_fwd_d256", "masked_attention_fwd_wide")
+TF32X3_KERNELS = ("masked_attention_fwd_d128", "masked_attention_fwd_d256",
+                  "masked_attention_fwd_wide")
 # bytes of an element of q, k, v, o and the gradients; the row statistics,
 # delta and the lengths are 4-byte in both dtypes
 ELEMENT_BYTES = {"float32": 4, "bfloat16": 2}
@@ -576,9 +577,10 @@ def check_cases(torch, device):
         # the 3xTF32 split's error grows with |S|; a last tile of 2 keys
         ("large_logits_130", 130, 130, False, fixed_len(torch, device, 130, 97, 64, 1),
          fixed_len(torch, device, 130, 120, 33, 130)),
-        # few q-blocks and many key tiles: the fp32 forward at D >= 256
-        # splits a q-block's keys over a cluster of 4 (2 when causal) blocks;
-        # an item with no key, a rank left without a tile
+        # few q-blocks and many key tiles: the fp32 forward at D >= 128 and
+        # the bf16 one at D > 256 split a q-block's keys over a cluster of 4
+        # (2 when causal) blocks; an item with no key, a rank left without a
+        # tile
         ("split_keys_64x2100", 64, 2100, False, fixed_len(torch, device, 64, 40, 1, 64),
          fixed_len(torch, device, 2100, 1500, 2100, 0)),
         ("split_keys_causal_128x1100", 128, 1100, True, fixed_len(torch, device, 128, 100, 65, 128),

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Where the time of the fp32 forward at D >= 256 goes
+"""Where the time of the fp32 forward at D >= 128 goes
 (`vaenar_tts_torch/csrc/masked_attention_fwd_3xtf32.cu`: 3xTF32 on the
 tensor cores), on one CUDA card, from the root of a checkout:
 
@@ -11,11 +11,12 @@ has one part taken out (a string patch, asserted to apply: an edit of the
 kernel's text can make a patch stale, and it then raises), built and timed
 in a process of its own: the fp32 forward's device ms at chip_smoke.py's
 1024 x 4104 check case and summed over the main path's train-step and
-synthesis sites (one head, the lengths of scripts/torch_attention_sites.py),
-at D = 256 and 384, and each site's ms beside the ranks the unpatched
+synthesis sites (the lengths of scripts/torch_attention_sites.py) of the
+shipped attention width (256) in heads of D, at D = 128 (two heads), 256
+and 384 (one head), and each site's ms beside the ranks the unpatched
 kernel splits its key tiles over (`key_ranks`; under `no_key_split` every
-site runs at 1). Every ablation but `none` and `no_key_split`
-computes wrong outputs: it times work, not attention.
+site runs at 1). Every ablation but `none`, `no_key_split` and the `d128_`
+alternatives computes wrong outputs: it times work, not attention.
 
 - `none`: the kernel as it is;
 - `three_products_no_split`: the three TF32 products of unsplit operands
@@ -25,7 +26,12 @@ computes wrong outputs: it times work, not attention.
 - `no_pv`: O += P.V gone; `no_s`: S = Q.K^T gone;
 - `no_step_barrier`: the block barrier of each ring step gone;
 - `no_key_split`: every q-block's key tiles in one block (`MAX_RANKS` = 1,
-  no cluster merge); outputs stay right.
+  no cluster merge); outputs stay right;
+- alternatives to D = 128's choices, outputs right:
+  `d128_4_stages_1_block` and `d128_3_stages_1_block` (a deeper ring, one
+  block an SM, in place of two stages and two blocks an SM), and
+  `d128_waves_of_1_block` (`key_ranks` counting a wave as one block an SM,
+  as at D >= 256, in place of two).
 
 `--rate` also builds and runs a microbenchmark of mma.sync's issue rate
 (TF32 m16n8k8 and m16n8k4, BF16 m16n8k16; 8 independent accumulators a
@@ -44,7 +50,7 @@ import tempfile
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 KERNEL = os.path.join("vaenar_tts_torch", "csrc", "masked_attention_fwd_3xtf32.cu")
-WIDTHS = (256, 384)
+WIDTHS = (128, 256, 384)
 
 NO_SPLIT = [("  big = x & 0xffffe000u;\n  small = small_part(x);", "  big = x;\n  small = x;"),
             ("  return __float_as_uint(__uint_as_float(x) - __uint_as_float(x & 0xffffe000u)) + "
@@ -69,7 +75,18 @@ ABLATIONS = {
     "no_step_barrier": [("    cpa::cp_async_wait<STAGES - 2>();\n    __syncthreads();\n",
                          "    cpa::cp_async_wait<STAGES - 2>();\n")],
     "no_key_split": [("constexpr int MAX_RANKS = 4;", "constexpr int MAX_RANKS = 1;")],
+    "d128_4_stages_1_block": [("return W == 128 ? 2 : QRES", "return W == 128 ? 4 : QRES"),
+                              ("return W == 128 ? 2 : 1;", "return 1;")],
+    "d128_3_stages_1_block": [("return W == 128 ? 2 : QRES", "return W == 128 ? 3 : QRES"),
+                              ("return W == 128 ? 2 : 1;", "return 1;")],
+    "d128_waves_of_1_block": [("MIN_TILES_A_RANK, blocks_an_sm<W>());", "MIN_TILES_A_RANK, 1);")],
 }
+
+
+def model_heads(D):
+    """Heads of the shipped attention width (256) at head width D: two at
+    128, one at 256 and above (384 is the one-head-of-384 model's)."""
+    return max(1, 256 // D)
 
 RATE_SOURCE = r"""
 #include <cstdint>
@@ -167,10 +184,14 @@ def patched_copy(dst, patches):
 def key_ranks(B, H, Tq, Tk, D, sms):
     """The ranks the kernel's ``key_ranks`` splits a q-block's key tiles
     over at this shape, on ``sms`` SMs (its rule, mirrored: a change to it
-    must be made here too)."""
+    must be made here too). The same rule serves the bf16 forward of
+    ``masked_attention_wide_tc.cu`` at D > 256 (slices of 384 columns at
+    D = 384, of 512 above), one block an SM."""
     blocks = B * H * -(-Tq // 64) * (1 if D <= 512 else -(-D // 512))
+    blocks_an_sm = 2 if D == 128 else 1
     ranks = 1
-    while 2 * ranks <= 4 and blocks * 2 * ranks <= 2 * sms and -(-Tk // 64) >= 8 * 2 * ranks:
+    while (2 * ranks <= 4 and blocks * 2 * ranks <= 2 * sms * blocks_an_sm
+           and -(-Tk // 64) >= 8 * 2 * ranks):
         ranks *= 2
     return ranks
 
@@ -193,14 +214,15 @@ def time_one(root, name):
         for tag, site_list in (("tk_4104", [(long_case[0], 1, *long_case[1:])]),
                                ("train_step", step), ("synthesis", synthesis)):
             total, per_site = 0.0, []
+            H = model_heads(D)
             for i, (site, calls, tq, tk, causal, ql, ml) in enumerate(site_list):
-                q, k, v = cs.random_qkv(torch, device, torch.float32, len(ql), 1, tq, tk, D,
+                q, k, v = cs.random_qkv(torch, device, torch.float32, len(ql), H, tq, tk, D,
                                         seed=100 + i)
                 ms = cs.time_ms(torch, lambda: fa.masked_flash_attention(
                     q, k, v, ql, ml, D ** -0.5, causal))
                 total += calls * ms
-                per_site.append({"site": site, "shape": [len(ql), 1, tq, tk, D], "calls": calls,
-                                 "key_ranks": key_ranks(len(ql), 1, tq, tk, D, sms), "ms": ms})
+                per_site.append({"site": site, "shape": [len(ql), H, tq, tk, D], "calls": calls,
+                                 "key_ranks": key_ranks(len(ql), H, tq, tk, D, sms), "ms": ms})
             row[f"{tag}_ms_d{D}"] = total
             row[f"{tag}_sites_d{D}"] = per_site
     print(json.dumps(row), flush=True)

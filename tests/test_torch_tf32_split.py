@@ -1,6 +1,8 @@
 """3xTF32: a torch emulation of the arithmetic of the fp32 forward kernel at
-D >= 256 (``csrc/masked_attention_fwd_3xtf32.cu``) against the JAX
-package's masked attention on the CPU.
+D >= 128 (``csrc/masked_attention_fwd_3xtf32.cu``) against the JAX
+package's masked attention on the CPU, and the lists that name that kernel
+(chip_smoke.py's ``TF32X3_KERNELS``) and patch it
+(``scripts/torch_fwd_3xtf32_ablation.py``).
 
 The kernel splits each fp32 operand x of both products, S = Q.K^T and
 O = P.V, into two TF32 values (10 mantissa bits): big = x with its low 13
@@ -14,12 +16,15 @@ own accumulation, which truncates, is not emulated: the kernel keeps it to
 one 64-column panel, and the checks on the card hold what it adds). Held against ``masked_attention_xla``
 within chip_smoke.py's fp32 tolerance of the kernel against its plain
 version (``TOL_O["float32"]``), and m and s against the port's plain
-version (``TOL_M``, ``TOL_S_REL``), at D = 256 and 384, causal and not,
+version (``TOL_M``, ``TOL_S_REL``), at D = 128, 256 and 384, causal and not,
 with logits of standard deviation 1 (the checks' randn at scale D^-1/2)
 and 8 (chip_smoke.py's ``LARGE_LOGIT_STD``: |S| up to a few tens). One
 TF32 product an operand pair misses the same bound by at least 10x on the
 large logits.
 """
+
+import importlib.util
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -99,7 +104,7 @@ def tf32_shares(D, causal, logit_std, seed):
 
 @pytest.mark.parametrize("logit_std", [1.0, LARGE_STD])
 @pytest.mark.parametrize("causal", [False, True])
-@pytest.mark.parametrize("D", [256, 384])
+@pytest.mark.parametrize("D", [128, 256, 384])
 def test_3xtf32_holds_the_fp32_tolerance(D, causal, logit_std):
     shares, (err_m, err_s), std = tf32_shares(D, causal, logit_std, seed=D + causal)
     assert abs(std / logit_std - 1) < 0.2  # the logits are as large as stated
@@ -107,3 +112,27 @@ def test_3xtf32_holds_the_fp32_tolerance(D, causal, logit_std):
     assert err_m <= chip_smoke.TOL_M and err_s <= chip_smoke.TOL_S_REL, (err_m, err_s)
     if logit_std == LARGE_STD:
         assert shares[1] >= 10.0, shares  # one TF32 product misses it by 10x
+
+
+@pytest.mark.parametrize("D", [64, 128, 256, 384, 512])
+def test_3xtf32_kernels_are_the_fp32_forward_from_128(D):
+    """chip_smoke.py bounds the fp32 forward at PEAK_3XTF32 at every width
+    the 3xTF32 kernel serves, and the D = 64 SIMT forward at the SIMT rate."""
+    name = fa.kernel_name("fwd", torch.float32, D)
+    assert (name in chip_smoke.TF32X3_KERNELS) == (D >= 128), name
+
+
+def test_ablation_patches_apply_once():
+    """Every string patch of scripts/torch_fwd_3xtf32_ablation.py finds its
+    text exactly once in the kernel source, as the script asserts on the
+    card (an edit of the kernel can leave a patch stale)."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "torch_fwd_3xtf32_ablation", os.path.join(root, "scripts", "torch_fwd_3xtf32_ablation.py"))
+    ablation = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ablation)
+    with open(os.path.join(root, ablation.KERNEL)) as f:
+        src = f.read()
+    counts = {(name, old[:60]): src.count(old) for name, patches in ablation.ABLATIONS.items()
+              for old, _ in patches}
+    assert len(counts) >= 12 and all(n == 1 for n in counts.values()), counts

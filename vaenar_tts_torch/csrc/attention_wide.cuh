@@ -1,6 +1,6 @@
 // The wide attention kernels' launchers: every head width D above 256 that
 // is a multiple of 128, taken at run time, bf16 in masked_attention_wide_tc.cu
-// and fp32 in masked_attention_wide.cu, and the fp32 forward at D = 256 and
+// and fp32 in masked_attention_wide.cu, and the fp32 forward at D = 128 and
 // above (fwd_f32, masked_attention_fwd_3xtf32.cu). The C entry points of
 // the D = 64, 128 and 256 kernels (masked_attention_fwd*.cu,
 // masked_attention_bwd*.cu) send those widths here; the arguments are
@@ -24,6 +24,26 @@ inline cudaError_t opt_in(Kernel kernel, size_t bytes, bool& done) {
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   done = err == cudaSuccess;
   return err;
+}
+
+// Ranks a q-block's key tiles are split over, in a forward that splits
+// them over a cluster (masked_attention_fwd_3xtf32.cu, the bf16 forward of
+// masked_attention_wide_tc.cu): doubled while the grid of `blocks` blocks
+// stays within two waves (a wave: `blocks_an_sm` blocks on each SM) and
+// each rank keeps `min_tiles` of the q-block's `tiles` key tiles (a long
+// row of keys in a small grid, where one block's chain of tiles would set
+// the time), up to `max_ranks`; the SMs are the current device's.
+// scripts/torch_fwd_3xtf32_ablation.py mirrors this rule to report each
+// site's ranks
+inline int key_ranks(int blocks, int tiles, int max_ranks, int min_tiles, int blocks_an_sm) {
+  int device = 0, sms = 0;
+  cudaGetDevice(&device);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  int ranks = 1;
+  while (2 * ranks <= max_ranks && blocks * 2 * ranks <= 2 * sms * blocks_an_sm &&
+         tiles >= min_tiles * 2 * ranks)
+    ranks *= 2;
+  return ranks;
 }
 
 // Column sums of rows [row0, row1) of COLS columns of an fp32 matrix whose
@@ -82,7 +102,7 @@ cudaError_t dkv_tc(const void* q, const void* k, const void* v, const void* dout
                    const void* delta, void* dk, void* dv, int B, int H, int Tq, int Tk, int D,
                    float scale, int causal, cudaStream_t stream);
 
-// D = 256 too (masked_attention_fwd_3xtf32.cu)
+// D = 128 and 256 too (masked_attention_fwd_3xtf32.cu)
 cudaError_t fwd_f32(const void* q, const void* k, const void* v, const void* q_len,
                     const void* m_len, void* o, void* m, void* s, int B, int H, int Tq, int Tk,
                     int D, float scale, int causal, cudaStream_t stream);

@@ -1,8 +1,8 @@
 // Masked multi-head attention, forward, fp32 FMAs, for sm_90a. Plain C
 // interface, bound from Python with ctypes
 // (vaenar_tts_torch/ops/flash_attention.py); fp32 q, k, v take this kernel
-// at D = 64 and 128 and the 3xTF32 one (masked_attention_fwd_3xtf32.cu) at
-// D = 256 and above, bf16 ones masked_attention_fwd_tc.cu.
+// at D = 64 and the 3xTF32 one (masked_attention_fwd_3xtf32.cu) at D = 128
+// and above, bf16 ones masked_attention_fwd_tc.cu.
 //
 // Replaces the two forward Pallas kernels of
 // vaenar_tts_tpu/ops/flash_attention.py for fp32 inputs:
@@ -64,14 +64,11 @@
 // memory: Q and, for each group, a two-stage K/V ring and a P tile: 6 or 11
 // tiles of 64 x 68 fp32, 104,448 or 191,488 bytes a block.
 
-// Head widths. A template of the head width, compiled for D = 64 (the
-// design above) and D = 128; the C entry point runs the one its D names.
-// At D = 128 a thread owns 8 columns of O (64 h + 4 cg + c, h < 2) and a
-// block takes one warp group at every Tk: two groups' rings, 11 tiles of
-// 64 x 132 fp32, do not fit in shared memory; one group's 6 tiles take
-// 202,752 bytes. Registers in PERF.md §6. D = 256 and every multiple of 128
-// above run on the 3xTF32 tensor-core forward
-// (masked_attention_fwd_3xtf32.cu, wide::fwd_f32).
+// Head widths. The kernel is compiled for D = 64 only. The C entry point
+// sends D = 128, 256 and every multiple of 128 above to the 3xTF32
+// tensor-core forward (masked_attention_fwd_3xtf32.cu, wide::fwd_f32): at
+// D = 128 this design, the products at half the SIMT FMA rate on a chain
+// of key tiles a block, lost to SDPA at 1024 x 4104 (PERF.md §6).
 
 #include "attention_wide.cuh"
 #include "tile_f32.cuh"
@@ -335,7 +332,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* q_le
 }  // namespace
 
 // q, k, v: contiguous fp32 [B, H, T, D], D = 64, 128, 256 or a multiple of
-// 128 above (D >= 256: the 3xTF32 kernel, masked_attention_fwd_3xtf32.cu;
+// 128 above (D >= 128: the 3xTF32 kernel, masked_attention_fwd_3xtf32.cu;
 // the wrapper pads other widths with zero columns to the next of those);
 // q_len, m_len: int32 [B] or null; o like q; m, s: fp32 [B, H, Tq]. Returns
 // the CUDA error code of the launch (0 on success).
@@ -349,13 +346,8 @@ extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   }
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (D == f32::WIDE || wide::takes(D)) {  // 256 and every multiple of 128 above
+  if (D != 64) {  // 128, 256 and every multiple of 128 above
     return (int)wide::fwd_f32(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, D, scale, causal, st);
-  }
-  // D = 128: one warp group (two groups' rings, 11 tiles of 64 x 132 fp32,
-  // do not fit in shared memory)
-  if (D == 128) {
-    return (int)launch<128, 1>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal, st);
   }
   return (int)(Tk > TWO_GROUPS_MIN_TK
                    ? launch<64, 2>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, scale, causal, st)
@@ -363,6 +355,6 @@ extern "C" int masked_attention_fwd(const void* q, const void* k, const void* v,
 }
 
 // Dynamic shared memory a D = 64 block of two warp groups asks for, in
-// bytes (a block of one group asks for 104,448, a D = 128 block 202,752;
-// ptxas -v reports static shared memory only).
+// bytes (a block of one group asks for 104,448; ptxas -v reports static
+// shared memory only).
 extern "C" int masked_attention_fwd_shared_bytes(void) { return (int)smem_bytes<64, 2>(); }

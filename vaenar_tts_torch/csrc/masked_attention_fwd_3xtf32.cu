@@ -1,7 +1,7 @@
-// Masked multi-head attention, forward, fp32 inputs at D = 256 and at every
-// multiple of 128 above, on Hopper's tensor cores in 3xTF32, for sm_90a.
-// Reached through the masked_attention_fwd C entry point
-// (masked_attention_fwd.cu), which sends D = 256 and every D > 256 here
+// Masked multi-head attention, forward, fp32 inputs at D = 128, 256 and at
+// every multiple of 128 above, on Hopper's tensor cores in 3xTF32, for
+// sm_90a. Reached through the masked_attention_fwd C entry point
+// (masked_attention_fwd.cu), which sends every D but 64 here
 // (wide::fwd_f32); the backward kernels at those widths stay where they
 // were (masked_attention_bwd*.cu, masked_attention_wide.cu).
 //
@@ -34,18 +34,23 @@
 // 495 TFLOP/s dense TF32 rate 165 TFLOP/s, against 67 for fp32 FMAs on the
 // SIMT units, which the kernels this one replaced reached about half of.
 // Measured on an H100 (PERF.md §6, scripts/torch_fwd_3xtf32_ablation.py),
-// a block issues its products at well under the tensor pipe's rate: its 8
+// a block issues its products at well under the tensor pipe's rate (at
+// D = 128 and 256 about 6x the bound at 1024 x 4104): its 8
 // warps (2 a scheduler) spend their issue slots on the split (3
 // instructions an element: and, subtract, add), loads and copies as well,
 // so the design keeps those few.
 //   * a block of 64 query rows has 8 warps (two warp groups): warp w owns
 //     rows 16 (w % 4) .. + 15 and, of every 64-key tile, keys 32 (w / 4) ..
 //     + 31 of S; of every 64-column panel of o, columns 32 (w / 4) .. + 31;
-//     one block a streaming multiprocessor;
+//     one block a streaming multiprocessor, but two at D = 128, where the
+//     ring has two stages (108,032 bytes a block) and ptxas is held to 128
+//     registers a thread (blocks_an_sm): a block's chain of barriers and
+//     dependent products then shares the SM with another's (a deeper ring
+//     at one block an SM was slower at the model's sites, PERF.md §6);
 //   * S is formed once a (q-block, key tile) for all of a slice's output
 //     columns, and o for up to 512 columns stays in registers (W / 4
-//     floats a thread): D = 256, 384 and 512 run in one slice (S formed
-//     once), wider heads in ceil(D / 512) slices;
+//     floats a thread): D = 128, 256, 384 and 512 run in one slice (S
+//     formed once), wider heads in ceil(D / 512) slices;
 //   * up to D = 512, Q stays in shared memory for the block's life (64 x
 //     (D + 4) floats); wider, a slice streams Q's 64-column panels beside
 //     K's;
@@ -58,10 +63,12 @@
 //     small part beside it, split once when written;
 //   * a grid of few q-blocks and long rows of keys (1024 x 4104 at one
 //     head: 20 q-blocks with keys, on 132 SMs) splits each q-block's key
-//     tiles over a cluster of up to 4 blocks (key_ranks), which merge
+//     tiles over a cluster of up to 4 blocks (wide::key_ranks), which merge
 //     their (row max, row sum, o) through distributed shared memory; of
 //     the one-head models' sites, the synthesis causal self-attention
-//     (4 x 1680: 108 blocks of 27 key tiles) takes 2 ranks, the rest 1.
+//     (4 x 1680: 108 blocks of 27 key tiles) takes 2 ranks, the rest 1;
+//     at D = 128 a wave is two blocks an SM, so that site (216 blocks at
+//     two heads) takes 2 and 1024 x 4104 (128 blocks) 4.
 // Fragments: Q, K and P by ldmatrix (m8n8.x4 of b16 pairs is 8 rows of 4
 // fp32, the m16n8k8 TF32 A and B layouts), row strides of 68 floats
 // (D + 4 for a resident Q), which put ldmatrix's 8 rows in 8 bank groups.
@@ -87,9 +94,15 @@ constexpr int BQ = 64;        // query rows of a block
 constexpr int BK = 64;        // keys of a tile
 constexpr int PANEL = 64;     // columns of a streamed panel of Q, K or V
 // the ring: three panels load while one multiplies (two where Q resident
-// at D = 512 leaves room for three stages only)
+// at D = 512 leaves room for three stages only); at D = 128 one loads while
+// one multiplies, which leaves room for two blocks an SM (BLOCKS_AN_SM)
 template <int W, bool QRES>
-__host__ __device__ constexpr int stages() { return QRES && W == 512 ? 3 : 4; }
+__host__ __device__ constexpr int stages() { return W == 128 ? 2 : QRES && W == 512 ? 3 : 4; }
+// blocks an SM: two at D = 128 (108,032 bytes of shared memory and at most
+// 128 registers a thread each), else one; wide::key_ranks counts a wave as
+// that many blocks on each SM
+template <int W>
+__host__ __device__ constexpr int blocks_an_sm() { return W == 128 ? 2 : 1; }
 constexpr int LDK = PANEL + 4;  // row stride of a Q or K panel and of P (ldmatrix)
 constexpr int LDV = PANEL + 8;  // row stride of a V panel (8-byte loads)
 constexpr int PANEL_FLOATS = BK * LDV;
@@ -261,7 +274,7 @@ __device__ __forceinline__ void load_rows(float* dst, int lds, const float* __re
 // W: o columns a block (its slice); QRES: Q resident (D = W <= 512), else
 // streamed beside K
 template <int W, bool QRES>
-__global__ void __launch_bounds__(THREADS, 1)
+__global__ void __launch_bounds__(THREADS, blocks_an_sm<W>())
 fwd_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                   const float* __restrict__ v, const int* __restrict__ q_len,
                   const int* __restrict__ m_len, float* __restrict__ o,
@@ -614,33 +627,23 @@ fwd_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// Ranks a q-block's key tiles are split over: doubled while the grid stays
-// within two waves of blocks and each rank keeps MIN_TILES_A_RANK tiles
-// (a long row of keys in a small grid, where one block's chain of tiles
-// would set the time), up to MAX_RANKS; the SMs are the current device's.
-// scripts/torch_fwd_3xtf32_ablation.py mirrors this rule to report each
-// site's ranks
-inline int key_ranks(int blocks, int tiles) {
-  int device = 0, sms = 0;
-  cudaGetDevice(&device);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  int ranks = 1;
-  while (2 * ranks <= MAX_RANKS && blocks * 2 * ranks <= 2 * sms &&
-         tiles >= MIN_TILES_A_RANK * 2 * ranks)
-    ranks *= 2;
-  return ranks;
-}
-
 template <int W, bool QRES>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* q_len,
                    const void* m_len, void* o, void* m, void* s, int B, int H, int Tq, int Tk,
                    int D, float scale, int causal, cudaStream_t stream) {
   static bool smem_set = false;
+  if (!smem_set && blocks_an_sm<W>() > 1) {  // two blocks an SM: the whole carveout as shared
+    const cudaError_t err = cudaFuncSetAttribute(fwd_3xtf32_kernel<W, QRES>,
+                                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+  }
   const size_t bytes = smem_bytes<W, QRES>();  // QRES: D = W
   const cudaError_t err = wide::opt_in(fwd_3xtf32_kernel<W, QRES>, bytes, smem_set);
   if (err != cudaSuccess) return err;
   const int slices = (D + W - 1) / W, q_blocks = (Tq + BQ - 1) / BQ;
-  const int ranks = key_ranks(B * H * q_blocks * slices, (Tk + BK - 1) / BK);
+  const int ranks = wide::key_ranks(B * H * q_blocks * slices, (Tk + BK - 1) / BK, MAX_RANKS,
+                                    MIN_TILES_A_RANK, blocks_an_sm<W>());
   cudaLaunchConfig_t config = {};
   config.gridDim = dim3(B * H, q_blocks, slices * ranks);
   config.blockDim = dim3(THREADS);
@@ -668,6 +671,9 @@ cudaError_t fwd_f32(const void* q, const void* k, const void* v, const void* q_l
                     const void* m_len, void* o, void* m, void* s, int B, int H, int Tq, int Tk,
                     int D, float scale, int causal, cudaStream_t stream) {
   switch (D) {
+    case 128:
+      return launch<128, true>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, D, scale, causal,
+                               stream);
     case 256:
       return launch<256, true>(q, k, v, q_len, m_len, o, m, s, B, H, Tq, Tk, D, scale, causal,
                                stream);

@@ -180,11 +180,24 @@ __device__ __forceinline__ void zero(float (&d)[J][4]) {
     for (int e = 0; e < 4; ++e) d[j][e] = 0.f;
 }
 
-// d += A . B for one k-step of 16, N = 16, 32, 48 or 64, both operands from
+// d += A . B for one k-step of 16, N = 16, 24, 32, 48 or 64, both operands from
 // shared memory and K-major: A (64 x 16) by descriptor da, B (N x 16,
 // row n = column n of B) by descriptor db.
 template <int N>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 8][4], uint64_t da, uint64_t db);
+
+template <>
+__device__ __forceinline__ void mma_ss<24>(float (&d)[3][4], uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %14, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n24k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11"
+      "}, %12, %13, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3])
+      : "l"(da), "l"(db), "r"(1));
+}
 
 template <>
 __device__ __forceinline__ void mma_ss<16>(float (&d)[2][4], uint64_t da, uint64_t db) {
@@ -270,6 +283,29 @@ __device__ __forceinline__ void mma_rs64_mn(float (&d)[J][4], const uint32_t (&a
         "+f"(d[J0 + 6][0]), "+f"(d[J0 + 6][1]), "+f"(d[J0 + 6][2]), "+f"(d[J0 + 6][3]),
         "+f"(d[J0 + 7][0]), "+f"(d[J0 + 7][1]), "+f"(d[J0 + 7][2]), "+f"(d[J0 + 7][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[J0 .. J0 + 7] += A . B for one k-step of 16, N = 64, both operands from
+// shared memory: A (64 x 16) K-major by descriptor da, B (16 x 64) an
+// MN-major panel by descriptor db (P . V with P shared by warp groups).
+template <int J0 = 0, int J = 8>
+__device__ __forceinline__ void mma_ss64_mn(float (&d)[J][4], uint64_t da, uint64_t db) {
+  static_assert(J0 + 8 <= J, "the product's 64 columns lie outside d");
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[J0 + 0][0]), "+f"(d[J0 + 0][1]), "+f"(d[J0 + 0][2]), "+f"(d[J0 + 0][3]),
+        "+f"(d[J0 + 1][0]), "+f"(d[J0 + 1][1]), "+f"(d[J0 + 1][2]), "+f"(d[J0 + 1][3]),
+        "+f"(d[J0 + 2][0]), "+f"(d[J0 + 2][1]), "+f"(d[J0 + 2][2]), "+f"(d[J0 + 2][3]),
+        "+f"(d[J0 + 3][0]), "+f"(d[J0 + 3][1]), "+f"(d[J0 + 3][2]), "+f"(d[J0 + 3][3]),
+        "+f"(d[J0 + 4][0]), "+f"(d[J0 + 4][1]), "+f"(d[J0 + 4][2]), "+f"(d[J0 + 4][3]),
+        "+f"(d[J0 + 5][0]), "+f"(d[J0 + 5][1]), "+f"(d[J0 + 5][2]), "+f"(d[J0 + 5][3]),
+        "+f"(d[J0 + 6][0]), "+f"(d[J0 + 6][1]), "+f"(d[J0 + 6][2]), "+f"(d[J0 + 6][3]),
+        "+f"(d[J0 + 7][0]), "+f"(d[J0 + 7][1]), "+f"(d[J0 + 7][2]), "+f"(d[J0 + 7][3])
+      : "l"(da), "l"(db), "r"(1));
 }
 
 // The A fragments (hi and lo parts) of k-step s, columns [16 s, 16 s + 16),

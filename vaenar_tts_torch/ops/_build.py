@@ -27,7 +27,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # (C function, pointer arguments): the fp32 kernels (SIMT FMAs, but for the
-# forward at D >= 256, 3xTF32 on the tensor cores) and the bf16 tensor-core
+# forward at D >= 128, 3xTF32 on the tensor cores) and the bf16 tensor-core
 # kernels
 KERNELS = (("masked_attention_fwd", 8),
            ("masked_attention_bwd_dq", 11),

@@ -30,7 +30,7 @@ Which kernel serves which dtype, on CUDA tensors (``launch_counts`` key):
   (``masked_attention_fwd``), the dQ kernel ``csrc/masked_attention_bwd.cu``
   (``masked_attention_bwd_dq``) and the dK/dV kernel
   ``csrc/masked_attention_bwd_dkv.cu`` (``masked_attention_bwd_dkv``), fp32
-  FMAs, but for the forward at D = 256 and above
+  FMAs, but for the forward at D = 128 and above
   (``csrc/masked_attention_fwd_3xtf32.cu``), which runs on the tensor cores
   in 3xTF32: each fp32 operand split into two TF32 parts and three products
   summed, within the fp32 reference's tolerance, which one TF32 product
@@ -50,15 +50,19 @@ is no upper width: every multiple of 128 (``WIDE_STEP``) runs on one wide
 kernel a pass and dtype (``csrc/masked_attention_wide_tc.cu`` for bf16,
 ``csrc/masked_attention_wide.cu`` for the fp32 backward), which takes the
 width at run time, and its launches count under the key with ``_wide``
-appended (``WIDE_SUFFIX``) at every width. Its grid has an axis over the
-D / 128 output slices, and no block holds an operand at the full width: the
-D = 256 kernels keep Q, K (and dO, V) whole, which at D = 384 would take
-more shared memory than a block has, so the wide kernels stream them in
-panels of 64 columns. The fp32 forward at D = 256 and above is one 3xTF32
-kernel (``csrc/masked_attention_fwd_3xtf32.cu``, counted under
-``masked_attention_fwd_d256`` and ``masked_attention_fwd_wide``): it forms
-S once for up to 512 output columns, so its grid has ceil(D / 512)
-slices. Every other width runs on the next native width
+appended (``WIDE_SUFFIX``) at every width. The wide backward's grid has an
+axis over the D / 128 output slices, and no block holds an operand at the
+full width: the D = 256 kernels keep Q, K (and dO, V) whole, which at
+D = 384 would take more shared memory than a block has, so the wide
+backward kernels stream them in panels of 64 columns. Both forwards above
+that form S once for up to 512 output columns, so their grids have
+ceil(D / 512) slices, and split a q-block's key tiles over a cluster of
+blocks when the grid is small: the bf16 wide forward, with a warp group for
+each 128 of a slice's columns and Q held whole up to D = 512, and the fp32
+forward at D = 128 and above, one 3xTF32 kernel
+(``csrc/masked_attention_fwd_3xtf32.cu``, counted under
+``masked_attention_fwd_d128``, ``masked_attention_fwd_d256`` and
+``masked_attention_fwd_wide``). Every other width runs on the next native width
 (``kernel_width``: 1-64 at 64, 65-128 at 128, 129-256 at 256, above that
 the next multiple of 128): q, k and v (and o and dO in the backward) are
 padded with zero columns (``pad_head_width``), the scale is left as the
@@ -352,7 +356,9 @@ def kernel_name(kind: str, dtype: torch.dtype, head_dim: int = 64) -> str:
     """The kernel (its ``launch_counts`` key) that serves ``kind`` ("fwd",
     "dq" or "dkv") for ``dtype`` at head width ``head_dim``: bf16 takes the
     tensor-core kernels, fp32 the fp32-FMA ones, each at ``kernel_width(
-    head_dim)``; the D = 128 and D = 256 instantiations' keys end in
+    head_dim)`` (the fp32 forward at D >= 128 on the 3xTF32 kernel, and
+    above 256 the bf16 forward in slices of up to 512 columns, under the
+    same keys); the D = 128 and D = 256 instantiations' keys end in
     ``_d128`` and ``_d256``, the wide kernels' (every width above 256) in
     ``_wide``."""
     base = "masked_attention_fwd" if kind == "fwd" else f"masked_attention_bwd_{kind}"
